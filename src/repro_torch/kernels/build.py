@@ -1,0 +1,66 @@
+"""Build and load the port's hand-written CUDA kernel.
+
+The source ``src/repro_torch/csrc/<name>.cu`` has a plain C entry point.
+It is compiled by ``nvcc`` for ``sm_90a`` into a shared library under the
+repository's ``build/`` directory (listed in .gitignore) at first use,
+named by a hash of the source so an edited kernel is rebuilt, and loaded
+with ``ctypes``.  Nothing here runs at import: the CPU tests import every
+module of the port on a machine with no ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Tuple
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def build(name: str) -> Tuple[Path, str]:
+    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists.
+    Returns the library's path and the nvcc/ptxas output ("" when nothing
+    was compiled); raises with that output if nvcc fails."""
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    lib = BUILD / f"{name}-{digest}.so"
+    if lib.exists():
+        return lib, ""
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"kernel build failed: {name} (nvcc exit "
+                           f"{proc.returncode})\n{proc.stdout}")
+    os.replace(tmp, lib)
+    return lib, proc.stdout
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = _loaded[name] = ctypes.CDLL(str(build(name)[0]))
+    return lib

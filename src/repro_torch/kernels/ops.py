@@ -1,0 +1,32 @@
+"""Kernel entry points with dispatch on the tensors' device.
+
+``mode="auto"`` (the serving default) launches the hand-written kernel for
+CUDA tensors and takes the plain PyTorch version for CPU tensors — the
+device of the tensor decides, never a failed launch.  ``mode="ref"`` asks
+for the plain version by name, which the tests and chip_smoke.py use to
+hold the kernel against it on the same inputs.
+
+The TPU package's ``_auto_tile`` (largest divisor of the bucketed length
+<= 128) has no counterpart: the CUDA kernel's query tile is set by the
+GQA group (16 / G query positions) and it masks the ragged edge of any
+Sq, so there is no tile for a caller to choose."""
+from __future__ import annotations
+
+from repro_torch.kernels import ref
+from repro_torch.kernels import paged_attention as _pa
+
+MODES = ("auto", "ref")
+
+
+def paged_chunk_attention(q, k_pages, v_pages, block_tables, q_offsets,
+                          ctx_lens, mode: str = "auto"):
+    """Unified mixed-batch serving attention (decode = 1-token chunk).
+    mode: auto | ref."""
+    if mode not in MODES:
+        raise ValueError(f"kernel mode {mode!r} not in {MODES}")
+    if mode == "ref" or q.device.type == "cpu":
+        return ref.paged_chunk_attention_ref(q, k_pages, v_pages,
+                                             block_tables, q_offsets,
+                                             ctx_lens)
+    return _pa.paged_chunk_attention(q, k_pages, v_pages, block_tables,
+                                     q_offsets, ctx_lens)

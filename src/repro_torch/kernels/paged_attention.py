@@ -1,0 +1,129 @@
+"""Paged attention on the card: the wrapper of the hand-written CUDA kernel
+``csrc/paged_chunk_attention.cu``.
+
+``paged_chunk_attention`` is the unified mixed-batch kernel the serving
+step dispatches on every layer: every lane carries a CHUNK of queries at a
+per-lane ``q_offset`` (decode lanes are the one-token chunk), so one launch
+covers chunked prefill and batched decode together.  It replaces the TPU
+kernel of the same name in ``repro/kernels/paged_attention.py``; the source
+says how the design differs and what bounds it.
+
+The wrapper only takes CUDA tensors.  It checks device, dtype, shape and
+contiguity, allocates the output, launches on the current stream, raises if
+the launch is refused, and counts its launches in the module's
+``launches``.  There is no fallback: the plain version (``kernels/ref.py``)
+is chosen by ``kernels/ops.py`` only for tensors that lie on the CPU, or
+when a caller asks for it by name.
+
+Table contract (the same as the TPU kernel's): columns past a lane's own
+pages may hold anything — the serving step repeats the lane's last valid
+page id — because the kernel reads only the lane's relevant pages,
+``p < min(ceil(ctx / page), horizon)``.  Page ids inside that bound must be
+valid rows of the pools; they are not checked on the device.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+NAME = "paged_chunk_attention"
+HEAD_DIMS = (64, 128)
+PAGE_SIZES = (8, 16, 32)
+MAX_GROUP = 16                      # query heads per kv head (kRows in .cu)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_fn = None
+launches = 0                        # kernel launches made by the wrapper
+
+
+def _entry():
+    global _fn
+    if _fn is None:
+        f = build.load(NAME).paged_chunk_attention_launch
+        f.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 \
+            + [ctypes.c_void_p]
+        f.restype = ctypes.c_int
+        _fn = f
+    return _fn
+
+
+def _check(q, k_pages, v_pages, block_tables, q_offsets, ctx_lens):
+    if q.device.type != "cuda":
+        raise ValueError(f"{NAME}: the kernel takes CUDA tensors, q is on "
+                         f"{q.device}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{NAME}: dtype {q.dtype} not supported "
+                        f"(float32, bfloat16)")
+    if q.dim() != 4 or k_pages.dim() != 4:
+        raise ValueError(f"{NAME}: q must be (B, Sq, H, D) and the pages "
+                         f"(P, page, Hkv, D)")
+    B, Sq, H, D = q.shape
+    _, page, Hkv, Dk = k_pages.shape
+    if tuple(v_pages.shape) != tuple(k_pages.shape) or Dk != D:
+        raise ValueError(f"{NAME}: k/v pages {tuple(k_pages.shape)} / "
+                         f"{tuple(v_pages.shape)} do not match q's D={D}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{NAME}: head dim {D} not in {HEAD_DIMS}")
+    if page not in PAGE_SIZES:
+        raise ValueError(f"{NAME}: page size {page} not in {PAGE_SIZES}")
+    if Hkv == 0 or H % Hkv or H // Hkv > MAX_GROUP:
+        raise ValueError(f"{NAME}: {H} heads over {Hkv} kv heads "
+                         f"(need H % Hkv == 0 and H / Hkv <= {MAX_GROUP})")
+    if block_tables.dim() != 2 or block_tables.shape[0] != B:
+        raise ValueError(f"{NAME}: block tables must be (B={B}, T)")
+    if tuple(q_offsets.shape) != (B,) or tuple(ctx_lens.shape) != (B,):
+        raise ValueError(f"{NAME}: q_offsets and ctx_lens must be (B={B},)")
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{NAME}: {name} is {t.dtype}, q is {q.dtype}")
+    for name, t in (("block_tables", block_tables), ("q_offsets", q_offsets),
+                    ("ctx_lens", ctx_lens)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{NAME}: {name} must be int32, is {t.dtype}")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+                    ("block_tables", block_tables), ("q_offsets", q_offsets),
+                    ("ctx_lens", ctx_lens)):
+        if t.device != q.device:
+            raise ValueError(f"{NAME}: {name} is on {t.device}, q on "
+                             f"{q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{NAME}: {name} must be contiguous")
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{NAME}: {name} must be 16-byte aligned "
+                             f"(the kernel reads it with 16-byte loads)")
+
+
+def paged_chunk_attention(q, k_pages, v_pages, block_tables, q_offsets,
+                          ctx_lens):
+    """Mixed-batch paged attention on the card.
+
+    q: (B, Sq, H, D) float32 or bfloat16; k/v_pages: (P, page, Hkv, D) of
+    the same dtype; block_tables: (B, T) int32; q_offsets/ctx_lens: (B,)
+    int32.  Lane b's query token i sits at absolute position q_offsets[b] +
+    i and attends the KV positions <= it that are < ctx_lens[b].  A lane's
+    chunk ends at its context's end, so rows at q_offsets[b] + i >=
+    ctx_lens[b] are bucket padding: they come back as zeros, and no KV is
+    read for them (all of a ctx_len = 0 lane).  Returns (B, Sq, H, D) in
+    q's dtype."""
+    _check(q, k_pages, v_pages, block_tables, q_offsets, ctx_lens)
+    B, Sq, H, D = q.shape
+    _, page, Hkv, _ = k_pages.shape
+    out = torch.empty_like(q)
+    fn = _entry()
+    dev = q.device.index
+    if dev is None:
+        dev = torch.cuda.current_device()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             block_tables.data_ptr(), q_offsets.data_ptr(),
+             ctx_lens.data_ptr(), out.data_ptr(), B, Sq, H, Hkv, D, page,
+             block_tables.shape[1], _DTYPES[q.dtype], dev,
+             stream)
+    if err != 0:
+        raise RuntimeError(f"{NAME}: launch failed with cudaError_t {err}")
+    global launches
+    launches += 1
+    return out

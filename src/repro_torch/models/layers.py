@@ -1,0 +1,122 @@
+"""Shared model layers: norms, RoPE, dense attention, MLPs, init.
+
+Plain PyTorch, with the JAX package's conventions: norms and RoPE compute
+in float32 and cast back, attention softmax runs in float32, and RoPE
+rotates halves (the two halves of the head dimension, not interleaved
+pairs).  The dense attention here serves the reference ``prefill`` /
+``decode_step``; the serving path's paged attention is a kernel
+(``repro_torch.kernels``) held against these semantics.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, weight, eps=1e-5):
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    return (x * weight).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32,
+                        device=device) / d_head
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                  # (D/2,)
+    angles = positions[..., None].float() * freqs           # (..., S, D/2)
+    cos = torch.cos(angles)[..., None, :]                   # (..., S, 1, D/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Dense attention (the reference prefill / decode path)
+# ---------------------------------------------------------------------------
+
+def flash_attention(q, k, v, *, window: Optional[int] = None):
+    """Causal softmax attention of a whole prompt over its own K/V, float32
+    inside.
+
+    q: (B, S, H, D); k, v: (B, S, Hkv, D) with H % Hkv == 0.  ``window``:
+    sliding-window size.  The JAX reference chunks this computation to
+    bound memory; the result is the same softmax, so the port computes it
+    in one piece."""
+    B, Sq, H, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    G = H // Hkv
+    qg = q.reshape(B, Sq, Hkv, G, D).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / math.sqrt(D)
+    qp = torch.arange(Sq, device=q.device)
+    kp = torch.arange(Sk, device=q.device)
+    mask = qp[:, None] >= kp[None, :]
+    if window is not None:
+        mask &= qp[:, None] - kp[None, :] < window
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return o.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *,
+                     window: Optional[int] = None):
+    """Single-position attention over a (possibly padded) head-major cache.
+
+    q: (B, 1, H, D); k_cache/v_cache: (B, Hkv, S, D); cache_len: (B,)
+    valid entries *including* the current token's KV."""
+    B, _, H, D = q.shape
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    G = H // Hkv
+    qg = q.reshape(B, Hkv, G, D).float()
+    s = torch.einsum("bhgd,bhsd->bhgs", qg, k_cache.float()) / math.sqrt(D)
+    pos = torch.arange(S, device=q.device)
+    mask = pos[None, :] < cache_len[:, None]
+    if window is not None:
+        mask &= pos[None, :] >= cache_len[:, None] - window
+    s = s.masked_fill(~mask[:, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgs,bhsd->bhgd", p, v_cache.float())
+    return o.reshape(B, 1, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def swiglu(x, w1, w3, w2):
+    return (F.silu(x @ w1) * (x @ w3)) @ w2
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, shape, dtype, scale=None, device=None):
+    """Normal(0, scale) weights drawn in float32 from ``gen`` and cast;
+    the default scale is 1/sqrt(fan_in) with fan_in = shape[-2] (weights are
+    stored (in, out), as in the JAX package)."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (w.mul_(scale)).to(dtype)

@@ -1,0 +1,26 @@
+"""arch family -> model class resolution.  Only the dense family is ported;
+every other family raises, naming the ROADMAP item that ports it."""
+from __future__ import annotations
+
+from repro_torch.configs.base import ModelConfig
+
+_NOT_PORTED = {
+    "vlm": "ROADMAP A.9 (the vlm patch path of DenseLM)",
+    "moe": "ROADMAP A.9 (models/moe.py)",
+    "encdec": "ROADMAP A.9 (models/encdec.py)",
+    "hybrid": "ROADMAP A.7 (models/mamba2.py)",
+    "mamba2": "ROADMAP A.7 (models/mamba2.py)",
+    "xlstm": "ROADMAP A.7 (models/xlstm.py)",
+}
+
+
+def get_model(cfg: ModelConfig, device="cuda"):
+    """The model of ``cfg`` on ``device`` ("meta" builds one for its
+    analytic counts only, with no weights and no card)."""
+    if cfg.family == "dense":
+        from repro_torch.models.transformer import DenseLM
+        return DenseLM(cfg, device=device)
+    if cfg.family in _NOT_PORTED:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet: {_NOT_PORTED[cfg.family]}")
+    raise KeyError(cfg.family)

@@ -1,0 +1,218 @@
+"""The port's paged chunk attention against the JAX package.
+
+The same numpy inputs go through the JAX oracle
+(``repro.kernels.ref.paged_chunk_attention_ref``), the Pallas kernel in
+interpret mode, and the port's plain version, which is what the port runs
+for CPU tensors.  Tolerances are tests/test_kernels.py's: 2e-4 in float32
+and 2e-2 in bfloat16, compared on each lane's real query rows (padded rows
+are garbage by contract); ctx = 0 lanes must be exactly zero.
+
+The ``gpu`` tests hold the hand-written CUDA kernel against the plain
+version on the card; they skip where there is no card.  The machine with
+the card has no JAX, so this module imports JAX only inside the CPU tests
+(``python -m pytest -m gpu`` deselects them there).
+"""
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import ref as tref
+
+TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_oracle():
+    import jax
+    from repro.kernels import ref as jref
+    return jax.jit(jref.paged_chunk_attention_ref)
+
+
+def _case(seed, B, Sq, H, Hkv, D, page, maxp, *, pad_lane=True,
+          decode=False):
+    """Random inputs with permuted tables padded with each lane's last
+    valid page id; the last lane is padded (ctx 0) when ``pad_lane``."""
+    rng = np.random.default_rng(seed)
+    P = maxp * B + 3
+    q = rng.normal(size=(B, Sq, H, D)).astype(np.float32)
+    kp = rng.normal(size=(P, page, Hkv, D)).astype(np.float32)
+    vp = rng.normal(size=(P, page, Hkv, D)).astype(np.float32)
+    perm = rng.permutation(P - 1)          # page P-1 stays out of every table
+    tables = np.zeros((B, maxp), np.int32)
+    qoff = np.zeros((B,), np.int32)
+    ctx = np.zeros((B,), np.int32)
+    for b in range(B - 1 if pad_lane else B):
+        n = 1 if decode else int(rng.integers(1, Sq + 1))
+        c = int(rng.integers(n, maxp * page + 1))
+        qoff[b], ctx[b] = c - n, c
+        w = -(-c // page)
+        tables[b, :w] = perm[b * maxp:b * maxp + w]
+        tables[b, w:] = tables[b, w - 1]
+    return q, kp, vp, tables, qoff, ctx
+
+
+def _torch(arrs, dtype):
+    q, kp, vp, tables, qoff, ctx = arrs
+    t = lambda a: torch.from_numpy(a).to(dtype)  # noqa: E731
+    return (t(q), t(kp), t(vp), torch.from_numpy(tables),
+            torch.from_numpy(qoff), torch.from_numpy(ctx))
+
+
+def _jax(arrs, dtype: str):
+    import jax.numpy as jnp
+    q, kp, vp, tables, qoff, ctx = arrs
+    dt = getattr(jnp, dtype)
+    return (jnp.asarray(q, dt), jnp.asarray(kp, dt), jnp.asarray(vp, dt),
+            jnp.asarray(tables), jnp.asarray(qoff), jnp.asarray(ctx))
+
+
+def _assert_real_rows(got, want, qoff, ctx, tol):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    for b in range(got.shape[0]):
+        if ctx[b] == 0:
+            assert np.all(got[b] == 0), f"ctx=0 lane {b} not zero"
+            continue
+        n = int(ctx[b] - qoff[b])
+        np.testing.assert_allclose(got[b, :n], want[b, :n], rtol=tol,
+                                   atol=tol)
+
+
+GEOMETRIES = [
+    (3, 8, 4, 4, 32, 8, 4),        # MHA, mixed chunks
+    (4, 16, 8, 2, 64, 16, 4),      # GQA 4:1
+    (2, 8, 8, 1, 128, 32, 2),      # MQA
+    (3, 5, 6, 2, 64, 8, 5),        # G = 3, ragged Sq
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,H,Hkv,D,page,maxp", GEOMETRIES)
+def test_plain_matches_jax_oracle(B, Sq, H, Hkv, D, page, maxp, dtype):
+    arrs = _case(B * 100 + Sq, B, Sq, H, Hkv, D, page, maxp)
+    want = _jax_oracle()(*_jax(arrs, dtype))
+    got = ops.paged_chunk_attention(*_torch(arrs, getattr(torch, dtype)))
+    assert got.dtype == getattr(torch, dtype)
+    _assert_real_rows(got.float(), want, arrs[4], arrs[5], TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_decode_lanes_match_jax_oracle(dtype):
+    """Sq = 1 lanes (decode is the one-token chunk) with a padded lane."""
+    arrs = _case(5, 5, 1, 8, 2, 64, 16, 6, decode=True)
+    want = _jax_oracle()(*_jax(arrs, dtype))
+    got = ops.paged_chunk_attention(*_torch(arrs, getattr(torch, dtype)))
+    _assert_real_rows(got.float(), want, arrs[4], arrs[5], TOL[dtype])
+
+
+def test_plain_matches_pallas_interpret():
+    """The Pallas kernel itself, run as the JAX package's tests run it on
+    the CPU (interpret mode), on one small GQA case."""
+    from repro.kernels.paged_attention import paged_chunk_attention
+    arrs = _case(11, 3, 8, 8, 2, 32, 8, 4)
+    want = paged_chunk_attention(*_jax(arrs, "float32"), bq=4,
+                                 interpret=True)
+    got = ops.paged_chunk_attention(*_torch(arrs, torch.float32))
+    _assert_real_rows(got, want, arrs[4], arrs[5], TOL["float32"])
+
+
+def test_plain_ignores_table_padding_and_page_placement():
+    """What the last-valid padding holds never matters, and neither does
+    where the pages sit in the pool."""
+    arrs = _case(13, 3, 8, 8, 4, 32, 8, 5)
+    q, kp, vp, tables, qoff, ctx = arrs
+    base = ops.paged_chunk_attention(*_torch(arrs, torch.float32))
+    junk = tables.copy()
+    for b in range(3):
+        w = -(-int(ctx[b]) // 8)
+        junk[b, w:] = kp.shape[0] - 1              # any other page id
+    perm = np.random.default_rng(3).permutation(kp.shape[0])
+    inv = np.argsort(perm).astype(np.int32)
+    for t, k, v in ((junk, kp, vp), (inv[tables], kp[perm], vp[perm])):
+        got = ops.paged_chunk_attention(*_torch((q, k, v, t, qoff, ctx),
+                                                torch.float32))
+        _assert_real_rows(got, base, qoff, ctx, 1e-6)
+
+
+def test_dispatch_follows_the_tensor_device():
+    """CPU tensors take the plain version; the kernel wrapper refuses them
+    (no fallback) and counts nothing; unknown modes raise."""
+    args = _torch(_case(17, 2, 4, 4, 2, 64, 8, 3), torch.float32)
+    before = pa.launches
+    torch.testing.assert_close(ops.paged_chunk_attention(*args),
+                               ops.paged_chunk_attention(*args, mode="ref"))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        pa.paged_chunk_attention(*args)
+    with pytest.raises(ValueError, match="kernel mode"):
+        ops.paged_chunk_attention(*args, mode="cuda")
+    assert pa.launches == before
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "False)")
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield torch.device("cuda")
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = prev
+
+
+CARD_GEOMETRIES = [
+    (3, 8, 4, 4, 64, 8, 4),        # MHA
+    (4, 16, 8, 2, 64, 16, 4),      # GQA 4:1
+    (2, 8, 8, 1, 128, 32, 2),      # MQA
+    (3, 37, 32, 8, 128, 16, 6),    # llama3-8b heads, ragged Sq
+    (5, 1, 32, 8, 128, 16, 9),     # llama3-8b decode
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,H,Hkv,D,page,maxp", CARD_GEOMETRIES)
+def test_cuda_kernel_matches_plain(cuda, B, Sq, H, Hkv, D, page, maxp,
+                                   dtype):
+    arrs = _case(B * 7 + Sq, B, Sq, H, Hkv, D, page, maxp,
+                 decode=(Sq == 1))
+    args = [t.to(cuda) for t in _torch(arrs, getattr(torch, dtype))]
+    before = pa.launches
+    got = ops.paged_chunk_attention(*args)
+    torch.cuda.synchronize()
+    assert pa.launches == before + 1
+    want = tref.paged_chunk_attention_ref(*args)
+    assert torch.isfinite(got.float()).all()
+    _assert_real_rows(got.float().cpu(), want.float().cpu(), arrs[4],
+                      arrs[5], TOL[dtype])
+    for b, n in enumerate(arrs[5] - arrs[4]):     # bucket padding: zeros
+        assert bool((got[b, max(int(n), 0):] == 0).all()), f"lane {b}"
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_rejects_what_it_cannot_take(cuda):
+    args = [t.to(cuda) for t in _torch(_case(1, 2, 4, 4, 2, 64, 8, 3),
+                                       torch.float32)]
+    q, kp, vp, tables, qoff, ctx = args
+    with pytest.raises(TypeError):
+        pa.paged_chunk_attention(q.half(), kp.half(), vp.half(), tables,
+                                 qoff, ctx)
+    with pytest.raises(ValueError, match="head dim"):
+        pa.paged_chunk_attention(q[..., :32].contiguous(),
+                                 kp[..., :32].contiguous(),
+                                 vp[..., :32].contiguous(), tables, qoff, ctx)
+    with pytest.raises(ValueError, match="contiguous"):
+        pa.paged_chunk_attention(q.transpose(1, 2), kp, vp, tables, qoff,
+                                 ctx)
+    with pytest.raises(TypeError, match="int32"):
+        pa.paged_chunk_attention(q, kp, vp, tables.long(), qoff, ctx)
