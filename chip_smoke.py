@@ -1,6 +1,6 @@
 """Card check of the PyTorch/CUDA port: builds the CUDA kernels, holds each
 against its plain PyTorch version, and serves llama3-8b at full width and
-depth through the port's entry points.
+depth through the port's entry points, under memory pressure too.
 
 Run from the repository root on a machine with an NVIDIA card:
 
@@ -14,8 +14,10 @@ Phases:
   3. kernel vs plain version at llama3-8b widths (H=32, Hkv=8, D=128,
      page 16) in bf16 and fp32: decode at B=8 and 32 (ctx up to 4096),
      chunks of 128 and 512 at q_offsets > 0, ctx=0 lanes, permuted tables
-     with last-valid padding; times of the kernel, the plain version, the
-     bound and a library yardstick;
+     with last-valid padding; the int8 kernel (B.2) at decode B=8 with 3/4
+     of each lane's pages flagged and at a 512-token chunk with mixed
+     flags, and with every flag clear bit-identical to the fp kernel; times
+     of each kernel, the plain version, the bound and a library yardstick;
   4. serve llama3-8b (32 layers, bf16, random weights from --seed) with
      NodeEngine + NodeManager + RealBackend: 4 sessions x 3 turns, chunked
      prompts, a shared system prompt adopted across sessions with a
@@ -23,7 +25,24 @@ Phases:
      every dispatch; a lockstep twin on the plain attention must agree;
      the main path's kernel calls are re-timed against their bound;
   5. exact tokens in fp32 (full width, 2 layers): served turns equal the
-     dense prefill/decode recompute.
+     dense prefill/decode recompute;
+  6. the memory-pressure path: llama3-8b (32 layers, bf16) on a node whose
+     fp byte budget (hbm_pages) is about 40 % of its sessions' pages, with
+     twice that many physical pages and a disk spool: 6 sessions x 3 turns,
+     advisories that make idle sessions int8 (NodeManager._quantize_pass),
+     layer evictions to host, an advisory-led prefetch, cold swap-ins; the
+     measured host-link bandwidths and the cold and advisory-led stalls;
+     one session persisted, the node crashed and the session recovered from
+     the spool by a second node on the same card, another session migrated
+     to that node (export/import); both serve their next turn.  Once the
+     int8 tier is active the int8 kernel must run on every layer of every
+     dispatch; a lockstep twin on the plain attention must agree as in
+     phase 4, and the main path's int8-kernel calls are re-timed;
+  7. exact tokens in fp32 (full width, 2 layers) through the tiers: a
+     session swapped out and back, persisted and recovered after a crash,
+     and migrated to a third node serves the dense recompute's tokens; a
+     session served from int8 pages equals a twin whose pages were
+     re-materialized to fp by a host round trip.
 
 It prints progress lines, then one line with the kernels' JSON record, the
 card's name and power limit, and as the last line
@@ -38,6 +57,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -47,14 +67,17 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import configs  # noqa: E402
-from repro_torch.core.advisory import InferenceRequest  # noqa: E402
+from repro_torch.core.advisory import (AdvisoryRequest,  # noqa: E402
+                                       InferenceRequest)
 from repro_torch.core.node_manager import NodeManager  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels.quant import quantize_int8  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.serving.backend import RealBackend  # noqa: E402
 from repro_torch.serving.cost_model import CostModel  # noqa: E402
 from repro_torch.serving.engine import NodeEngine  # noqa: E402
+from repro_torch.serving.transfer import IN, OUT  # noqa: E402
 
 # H100 SXM data sheet, dense, at 700 W
 HBM_BYTES_PER_S = 3.35e12
@@ -62,6 +85,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # tests/test_kernels.py's tolerances, scaled by max |plain| on real rows
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
 KERNEL = pa.paged_chunk_attention          # the wrapper; it counts pa.launches
+QKERNEL = pa.paged_chunk_attention_quant   # counts pa.quant_launches
 
 
 def log(msg: str) -> None:
@@ -96,24 +120,39 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 def attention_work(q, tables, q_offsets, ctx_lens, page, hkv, d, itemsize,
-                   q_lens):
+                   q_lens, flags=None):
     """Bytes a paged attention call must move and the operations it must do
     for THESE inputs: each real query row read and its output written once
     (nothing for bucket padding or ctx=0 lanes), each lane's relevant K/V
     rows once (per kv head), the tables' relevant columns; QK and PV over
-    the keys each real query row sees (4 D operations per head and key)."""
+    the keys each real query row sees (4 D operations per head and key).
+    With ``flags`` (the int8 kernel): a flagged page's rows at one byte an
+    element plus its two float32 scales, and each relevant page's flag."""
     B, Sq, H, D = q.shape
     qo = q_offsets.cpu().numpy().astype(np.int64)
     cx = ctx_lens.cpu().numpy().astype(np.int64)
+    tab = tables.cpu().numpy()
+    fl = None if flags is None else flags.cpu().numpy()
     nbytes = 2 * B * 4
     flops = 0
     for b in range(B):
         if cx[b] == 0:
             continue
         n = int(q_lens[b])
+        c = int(cx[b])
+        npg = -(-c // page)
         nbytes += 2 * n * H * D * itemsize
-        nbytes += 2 * int(cx[b]) * hkv * d * itemsize
-        nbytes += 4 * (-(-int(cx[b]) // page))
+        nbytes += 4 * npg
+        if fl is None:
+            nbytes += 2 * c * hkv * d * itemsize
+        else:
+            nbytes += 4 * npg
+            for i in range(npg):
+                rows = min(page, c - i * page)
+                if fl[tab[b, i]]:
+                    nbytes += 2 * rows * hkv * d + 2 * 4
+                else:
+                    nbytes += 2 * rows * hkv * d * itemsize
         seen = np.minimum(cx[b], qo[b] + np.arange(n) + 1)
         flops += 4 * D * H * int(seen.sum())
     return nbytes, flops
@@ -126,18 +165,28 @@ def bound(nbytes: int, flops: int, dtype):
     return (max(t_b, t_f), "bytes" if t_b >= t_f else "operations", t_b, t_f)
 
 
-def sdpa_yardstick(q, k_pages, v_pages, tables, q_offsets, ctx_lens):
+def sdpa_yardstick(q, k_pages, v_pages, tables, q_offsets, ctx_lens,
+                   quant=None):
     """One PyTorch call computing the same attention on densely gathered
-    K/V: F.scaled_dot_product_attention with a causal-and-context mask.
-    The gather and mask are built here, outside the timed call; the port
-    never calls this."""
+    K/V (dequantized to q's dtype where flagged):
+    F.scaled_dot_product_attention with a causal-and-context mask.  The
+    gather, dequant and mask are built here, outside the timed call; the
+    port never calls this."""
     B, Sq, H, D = q.shape
     _, page, Hkv, _ = k_pages.shape
     G = H // Hkv
     S = tables.shape[1] * page
     t = tables.long()
-    k = k_pages[t].reshape(B, S, Hkv, D).transpose(1, 2)
-    v = v_pages[t].reshape(B, S, Hkv, D).transpose(1, 2)
+    k, v = k_pages[t], v_pages[t]
+    if quant is not None:
+        kq, vq, ks, vs, flags = quant
+        isq = (flags[t] > 0)[..., None, None, None]
+        k = torch.where(isq, (kq[t].float() * ks[t][..., None, None, None])
+                        .to(q.dtype), k)
+        v = torch.where(isq, (vq[t].float() * vs[t][..., None, None, None])
+                        .to(q.dtype), v)
+    k = k.reshape(B, S, Hkv, D).transpose(1, 2)
+    v = v.reshape(B, S, Hkv, D).transpose(1, 2)
     k = k.repeat_interleave(G, dim=1).contiguous()
     v = v.repeat_interleave(G, dim=1).contiguous()
     qt = q.transpose(1, 2).contiguous()
@@ -149,15 +198,23 @@ def sdpa_yardstick(q, k_pages, v_pages, tables, q_offsets, ctx_lens):
     return lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask)
 
 
-def compare(q, kp, vp, tables, qoff, ctx, q_lens, dtype, label):
-    """Kernel vs plain on one input; returns a record with the error on
-    real rows, the times and the bound.  The error must be
-    within TOL x max |plain| over the real rows: the outputs are averages
-    of V rows, far below 1 at long contexts, where a fixed tolerance would
-    pass a kernel that drops a page or shifts the causal mask."""
-    out_k = KERNEL(q, kp, vp, tables, qoff, ctx)
+def compare(q, kp, vp, tables, qoff, ctx, q_lens, dtype, label, quant=None):
+    """Kernel vs plain on one input — the int8 kernel when ``quant`` is
+    given; returns a record with the error on real rows, the times and the
+    bound.  The error must be within TOL x max |plain| over the real rows:
+    the outputs are averages of V rows, far below 1 at long contexts,
+    where a fixed tolerance would pass a kernel that drops a page or shifts
+    the causal mask."""
+    if quant is None:
+        def kern():
+            return KERNEL(q, kp, vp, tables, qoff, ctx)
+    else:
+        def kern():
+            return QKERNEL(q, kp, vp, *quant, tables, qoff, ctx)
+    out_k = kern()
     torch.cuda.synchronize()
-    out_r = ref.paged_chunk_attention_ref(q, kp, vp, tables, qoff, ctx)
+    out_r = ref.paged_chunk_attention_ref(q, kp, vp, tables, qoff, ctx,
+                                          quant=quant)
     check(bool(torch.isfinite(out_k.float()).all()),
           f"{label}: kernel output not finite")
     err, scale = 0.0, 0.0
@@ -178,20 +235,30 @@ def compare(q, kp, vp, tables, qoff, ctx, q_lens, dtype, label):
           f"max|plain| {scale:.3g} = {lim:.3g}")
     _, page, hkv, d = kp.shape
     nbytes, flops = attention_work(q, tables, qoff, ctx, page, hkv, d,
-                                   q.element_size(), q_lens)
+                                   q.element_size(), q_lens,
+                                   None if quant is None else quant[4])
     b_ms, b_by, t_b, t_f = bound(nbytes, flops, dtype)
-    return dict(
+    rec = dict(
         label=label, max_abs_err=err, err_rel=err / scale,
-        ms=cuda_ms(lambda: KERNEL(q, kp, vp, tables, qoff, ctx), 20),
+        ms=cuda_ms(kern, 20),
         plain_ms=cuda_ms(lambda: ref.paged_chunk_attention_ref(
-            q, kp, vp, tables, qoff, ctx), 5),
-        library_ms=cuda_ms(sdpa_yardstick(q, kp, vp, tables, qoff, ctx), 20),
+            q, kp, vp, tables, qoff, ctx, quant=quant), 5),
+        library_ms=cuda_ms(sdpa_yardstick(q, kp, vp, tables, qoff, ctx,
+                                          quant), 20),
         bound_ms=b_ms, bound_by=b_by, bytes_ms=t_b, ops_ms=t_f)
+    if quant is not None:
+        # the fp kernel over the same context, in turns with the int8 one:
+        # int8, fp, fp, int8
+        def fp():
+            return KERNEL(q, kp, vp, tables, qoff, ctx)
+        t = [cuda_ms(f, 20) for f in (kern, fp, fp, kern)]
+        rec.update(ms=0.5 * (t[0] + t[3]), fp_ms=0.5 * (t[1] + t[2]))
+    return rec
 
 
 def fmt(rec) -> str:
-    keys = ("max_abs_err", "err_rel", "ms", "plain_ms", "library_ms",
-            "bound_ms")
+    keys = ("max_abs_err", "err_rel", "ms", "fp_ms", "clear_ms", "plain_ms",
+            "library_ms", "bound_ms")
     parts = [f"{k}={rec[k]:.4g}" for k in keys if k in rec]
     if "bound_by" in rec:
         parts.append(f"bound_by={rec['bound_by']}")
@@ -292,6 +359,57 @@ def phase_kernel_vs_plain(rng):
             recs.append(rec)
             del q, kp, vp
     torch.cuda.empty_cache()
+    return recs, phase_quant_vs_plain(rng)
+
+
+def int8_state(kp, vp, tables, ctx, share):
+    """The int8 shadow pools of kp/vp with their per-page scales, and flags
+    on the first ``share`` of each lane's relevant pages (its oldest
+    history, as the serving tier quantizes full pages of idle sessions)."""
+    kq, ks = quantize_int8(kp, axis=(1, 2, 3))
+    vq, vs = quantize_int8(vp, axis=(1, 2, 3))
+    flags = torch.zeros(kp.shape[0], dtype=torch.int32, device=kp.device)
+    page = kp.shape[1]
+    tab, cx = tables.cpu().numpy(), ctx.cpu().numpy()
+    for b in range(tab.shape[0]):
+        n = -(-int(cx[b]) // page)
+        ids = tab[b, :int(share * n)]
+        if len(ids):
+            flags[torch.as_tensor(ids, device=kp.device).long()] = 1
+    return kq, vq, ks, vs, flags
+
+
+def phase_quant_vs_plain(rng):
+    """The int8 kernel (B.2) against its plain version, beside the fp
+    kernel on the same context, and with every flag clear bit-identical to
+    the fp kernel."""
+    dec = [int(c) for c in rng.integers(1024, 4097, 8)]
+    dec[0], dec[-1] = 4096, 0
+    chunk_q = [512, 512 - 27, 0]
+    chunk = [int(rng.integers(256, 1537)) + n for n in chunk_q[:2]] + [0]
+    cases = [("int8 decode B=8 ctx<=4096 3/4 flagged", 8, 1, dec,
+              [1] * 7 + [0], 0.75),
+             ("int8 chunk Sq=512 q_offset>0 1/2 flagged", 3, 512, chunk,
+              chunk_q, 0.5)]
+    recs = []
+    for label, B, Sq, ctxs, qls, share in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, kp, vp, tab, qoff, ctx = make_case(rng, B, Sq, ctxs, qls, dtype)
+            quant = int8_state(kp, vp, tab, ctx, share)
+            name = f"{label} {str(dtype).split('.')[-1]}"
+            rec = compare(q, kp, vp, tab, qoff, ctx, qls, dtype, name,
+                          quant=quant)
+            clear = quant[:4] + (torch.zeros_like(quant[4]),)
+            same = torch.equal(QKERNEL(q, kp, vp, *clear, tab, qoff, ctx),
+                               KERNEL(q, kp, vp, tab, qoff, ctx))
+            check(same, f"{name}: with every flag clear the int8 kernel is "
+                  f"not bit-identical to the fp kernel")
+            rec["clear_ms"] = cuda_ms(
+                lambda: QKERNEL(q, kp, vp, *clear, tab, qoff, ctx), 20)
+            log("[3]" + fmt(rec) + " bit-identical with flags clear: True")
+            recs.append(rec)
+            del q, kp, vp, quant, clear
+    torch.cuda.empty_cache()
     return recs
 
 
@@ -313,19 +431,21 @@ def _turns(rng, vocab, n_sessions=4, n_turns=3, system=200):
     return prompts
 
 
-def make_engine(cfg, model, params, *, kernel_mode="auto",
-                trace_logits=False, n_pages=1024, page_size=16):
-    """NodeEngine + NodeManager + RealBackend on the model's device, as a
+def make_node(cfg, model, params, *, n_pages, page_size=16, hbm_pages=None,
+              spool=None, node_id=0, kernel_mode="auto", trace_logits=False,
+              max_batch=8, token_budget=512):
+    """(NodeEngine, RealBackend, NodeManager) on the model's device, as a
     user of the port would build them."""
     cost = CostModel(cfg)
     cost.set_param_count(model.param_count())
-    mgr = NodeManager(0, cfg, cost)
+    mgr = NodeManager(node_id, cfg, cost)
     be = RealBackend(cfg, model, params, n_pages=n_pages, page_size=page_size,
-                     mgr=mgr, trace_logits=trace_logits,
-                     kernel_mode=kernel_mode, device=model.device)
-    eng = NodeEngine(0, cfg, cost, mgr, max_batch=8, backend=be,
-                     token_budget=512)
-    return eng, be
+                     hbm_pages=hbm_pages, spool_dir=spool, mgr=mgr,
+                     trace_logits=trace_logits, kernel_mode=kernel_mode,
+                     device=model.device)
+    eng = NodeEngine(node_id, cfg, cost, mgr, max_batch=max_batch,
+                     backend=be, token_budget=token_budget)
+    return eng, be, mgr
 
 
 def rounds(prompts):
@@ -340,17 +460,16 @@ def rounds(prompts):
     return out
 
 
-def submit(eng, be, prompts, s, t, gen):
-    sid = f"s{s}"
-    req = InferenceRequest(session_id=sid, prompt_tokens=len(prompts[s][t]),
-                           max_new_tokens=gen, prompt_ids=list(prompts[s][t]),
-                           cached_tokens=be.session_tokens(sid))
-    eng.submit(req)
-    return req
+def request(be, sid, ids, gen):
+    """The session's next turn: ``ids`` new prompt tokens, ``gen`` to
+    generate, on top of the KV the backend holds for it."""
+    return InferenceRequest(session_id=sid, prompt_tokens=len(ids),
+                            max_new_tokens=gen, prompt_ids=list(ids),
+                            cached_tokens=be.session_tokens(sid))
 
 
 def run_main_path(cfg, model, params, prompts, gen):
-    eng, be = make_engine(cfg, model, params)
+    eng, be, _ = make_node(cfg, model, params, n_pages=1024)
     reqs, steps = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -358,7 +477,8 @@ def run_main_path(cfg, model, params, prompts, gen):
     now = 0.0
     for rnd in rounds(prompts):
         for s, t in rnd:
-            reqs.append(submit(eng, be, prompts, s, t, gen))
+            reqs.append(request(be, f"s{s}", prompts[s][t], gen))
+            eng.submit(reqs[-1])
         while eng.waiting or eng.running:
             t0 = time.perf_counter()
             now += eng.step(now)
@@ -368,16 +488,24 @@ def run_main_path(cfg, model, params, prompts, gen):
     return eng, be, reqs, steps, launches
 
 
-def _ref64(q, k_pages, v_pages, tables, q_offsets, ctx_lens):
+def _ref64(q, k_pages, v_pages, tables, q_offsets, ctx_lens, quant=None):
     """The plain version's math in float64 (the port's plain version
     computes in float32): the rounding reference the bf16 noise floor is
-    measured against."""
+    measured against.  Flagged pages read int8 x scale in float64."""
     B, Sq, H, D = q.shape
     _, page, Hkv, _ = k_pages.shape
     S = tables.shape[1] * page
     t = tables.long()
-    k = k_pages[t].reshape(B, S, Hkv, D).double()
-    v = v_pages[t].reshape(B, S, Hkv, D).double()
+    k, v = k_pages[t].double(), v_pages[t].double()
+    if quant is not None:
+        kq, vq, ks, vs, flags = quant
+        isq = (flags[t] > 0)[..., None, None, None]
+        k = torch.where(isq, kq[t].double() * ks[t].double()[
+            ..., None, None, None], k)
+        v = torch.where(isq, vq[t].double() * vs[t].double()[
+            ..., None, None, None], v)
+    k = k.reshape(B, S, Hkv, D)
+    v = v.reshape(B, S, Hkv, D)
     qg = q.reshape(B, Sq, Hkv, H // Hkv, D).double()
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k) / D ** 0.5
     qpos = q_offsets.long()[:, None] + torch.arange(Sq, device=q.device)
@@ -401,9 +529,9 @@ class Float64Attention:
     def __call__(self):
         orig = ref.paged_chunk_attention_ref
 
-        def plain64(*args):
+        def plain64(*args, quant=None):
             self.n += 1
-            return _ref64(*args)
+            return _ref64(*args, quant=quant)
 
         ref.paged_chunk_attention_ref = plain64
         try:
@@ -412,12 +540,20 @@ class Float64Attention:
             ref.paged_chunk_attention_ref = orig
 
 
-def run_lockstep(cfg, model, params, prompts, gen, dtype, capture):
-    """The traffic on three engines in step, all tracing logits: the kernel
-    path (K), the plain path (P) and the plain path with its attention in
-    float64 (R).  After every step P's and R's emitted tokens are compared
-    with K's and then replaced by them (teacher forcing), so a near-tie that
-    flips one token cannot desynchronise the rest of the comparison.
+def drained(be, mgr):
+    """The allocator and store invariants, checked at a drain point."""
+    for a in be.alloc:
+        a.check()
+    mgr.store.check()
+
+
+class Lockstep:
+    """Three nodes in step, all tracing logits: the kernel path (K), the
+    plain path (P) and the plain path with its attention in float64 (R).
+    After every step P's and R's emitted tokens are compared with K's and
+    then replaced by them (teacher forcing), so a near-tie that flips one
+    token cannot desynchronise the rest of the comparison.  Submissions and
+    advisories go to all three at the same virtual time.
 
     Each emitted token's logit vector is compared norm-wise, as max |x - y|
     over 2e-2 x max |y| (the bf16 tolerance, scaled by the logits): the
@@ -428,113 +564,155 @@ def run_lockstep(cfg, model, params, prompts, gen, dtype, capture):
     chunks and 1.11 on decode tokens).  K must be within the tolerance of P
     on the final chunks, or within twice that floor where the floor is the
     larger, and no further from R than twice P's distance from R."""
-    eng_k, be_k = make_engine(cfg, model, params, trace_logits=True)
-    eng_p, be_p = make_engine(cfg, model, params, trace_logits=True,
-                              kernel_mode="ref")
-    eng_r, be_r = make_engine(cfg, model, params, trace_logits=True,
-                              kernel_mode="ref")
-    f64 = Float64Attention()
-    launches0 = pa.launches
-    tol = TOL[dtype]
-    pairs = ("KP", "PR", "KR")
-    res = {f"{pr}_{kind}": 0.0 for pr in pairs for kind in ("chunk", "decode")}
-    res.update(flips=[], tokens=0)
-    now = 0.0
-    for rnd in rounds(prompts):
-        reqs = dict(K={}, P={}, R={})
-        for s, t in rnd:
-            for name, eng, be in (("K", eng_k, be_k), ("P", eng_p, be_p),
-                                  ("R", eng_r, be_r)):
-                reqs[name][f"s{s}"] = submit(eng, be, prompts, s, t, gen)
-        while eng_k.waiting or eng_k.running:
-            n = [len(b.logit_trace) for b in (be_k, be_p, be_r)]
-            with capture():
-                dt = eng_k.step(now)
-            eng_p.step(now)
-            with f64():
-                eng_r.step(now)
-            now += dt
-            new = dict(K=be_k.logit_trace[n[0]:], P=be_p.logit_trace[n[1]:],
-                       R=be_r.logit_trace[n[2]:])
-            sids = [sid for sid, _ in new["K"]]
-            check(all([sid for sid, _ in new[x]] == sids for x in "PR"),
-                  "lockstep engines diverged in their schedules")
-            for i, sid in enumerate(sids):
-                lg = {x: new[x][i][1] for x in "KPR"}
-                kind = ("chunk" if len(reqs["K"][sid].output_ids) == 1
-                        else "decode")
-                for pr in pairs:
-                    y = lg[pr[1]]
-                    err = float(np.abs(lg[pr[0]] - y).max())
-                    res[f"{pr}_{kind}"] = max(
-                        res[f"{pr}_{kind}"],
-                        err / (tol * float(np.abs(y).max())))
-                tk = reqs["K"][sid].output_ids[-1]
-                res["tokens"] += 1
-                for x, be in (("P", be_p), ("R", be_r)):
-                    rq = reqs[x][sid]
-                    tx = rq.output_ids[-1]
-                    if tx == tk:
-                        continue
-                    gap = float(lg[x][tx] - lg[x][tk])
-                    res["flips"].append((x, sid, tk, tx, gap))
-                    check(gap <= tol * float(np.abs(lg[x]).max()),
-                          f"{sid}: token {tk} (kernel) vs {tx} ({x}) with a "
-                          f"logit gap {gap:.3g} beyond tolerance")
-                    be.seqs[sid].last_token = tk
-                    rq.output_ids[-1] = tk
-        check(not any(e.waiting or e.running for e in (eng_p, eng_r)),
-              "a twin engine has work left")
-    check(capture.n > 0 and capture.n == pa.launches - launches0,
-          f"the capture saw {capture.n} kernel calls of the "
-          f"{pa.launches - launches0} the kernel path launched")
-    check(f64.n == cfg.n_layers * be_r.stats["sub_dispatches"],
-          f"the float64 twin ran {f64.n} float64 attention calls, not "
-          f"{cfg.n_layers} x {be_r.stats['sub_dispatches']}")
-    check(res["KP_chunk"] <= max(1.0, 2 * res["PR_chunk"]),
-          f"final-chunk logits: kernel vs plain at {res['KP_chunk']:.3g} x "
-          f"the tolerance, noise floor {res['PR_chunk']:.3g} x")
-    for kind in ("chunk", "decode"):
-        check(res[f"KR_{kind}"] <= 2 * max(res[f"PR_{kind}"], 1e-3),
-              f"{kind} logits: the kernel path is {res[f'KR_{kind}']:.3g} x "
-              f"the tolerance from the float64 path, the plain path "
-              f"{res[f'PR_{kind}']:.3g} x")
-    return res
+
+    PAIRS = ("KP", "PR", "KR")
+
+    def __init__(self, nodes, dtype, captures=(), dt=None):
+        self.nodes = nodes                    # "K"/"P"/"R" -> (eng, be, mgr)
+        self.captures = captures
+        self.dt = dt                          # None: K's measured step time
+        self.f64 = Float64Attention()
+        self.tol = TOL[dtype]
+        self.reqs = {x: {} for x in "KPR"}
+        self.res = {f"{pr}_{kind}": 0.0 for pr in self.PAIRS
+                    for kind in ("chunk", "decode")}
+        self.res.update(flips=[], tokens=0)
+        self.now = 0.0
+
+    def submit(self, sid, ids, gen):
+        for x in "KPR":
+            eng, be, _ = self.nodes[x]
+            self.reqs[x][sid] = request(be, sid, ids, gen)
+            eng.submit(self.reqs[x][sid])
+
+    def advise(self, sid, lead):
+        for x in "KPR":
+            self.nodes[x][2].on_advisory(
+                AdvisoryRequest(session_id=sid, expected_arrival=lead),
+                kv_node=self.nodes[x][2].node_id, now=self.now)
+
+    def step(self):
+        (ek, bk, mk), (ep, bp, mp), (er, br, mr) = (self.nodes[x]
+                                                   for x in "KPR")
+        n = [len(b.logit_trace) for b in (bk, bp, br)]
+        with contextlib.ExitStack() as stack:
+            for c in self.captures:
+                stack.enter_context(c())
+            dt = ek.step(self.now)
+        ep.step(self.now)
+        with self.f64():
+            er.step(self.now)
+        self.now += dt if self.dt is None else self.dt
+        for be, mgr in ((bk, mk), (bp, mp), (br, mr)):
+            drained(be, mgr)
+        new = dict(K=bk.logit_trace[n[0]:], P=bp.logit_trace[n[1]:],
+                   R=br.logit_trace[n[2]:])
+        sids = [sid for sid, _ in new["K"]]
+        check(all([sid for sid, _ in new[x]] == sids for x in "PR"),
+              "lockstep engines diverged in their schedules")
+        tol, res = self.tol, self.res
+        for i, sid in enumerate(sids):
+            lg = {x: new[x][i][1] for x in "KPR"}
+            kind = ("chunk" if len(self.reqs["K"][sid].output_ids) == 1
+                    else "decode")
+            for pr in self.PAIRS:
+                y = lg[pr[1]]
+                err = float(np.abs(lg[pr[0]] - y).max())
+                res[f"{pr}_{kind}"] = max(
+                    res[f"{pr}_{kind}"], err / (tol * float(np.abs(y).max())))
+            tk = self.reqs["K"][sid].output_ids[-1]
+            res["tokens"] += 1
+            for x, be in (("P", bp), ("R", br)):
+                rq = self.reqs[x][sid]
+                tx = rq.output_ids[-1]
+                if tx == tk:
+                    continue
+                gap = float(lg[x][tx] - lg[x][tk])
+                res["flips"].append((x, sid, tk, tx, gap))
+                check(gap <= tol * float(np.abs(lg[x]).max()),
+                      f"{sid}: token {tk} (kernel) vs {tx} ({x}) with a "
+                      f"logit gap {gap:.3g} beyond tolerance")
+                be.seqs[sid].last_token = tk
+                rq.output_ids[-1] = tk
+
+    def run(self):
+        ek = self.nodes["K"][0]
+        while ek.waiting or ek.running:
+            self.step()
+        check(not any(self.nodes[x][0].waiting or self.nodes[x][0].running
+                      for x in "PR"), "a twin engine has work left")
+
+    def verdict(self, cfg):
+        res, br = self.res, self.nodes["R"][1]
+        check(self.f64.n == cfg.n_layers * br.stats["sub_dispatches"],
+              f"the float64 twin ran {self.f64.n} float64 attention calls, "
+              f"not {cfg.n_layers} x {br.stats['sub_dispatches']}")
+        check(res["KP_chunk"] <= max(1.0, 2 * res["PR_chunk"]),
+              f"final-chunk logits: kernel vs plain at {res['KP_chunk']:.3g}"
+              f" x the tolerance, noise floor {res['PR_chunk']:.3g} x")
+        for kind in ("chunk", "decode"):
+            check(res[f"KR_{kind}"] <= 2 * max(res[f"PR_{kind}"], 1e-3),
+                  f"{kind} logits: the kernel path is "
+                  f"{res[f'KR_{kind}']:.3g} x the tolerance from the float64 "
+                  f"path, the plain path {res[f'PR_{kind}']:.3g} x")
+        return res
+
+    def log(self, tag):
+        res = self.res
+        log(f"[{tag}] lockstep, {res['tokens']} tokens; max |logit diff| in "
+            f"units of 2e-2 x max|logit|, final chunks / decode: kernel vs "
+            f"plain {res['KP_chunk']:.3g} / {res['KP_decode']:.3g}; plain vs "
+            f"float64 attention {res['PR_chunk']:.3g} / "
+            f"{res['PR_decode']:.3g}; kernel vs float64 attention "
+            f"{res['KR_chunk']:.3g} / {res['KR_decode']:.3g}")
+        log(f"[{tag}] token flips (twin, sid, kernel, twin, twin's logit "
+            f"gap): {res['flips']}")
+
+
+def lockstep_nodes(make):
+    """K, P and R nodes from ``make(kernel_mode)``, all tracing logits."""
+    return dict(K=make("auto"), P=make("ref"), R=make("ref"))
 
 
 class Capture:
-    """Records the first kernel call of each distinct shape on the serving
-    path (layer 0 of each bucket), with copies of its inputs: while active
-    it wraps the kernel's public wrapper, ``kernels.paged_attention.
-    paged_chunk_attention``, which kernels/ops.py launches through, and
-    counts the calls it sees.  Captures happen only in the lockstep twin,
-    never in the counted main-path run."""
+    """Records one call of each distinct shape of one kernel wrapper of
+    ``kernels.paged_attention`` (``name``), which kernels/ops.py launches
+    through, with copies of its inputs, and counts the calls it sees: the
+    first call, or with ``score`` the call that scores highest (for the
+    int8 kernel, the one whose lanes read the most int8 pages).  Captures
+    happen only in the lockstep twins, never in a counted main-path run."""
 
-    def __init__(self):
+    def __init__(self, name, score=None):
+        self.name = name
+        self.score = score
         self.calls = {}
+        self.scores = {}
         self.n = 0
 
     @contextlib.contextmanager
     def __call__(self):
-        orig = pa.paged_chunk_attention
+        orig = getattr(pa, self.name)
 
-        def recording(q, kp, vp, tables, qoff, ctx):
+        def recording(*args):
             self.n += 1
+            q, tables = args[0], args[-3]
             key = (tuple(q.shape), tuple(tables.shape), q.dtype)
-            if key not in self.calls:
-                self.calls[key] = tuple(
-                    t.clone() for t in (q, kp, vp, tables, qoff, ctx))
-            return orig(q, kp, vp, tables, qoff, ctx)
+            sc = 0.0 if self.score is None else self.score(args)
+            if key not in self.calls or sc > self.scores[key]:
+                self.calls[key] = tuple(t.clone() for t in args)
+                self.scores[key] = sc
+            return orig(*args)
 
-        pa.paged_chunk_attention = recording
+        setattr(pa, self.name, recording)
         try:
             yield
         finally:
-            pa.paged_chunk_attention = orig
+            setattr(pa, self.name, orig)
 
 
-def phase_serve(seed):
-    rng = np.random.default_rng(seed)
+def llama3_8b(seed, tag):
+    """llama3-8b at its published widths and depth, bf16, random weights
+    drawn on the card from ``seed``."""
     cfg = configs.get_config("llama3-8b")
     model = get_model(cfg, device="cuda")
     t0 = time.perf_counter()
@@ -543,10 +721,15 @@ def phase_serve(seed):
     nbytes = sum(t.numel() * t.element_size() for t in
                  [params["emb"], params["lm_head"], params["ln_f"],
                   *params["blocks"].values()])
-    log(f"[4] llama3-8b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    log(f"[{tag}] llama3-8b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab}, {cfg.dtype}: {nbytes / 1e9:.2f} GB of weights in "
         f"{time.perf_counter() - t0:.1f} s")
+    return cfg, model, params
+
+
+def phase_serve(cfg, model, params, seed):
+    rng = np.random.default_rng(seed)
     prompts = _turns(rng, cfg.vocab)
     gen = 16
     eng, be, reqs, steps, launches = run_main_path(cfg, model, params,
@@ -571,49 +754,65 @@ def phase_serve(seed):
     for a in be.alloc:
         a.check()
     buckets = be.compile_counts()["step"]     # the main path's buckets only
+    del be, eng
 
-    cap = Capture()
-    res = run_lockstep(cfg, model, params, prompts, gen, torch.bfloat16, cap)
+    cap = Capture("paged_chunk_attention")
+    launches0 = pa.launches
+    lock = Lockstep(lockstep_nodes(lambda mode: make_node(
+        cfg, model, params, n_pages=1024, kernel_mode=mode,
+        trace_logits=True)), torch.bfloat16, captures=(cap,))
+    for rnd in rounds(prompts):
+        for s, t in rnd:
+            lock.submit(f"s{s}", prompts[s][t], gen)
+        lock.run()
+    check(cap.n > 0 and cap.n == pa.launches - launches0,
+          f"the capture saw {cap.n} kernel calls of the "
+          f"{pa.launches - launches0} the kernel path launched")
+    lock.verdict(cfg)
     log(f"[4] captured {len(cap.calls)} distinct main-path kernel shapes "
         f"from {cap.n} calls")
     check(len(cap.calls) == buckets,
           f"captured {len(cap.calls)} distinct kernel shapes, the main path "
           f"ran {buckets} step buckets")
-    log(f"[4] lockstep, {res['tokens']} tokens; max |logit diff| in units "
-        f"of 2e-2 x max|logit|, final chunks / decode: kernel vs plain "
-        f"{res['KP_chunk']:.3g} / {res['KP_decode']:.3g}; plain vs float64 "
-        f"attention {res['PR_chunk']:.3g} / {res['PR_decode']:.3g}; kernel "
-        f"vs float64 attention {res['KR_chunk']:.3g} / {res['KR_decode']:.3g}")
-    log(f"[4] token flips (twin, sid, kernel, twin, twin's logit gap): "
-        f"{res['flips']}")
-    del be, eng
+    lock.log(4)
+    del lock
     torch.cuda.empty_cache()
-
-    # the main path's kernel calls, one per distinct bucket shape, timed
-    recs = []
-    for key, (q, kp, vp, tab, qoff, ctx) in sorted(cap.calls.items(),
-                                                   key=lambda kv: kv[0]):
-        q_lens = (ctx - qoff).clamp(min=0).cpu().tolist()
-        label = f"main path B={q.shape[0]} Sq={q.shape[1]} T={tab.shape[1]}"
-        rec = compare(q, kp, vp, tab, qoff, ctx, q_lens, q.dtype, label)
-        log("[4]" + fmt(rec))
-        recs.append(rec)
-    cap.calls.clear()
-    del params, model
+    recs = retime(cap, "main path", 4)
     torch.cuda.empty_cache()
     return launches, recs
 
 
-def phase_exact_fp32(seed):
-    rng = np.random.default_rng(seed + 1)
-    cfg = dataclasses.replace(configs.get_config("llama3-8b"), n_layers=2,
-                              dtype="float32", name="llama3-8b-2layer-fp32")
-    model = get_model(cfg, device="cuda")
-    params = model.init(torch.Generator(device="cuda").manual_seed(seed + 1))
-    gen = 16
-    turns = [[int(x) for x in rng.integers(0, cfg.vocab, int(n))]
-             for n in rng.integers(100, 300, 3)]
-    # dense recompute: every turn re-prefills the whole history
+def retime(cap, what, tag):
+    """The captured calls, one per distinct shape, held against the plain
+    version and timed (the int8 kernel's with their flags)."""
+    recs = []
+    for key, args in sorted(cap.calls.items(), key=lambda kv: kv[0]):
+        q, kp, vp = args[:3]
+        tab, qoff, ctx = args[-3:]
+        quant = tuple(args[3:8]) if len(args) == 11 else None
+        q_lens = (ctx - qoff).clamp(min=0).cpu().tolist()
+        label = f"{what} B={q.shape[0]} Sq={q.shape[1]} T={tab.shape[1]}"
+        if quant is not None:
+            label += f" int8 pages {flag_share(tab, ctx, quant[4], kp.shape[1]):.2f}"
+        rec = compare(q, kp, vp, tab, qoff, ctx, q_lens, q.dtype, label,
+                      quant=quant)
+        log(f"[{tag}]" + fmt(rec))
+        recs.append(rec)
+    cap.calls.clear()
+    return recs
+
+
+def flag_share(tables, ctx, flags, page):
+    """Share of the lanes' relevant pages that are read from the int8
+    pools."""
+    tab, cx, fl = tables.cpu().numpy(), ctx.cpu().numpy(), flags.cpu().numpy()
+    pages = [tab[b, i] for b in range(tab.shape[0])
+             for i in range(-(-int(cx[b]) // page))]
+    return float(np.mean([fl[p] for p in pages])) if pages else 0.0
+
+
+def dense_turns(cfg, model, params, turns, gen):
+    """Dense recompute: every turn re-prefills the whole history."""
     history, expect = [], []
     for turn in turns:
         history += turn
@@ -626,23 +825,40 @@ def phase_exact_fp32(seed):
             logits, cache = model.decode_step(params, cache, nxt)
         expect.append(outs)
         history += outs
-    cost = CostModel(cfg)
-    cost.set_param_count(model.param_count())
-    mgr = NodeManager(0, cfg, cost)
-    be = RealBackend(cfg, model, params, n_pages=128, page_size=16, mgr=mgr,
-                     trace_logits=False, device=model.device)
-    eng = NodeEngine(0, cfg, cost, mgr, max_batch=4, backend=be,
-                     token_budget=128)
+    return expect
+
+
+def fp32_2layer(seed):
+    cfg = dataclasses.replace(configs.get_config("llama3-8b"), n_layers=2,
+                              dtype="float32", name="llama3-8b-2layer-fp32")
+    model = get_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    return cfg, model, params
+
+
+def serve_turn(eng, be, sid, ids, gen, now):
+    """Serve one turn of ``sid`` to the end; returns (tokens, now)."""
+    req = request(be, sid, ids, gen)
+    eng.submit(req)
+    while eng.waiting or eng.running:
+        now += eng.step(now)
+    return list(req.output_ids), now
+
+
+def phase_exact_fp32(seed):
+    rng = np.random.default_rng(seed + 1)
+    cfg, model, params = fp32_2layer(seed + 1)
+    gen = 16
+    turns = [[int(x) for x in rng.integers(0, cfg.vocab, int(n))]
+             for n in rng.integers(100, 300, 3)]
+    expect = dense_turns(cfg, model, params, turns, gen)
+    eng, be, _ = make_node(cfg, model, params, n_pages=128, max_batch=4,
+                           token_budget=128)
     got, now = [], 0.0
     before = pa.launches
     for turn in turns:
-        req = InferenceRequest(session_id="chat", prompt_tokens=len(turn),
-                               max_new_tokens=gen, prompt_ids=list(turn),
-                               cached_tokens=be.session_tokens("chat"))
-        eng.submit(req)
-        while eng.waiting or eng.running:
-            now += eng.step(now)
-        got.append(list(req.output_ids))
+        toks, now = serve_turn(eng, be, "chat", turn, gen, now)
+        got.append(toks)
     ran = pa.launches - before
     log(f"[5] fp32 2-layer full width: served {got}")
     log(f"[5] dense recompute            {expect}; kernel launches {ran}")
@@ -651,33 +867,349 @@ def phase_exact_fp32(seed):
     check(got == expect, "fp32 served tokens differ from dense recompute")
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="1,2,3,4,5")
-    args = ap.parse_args(argv)
-    phases = {int(p) for p in args.phases.split(",")}
-    t_start = time.perf_counter()
-    try:
-        kind, card = phase_env()
-        if 2 in phases:
-            phase_build()
-        shape_recs = (phase_kernel_vs_plain(np.random.default_rng(args.seed))
-                      if 3 in phases else [])
-        launches, main_recs = 0, []
-        if 4 in phases:
-            launches, main_recs = phase_serve(args.seed)
-        if 5 in phases:
-            phase_exact_fp32(args.seed)
-    except PhaseFailed as e:
-        log(f"FAILED: {e}")
-        return 1
-    # the record holds the main path's shapes whenever the main path ran
-    recs = main_recs if 4 in phases else shape_recs
+# ---------------------------------------------------------------------------
+# phase 6: the memory-pressure path
+# ---------------------------------------------------------------------------
+
+STEP_S = 0.05       # virtual seconds per engine step: the policy reads `now`
+LEAD = 0.5          # advisory lead (virtual s): reuse predicted that soon
+PAGE = 16
+
+
+class Single:
+    """One node driven through the pressure scenario on the virtual clock
+    (so quantize-or-swap decisions repeat run to run), with the allocator
+    and store invariants at every drain point and the launch rule at every
+    step: the kernels run on every layer of every sub-dispatch, and once
+    the int8 tier is active, only the int8 kernel."""
+
+    def __init__(self, node, cfg, now=0.0):
+        self.eng, self.be, self.mgr = node
+        self.L = cfg.n_layers
+        self.now = now
+        self.steps = []
+
+    def submit(self, sid, ids, gen):
+        req = request(self.be, sid, ids, gen)
+        self.eng.submit(req)
+        return req
+
+    def advise(self, sid, lead):
+        self.mgr.on_advisory(AdvisoryRequest(session_id=sid,
+                                             expected_arrival=lead),
+                             kv_node=self.mgr.node_id, now=self.now)
+        drained(self.be, self.mgr)
+
+    def step(self):
+        be = self.be
+        f0, q0 = pa.launches, pa.quant_launches
+        s0 = be.stats["sub_dispatches"]
+        active = be._quant_active
+        t0 = time.perf_counter()
+        self.eng.step(self.now)
+        self.steps.append(time.perf_counter() - t0)
+        self.now += STEP_S
+        drained(be, self.mgr)
+        if be.device.type != "cuda":
+            return                  # CPU tensors take the plain versions
+        df, dq = pa.launches - f0, pa.quant_launches - q0
+        ds = be.stats["sub_dispatches"] - s0
+        check(df + dq == self.L * ds,
+              f"{df} fp + {dq} int8 kernel launches for {ds} sub-dispatches "
+              f"of {self.L} layers")
+        check(not active or df == 0,
+              f"the int8 tier is active but the fp kernel ran {df} times")
+
+    def run(self):
+        while self.eng.waiting or self.eng.running:
+            self.step()
+
+    def run_while(self, sid):
+        """Step until session ``sid`` has no request waiting or running."""
+        eng = self.eng
+        while (any(r.req.session_id == sid for r in eng.running)
+               or any(r.session_id == sid for r in eng.waiting)):
+            self.step()
+
+
+def pressure_prompts(rng, vocab, n_sessions=6, n_turns=3):
+    return [[[int(x) for x in rng.integers(0, vocab, int(rng.integers(
+        256, 1025)))] for _ in range(n_turns)] for _ in range(n_sessions)]
+
+
+def pressure_rounds(d, prompts, gen):
+    """Every turn in waves of two sessions, the last sessions first.  In
+    turn 1 every idle session gets an advisory — a predicted reuse — before
+    each wave, so the wave's pressure compresses idle sessions to int8
+    (`NodeManager._quantize_pass`) instead of evicting them, and the later
+    waves are served from their own int8 pages.  In turn 2 nobody is
+    advised ahead of the first wave, whose pressure sends idle sessions'
+    layers to the host; before each later wave its first session gets an
+    advisory that prefetches it back, and the others swap in cold."""
+    S, T = len(prompts), len(prompts[0])
+    waves = [list(range(max(0, e - 2), e)) for e in range(S, 0, -2)]
+    for t in range(T):
+        for w, wave in enumerate(waves):
+            if t == 1:
+                for s in range(S):
+                    if s not in wave:
+                        d.advise(f"p{s}", LEAD)
+            elif t >= 2 and w:
+                d.advise(f"p{wave[0]}", LEAD)
+            for s in wave:
+                d.submit(f"p{s}", prompts[s][t], gen)
+            d.run()
+
+
+def timed_copy(fn, stream, reps=5):
+    """Median seconds of one copy on ``stream``, CUDA events."""
+    out = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(stream):
+            e0.record()
+            fn()
+            e1.record()
+        stream.synchronize()
+        out.append(e0.elapsed_time(e1) / 1e3)
+    return float(np.median(out))
+
+
+def host_link(d, bg_ids, rng, vocab):
+    """The host link and the stalls, on the largest session (``vip``),
+    with a background lane admitted first and kept running: pinned copies
+    of vip's KV bytes each way (CUDA events); the backend's swap-out and
+    advisory prefetch of vip, host clock to the drain, over the bytes the
+    backend counted; and the residual stall of a swap-in the engine pays
+    cold next to one an advisory prefetched two steps ahead."""
+    eng, be, mgr = d.eng, d.be, d.mgr
+    d.submit("bg", bg_ids, 64)
+    for _ in range(4):
+        d.step()
+    vip = max((s for s in be.seqs if s != "bg"),
+              key=lambda s: be.seqs[s].n_kv)
+    mgr.promote(vip, d.now)
+    be.drain_transfers()
+    check(all(vip in a.seqs for a in be.alloc), f"{vip} is not resident")
+    nbytes = int(be.seqs[vip].n_kv * be._token_bytes)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    side = torch.cuda.Stream()
+    d2h = timed_copy(lambda: host.copy_(dev, non_blocking=True), side)
+    h2d = timed_copy(lambda: dev.copy_(host, non_blocking=True), side)
+    del dev, host
+    rates = []
+    for move in (lambda: be.swap_out(vip, be.session_tokens(vip)),
+                 lambda: mgr.promote(vip, d.now)):
+        torch.cuda.synchronize()
+        c0, t0 = be.stats["copied_bytes"], time.perf_counter()
+        move()
+        be.drain_transfers()
+        rates.append((be.stats["copied_bytes"] - c0)
+                     / (time.perf_counter() - t0) / 1e9)
+    drained(be, mgr)
+    check(all(vip in a.seqs for a in be.alloc), f"{vip} did not come back")
+    stalls = []
+    for lead_steps in (0, 2):
+        be.swap_out(vip, be.session_tokens(vip))
+        be.drain_transfers(OUT)
+        stall0 = eng.stats["stall_s"]
+        if lead_steps:
+            d.advise(vip, LEAD)                   # the prefetch is launched
+            check(be.transfers.pending_for(vip, IN), "no prefetch launched")
+            for _ in range(lead_steps):
+                d.step()
+        d.submit(vip, [int(x) for x in rng.integers(0, vocab, 4)], 2)
+        d.run_while(vip)
+        stalls.append(eng.stats["stall_s"] - stall0)
+    d.run()                                       # the background lane ends
+    return dict(vip=vip, bytes=nbytes, d2h_GBps=nbytes / d2h / 1e9,
+                h2d_GBps=nbytes / h2d / 1e9, swap_out_GBps=rates[0],
+                prefetch_GBps=rates[1], stall_cold_ms=1e3 * stalls[0],
+                stall_advisory_ms=1e3 * stalls[1])
+
+
+def phase_pressure(cfg, model, params, seed):
+    rng = np.random.default_rng(seed + 6)
+    gen = 16
+    prompts = pressure_prompts(rng, cfg.vocab)
+    total = sum(-(-(sum(map(len, turns)) + len(turns) * gen) // PAGE)
+                for turns in prompts)
+    hbm_pages = int(0.4 * total)
+    n_pages = 2 * hbm_pages
+    log(f"[6] {len(prompts)} sessions x {len(prompts[0])} turns, "
+        f"{sum(len(t) for p in prompts for t in p)} prompt tokens, "
+        f"{total} fp pages at the end; hbm_pages {hbm_pages}, n_pages "
+        f"{n_pages}, page {PAGE}")
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pa.launches = pa.quant_launches = 0   # counts of the main path only
+        node = make_node(cfg, model, params, n_pages=n_pages,
+                         hbm_pages=hbm_pages, spool=f"{tmp}/node0")
+        d = Single(node, cfg)
+        pressure_rounds(d, prompts, gen)
+        eng, be, mgr = node
+        n_steps, mean_ms = len(d.steps), 1e3 * float(np.mean(d.steps))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        link = host_link(d, [int(x) for x in rng.integers(0, cfg.vocab, 8)],
+                         rng, cfg.vocab)
+        # persist one session, migrate another to a second node, crash the
+        # first and recover the persisted one on the second from the spool
+        persisted, migrated = "p5", "p4"
+        mgr.flush_session(persisted, d.now)
+        be.drain_transfers()
+        check(be.spool_exists(persisted), "the persist wrote no spool file")
+        node2 = make_node(cfg, model, params, n_pages=n_pages,
+                          hbm_pages=hbm_pages, spool=f"{tmp}/node1",
+                          node_id=1)
+        eng2, be2, mgr2 = node2
+        mgr2.register_peers({0: mgr})
+        mgr2.on_advisory(AdvisoryRequest(session_id=migrated), kv_node=0,
+                         now=d.now)
+        check(be2.stats["migrations_in"] == 1 and migrated in be2.seqs,
+              "the advisory did not migrate the session to the second node")
+        stats1 = dict(be.stats)
+        be.crash()
+        mgr.crash(d.now)
+        check(mgr2.recover_from_spool(persisted, mgr, d.now),
+              "the second node could not recover the session from the spool")
+        d2 = Single(node2, cfg, now=d.now)
+        reqs = [d2.submit(s, prompts[s_i][-1][:256], gen)
+                for s, s_i in ((persisted, 5), (migrated, 4))]
+        d2.run()
+        fp_launches, q_launches = pa.launches, pa.quant_launches
+    check(all(len(r.output_ids) == gen for r in reqs),
+          "a recovered or migrated session did not serve its next turn")
+    tot = {k: stats1[k] + be2.stats[k] for k in (
+        "quantized_pages", "swaps_out", "swaps_in", "layer_evictions",
+        "layer_promotions", "disk_writes", "migrations_in", "admit_quantized",
+        "quant_dispatches", "dequant_forks", "copied_bytes")}
+    log(f"[6] main path: {n_steps} steps, mean step {mean_ms:.2f} ms, "
+        f"max_memory_allocated {peak:.2f} GB; kernel launches: fp {fp_launches}"
+        f", int8 {q_launches}")
+    log(f"[6] node 0 stats {stats1}; manager {mgr.stats}")
+    log(f"[6] node 1 stats {be2.stats}; manager {mgr2.stats}")
+    log(f"[6] host link, session {link['vip']} of {link['bytes'] / 1e6:.1f} "
+        f"MB: pinned "
+        f"copies device->host {link['d2h_GBps']:.2f} GB/s, host->device "
+        f"{link['h2d_GBps']:.2f} GB/s (HardwareSpec.d2h_bw assumes 64); "
+        f"backend swap-out to the drain {link['swap_out_GBps']:.2f} GB/s, "
+        f"advisory prefetch to the drain {link['prefetch_GBps']:.2f} GB/s")
+    log(f"[6] swap-in stall: cold {link['stall_cold_ms']:.3f} ms, advisory "
+        f"two steps ahead {link['stall_advisory_ms']:.3f} ms")
+    for k in ("quantized_pages", "swaps_out", "swaps_in", "layer_promotions",
+              "disk_writes", "migrations_in"):
+        check(tot[k] > 0, f"the pressure path never moved {k}: {tot}")
+    check(q_launches > 0, "the int8 kernel never ran on the main path")
+
+    # the rounds again in lockstep: kernel path vs plain vs float64
+    capq = Capture("paged_chunk_attention_quant", score=lambda a: flag_share(
+        a[-3], a[-1], a[7], a[1].shape[1]))
+    capf = Capture("paged_chunk_attention")
+    q0, f0 = pa.quant_launches, pa.launches
+    lock = Lockstep(lockstep_nodes(lambda mode: make_node(
+        cfg, model, params, n_pages=n_pages, hbm_pages=hbm_pages,
+        kernel_mode=mode, trace_logits=True)), torch.bfloat16,
+        captures=(capf, capq), dt=STEP_S)
+    pressure_rounds(lock, prompts, gen)
+    bk = lock.nodes["K"][1]
+    check(capq.n == pa.quant_launches - q0 and capf.n == pa.launches - f0
+          and capq.n + capf.n == cfg.n_layers * bk.stats["sub_dispatches"],
+          f"the captures saw {capf.n} + {capq.n} kernel calls of "
+          f"{cfg.n_layers} x {bk.stats['sub_dispatches']}")
+    check(capq.n > 0 and max(capq.scores.values()) > 0,
+          "the lockstep twin never read an int8 page")
+    lock.verdict(cfg)
+    lock.log(6)
+    log(f"[6] captured {len(capq.calls)} distinct int8-kernel shapes from "
+        f"{capq.n} calls")
+    del lock
+    capf.calls.clear()
+    torch.cuda.empty_cache()
+    recs = retime(capq, "pressure", 6)
+    torch.cuda.empty_cache()
+    return q_launches, recs, link
+
+
+# ---------------------------------------------------------------------------
+# phase 7: exact tokens through the tiers
+# ---------------------------------------------------------------------------
+
+def phase_exact_tiers(seed):
+    rng = np.random.default_rng(seed + 7)
+    cfg, model, params = fp32_2layer(seed + 7)
+    gen = 16
+    turns = [[int(x) for x in rng.integers(0, cfg.vocab, int(n))]
+             for n in rng.integers(100, 300, 4)]
+    expect = dense_turns(cfg, model, params, turns, gen)
+    kw = dict(n_pages=256, max_batch=4, token_budget=128)
+    got, now = [], 0.0
+    with tempfile.TemporaryDirectory() as tmp:
+        a = make_node(cfg, model, params, spool=f"{tmp}/a", **kw)
+        b = make_node(cfg, model, params, spool=f"{tmp}/b", node_id=1, **kw)
+        c = make_node(cfg, model, params, spool=f"{tmp}/c", node_id=2, **kw)
+        toks, now = serve_turn(a[0], a[1], "chat", turns[0], gen, now)
+        got.append(toks)
+        a[1].swap_out("chat", a[1].session_tokens("chat"))  # to the host
+        a[1].drain_transfers()
+        toks, now = serve_turn(a[0], a[1], "chat", turns[1], gen, now)
+        got.append(toks)                                   # swapped back in
+        a[2].flush_session("chat", now)                    # to the spool
+        a[1].drain_transfers()
+        a[1].crash()
+        a[2].crash(now)
+        check(b[2].recover_from_spool("chat", a[2], now),
+              "no recovery from the spool")
+        toks, now = serve_turn(b[0], b[1], "chat", turns[2], gen, now)
+        got.append(toks)
+        c[2].register_peers({1: b[2]})                     # migration
+        c[2].on_advisory(AdvisoryRequest(session_id="chat"), kv_node=1,
+                         now=now)
+        toks, now = serve_turn(c[0], c[1], "chat", turns[3], gen, now)
+        got.append(toks)
+        moved = dict(swaps_out=a[1].stats["swaps_out"],
+                     swaps_in=a[1].stats["swaps_in"],
+                     disk_writes=a[1].stats["disk_writes"],
+                     recovered=b[1].stats["migrations_in"],
+                     migrated=c[1].stats["migrations_in"])
+    log(f"[7] fp32 2-layer, swap out/in -> spool, crash, recover -> "
+        f"migrate: served {got}")
+    log(f"[7] dense recompute {expect}; {moved}")
+    check(all(v > 0 for v in moved.values()), f"a tier was not used: {moved}")
+    check(got == expect, "tokens through the tiers differ from dense "
+          "recompute")
+
+    # int8 pages served by the int8 kernel == the same values materialized
+    # to fp by a host round trip and served from the fp pools
+    outs = []
+    for materialize in (False, True):
+        eng, be, mgr = make_node(cfg, model, params, **kw)
+        serve_turn(eng, be, "q", turns[0], gen, 0.0)
+        check(be.quantize_session("q") > 0, "nothing to quantize")
+        if materialize:
+            be.swap_out("q", be.session_tokens("q"))
+            be.drain_transfers()
+            mgr.promote("q", 1.0)
+            be.drain_transfers()
+            check(not any(a.quantized for a in be.alloc),
+                  "the host round trip left int8 pages")
+        q0, s0 = pa.quant_launches, be.stats["sub_dispatches"]
+        toks, _ = serve_turn(eng, be, "q", turns[1], gen, 1.0)
+        check(pa.quant_launches - q0
+              == cfg.n_layers * (be.stats["sub_dispatches"] - s0),
+              "the int8 kernel did not run on every layer of every dispatch")
+        outs.append(toks)
+    log(f"[7] int8 pages in the kernel {outs[0]}; materialized to fp "
+        f"{outs[1]}")
+    check(outs[0] == outs[1], "int8 pages read in the kernel and the same "
+          "values materialized to fp give different tokens")
+
+
+def kernel_entry(name, source, replaces, launches, recs):
     entry = dict(
-        name=pa.NAME, route="cuda",
-        source="src/repro_torch/csrc/paged_chunk_attention.cu",
-        replaces="src/repro/kernels/paged_attention.py:291",
+        name=name, route="cuda", source=source, replaces=replaces,
         launches=launches,
         max_abs_err=max((r["max_abs_err"] for r in recs), default=None),
         ms=sum(r["ms"] for r in recs) if recs else None,
@@ -689,9 +1221,53 @@ def main(argv=None):
         t_b = sum(r["bytes_ms"] for r in recs)
         t_f = sum(r["ops_ms"] for r in recs)
         entry["bound_by"] = "bytes" if t_b >= t_f else "operations"
+    return entry
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7")
+    args = ap.parse_args(argv)
+    phases = {int(p) for p in args.phases.split(",")}
+    t_start = time.perf_counter()
+    try:
+        kind, card = phase_env()
+        if 2 in phases:
+            phase_build()
+        shape_recs, shape_qrecs = (
+            phase_kernel_vs_plain(np.random.default_rng(args.seed))
+            if 3 in phases else ([], []))
+        launches, main_recs, qlaunches, qrecs = 0, [], 0, []
+        if phases & {4, 6}:
+            cfg, model, params = llama3_8b(args.seed, 4 if 4 in phases else 6)
+            if 4 in phases:
+                launches, main_recs = phase_serve(cfg, model, params,
+                                                  args.seed)
+            if 6 in phases:
+                qlaunches, qrecs, _ = phase_pressure(cfg, model, params,
+                                                     args.seed)
+            del cfg, model, params
+            torch.cuda.empty_cache()
+        if 5 in phases:
+            phase_exact_fp32(args.seed)
+        if 7 in phases:
+            phase_exact_tiers(args.seed)
+    except PhaseFailed as e:
+        log(f"FAILED: {e}")
+        return 1
+    # each record holds its kernel's main-path shapes whenever that main
+    # path ran, and phase 3's shapes otherwise
+    src = "src/repro_torch/csrc/paged_chunk_attention.cu"
+    entries = [
+        kernel_entry(pa.NAME, src, "src/repro/kernels/paged_attention.py:291",
+                     launches, main_recs if 4 in phases else shape_recs),
+        kernel_entry(pa.QUANT_NAME, src,
+                     "src/repro/kernels/paged_attention.py:239", qlaunches,
+                     qrecs if 6 in phases else shape_qrecs)]
     log(f"done in {time.perf_counter() - t_start:.1f} s; kernel times are "
         f"one call of each distinct main-path shape, summed")
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

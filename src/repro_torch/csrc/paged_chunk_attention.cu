@@ -1,9 +1,22 @@
 // Mixed-batch causal attention over a paged KV pool, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel `paged_chunk_attention` in
-// src/repro/kernels/paged_attention.py (body `_chunk_body`, index map
-// `_chunk_kv_index`).  It computes exactly what that kernel computes: lane
-// b's query i sits at position q_offsets[b] + i and attends, with a float32
+// Two kernels share one body (template parameter kQuant), as the TPU
+// kernels share `_chunk_body`:
+//   * paged_chunk_attention_launch replaces the TPU kernel
+//     `paged_chunk_attention` in src/repro/kernels/paged_attention.py (body
+//     `_chunk_body`, index map `_chunk_kv_index`);
+//   * paged_chunk_attention_quant_launch replaces
+//     `paged_chunk_attention_quant` (`_chunk_kernel_quant`) of the same file:
+//     each page whose flag is set is read from the int8 shadow pools and
+//     multiplied by that page's float32 scale (no rounding to the model
+//     dtype), the others from the fp pools.  Unlike the TPU kernel, which
+//     fetches both tiles of every page, it reads only the tile the flag
+//     selects, so a quantized page costs half the bytes of a bf16 one (a
+//     quarter of a float32 one).  With every flag clear it does exactly the
+//     loads and the arithmetic of the fp kernel, so its output is
+//     bit-identical.
+//
+// What both compute: lane b's query i sits at position q_offsets[b] + i and attends, with a float32
 // online softmax (m, l, acc), to the keys with kpos <= qpos and
 // kpos < ctx_lens[b], read through the lane's block-table row.  GQA: the G =
 // H / Hkv query heads of one kv head share its K/V.  A lane's chunk ends at
@@ -29,7 +42,10 @@
 // What bounds it.  Decode and short chunks are bound by bytes: each lane's
 // relevant K/V pages must be read once (the FLOPs per byte are G / 2 per
 // head, far below the card's ~295 bf16 FLOPs per byte).  Long chunks become
-// bound by operations.
+// bound by operations.  In the int8 kernel a flagged page's rows cost one
+// byte an element instead of two (bf16) or four (float32), plus two float32
+// scales a page, so decode over a mostly quantized history moves about half
+// the bytes of the bf16 kernel.
 //
 // What this simple version leaves on the table: the math runs on the CUDA
 // cores in float32, not on the tensor cores (no mma/wgmma); the load
@@ -42,6 +58,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -83,6 +100,18 @@ __device__ __forceinline__ void widen(const uint4& u, float* dst,
   reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
 }
 
+// 16 int8 codes times their page's scale, as float32 in smem: one float32
+// multiply each, exactly the plain version's int8 * scale
+__device__ __forceinline__ void widen_i8(const uint4& u, float* dst,
+                                        float scale) {
+  const int8_t* c = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+  for (int i = 0; i < 16; i += 4)
+    *reinterpret_cast<float4*>(dst + i) =
+        make_float4((float)c[i] * scale, (float)c[i + 1] * scale,
+                    (float)c[i + 2] * scale, (float)c[i + 3] * scale);
+}
+
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
@@ -98,13 +127,20 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
 }
 
 // q (B, Sq, H, D); k/v pages (P, page, Hkv, D); tables (B, T) int32;
-// q_offsets, ctx_lens (B,) int32; out (B, Sq, H, D).  All contiguous, the
-// pools 16-byte aligned.
-template <typename T, int D>
+// q_offsets, ctx_lens (B,) int32; out (B, Sq, H, D).  kQuant adds the int8
+// pools kq/vq (P, page, Hkv, D), the float32 scales (P,) and the int32
+// flags (P,); without it they are null.  All contiguous, the pools 16-byte
+// aligned.
+template <typename T, int D, bool kQuant>
 __global__ void __launch_bounds__(kThreads)
 paged_chunk_attention_kernel(const T* __restrict__ q,
                              const T* __restrict__ k_pages,
                              const T* __restrict__ v_pages,
+                             const int8_t* __restrict__ kq_pages,
+                             const int8_t* __restrict__ vq_pages,
+                             const float* __restrict__ k_scales,
+                             const float* __restrict__ v_scales,
+                             const int* __restrict__ page_quant,
                              const int* __restrict__ tables,
                              const int* __restrict__ q_offsets,
                              const int* __restrict__ ctx_lens,
@@ -115,6 +151,7 @@ paged_chunk_attention_kernel(const T* __restrict__ q,
   constexpr int kSegElems = D / kSeg;     // elements of one key per loader
   constexpr int kPerVec = 16 / sizeof(T); // elements per 16-byte load
   constexpr int kVecs = kSegElems / kPerVec;
+  constexpr int kVecsQ = kSegElems / 16;  // 16-byte int8 loads of a segment
   __shared__ __align__(16) float q_s[kRows][D];
   __shared__ __align__(16) float k_s[kKeys][D + 4];  // +4: conflict-free
   __shared__ __align__(16) float v_s[kKeys][D];
@@ -168,12 +205,32 @@ paged_chunk_attention_kernel(const T* __restrict__ q,
   const int seg = tid % kSeg;
   const int* table = tables + (size_t)b * T_width;
   uint4 k_reg[kVecs], v_reg[kVecs];
+  // kQuant: whether the staged row comes from the int8 pools, and its
+  // page's scales (one flag and one scale lookup per row, not per element)
+  bool row_q = false;
+  float row_ks = 0.f, row_vs = 0.f;
   auto fetch = [&](int k0) {
     const int kpos = k0 + ld_j;
+    row_q = false;
     if (kpos < kv_end) {
       const size_t pid = (size_t)table[kpos / page];
       const size_t off =
           ((pid * page + kpos % page) * Hkv + h) * D + seg * kSegElems;
+      if constexpr (kQuant) {
+        if (page_quant[pid]) {  // only the int8 tile: 1 byte an element
+          row_q = true;
+          row_ks = k_scales[pid];
+          row_vs = v_scales[pid];
+          const uint4* ks = reinterpret_cast<const uint4*>(kq_pages + off);
+          const uint4* vs = reinterpret_cast<const uint4*>(vq_pages + off);
+#pragma unroll
+          for (int v = 0; v < kVecsQ; ++v) {
+            k_reg[v] = __ldg(ks + v);
+            v_reg[v] = __ldg(vs + v);
+          }
+          return;
+        }
+      }
       const uint4* ks = reinterpret_cast<const uint4*>(k_pages + off);
       const uint4* vs = reinterpret_cast<const uint4*>(v_pages + off);
 #pragma unroll
@@ -200,10 +257,23 @@ paged_chunk_attention_kernel(const T* __restrict__ q,
   if (kv_end > 0) fetch(0);
   for (int k0 = 0; k0 < kv_end; k0 += kKeys) {
     __syncthreads();  // the previous step is done with k_s, v_s and p_s
+    bool staged = false;
+    if constexpr (kQuant) {
+      if (row_q) {
 #pragma unroll
-    for (int v = 0; v < kVecs; ++v) {
-      widen(k_reg[v], &k_s[ld_j][seg * kSegElems + v * kPerVec], T());
-      widen(v_reg[v], &v_s[ld_j][seg * kSegElems + v * kPerVec], T());
+        for (int v = 0; v < kVecsQ; ++v) {
+          widen_i8(k_reg[v], &k_s[ld_j][seg * kSegElems + v * 16], row_ks);
+          widen_i8(v_reg[v], &v_s[ld_j][seg * kSegElems + v * 16], row_vs);
+        }
+        staged = true;
+      }
+    }
+    if (!staged) {
+#pragma unroll
+      for (int v = 0; v < kVecs; ++v) {
+        widen(k_reg[v], &k_s[ld_j][seg * kSegElems + v * kPerVec], T());
+        widen(v_reg[v], &v_s[ld_j][seg * kSegElems + v * kPerVec], T());
+      }
     }
     __syncthreads();
     if (k0 + kKeys < kv_end) fetch(k0 + kKeys);  // in flight during the math
@@ -281,20 +351,64 @@ paged_chunk_attention_kernel(const T* __restrict__ q,
   }
 }
 
-template <typename T, int D>
+// the int8 state of the quant kernel; all null for the fp kernel
+struct QuantArgs {
+  const int8_t* kq_pages;
+  const int8_t* vq_pages;
+  const float* k_scales;
+  const float* v_scales;
+  const int* page_quant;
+};
+
+template <typename T, int D, bool kQuant>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
-                   const int* tables, const int* q_offsets,
-                   const int* ctx_lens, void* out, int B, int Sq, int H,
-                   int Hkv, int page, int T_width, cudaStream_t stream) {
+                   const QuantArgs& qa, const int* tables,
+                   const int* q_offsets, const int* ctx_lens, void* out,
+                   int B, int Sq, int H, int Hkv, int page, int T_width,
+                   cudaStream_t stream) {
   const int G = H / Hkv;
   int bq = kRows / G;
   if (bq > Sq) bq = Sq;
   const dim3 grid((Sq + bq - 1) / bq, Hkv, B);
-  paged_chunk_attention_kernel<T, D><<<grid, kThreads, 0, stream>>>(
+  paged_chunk_attention_kernel<T, D, kQuant><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), tables, q_offsets, ctx_lens,
+      static_cast<const T*>(v_pages), qa.kq_pages, qa.vq_pages, qa.k_scales,
+      qa.v_scales, qa.page_quant, tables, q_offsets, ctx_lens,
       static_cast<T*>(out), Sq, H, Hkv, page, T_width, bq);
   return cudaGetLastError();
+}
+
+template <bool kQuant>
+int dispatch(const void* q, const void* k_pages, const void* v_pages,
+             const QuantArgs& qa, const int* tables, const int* q_offsets,
+             const int* ctx_lens, void* out, int B, int Sq, int H, int Hkv,
+             int D, int page, int T_width, int dtype, int device,
+             void* stream) {
+  if (page != 8 && page != 16 && page != 32) return cudaErrorInvalidValue;
+  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > kRows) return cudaErrorInvalidValue;
+  if (B > 65535 || Hkv > 65535) return cudaErrorInvalidValue;
+  if (B == 0 || Sq == 0) return cudaSuccess;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && D == 64)
+    return launch<float, 64, kQuant>(q, k_pages, v_pages, qa, tables,
+                                     q_offsets, ctx_lens, out, B, Sq, H, Hkv,
+                                     page, T_width, s);
+  if (dtype == 0 && D == 128)
+    return launch<float, 128, kQuant>(q, k_pages, v_pages, qa, tables,
+                                      q_offsets, ctx_lens, out, B, Sq, H, Hkv,
+                                      page, T_width, s);
+  if (dtype == 1 && D == 64)
+    return launch<__nv_bfloat16, 64, kQuant>(q, k_pages, v_pages, qa, tables,
+                                             q_offsets, ctx_lens, out, B, Sq,
+                                             H, Hkv, page, T_width, s);
+  if (dtype == 1 && D == 128)
+    return launch<__nv_bfloat16, 128, kQuant>(q, k_pages, v_pages, qa,
+                                              tables, q_offsets, ctx_lens,
+                                              out, B, Sq, H, Hkv, page,
+                                              T_width, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -305,26 +419,25 @@ extern "C" int paged_chunk_attention_launch(
     const int* tables, const int* q_offsets, const int* ctx_lens, void* out,
     int B, int Sq, int H, int Hkv, int D, int page, int T_width, int dtype,
     int device, void* stream) {
-  if (page != 8 && page != 16 && page != 32) return cudaErrorInvalidValue;
-  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > kRows) return cudaErrorInvalidValue;
-  if (B > 65535 || Hkv > 65535) return cudaErrorInvalidValue;
-  if (B == 0 || Sq == 0) return cudaSuccess;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k_pages, v_pages, tables, q_offsets, ctx_lens,
-                             out, B, Sq, H, Hkv, page, T_width, s);
-  if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k_pages, v_pages, tables, q_offsets,
-                              ctx_lens, out, B, Sq, H, Hkv, page, T_width, s);
-  if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k_pages, v_pages, tables, q_offsets,
-                                     ctx_lens, out, B, Sq, H, Hkv, page,
-                                     T_width, s);
-  if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k_pages, v_pages, tables, q_offsets,
-                                      ctx_lens, out, B, Sq, H, Hkv, page,
-                                      T_width, s);
-  return cudaErrorInvalidValue;
+  const QuantArgs none = {nullptr, nullptr, nullptr, nullptr, nullptr};
+  return dispatch<false>(q, k_pages, v_pages, none, tables, q_offsets,
+                         ctx_lens, out, B, Sq, H, Hkv, D, page, T_width,
+                         dtype, device, stream);
+}
+
+// The int8 kernel: kq/vq_pages (P, page, Hkv, D) int8, k/v_scales (P,)
+// float32, page_quant (P,) int32 (nonzero = read the int8 pools).
+extern "C" int paged_chunk_attention_quant_launch(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* kq_pages, const void* vq_pages, const float* k_scales,
+    const float* v_scales, const int* page_quant, const int* tables,
+    const int* q_offsets, const int* ctx_lens, void* out, int B, int Sq,
+    int H, int Hkv, int D, int page, int T_width, int dtype, int device,
+    void* stream) {
+  const QuantArgs qa = {static_cast<const int8_t*>(kq_pages),
+                        static_cast<const int8_t*>(vq_pages), k_scales,
+                        v_scales, page_quant};
+  return dispatch<true>(q, k_pages, v_pages, qa, tables, q_offsets, ctx_lens,
+                        out, B, Sq, H, Hkv, D, page, T_width, dtype, device,
+                        stream);
 }

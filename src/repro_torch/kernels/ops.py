@@ -19,14 +19,20 @@ MODES = ("auto", "ref")
 
 
 def paged_chunk_attention(q, k_pages, v_pages, block_tables, q_offsets,
-                          ctx_lens, mode: str = "auto"):
+                          ctx_lens, mode: str = "auto", quant=None):
     """Unified mixed-batch serving attention (decode = 1-token chunk).
-    mode: auto | ref."""
+    mode: auto | ref.  ``quant``: optional (kq_pages, vq_pages, k_scales,
+    v_scales, page_quant) int8 shadow state — flagged pages are read from
+    the int8 pools and dequantized inside the kernel (or the plain
+    version); None keeps the all-fp kernel."""
     if mode not in MODES:
         raise ValueError(f"kernel mode {mode!r} not in {MODES}")
+    args = (q, k_pages, v_pages, block_tables, q_offsets, ctx_lens)
     if mode == "ref" or q.device.type == "cpu":
-        return ref.paged_chunk_attention_ref(q, k_pages, v_pages,
-                                             block_tables, q_offsets,
-                                             ctx_lens)
-    return _pa.paged_chunk_attention(q, k_pages, v_pages, block_tables,
-                                     q_offsets, ctx_lens)
+        if quant is None:
+            return ref.paged_chunk_attention_ref(*args)
+        return ref.paged_chunk_attention_ref(*args, quant=quant)
+    if quant is None:
+        return _pa.paged_chunk_attention(*args)
+    return _pa.paged_chunk_attention_quant(q, k_pages, v_pages, *quant,
+                                           block_tables, q_offsets, ctx_lens)

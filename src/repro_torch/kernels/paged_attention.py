@@ -1,5 +1,5 @@
-"""Paged attention on the card: the wrapper of the hand-written CUDA kernel
-``csrc/paged_chunk_attention.cu``.
+"""Paged attention on the card: the wrappers of the hand-written CUDA
+kernels in ``csrc/paged_chunk_attention.cu``.
 
 ``paged_chunk_attention`` is the unified mixed-batch kernel the serving
 step dispatches on every layer: every lane carries a CHUNK of queries at a
@@ -7,11 +7,16 @@ per-lane ``q_offset`` (decode lanes are the one-token chunk), so one launch
 covers chunked prefill and batched decode together.  It replaces the TPU
 kernel of the same name in ``repro/kernels/paged_attention.py``; the source
 says how the design differs and what bounds it.
+``paged_chunk_attention_quant`` is the same kernel over a mixed-precision
+pool: pages whose flag is set are read from the int8 shadow pools and
+multiplied by their float32 scale, the rest from the fp pools.  The serving
+step dispatches it on every layer once the int8 tier is active.  It
+replaces the TPU kernel ``paged_chunk_attention_quant``.
 
 The wrapper only takes CUDA tensors.  It checks device, dtype, shape and
 contiguity, allocates the output, launches on the current stream, raises if
 the launch is refused, and counts its launches in the module's
-``launches``.  There is no fallback: the plain version (``kernels/ref.py``)
+``launches`` (the fp kernel) or ``quant_launches`` (the int8 kernel).  There is no fallback: the plain version (``kernels/ref.py``)
 is chosen by ``kernels/ops.py`` only for tensors that lie on the CPU, or
 when a caller asks for it by name.
 
@@ -34,19 +39,21 @@ HEAD_DIMS = (64, 128)
 PAGE_SIZES = (8, 16, 32)
 MAX_GROUP = 16                      # query heads per kv head (kRows in .cu)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_fn = None
-launches = 0                        # kernel launches made by the wrapper
+QUANT_NAME = "paged_chunk_attention_quant"
+_fns = {}
+launches = 0                        # fp kernel launches made by the wrapper
+quant_launches = 0                  # int8 kernel launches
 
 
-def _entry():
-    global _fn
-    if _fn is None:
-        f = build.load(NAME).paged_chunk_attention_launch
-        f.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 \
+def _entry(symbol: str, n_ptrs: int):
+    f = _fns.get(symbol)
+    if f is None:
+        f = getattr(build.load(NAME), symbol)
+        f.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 9 \
             + [ctypes.c_void_p]
         f.restype = ctypes.c_int
-        _fn = f
-    return _fn
+        _fns[symbol] = f
+    return f
 
 
 def _check(q, k_pages, v_pages, block_tables, q_offsets, ctx_lens):
@@ -109,21 +116,82 @@ def paged_chunk_attention(q, k_pages, v_pages, block_tables, q_offsets,
     read for them (all of a ctx_len = 0 lane).  Returns (B, Sq, H, D) in
     q's dtype."""
     _check(q, k_pages, v_pages, block_tables, q_offsets, ctx_lens)
+    out = _launch("paged_chunk_attention_launch", NAME, q, k_pages, v_pages,
+                  (), block_tables, q_offsets, ctx_lens)
+    global launches
+    launches += 1
+    return out
+
+
+def _check_quant(k_pages, kq_pages, vq_pages, k_scales, v_scales,
+                 page_quant):
+    P = k_pages.shape[0]
+    for name, t in (("kq_pages", kq_pages), ("vq_pages", vq_pages)):
+        if t.dtype != torch.int8:
+            raise TypeError(f"{QUANT_NAME}: {name} must be int8, is "
+                            f"{t.dtype}")
+        if tuple(t.shape) != tuple(k_pages.shape):
+            raise ValueError(f"{QUANT_NAME}: {name} {tuple(t.shape)} must "
+                             f"match the fp pages {tuple(k_pages.shape)}")
+    for name, t, dt in (("k_scales", k_scales, torch.float32),
+                        ("v_scales", v_scales, torch.float32),
+                        ("page_quant", page_quant, torch.int32)):
+        if t.dtype != dt:
+            raise TypeError(f"{QUANT_NAME}: {name} must be {dt}, is "
+                            f"{t.dtype}")
+        if tuple(t.shape) != (P,):
+            raise ValueError(f"{QUANT_NAME}: {name} must be (P={P},), is "
+                             f"{tuple(t.shape)}")
+    for name, t in (("kq_pages", kq_pages), ("vq_pages", vq_pages),
+                    ("k_scales", k_scales), ("v_scales", v_scales),
+                    ("page_quant", page_quant)):
+        if t.device != k_pages.device:
+            raise ValueError(f"{QUANT_NAME}: {name} is on {t.device}, the "
+                             f"pages on {k_pages.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{QUANT_NAME}: {name} must be contiguous")
+    for name, t in (("kq_pages", kq_pages), ("vq_pages", vq_pages)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{QUANT_NAME}: {name} must be 16-byte aligned "
+                             f"(the kernel reads it with 16-byte loads)")
+
+
+def paged_chunk_attention_quant(q, k_pages, v_pages, kq_pages, vq_pages,
+                                k_scales, v_scales, page_quant, block_tables,
+                                q_offsets, ctx_lens):
+    """`paged_chunk_attention` over a mixed-precision pool, on the card.
+
+    kq/vq_pages: (P, page, Hkv, D) int8 shadow pools; k/v_scales: (P,)
+    float32 per-page scales; page_quant: (P,) int32, nonzero where the page
+    is read as ``int8 * scale`` (in float32, never rounded to q's dtype)
+    instead of from the fp pools.  The other arguments and the result are
+    `paged_chunk_attention`'s; with every flag clear the result is
+    bit-identical to it."""
+    _check(q, k_pages, v_pages, block_tables, q_offsets, ctx_lens)
+    _check_quant(k_pages, kq_pages, vq_pages, k_scales, v_scales, page_quant)
+    out = _launch("paged_chunk_attention_quant_launch", QUANT_NAME, q,
+                  k_pages, v_pages,
+                  (kq_pages, vq_pages, k_scales, v_scales, page_quant),
+                  block_tables, q_offsets, ctx_lens)
+    global quant_launches
+    quant_launches += 1
+    return out
+
+
+def _launch(symbol, name, q, k_pages, v_pages, quant, block_tables,
+            q_offsets, ctx_lens):
     B, Sq, H, D = q.shape
     _, page, Hkv, _ = k_pages.shape
     out = torch.empty_like(q)
-    fn = _entry()
+    ptrs = [t.data_ptr() for t in (q, k_pages, v_pages, *quant,
+                                   block_tables, q_offsets, ctx_lens, out)]
+    fn = _entry(symbol, len(ptrs))
     dev = q.device.index
     if dev is None:
         dev = torch.cuda.current_device()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             block_tables.data_ptr(), q_offsets.data_ptr(),
-             ctx_lens.data_ptr(), out.data_ptr(), B, Sq, H, Hkv, D, page,
-             block_tables.shape[1], _DTYPES[q.dtype], dev,
-             stream)
+    err = fn(*ptrs, B, Sq, H, Hkv, D, page, block_tables.shape[1],
+             _DTYPES[q.dtype], dev, stream)
     if err != 0:
-        raise RuntimeError(f"{NAME}: launch failed with cudaError_t {err}")
-    global launches
-    launches += 1
+        raise RuntimeError(f"{name}: launch failed with cudaError_t {err}")
     return out

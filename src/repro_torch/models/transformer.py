@@ -14,10 +14,13 @@ Two paths, the same math:
   stacked paged pools (L, P+1, page, Hkv, D), with the per-layer KV
   scatter written IN PLACE into the pools (so pool memory stays 1x, which
   the JAX package gets from buffer donation) and the paged attention
-  kernel on every layer.
+  kernel on every layer — the int8 kernel once the serving tier has
+  quantized pages.
 
-The phi-3-vision patch path, the int8 pool tier and the device mesh of
-the JAX ``DenseLM`` are not ported yet (ROADMAP A.9, A.5, A.8).
+The tier-movement and int8-tier helpers (``scatter_paged``,
+``fork_paged``, ``fork_paged_quant``, ``compress_paged``) also write the
+pools in place.  The phi-3-vision patch path and the device mesh of the
+JAX ``DenseLM`` are not ported yet (ROADMAP A.9, A.8).
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.quant import quantize_int8
 from repro_torch.models import layers as L
 
 
@@ -58,7 +62,8 @@ class DenseLM:
         # shape signatures of the paged dispatches, one per shape bucket:
         # the census the JAX package keeps of its jit compilations, kept
         # here so the recompile-free bucketing stays observable
-        self._compile_keys = dict(step=set(), fork=set())
+        self._compile_keys = dict(step=set(), fork=set(), scatter=set(),
+                                  compress=set())
 
     # -- parameters ---------------------------------------------------------
 
@@ -228,7 +233,7 @@ class DenseLM:
     @torch.no_grad()
     def step_paged(self, params, token_ids, k_pool, v_pool, tables,
                    q_offsets, ctx_lens, last_idx, slot_pages, slot_offs,
-                   kernel_mode: str = "auto"):
+                   quant=None, kernel_mode: str = "auto"):
         """ONE fused mixed-batch serving iteration over paged KV.
 
         token_ids: (B, Sq) int, bucket-padded both ways; lane b's first
@@ -243,12 +248,17 @@ class DenseLM:
           logits and argmax are read (0 for padded lanes).
         slot_pages/slot_offs: (L, B, Sq) int destination of each token's
           KV; padded slots point at the trash page.
+        quant: optional int8 shadow state — (kq_pool, vq_pool (L, P+1,
+          page, Hkv, D) int8, k_scale, v_scale (L, P+1) float32, page_quant
+          (L, P+1) int32); each layer's slices go to the int8 attention
+          kernel, which reads flagged pages from the int8 pools.  None
+          keeps the all-fp kernel and the all-fp bucket key.
         kernel_mode: auto | ref (see kernels/ops.py).
         Returns (argmax token ids (B,) int32, logits (B, padded_vocab))."""
         c = self.cfg
         self._compile_keys["step"].add(self._shape_sig(
             (params, token_ids, k_pool, v_pool, tables, q_offsets, ctx_lens,
-             last_idx, slot_pages, slot_offs), kernel_mode))
+             last_idx, slot_pages, slot_offs, quant), kernel_mode))
         ids = token_ids.long()
         x = self._embed(params, ids)
         B, Sq = ids.shape
@@ -265,8 +275,10 @@ class DenseLM:
             # order of duplicate writes cannot matter
             kp.index_put_((sp[l], so[l]), k.to(kp.dtype))
             vp.index_put_((sp[l], so[l]), v.to(vp.dtype))
+            qt = None if quant is None else tuple(t[l] for t in quant)
             o = ops.paged_chunk_attention(q, kp, vp, tables[l], q_offsets,
-                                          ctx_lens, mode=kernel_mode)
+                                          ctx_lens, mode=kernel_mode,
+                                          quant=qt)
             x = x + o.reshape(B, Sq, -1) @ w["wo"]
             x = self._ffn_residual(x, w)
         x = L.rms_norm(x, params["ln_f"], c.norm_eps)
@@ -286,6 +298,56 @@ class DenseLM:
         li, s, d = layer_ids.long(), src.long(), dst.long()
         k_pool[li, d] = k_pool[li, s]
         v_pool[li, d] = v_pool[li, s]
+
+    @torch.no_grad()
+    def scatter_paged(self, k_pool, v_pool, layer_ids, pages, offs, ks, vs):
+        """Swap-in / prefetch scatter of host-staged KV into the stacked
+        pools, in place (1x pool memory, as the JAX package gets from
+        donation).  layer_ids: (G, 1) int; pages/offs: (G, n) int
+        destinations; ks/vs: (G, n, Hkv, D) on the pools' device.  Census
+        key "scatter"."""
+        self._compile_keys["scatter"].add(self._shape_sig(
+            (k_pool, v_pool, layer_ids, pages, offs, ks, vs), "scatter"))
+        idx = (layer_ids.long(), pages.long(), offs.long())
+        k_pool.index_put_(idx, ks.to(k_pool.dtype))
+        v_pool.index_put_(idx, vs.to(v_pool.dtype))
+
+    @torch.no_grad()
+    def fork_paged_quant(self, k_pool, v_pool, kq_pool, vq_pool, k_scale,
+                         v_scale, layer_ids, src, dst, srcq):
+        """`fork_paged` over mixed-precision sources, in place: rows with
+        ``srcq`` set write ``int8 * scale`` of the source page (rounded to
+        the pool dtype) instead of its stale fp bytes.  src != dst is the
+        copy-on-write fork of a quantized donor page; src == dst is an
+        in-place dequant (the caller clears the page's precision bit).  Pad
+        rows point src == dst == the trash page with srcq = 0.  Census key
+        "fork", with its own signature."""
+        self._compile_keys["fork"].add(self._shape_sig(
+            (k_pool, v_pool, kq_pool, vq_pool, k_scale, v_scale, layer_ids,
+             src, dst, srcq), "fork_quant"))
+        li, s, d = layer_ids.long(), src.long(), dst.long()
+        isq = (srcq > 0)[:, None, None, None]
+        for pool, qpool, scale in ((k_pool, kq_pool, k_scale),
+                                   (v_pool, vq_pool, v_scale)):
+            deq = qpool[li, s].float() * scale[li, s][:, None, None, None]
+            pool[li, d] = torch.where(isq, deq.to(pool.dtype), pool[li, s])
+
+    @torch.no_grad()
+    def compress_paged(self, k_pool, v_pool, kq_pool, vq_pool, k_scale,
+                       v_scale, layer_ids, pages):
+        """Quantize a batch of (layer, page) rows into the int8 shadow pools
+        and their per-page float32 scales, in place; the fp pools are only
+        read.  Pad rows point at (layer 0, trash page).  Census key
+        "compress"."""
+        self._compile_keys["compress"].add(self._shape_sig(
+            (k_pool, v_pool, kq_pool, vq_pool, k_scale, v_scale, layer_ids,
+             pages), "compress"))
+        li, pg = layer_ids.long(), pages.long()
+        for pool, qpool, scale in ((k_pool, kq_pool, k_scale),
+                                   (v_pool, vq_pool, v_scale)):
+            q, s = quantize_int8(pool[li, pg], axis=(1, 2, 3))
+            qpool[li, pg] = q
+            scale[li, pg] = s
 
     @staticmethod
     def _shape_sig(args, kernel_mode: str):
@@ -307,5 +369,6 @@ class DenseLM:
 
     def paged_compile_counts(self) -> Dict[str, int]:
         """Number of distinct shape buckets dispatched per entry point
-        ("step", "fork"): the recompile-free invariant's observable."""
+        ("step", "fork", "scatter", "compress"): the recompile-free
+        invariant's observable."""
         return {k: len(v) for k, v in self._compile_keys.items()}

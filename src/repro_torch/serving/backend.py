@@ -41,17 +41,37 @@ allocator remaps the writer to a fresh page and `DenseLM.fork_paged` copies
 the page contents on the device, so readers never observe the writer's
 tokens.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-tier movement — `swap_out`, `evict_layer`, `prefetch`, a `persist` with a
-spool, `export_session`/`import_session`, `recover_session`, `crash` — and
-the int8 tier (`quantize_session`).  The in-flight transfer plumbing
-(`TransferEngine`) is kept so the engine's drain points run unchanged;
-nothing is launched into it yet.
+TIER MOVEMENT (HBM <-> pinned host <-> disk spool, and export/import
+between nodes) runs through `TransferEngine` futures.  Stream ordering
+takes the place of the JAX package's data dependencies:
+
+* device -> host: the gather runs on the compute stream (a private copy of
+  the session's valid token range, int8 pages dequantized on the way out),
+  then a side copy stream that has waited on the compute stream copies it
+  into pinned host memory; the transfer's `EventBuffer` holds both tensors
+  until the copy's event fires;
+* host -> device: the side stream copies pinned host tensors into a device
+  staging tensor; the compute stream waits on that copy and does the
+  in-place `index_put_` into the pools, so every pool write stays ordered
+  on ONE stream (a scatter can never race a step that reuses a dropped
+  session's pages).
+
+Host payloads are ``{k, v, n_tokens}`` with k/v (n, Hkv, D) CPU tensors in
+the model dtype (pinned when they came off the card).  At the spool and
+export boundary they become numpy: float32/float16 as they are, bfloat16
+as its raw 16-bit pattern (uint16) beside a ``dtype`` entry, since numpy
+has no bfloat16; a bfloat16 array the JAX package made (ml_dtypes) is
+read by viewing its bits as uint16.
+
+The mesh of the JAX backend (tensor-parallel serving) is not ported yet:
+``mesh=`` raises NotImplementedError naming ROADMAP A.8.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -61,14 +81,47 @@ from repro_torch.core.memory import PrefixIndex
 from repro_torch.models.transformer import resolve_device
 from repro_torch.serving.cost_model import CostModel
 from repro_torch.serving.kv_cache import OutOfPages, PagedAllocator
-from repro_torch.serving.transfer import OUT, TransferEngine
+from repro_torch.serving.transfer import (DONE, IN, OUT, PERSIST,
+                                          EventBuffer, PendingPayload,
+                                          Transfer, TransferEngine)
 
-_TIER_MOVEMENT = "ROADMAP A.4 (tier movement)"
-_INT8_TIER = "ROADMAP A.5 (int8 tier)"
+HBM, HOST = "hbm", "host"
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"RealBackend.{what} is not ported yet: {item}")
+class LostKV(RuntimeError):
+    """A session's KV is unreachable in every tier (e.g. its transfer was
+    poisoned by a crash).  Raised instead of silently serving a fabricated
+    context — the caller must recover from a spool or resubmit history."""
+
+
+def _np_array(t: torch.Tensor) -> np.ndarray:
+    """A host tensor as numpy for the spool and export formats: bfloat16
+    as its 16-bit pattern (uint16), other dtypes as they are."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.contiguous().view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _host_tensor(a, dtype: torch.dtype) -> torch.Tensor:
+    """A host-tier tensor of ``dtype`` from a payload array: a tensor
+    passes through; a numpy array with 16-bit elements that are not
+    float16 (the port's uint16 pattern, or a JAX-made bfloat16) is read as
+    bfloat16 bits."""
+    if isinstance(a, torch.Tensor):
+        return a.to(dtype)
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:        # e.g. a view of a JAX array
+        a = a.copy()
+    if a.dtype.itemsize == 2 and a.dtype != np.float16:
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(dtype)
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).split(".")[-1]
 
 
 @dataclass
@@ -269,13 +322,31 @@ class RealBackend(Backend):
 
     The "HBM" tier is one (L, P+1, page, Hkv, D) pool per side (page index
     P is the trash page that padded lanes scatter into — it is never
-    allocated, so it never appears in a block table).  One PagedAllocator
-    per layer hands out pages; in this slice every layer moves in lockstep.
+    allocated, so it never appears in a block table); the host tier is
+    ``{k, v, n_tokens}`` CPU-tensor payloads keyed (sid, layer) — or
+    `PendingPayload` futures while a device->host copy is in flight; the
+    optional disk tier is an .npz spool directory.  One PagedAllocator per
+    layer hands out pages — allocators stay in lockstep except where the
+    node manager evicted individual layers (the paper's layer-granular
+    placement).
 
     ``trace_logits`` keeps the per-token (sid, logits) trail the parity
     tests diff against the dense reference.  It costs a full-logits host
     copy per step, so benchmarks and chip_smoke.py turn it off; with it off
     the only per-dispatch host sync is the argmax token ids.
+
+    QUANTIZED-IN-HBM TIER (``hbm_pages=``): between fp-HBM and the host
+    tier sits an int8 tier that never leaves the device — per-page
+    symmetric quantization into lazily allocated shadow pools (one float32
+    scale per (layer, page, side)), served directly by the int8 attention
+    kernel (no re-inflation copy).  `quantize_session` compresses a
+    session's full pages in lockstep across layers with one bucketed
+    dispatch; the allocators carry the per-page precision bit, the byte
+    ledger prices int8 pages exactly (elements + scales), and every tier
+    payload leaving the device re-inflates to fp first, so the host, disk
+    and export formats never know the int8 tier exists.  Pass ``hbm_pages <
+    n_pages`` to give the node more physical page slots than its fp byte
+    budget — the headroom quantized pages make usable.
 
     ``device`` defaults to the card and raises on a machine without one;
     pass ``device="cpu"`` to serve with the plain attention on the CPU.
@@ -285,15 +356,23 @@ class RealBackend(Backend):
     def __init__(self, cfg, model, params, *, n_pages: int = 64,
                  page_size: int = 8, kernel_mode: str = "auto",
                  spool_dir: Optional[str] = None, mgr=None,
-                 trace_logits: bool = True, split_skew: float = 4.0,
+                 trace_logits: bool = True, mesh=None,
+                 hbm_pages: Optional[int] = None, split_skew: float = 4.0,
                  device="cuda"):
-        if spool_dir is not None:
-            raise _not_ported("spool_dir", _TIER_MOVEMENT)
+        if mesh is not None:
+            raise NotImplementedError(
+                "RealBackend(mesh=...) is not ported yet: ROADMAP A.8 "
+                "(tensor-parallel serving)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = model
         self.params = params
         self.n_pages = n_pages
+        # byte budget, in FULL-PRECISION page units: admission and the store
+        # are budgeted for `hbm_pages` worth of fp KV while the pools carry
+        # `n_pages` physical page slots; the difference is the int8 tier's
+        # headroom.  None keeps both equal.
+        self.hbm_pages = n_pages if hbm_pages is None else hbm_pages
         self.page_size = page_size
         self.kernel_mode = kernel_mode
         self.trace_logits = trace_logits
@@ -308,28 +387,46 @@ class RealBackend(Backend):
         shape = (L, n_pages + 1, page_size, Hkv, D)
         self.k_pool = torch.zeros(shape, dtype=self.dtype, device=self.device)
         self.v_pool = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        # int8 tier: shadow pools + per-(layer, page) float32 scales,
+        # allocated at the first compress; the precision FLAGS are rebuilt
+        # from the allocators' bits at every dispatch, never kept on the
+        # device (page reuse can never serve a stale flag)
+        self.kq_pool = self.vq_pool = None
+        self.k_scale = self.v_scale = None
+        self._quant_active = False
+        # host<->device copies run here, beside the compute stream
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
         self.alloc: List[PagedAllocator] = [
             PagedAllocator(n_pages, page_size) for _ in range(L)]
-        self.seqs: Dict[str, _SeqState] = {}
+        self.host: Dict[Tuple[str, int], object] = {}  # (sid, layer) ->
+        self.seqs: Dict[str, _SeqState] = {}           # payload | Pending
         self.transfers = TransferEngine()
-        self.spool = None
+        self.spool = Path(spool_dir) if spool_dir else None
+        if self.spool:
+            self.spool.mkdir(parents=True, exist_ok=True)
         self.mgr = None
         self._local_prefix: Optional[PrefixIndex] = None
         if mgr is not None:
             self.attach(mgr)
-        self.stats = dict(prefills=0, decode_steps=0, prefix_hits=0,
-                          shared_tokens=0, cow_forks=0, sub_dispatches=0,
-                          split_steps=0, kv_pages=0, grid_pages=0)
+        self.stats = dict(prefills=0, decode_steps=0, swaps_out=0,
+                          swaps_in=0, layer_evictions=0, layer_promotions=0,
+                          migrations_in=0, copied_bytes=0.0, disk_writes=0,
+                          prefix_hits=0, shared_tokens=0, cow_forks=0,
+                          quantized_pages=0, quant_dispatches=0,
+                          dequant_forks=0, admit_quantized=0,
+                          sub_dispatches=0, split_steps=0, kv_pages=0,
+                          grid_pages=0)
         self.logit_trace: List[Tuple[str, np.ndarray]] = []
 
     def compile_counts(self) -> Dict[str, int]:
-        """Distinct shape buckets of the fused serving step ("step") and of
-        the CoW fork ("fork"); shared across backends serving the same
-        model."""
+        """Distinct shape buckets of the fused serving step ("step"), the
+        CoW fork ("fork"), the tier scatter ("scatter") and the compress
+        ("compress"); shared across backends serving the same model."""
         return self.model.paged_compile_counts()
 
     def attach(self, mgr) -> None:
-        """Bidirectional wiring with the node manager."""
+        """Bidirectional wiring: manager promote/evict trigger real copies."""
         self.mgr = mgr
         mgr.attach_backend(self)
 
@@ -360,25 +457,46 @@ class RealBackend(Backend):
         return self.page_size * 2 * c.n_kv_heads * c.d_head \
             * self.dtype.itemsize
 
+    @property
+    def _layer_page_bytes_q(self) -> int:
+        """One page's ledger price once quantized: int8 elements plus the
+        two per-page float32 scales (k and v) — exact, not a ratio."""
+        c = self.cfg
+        return self.page_size * 2 * c.n_kv_heads * c.d_head + 2 * 4
+
     def session_kv_bytes(self, tokens: int) -> float:
+        # priced FULL PRECISION: new KV is always written fp (quantization
+        # is a later demotion), so admission must reserve the fp bytes
         pages = self.alloc[0].pages_for(max(int(tokens), 0))
         return pages * self.page_size * self._token_bytes
 
     def hbm_kv_budget(self) -> float:
-        return self.n_pages * self.page_size * self._token_bytes
+        return self.hbm_pages * self.page_size * self._token_bytes
 
     def pool_device_bytes(self) -> int:
-        """Physical bytes of the stacked pools (both sides)."""
+        """Physical bytes of the stacked fp pools (both sides)."""
         return 2 * self.k_pool.numel() * self.k_pool.element_size()
 
     def kv_in_use(self, running) -> float:
-        return float(max(a.used_pages for a in self.alloc)
-                     * self._layer_page_bytes * self.cfg.n_layers)
+        # used_pages includes leased pages: an in-flight swap-out still
+        # physically occupies its source pages until the copy lands.
+        # Quantized pages are priced at the int8 tier
+        return float(max(
+            (a.used_pages - len(a.quantized)) * self._layer_page_bytes
+            + len(a.quantized) * self._layer_page_bytes_q
+            for a in self.alloc)) * self.cfg.n_layers
 
     def resident_kv_bytes(self, sid: str) -> float:
-        pages = min(len(a.seqs[sid].pages) if sid in a.seqs else 0
-                    for a in self.alloc)
-        return float(pages * self._layer_page_bytes * self.cfg.n_layers)
+        # min across layers: never discount pages an evicted layer lacks;
+        # quantized pages discount at their int8 price only
+        def _layer(a: PagedAllocator) -> int:
+            s = a.seqs.get(sid)
+            if s is None:
+                return 0
+            nq = sum(1 for p in s.pages if p in a.quantized)
+            return (len(s.pages) - nq) * self._layer_page_bytes \
+                + nq * self._layer_page_bytes_q
+        return float(min(_layer(a) for a in self.alloc)) * self.cfg.n_layers
 
     def session_tokens(self, sid: str) -> int:
         """Sequence length incl. the pending token (what the next turn's
@@ -387,6 +505,126 @@ class RealBackend(Backend):
         if st is None:
             return 0
         return st.n_kv + (1 if st.last_token is not None else 0)
+
+    def _i32(self, a) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(a, np.int32)).to(self.device)
+
+    # -- quantized-in-HBM tier ----------------------------------------------
+
+    def _ensure_quant_pools(self) -> None:
+        """Allocate the int8 shadow pools and the per-page float32 scales
+        at the first compress (a node that never quantizes never pays)."""
+        if self._quant_active:
+            return
+        shape = tuple(self.k_pool.shape)
+        dev = self.device
+        self.kq_pool = torch.zeros(shape, dtype=torch.int8, device=dev)
+        self.vq_pool = torch.zeros(shape, dtype=torch.int8, device=dev)
+        self.k_scale = torch.zeros(shape[:2], dtype=torch.float32, device=dev)
+        self.v_scale = torch.zeros(shape[:2], dtype=torch.float32, device=dev)
+        self._quant_active = True
+
+    def _quant_flags(self) -> torch.Tensor:
+        """(L, P+1) int32 precision bits, rebuilt from the allocators at
+        every dispatch.  The trash page is never quantized."""
+        flags = np.zeros((self.cfg.n_layers, self.n_pages + 1), np.int32)
+        for l, a in enumerate(self.alloc):
+            if a.quantized:
+                flags[l, list(a.quantized)] = 1
+        return self._i32(flags)
+
+    def _quant_args(self):
+        """The int8 tuple threaded to `step_paged`: None until the first
+        compress, so a node that never quantizes keeps the all-fp kernel
+        and bucket key."""
+        if not self._quant_active:
+            return None
+        return (self.kq_pool, self.vq_pool, self.k_scale, self.v_scale,
+                self._quant_flags())
+
+    def quantize_session(self, sid: str) -> int:
+        """Compress the session's FULL pages (never the partial tail —
+        writes land there) into the int8 shadow pools: ONE bucketed
+        `compress_paged` dispatch quantizes every not-yet-quantized
+        (layer, page) in LOCKSTEP across layers, the allocators' precision
+        bits flip, and the store entry reprices to the int8 geometry.
+        Returns the HBM ledger bytes freed (0: nothing to compress, or a
+        layer is evicted and lockstep is impossible)."""
+        st = self.seqs.get(sid)
+        if st is None:
+            return 0
+        full = st.n_kv // self.page_size
+        if full <= 0:
+            return 0
+        rows: List[Tuple[int, int]] = []
+        for l, a in enumerate(self.alloc):
+            s = a.seqs.get(sid)
+            if s is None or len(s.pages) < full:
+                return 0
+            rows.extend((l, p) for p in s.pages[:full]
+                        if not a.is_quantized(p))
+        if not rows:
+            return 0
+        self._ensure_quant_pools()
+        Rb = _bucket(len(rows))
+        r_li = np.zeros((Rb,), np.int32)                # pad rows point at
+        r_pg = np.full((Rb,), self.n_pages, np.int32)   # (layer 0, trash)
+        r_li[:len(rows)], r_pg[:len(rows)] = np.asarray(rows, np.int32).T
+        self.model.compress_paged(self.k_pool, self.v_pool, self.kq_pool,
+                                  self.vq_pool, self.k_scale, self.v_scale,
+                                  self._i32(r_li), self._i32(r_pg))
+        for l, p in rows:
+            self.alloc[l].set_quantized(p)
+        self.stats["quantized_pages"] += len(rows)
+        self.stats["quant_dispatches"] += 1
+        self._reprice_store(sid)
+        return len(rows) * (self._layer_page_bytes
+                            - self._layer_page_bytes_q)
+
+    def _dequantize_session(self, sid: str) -> None:
+        """Re-inflate every quantized page of ``sid`` IN PLACE (dequant
+        write-back rows, src == dst) and clear its precision bits.  Called
+        when layer-granular movement is about to break the lockstep the
+        int8 ledger price assumes; the fp pool gets the dequantized values,
+        not the pre-compress bytes."""
+        rows: List[Tuple[int, int]] = []
+        for l, a in enumerate(self.alloc):
+            for p in a.quantized_pages_of(sid):
+                rows.append((l, p))
+                a.set_quantized(p, False)
+                self.stats["dequant_forks"] += 1
+        if not rows:
+            return
+        Rb = _bucket(len(rows))
+        f_li = np.zeros((Rb,), np.int32)
+        f_pg = np.full((Rb,), self.n_pages, np.int32)
+        f_q = np.zeros((Rb,), np.int32)
+        f_li[:len(rows)], f_pg[:len(rows)] = np.asarray(rows, np.int32).T
+        f_q[:len(rows)] = 1
+        pg = self._i32(f_pg)
+        self.model.fork_paged_quant(self.k_pool, self.v_pool, self.kq_pool,
+                                    self.vq_pool, self.k_scale, self.v_scale,
+                                    self._i32(f_li), pg, pg, self._i32(f_q))
+
+    def _session_bpl(self, sid: str) -> Tuple[int, int]:
+        """Store-entry price of this session's PRIVATE pages: (bytes per
+        layer, quantized token count).  Shared pages are charged to their
+        first owner (see `finish`); quantized pages at the int8 price."""
+        a0 = self.alloc[0]
+        s = a0.seqs.get(sid)
+        if s is None:
+            return 0, 0
+        private = [p for p in s.pages if a0.refcount_of(p) == 1]
+        nq = sum(1 for p in private if a0.is_quantized(p))
+        bpl = (len(private) - nq) * self._layer_page_bytes \
+            + nq * self._layer_page_bytes_q
+        return bpl, nq * self.page_size
+
+    def _reprice_store(self, sid: str) -> None:
+        if self._store_entry(sid) is None:
+            return
+        bpl, qtok = self._session_bpl(sid)
+        self.mgr.store.reprice(sid, bpl, qtok)
 
     # -- cross-session prefix sharing (copy-on-write) -----------------------
 
@@ -447,13 +685,301 @@ class RealBackend(Backend):
         self.stats["shared_tokens"] += m
         return m
 
-    # -- transfer plumbing (the engine's drain points) ----------------------
+    # -- async transfer plumbing -------------------------------------------
 
     def poll_transfers(self) -> None:
         self.transfers.poll()
 
     def drain_transfers(self, kind: Optional[str] = None) -> None:
         self.transfers.fence(kind=kind)
+
+    def _host_payload(self, sid: str, layer: int) -> Optional[dict]:
+        """Host-tier payload for (sid, layer), fencing its in-flight
+        gather if one is still draining.  None if absent or poisoned."""
+        p = self.host.get((sid, layer))
+        if isinstance(p, PendingPayload):
+            p = p.get()
+        return p
+
+    def _slots(self, layer: int, sid: str, start: int, n: int):
+        """(page_ids, offsets) for token positions [start, start+n)."""
+        pages = np.asarray(self.alloc[layer].seqs[sid].pages, np.int32)
+        pos = start + np.arange(n)
+        return pages[pos // self.page_size], \
+            np.asarray(pos % self.page_size, np.int32)
+
+    def _copy_to_host(self, tensors):
+        """Start device->host copies of ``tensors`` (made on the compute
+        stream) into pinned host memory on the copy stream; returns the
+        host tensors and the buffer the transfer waits on.  CPU tensors
+        are already host tensors."""
+        if self._copy_stream is None:
+            return list(tensors), DONE
+        cur = torch.cuda.current_stream(self.device)
+        self._copy_stream.wait_stream(cur)
+        hosts = []
+        with torch.cuda.stream(self._copy_stream):
+            for t in tensors:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                t.record_stream(self._copy_stream)
+                hosts.append(h)
+        return hosts, EventBuffer(self._copy_stream, keep=(*tensors, *hosts))
+
+    def _gather_device(self, sid: str, layers: List[int]):
+        """Gather the valid token range of many (sid, layer)s on the compute
+        stream — one private device copy per side per (n_tokens, n_pages)
+        group, int8 pages dequantized on the way out (host payloads are
+        always fp) — and START their copies to pinned host memory.
+        Padding never crosses the bus or counts in stats.  Returns
+        (groups, empties): in-flight groups and zero-page payloads."""
+        c = self.cfg
+        groups, empties = [], {}
+        by: Dict[Tuple[int, int], List[int]] = {}
+        for l in layers:
+            s = self.alloc[l].seqs[sid]
+            by.setdefault((s.n_tokens, len(s.pages)), []).append(l)
+        for (n, npg), ls in by.items():
+            if npg == 0:
+                em = torch.zeros((0, c.n_kv_heads, c.d_head), dtype=self.dtype)
+                for l in ls:
+                    empties[l] = dict(k=em, v=em, n_tokens=n)
+                continue
+            pg = np.stack([self._slots(l, sid, 0, n)[0] for l in ls])
+            li = self._i32(ls)[:, None]
+            pg_t = self._i32(pg)
+            off_t = self._i32(self._slots(ls[0], sid, 0, n)[1])[None, :]
+            idx = (li.long(), pg_t.long(), off_t.long())
+            k = self.k_pool[idx]                     # (G, n, Hkv, D)
+            v = self.v_pool[idx]
+            if self._quant_active:
+                qf = np.stack([np.isin(pg[i], list(self.alloc[l].quantized))
+                               for i, l in enumerate(ls)])
+                if qf.any():
+                    isq = torch.from_numpy(qf).to(self.device)[..., None,
+                                                               None]
+                    ks = self.k_scale[idx[:2]][..., None, None]
+                    vs = self.v_scale[idx[:2]][..., None, None]
+                    k = torch.where(isq, (self.kq_pool[idx].float() * ks)
+                                    .to(self.dtype), k)
+                    v = torch.where(isq, (self.vq_pool[idx].float() * vs)
+                                    .to(self.dtype), v)
+            (hk, hv), buf = self._copy_to_host((k, v))
+            groups.append(dict(layers=ls, n=n, k=hk, v=hv, buf=buf))
+        return groups, empties
+
+    @staticmethod
+    def _realize_groups(groups) -> Dict[int, dict]:
+        """Per-layer host payloads of `_gather_device` groups (run at
+        transfer completion, after the copies landed)."""
+        out: Dict[int, dict] = {}
+        for g in groups:
+            for i, l in enumerate(g["layers"]):
+                out[l] = dict(k=g["k"][i], v=g["v"][i], n_tokens=g["n"])
+        return out
+
+    @staticmethod
+    def _group_bytes(groups) -> float:
+        return float(sum(2 * g["k"].numel() * g["k"].element_size()
+                         for g in groups))
+
+    def _launch_swap_to_host(self, sid: str, layers: List[int]) -> None:
+        """Launch the async device->host copy of ``layers`` and LEASE their
+        pages: the host dict gets `PendingPayload` futures now; pages
+        return to the free list and store accounting moves HBM->HOST only
+        when the copy lands (a failed or preempted transfer never loses
+        KV).  Zero-page layers complete inline."""
+        groups, empties = self._gather_device(sid, layers)
+        leases = {l: self.alloc[l].lease(sid) for l in layers}
+
+        def _bookkeep(done_layers):
+            for l, pages in leases.items():
+                if l in done_layers and pages:
+                    self.alloc[l].release(pages)
+            e = self._store_entry(sid)
+            if e is not None:
+                for l in done_layers:
+                    if l < e.n_layers and e.tier[l] == HBM:
+                        self.mgr.store.move_layer(sid, l, HOST)
+
+        for l, p in empties.items():
+            self.host[(sid, l)] = p
+        if empties:
+            _bookkeep(list(empties))
+        if not groups:
+            return
+
+        tr = Transfer(sid, OUT, [g["buf"] for g in groups],
+                      nbytes=self._group_bytes(groups))
+        pendings: Dict[int, PendingPayload] = {}
+        for g in groups:
+            for l in g["layers"]:
+                pendings[l] = PendingPayload(self.transfers, tr, l, g["n"])
+                self.host[(sid, l)] = pendings[l]
+
+        def _complete(t):
+            for l, pl in self._realize_groups(groups).items():
+                pendings[l].payload = pl
+                if self.host.get((sid, l)) is pendings[l]:
+                    self.host[(sid, l)] = pl
+            # copied bytes count when they LAND — a poisoned transfer
+            # moved nothing anywhere
+            self.stats["copied_bytes"] += t.nbytes
+            _bookkeep(list(pendings))
+
+        def _release(_t):
+            # cancelled on a live node (drop): the data is discarded but
+            # the leased pages must come home
+            for l, pages in leases.items():
+                if l in pendings and pages:
+                    self.alloc[l].release(pages)
+
+        tr.on_complete = _complete
+        tr.on_release = _release
+        self.transfers.launch(tr)
+
+    def _launch_scatter_in(self, sid: str, payloads: Dict[int, dict]) -> None:
+        """Launch the host->device copy of already-allocated layers, one
+        group per token count, and track it as an in-flight inbound future.
+        The copy runs on the copy stream into a device staging tensor; the
+        compute stream waits for it and scatters into the pools in place,
+        so every pool write stays ordered on the compute stream.  A
+        consumer fences via `transfers.fence(sid, IN)` — the residual wait
+        IS the stall."""
+        c = self.cfg
+        groups: Dict[int, List[int]] = {}
+        for l, p in payloads.items():
+            if p["n_tokens"] > 0:
+                groups.setdefault(p["n_tokens"], []).append(l)
+        if not groups:
+            return
+        nbytes = 0.0
+        keep = []
+        for n, ls in groups.items():
+            pg = np.stack([self._slots(l, sid, 0, n)[0] for l in ls])
+            off = np.tile(self._slots(ls[0], sid, 0, n)[1], (len(ls), 1))
+            hk = [payloads[l]["k"] for l in ls]
+            hv = [payloads[l]["v"] for l in ls]
+            if self._copy_stream is None:
+                ks, vs = torch.stack(hk), torch.stack(hv)
+            else:
+                shape = (len(ls), n, c.n_kv_heads, c.d_head)
+                ks = torch.empty(shape, dtype=self.dtype, device=self.device)
+                vs = torch.empty_like(ks)
+                cur = torch.cuda.current_stream(self.device)
+                self._copy_stream.wait_stream(cur)
+                with torch.cuda.stream(self._copy_stream):
+                    for i in range(len(ls)):
+                        ks[i].copy_(hk[i], non_blocking=True)
+                        vs[i].copy_(hv[i], non_blocking=True)
+                cur.wait_stream(self._copy_stream)
+                keep += hk + hv
+            self.model.scatter_paged(self.k_pool, self.v_pool,
+                                     self._i32(ls)[:, None], self._i32(pg),
+                                     self._i32(off), ks, vs)
+            nbytes += float(2 * ks.numel() * ks.element_size())
+        buf = (DONE if self._copy_stream is None else
+               EventBuffer(torch.cuda.current_stream(self.device), keep))
+
+        def _complete(t):
+            self.stats["copied_bytes"] += t.nbytes
+
+        self.transfers.launch(Transfer(sid, IN, [buf], nbytes=nbytes,
+                                       on_complete=_complete))
+
+    def _scatter_layers(self, sid: str, payloads: Dict[int, dict]) -> None:
+        """Allocate + launch the copy of many host-tier layers back into
+        the stacked pool.  All-or-nothing: if any layer's pages don't fit,
+        no allocator is touched (OutOfPages)."""
+        for l, p in payloads.items():
+            a = self.alloc[l]
+            need = a.pages_for(p["n_tokens"])
+            if need > len(a.free_list):
+                raise OutOfPages(f"{sid} layer {l}: need {need} pages, "
+                                 f"have {len(a.free_list)}")
+        for l, p in payloads.items():
+            self.alloc[l].allocate(sid, p["n_tokens"])
+        self._launch_scatter_in(sid, payloads)
+
+    def _extend_all(self, sid: str, n: int) -> None:
+        """Grow every layer's allocation by n tokens, all-or-nothing."""
+        if n <= 0:
+            return
+        for a in self.alloc:
+            s = a.seqs[sid]
+            need = a.pages_for(s.n_tokens + n) - len(s.pages)
+            if need > len(a.free_list):
+                raise OutOfPages(
+                    f"{sid}: need {need} pages, have {len(a.free_list)}")
+        for a in self.alloc:
+            a.extend(sid, n)
+
+    def _store_entry(self, sid: str):
+        if self.mgr is None:
+            return None
+        return self.mgr.store.entries.get(sid)
+
+    def _spool_payload(self, z, l: int) -> dict:
+        return dict(k=_host_tensor(z[f"k{l}"], self.dtype),
+                    v=_host_tensor(z[f"v{l}"], self.dtype),
+                    n_tokens=int(z["n_tokens"]))
+
+    def _ensure_resident(self, sid: str) -> None:
+        """Swap in any host/disk-staged layers (one launched batched copy);
+        allocate missing ones.  A layer that is neither resident, staged,
+        nor spooled while the session claims KV is LOST (e.g. poisoned by a
+        crash mid-transfer) — refuse loudly rather than serve phantom KV."""
+        st = self.seqs[sid]
+        missing = [l for l in range(self.cfg.n_layers)
+                   if sid not in self.alloc[l].seqs]
+        if not missing:
+            return
+        payloads: Dict[int, dict] = {}
+        with contextlib.ExitStack() as stack:
+            z = None
+            f = self.spool / f"{sid}.npz" if self.spool else None
+            for l in missing:
+                payload = self._host_payload(sid, l)
+                if payload is None and f is not None:
+                    if z is None and f.exists():
+                        z = stack.enter_context(np.load(f))
+                    if z is not None:
+                        payload = self._spool_payload(z, l)
+                if payload is not None:
+                    payloads[l] = payload
+
+        def _store_to_hbm(ls):
+            e = self._store_entry(sid)
+            if e is None:
+                return
+            for l in ls:
+                if l < e.n_layers and e.tier[l] != HBM:
+                    self.mgr.store.move_layer(sid, l, HBM)
+
+        empty = [l for l in missing if l not in payloads]
+        if empty and st.n_kv > 0:
+            raise LostKV(
+                f"{sid}: layers {empty} of a {st.n_kv}-token session are "
+                f"unreachable in every tier — refusing to serve phantom KV")
+        for l in empty:
+            self.alloc[l].allocate(sid, 0)
+        _store_to_hbm(empty)
+        if payloads:
+            # scatter first (may raise OutOfPages, touching nothing), only
+            # then drop the host copies — a failed swap-in must not lose KV
+            self._scatter_layers(sid, payloads)
+            for l in payloads:
+                self.host.pop((sid, l), None)
+                self.stats["swaps_in"] += 1
+            _store_to_hbm(payloads)
+            # admission under pressure: a swap-in landing on a nearly full
+            # node comes back already compressed — the alternative is
+            # immediately re-evicting someone else.  (The compress is
+            # enqueued after the scatter on the compute stream.)
+            if min(len(a.free_list) for a in self.alloc) \
+                    < max(1, self.n_pages // 8):
+                if self.quantize_session(sid):
+                    self.stats["admit_quantized"] += 1
 
     # -- engine iteration ---------------------------------------------------
 
@@ -505,6 +1031,7 @@ class RealBackend(Backend):
                     need += a.pages_for(s.n_tokens + q) - len(s.pages)
                     need += self._fork_need(a, sid)
                 else:
+                    # swap-in rescatters the full history before the chunk
                     base = st.n_kv if st is not None else 0
                     need += a.pages_for(base + q)
             if need > len(a.free_list):
@@ -515,7 +1042,7 @@ class RealBackend(Backend):
         """Mirror of step()'s all-or-nothing page check, without mutating.
         Completed-but-unreaped transfers are reaped first; a shortfall with
         swap-outs still in flight reclaims their leased pages (blocking)
-        before giving up."""
+        before giving up — the pages exist, they are just mid-copy."""
         self.transfers.poll()
         if self._plan_fits_now(lanes):
             return True
@@ -543,8 +1070,8 @@ class RealBackend(Backend):
         long = [i for i in order if _bucket(max(widths[i], 1)) > tb_med]
         return [np.asarray(short), np.asarray(long)]
 
-    def _dispatch_lanes(self, sids: List[str], ids_by_lane: List[List[int]]
-                        ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    def _dispatch_lanes(self, sids: List[str], ids_by_lane: List[List[int]],
+                        quant) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         """Assemble and run ONE bucketed ``step_paged`` call over the given
         lanes; returns (token ids (B,), logits (B, V) or None).  The pools
         are updated in place, so two sub-dispatches chain exactly like two
@@ -590,13 +1117,11 @@ class RealBackend(Backend):
             sum(-(-int(c) // self.page_size) for c in ctx[:B]))
         self.stats["grid_pages"] += Bb * Tb
         self.stats["sub_dispatches"] += 1
-        dev = self.device
         toks, logits = self.model.step_paged(
-            self.params, torch.from_numpy(ids_p).to(dev), self.k_pool,
-            self.v_pool, torch.from_numpy(tables).to(dev),
-            torch.from_numpy(qoff).to(dev), torch.from_numpy(ctx).to(dev),
-            torch.from_numpy(last).to(dev), torch.from_numpy(pg).to(dev),
-            torch.from_numpy(off).to(dev), kernel_mode=self.kernel_mode)
+            self.params, self._i32(ids_p), self.k_pool, self.v_pool,
+            self._i32(tables), self._i32(qoff), self._i32(ctx),
+            self._i32(last), self._i32(pg), self._i32(off), quant=quant,
+            kernel_mode=self.kernel_mode)
         # the one host sync of a dispatch: the token ids (and the logits
         # only when tracing)
         tok_np = toks[:B].cpu().numpy()
@@ -606,9 +1131,13 @@ class RealBackend(Backend):
         return tok_np, lg_np
 
     def step(self, lanes, now) -> StepResult:
-        # reap ready transfers BEFORE the timed region, as the JAX backend
+        # reap ready transfers BEFORE the timed region: a pending persist's
+        # np.savez is background work and must not inflate this step's
+        # measured duration
         self.transfers.poll()
         t0 = time.perf_counter()
+        # tier fetch first (timed: swap-ins during decode are stall, not
+        # compute)
         for ln in lanes:
             sid = ln.req.session_id
             if ln.req.output_ids is None:
@@ -618,13 +1147,23 @@ class RealBackend(Backend):
                 st = self.seqs[sid] = _SeqState(priority=ln.req.priority)
                 for a in self.alloc:
                     a.allocate(sid, 0)
-            elif any(sid not in a.seqs for a in self.alloc):
-                # only tier movement (not ported) takes layers off the pools
-                raise _not_ported("step of a non-resident session",
-                                  _TIER_MOVEMENT)
+            try:
+                self._ensure_resident(sid)
+            except OutOfPages:
+                # leased pages of draining swap-outs are reclaimable: fence
+                # them and retry before surfacing pressure to the engine
+                self.transfers.fence(kind=OUT)
+                self._ensure_resident(sid)
             e = self._store_entry(sid)
             if e is not None:
                 e.pinned = True      # serving: not migratable/evictable
+        # fence in-flight inbound futures (advisory prefetches launched in
+        # earlier steps, swap-ins launched just above): the wait measured
+        # here is the RESIDUAL transfer time the compute could not hide —
+        # ~0 when the advisory led admission by enough
+        for ln in lanes:
+            self.transfers.fence(sid=ln.req.session_id, kind=IN)
+        t_resident = time.perf_counter()
 
         ids_by_lane = [self._lane_ids(ln) for ln in lanes]
         for ln, ids in zip(lanes, ids_by_lane):
@@ -634,7 +1173,8 @@ class RealBackend(Backend):
         sids = [ln.req.session_id for ln in lanes]
 
         # all-or-nothing growth across the whole mixed batch: check every
-        # layer before mutating any allocator
+        # layer before mutating any allocator (reclaiming in-flight
+        # swap-outs' leased pages once if the free lists run short)
         def _shortfall(a):
             return sum(a.pages_for(a.seqs[s].n_tokens + len(ids))
                        - len(a.seqs[s].pages) + self._fork_need(a, s)
@@ -649,48 +1189,65 @@ class RealBackend(Backend):
                 continue
             raise OutOfPages(f"step: need {worst} pages beyond the free "
                              f"list")
-        # COPY-ON-WRITE forks, before any table is built: a lane whose
-        # write position lands mid-page in a page other holders still
-        # reference gets a private copy — the allocator remaps the block-
-        # table entry, one bucketed in-place device copy moves the contents.
-        # Writes at a page boundary never fork (the new page is private).
-        forks: List[Tuple[int, int, int]] = []       # (layer, src, dst)
+        # COPY-ON-WRITE forks, before any table is built: a lane whose write
+        # position lands mid-page in a page other holders still reference
+        # gets a private copy — the allocator remaps the block-table entry,
+        # one bucketed in-place device copy moves the contents.  Writes at
+        # a page boundary never fork (the new page is private).  A CoW fork
+        # of an int8 donor page re-materializes fp into the writer's copy,
+        # and a SOLE holder writing mid-page into its own quantized page
+        # dequantizes it in place (src == dst, bit cleared).
+        forks: List[Tuple[int, int, int, int]] = []  # (layer, src, dst, srcq)
         for sid in sids:
             st = self.seqs[sid]
             if st.n_kv % self.page_size == 0:
                 continue
             pi = st.n_kv // self.page_size
             for l, a in enumerate(self.alloc):
-                if pi >= len(a.seqs[sid].pages):
+                s = a.seqs[sid]
+                if pi >= len(s.pages):
                     continue
+                page = s.pages[pi]
                 r = a.fork_cow(sid, pi)
                 if r is not None:
-                    forks.append((l, r[0], r[1]))
+                    forks.append((l, r[0], r[1], int(a.is_quantized(r[0]))))
                     self.stats["cow_forks"] += 1
+                elif a.is_quantized(page):
+                    forks.append((l, page, page, 1))
+                    a.set_quantized(page, False)
+                    self.stats["dequant_forks"] += 1
         if forks:
             Fb = _bucket(len(forks))
-            f = np.zeros((3, Fb), np.int32)
-            f[1:] = self.n_pages                     # pad: trash -> trash
+            f = np.zeros((4, Fb), np.int32)
+            f[1:3] = self.n_pages                    # pad: trash -> trash
             f[:, :len(forks)] = np.asarray(forks, np.int32).T
-            fd = torch.from_numpy(f).to(self.device)
-            self.model.fork_paged(self.k_pool, self.v_pool, fd[0], fd[1],
-                                  fd[2])
+            fd = self._i32(f)
+            if f[3].any():
+                self.model.fork_paged_quant(
+                    self.k_pool, self.v_pool, self.kq_pool, self.vq_pool,
+                    self.k_scale, self.v_scale, fd[0], fd[1], fd[2], fd[3])
+            else:
+                self.model.fork_paged(self.k_pool, self.v_pool, fd[0], fd[1],
+                                      fd[2])
         for sid, ids in zip(sids, ids_by_lane):
             self._extend_all(sid, len(ids))
 
         B = len(lanes)
-        # per-lane table widths from LAYER 0: every layer grows in
-        # lockstep, so layer 0's page count is THE page count
+        # per-lane table widths from LAYER 0: _ensure_resident and
+        # _extend_all grow every layer in lockstep, so layer 0's page count
+        # is THE page count
         widths = [len(self.alloc[0].seqs[s].pages) for s in sids]
         groups = self._pack_lanes(widths)
         if len(groups) > 1:
             self.stats["split_steps"] += 1
+        quant = self._quant_args()        # one flag build serves every group
         tok_np = np.zeros((B,), np.int32)
         lg_np = (np.zeros((B, self.cfg.vocab), np.float32)
                  if self.trace_logits else None)
         for g in groups:
             toks, lg = self._dispatch_lanes([sids[i] for i in g],
-                                            [ids_by_lane[i] for i in g])
+                                            [ids_by_lane[i] for i in g],
+                                            quant)
             tok_np[g] = toks
             if lg_np is not None:
                 lg_np[g] = lg
@@ -713,38 +1270,64 @@ class RealBackend(Backend):
                 self.stats["prefills"] += 1
         if any_decode:
             self.stats["decode_steps"] += 1
-        # nothing is fetched from another tier yet, so no step stalls
-        return StepResult(time.perf_counter() - t0, stall=0.0)
+        return StepResult(time.perf_counter() - t0,
+                          stall=t_resident - t0)
 
-    def _extend_all(self, sid: str, n: int) -> None:
-        """Grow every layer's allocation by n tokens, all-or-nothing."""
-        if n <= 0:
+    # -- preemption / lifecycle ---------------------------------------------
+
+    def swap_out(self, sid: str, n_tokens: int) -> None:
+        """LAUNCH the copy of every resident layer to the host tier (one
+        batched async device->host transfer across all L layers) and lease
+        its pages — non-blocking; pages come back to the free list when the
+        copy lands (or at an allocation-pressure reclaim).  Fences any
+        transfer this session already has in flight first: a victim
+        preempted mid-prefetch (or re-preempted while an earlier swap-out
+        drains) must order those copies before its pages are re-gathered."""
+        st = self.seqs.get(sid)
+        if st is None:
             return
-        for a in self.alloc:
-            s = a.seqs[sid]
-            need = a.pages_for(s.n_tokens + n) - len(s.pages)
-            if need > len(a.free_list):
-                raise OutOfPages(
-                    f"{sid}: need {need} pages, have {len(a.free_list)}")
-        for a in self.alloc:
-            a.extend(sid, n)
-
-    def _store_entry(self, sid: str):
-        if self.mgr is None:
-            return None
-        return self.mgr.store.entries.get(sid)
-
-    # -- lifecycle ----------------------------------------------------------
+        # a PERSIST is gather-only and rides along undisturbed; IN/OUT
+        # must be ordered before this session's pages are re-gathered
+        for kind in (IN, OUT):
+            if self.transfers.pending_for(sid, kind):
+                self.transfers.fence(sid=sid, kind=kind)
+        # host payloads are re-inflated to full precision by the gather —
+        # reprice the store entry to fp geometry BEFORE its pages lease out
+        # (the precision bits die with the pages when the copy lands)
+        e = self._store_entry(sid)
+        if e is not None and e.quant_tokens:
+            a0 = self.alloc[0]
+            s0 = a0.seqs.get(sid)
+            if s0 is not None:
+                private = sum(1 for p in s0.pages
+                              if a0.refcount_of(p) == 1)
+                self.mgr.store.reprice(
+                    sid, private * self._layer_page_bytes, 0)
+        resident = [l for l in range(self.cfg.n_layers)
+                    if sid in self.alloc[l].seqs]
+        self._launch_swap_to_host(sid, resident)
+        e = self._store_entry(sid)
+        if e is not None:
+            e.pinned = False         # preempted: fair game for migration
+        self.stats["swaps_out"] += 1
 
     def drop(self, sid: str) -> None:
-        # shared pages survive the free(): refcounting keeps any page a
+        # cancel in-flight transfers (reclaiming their leased pages): the
+        # session is gone, nothing should be installed or written for it.
+        # Shared pages survive the free(): refcounting keeps any page a
         # sharer still references out of the free list, and the prefix
-        # index forgets this donor so no later admission adopts from it
+        # index forgets this donor so no later admission adopts from it.
         self.transfers.poison(sid=sid, release=True)
         self.prefix.drop(sid)
         for a in self.alloc:
             a.free(sid)
+        for l in range(self.cfg.n_layers):
+            self.host.pop((sid, l), None)
         self.seqs.pop(sid, None)
+        if self.spool:
+            f = self.spool / f"{sid}.npz"
+            if f.exists():
+                f.unlink()
 
     def finish(self, req, now) -> None:
         """Request completed: register the session's token history in the
@@ -752,6 +1335,9 @@ class RealBackend(Backend):
         sid = req.session_id
         st = self.seqs.get(sid)
         if st is not None and st.n_kv > 0 and len(st.ids) == st.n_kv:
+            # ids shorter than n_kv = history not fully known (e.g. session
+            # recovered from a spool without ids): never index unverifiable
+            # chunks
             self.prefix.register(sid, st.ids)
         if self.mgr is None:
             return
@@ -763,52 +1349,222 @@ class RealBackend(Backend):
         private = sum(1 for p in pages if a0.refcount_of(p) == 1)
         shared_tok = min((len(pages) - private) * self.page_size,
                          st.n_kv if st is not None else 0)
-        self.mgr.mark_resident(sid, self.session_tokens(sid),
-                               private * self._layer_page_bytes,
+        bpl, quant_tok = self._session_bpl(sid)
+        self.mgr.mark_resident(sid, self.session_tokens(sid), bpl,
                                priority=req.priority,
-                               shared_tokens=shared_tok)
+                               shared_tokens=shared_tok,
+                               quant_tokens=quant_tok)
         e = self._store_entry(sid)
         if e is not None:
             e.pinned = False         # idle again: migratable between turns
 
-    def persist(self, sid: str) -> bool:
-        """Disk write-through.  With no spool (the only configuration this
-        slice builds) there is no persistent copy to claim: False, as in
-        the JAX backend."""
-        if self.spool is None:
-            return False
-        raise _not_ported("persist", _TIER_MOVEMENT)
-
-    # -- not ported yet ----------------------------------------------------
-
-    def quantize_session(self, sid: str) -> int:
-        raise _not_ported("quantize_session", _INT8_TIER)
-
-    def swap_out(self, sid: str, n_tokens: int) -> None:
-        raise _not_ported("swap_out", _TIER_MOVEMENT)
+    # -- node-manager hooks (cooperative purge / advisory prefetch) ---------
 
     def evict_layer(self, sid: str, layer: int) -> None:
-        raise _not_ported("evict_layer", _TIER_MOVEMENT)
+        """Launch one layer's eviction copy (async; pages leased until it
+        lands).  The caller (cooperative purge) drains the batch once after
+        launching every victim layer — the copies overlap each other."""
+        a = self.alloc[layer]
+        if sid not in a.seqs or sid not in self.seqs:
+            return
+        # layer-granular movement breaks the lockstep the int8 ledger price
+        # assumes: dequant-write-back the whole session first (clears its
+        # bits) and reprice to fp, THEN evict the one layer
+        if self._quant_active and any(
+                x.quantized_pages_of(sid) for x in self.alloc):
+            self._dequantize_session(sid)
+            self._reprice_store(sid)
+        self._launch_swap_to_host(sid, [layer])
+        self.stats["layer_evictions"] += 1
 
-    def prefetch(self, sid: str, layers: List[int]) -> Optional[List[int]]:
-        raise _not_ported("prefetch", _TIER_MOVEMENT)
+    def prefetch(self, sid: str, layers: List[int]) -> List[int]:
+        """Advisory-path swap-in, ENQUEUED ahead of admission: allocate
+        pages for as many of ``layers`` (in priority order) as physically
+        fit and launch ONE async host->device copy and scatter for them.
+        By the time the engine admits the session, `_ensure_resident` finds
+        the pages placed and only fences the in-flight future.  Returns the
+        launched prefix — an OutOfPages or unreachable payload cuts the
+        plan short (best-effort, never raises)."""
+        if sid not in self.seqs:
+            return []
+        payloads: Dict[int, dict] = {}
+        launched: List[int] = []
+        for l in layers:
+            if sid in self.alloc[l].seqs:
+                launched.append(l)       # already resident: placement holds
+                continue
+            p = self._host_payload(sid, l)
+            if p is None:
+                break                    # unreachable payload: stop the plan
+            try:
+                self.alloc[l].allocate(sid, p["n_tokens"])
+            except OutOfPages:
+                break                    # HBM physically full: plan cut short
+            payloads[l] = p
+            launched.append(l)
+        if payloads:
+            self._launch_scatter_in(sid, payloads)
+            for l in payloads:
+                self.host.pop((sid, l), None)
+                self.stats["layer_promotions"] += 1
+        return launched
+
+    def _np_payload(self, p: dict) -> dict:
+        """A host payload in the spool/export format (numpy; bfloat16 as
+        uint16 bits beside its ``dtype``)."""
+        return dict(k=_np_array(p["k"]), v=_np_array(p["v"]),
+                    n_tokens=int(p["n_tokens"]),
+                    dtype=_dtype_name(self.dtype))
+
+    def persist(self, sid: str) -> bool:
+        """Disk write-through, launched asynchronously: the device->host
+        gather of every resident layer starts now; the .npz lands when the
+        transfer completes at a drain point.  Returns False (no persistent
+        copy claimable) when there is no spool or a layer is unreachable.
+        Recovery is gated on the physically written file, so a crash that
+        poisons the in-flight write can never fake durability."""
+        if self.spool is None or sid not in self.seqs:
+            return False
+        st = self.seqs[sid]
+        resident, staged = [], []
+        for l in range(self.cfg.n_layers):
+            if sid in self.alloc[l].seqs:
+                resident.append(l)
+            elif (sid, l) in self.host:
+                staged.append(l)
+            else:
+                return False               # a layer is unreachable: no copy
+        groups, empties = self._gather_device(sid, resident)
+        staged_refs = {l: self.host[(sid, l)] for l in staged}
+        # the pending token has no KV anywhere — it must ride along in the
+        # spool or a post-crash recovery cannot resume the sequence
+        last_token = -1 if st.last_token is None else st.last_token
+        priority = st.priority
+        ids_arr = np.asarray(st.ids, np.int64)     # snapshot at launch: the
+        path = self.spool / f"{sid}.npz"           # live list keeps growing
+
+        def _complete(t):
+            payloads: Dict[int, dict] = dict(empties)
+            payloads.update(self._realize_groups(groups))
+            self.stats["copied_bytes"] += t.nbytes
+            for l, p in staged_refs.items():
+                if isinstance(p, PendingPayload):
+                    p = p.get()
+                    if p is None:
+                        return             # staged layer lost: abort write
+                payloads[l] = p
+            ns = {p["n_tokens"] for p in payloads.values()}
+            assert len(ns) == 1, f"{sid}: per-layer n_tokens diverge: {ns}"
+            arrs = dict(n_tokens=np.int64(ns.pop()),
+                        last_token=np.int64(last_token),
+                        priority=np.int64(priority), ids=ids_arr,
+                        dtype=np.str_(_dtype_name(self.dtype)))
+            for l, p in payloads.items():
+                arrs[f"k{l}"] = _np_array(p["k"])
+                arrs[f"v{l}"] = _np_array(p["v"])
+            np.savez(path, **arrs)
+            self.stats["disk_writes"] += 1
+
+        self.transfers.launch(Transfer(
+            sid, PERSIST, [g["buf"] for g in groups], on_complete=_complete,
+            nbytes=self._group_bytes(groups)))
+        return True
+
+    # -- peer migration (the advisory path, real copies) --------------------
 
     def export_session(self, sid: str) -> Optional[dict]:
-        raise _not_ported("export_session", _TIER_MOVEMENT)
+        """Detach a session into the migration format (numpy layers, see
+        the module docstring) for a peer.  The handoff fences this
+        session's in-flight transfers — bytes must physically exist before
+        they can cross nodes, so a source crash after export can never
+        poison the adopting node's copy."""
+        st = self.seqs.get(sid)
+        if st is None:
+            return None
+        self.swap_out(sid, st.n_kv)
+        self.transfers.fence(sid=sid)
+        layers = {l: self._np_payload(self.host.pop((sid, l)))
+                  for l in range(self.cfg.n_layers) if (sid, l) in self.host}
+        self.seqs.pop(sid)
+        if self.spool:
+            f = self.spool / f"{sid}.npz"
+            if f.exists():
+                f.unlink()
+        return dict(layers=layers, n_kv=st.n_kv, last_token=st.last_token,
+                    priority=st.priority, ids=list(st.ids))
 
     def import_session(self, sid: str, payload: dict) -> None:
-        raise _not_ported("import_session", _TIER_MOVEMENT)
+        """Adopt a migrated session — from this package or the JAX one —
+        into the host tier (promotion follows the node manager's priority
+        plan)."""
+        ids = list(payload.get("ids") or [])
+        if len(ids) != payload["n_kv"]:
+            ids = []                 # unknown history: never a prefix donor
+        self.seqs[sid] = _SeqState(n_kv=payload["n_kv"],
+                                   last_token=payload["last_token"],
+                                   priority=payload.get("priority", 0),
+                                   ids=ids)
+        for l, p in payload["layers"].items():
+            self.host[(sid, l)] = dict(k=_host_tensor(p["k"], self.dtype),
+                                       v=_host_tensor(p["v"], self.dtype),
+                                       n_tokens=int(p["n_tokens"]))
+        self.stats["migrations_in"] += 1
 
-    def recover_session(self, sid: str) -> Optional[dict]:
-        raise _not_ported("recover_session", _TIER_MOVEMENT)
+    # -- fault tolerance ----------------------------------------------------
 
     def crash(self) -> None:
-        raise _not_ported("crash", _TIER_MOVEMENT)
+        """Node failure: the HBM pools and host staging tier are lost; the
+        disk spool survives and is the recovery substrate
+        (`recover_session` on this backend, driven by a live peer).
+        In-flight transfers are POISONED, not resolved — a gather that was
+        mid-copy installs nothing, a pending .npz write never happens —
+        so no phantom KV can outlive the node."""
+        self.transfers.poison()
+        self.prefix.clear()          # the index described pages now gone
+        self.alloc = [PagedAllocator(self.n_pages, self.page_size)
+                      for _ in range(self.cfg.n_layers)]
+        self.host.clear()
+        self.seqs.clear()
+        # the int8 shadow tier lives in the same HBM: it dies too
+        self.kq_pool = self.vq_pool = None
+        self.k_scale = self.v_scale = None
+        self._quant_active = False
+
+    def spool_exists(self, sid: str) -> bool:
+        return self.spool is not None and (self.spool / f"{sid}.npz").exists()
+
+    def recover_session(self, sid: str) -> Optional[dict]:
+        """Rebuild a migration-format payload from this node's disk spool
+        (the only tier that survives `crash()`).  Consumes the spool file —
+        the session's persistent copy moves with it to the adopting node."""
+        if self.spool is None:
+            return None
+        f = self.spool / f"{sid}.npz"
+        if not f.exists():
+            return None
+        with np.load(f) as z:
+            n = int(z["n_tokens"])
+            dt = str(z["dtype"]) if "dtype" in z.files \
+                else _dtype_name(self.dtype)
+            layers = {l: dict(k=z[f"k{l}"], v=z[f"v{l}"], n_tokens=n,
+                              dtype=dt)
+                      for l in range(self.cfg.n_layers)}
+            last = int(z["last_token"]) if "last_token" in z.files else -1
+            prio = int(z["priority"]) if "priority" in z.files else 0
+            ids = [int(i) for i in z["ids"]] if "ids" in z.files else []
+        self.stats["copied_bytes"] += sum(
+            p["k"].nbytes + p["v"].nbytes for p in layers.values())
+        f.unlink()
+        return dict(layers=layers, n_kv=n,
+                    last_token=None if last < 0 else last, priority=prio,
+                    ids=ids)
 
 
 def make_backend(cfg, model, params, **kw):
-    """Real-backend factory.  The dense family serves through `RealBackend`;
-    the recurrent and hybrid families' `StateBackend` is not ported yet."""
+    """Real-backend factory (``hbm_pages``, ``spool_dir`` and the other
+    keywords pass through to `RealBackend`).  The dense family serves
+    through `RealBackend`; the recurrent and hybrid families' `StateBackend`
+    is not ported yet."""
     if cfg.family != "dense":
         raise NotImplementedError(
             f"make_backend: family {cfg.family!r} is not ported yet "

@@ -3,11 +3,13 @@
 SYMPHONY's core claim is that multi-turn hints let K,V caches be moved
 between tiers *before* a request needs them, so the serving step never
 waits on a copy.  This module is the real-backend half of that claim: every
-host<->device tier movement is LAUNCHED (the device-side gather/scatter op
-is dispatched and, for device->host, `copy_to_host_async` started) and
-tracked as an in-flight `Transfer`; the serving loop keeps dispatching
-fused steps while the copies drain in the background, and only *fences* a
-transfer where a consumer actually needs its result:
+host<->device tier movement is LAUNCHED (the device-side gather or scatter
+is enqueued on the compute stream and the host<->device copy on a side
+copy stream, into or out of pinned host memory) and tracked as an
+in-flight `Transfer` whose buffers are CUDA events (`EventBuffer`); the
+serving loop keeps dispatching fused steps while the copies drain in the
+background, and only *fences* a transfer where a consumer actually needs
+its result:
 
     launch            in flight                 complete
       |                   |                        |
@@ -42,7 +44,46 @@ from __future__ import annotations
 import time
 from typing import Callable, List, Optional
 
+import torch
+
 OUT, IN, PERSIST = "out", "in", "persist"
+
+
+class EventBuffer:
+    """A transfer buffer on the card: ready once a CUDA event recorded on
+    ``stream`` after the copy (or the scatter) has fired.  It holds the
+    tensors the copy reads or writes (``keep``) until then, so neither a
+    pinned host buffer nor a gathered device tensor is freed under an
+    in-flight copy."""
+
+    __slots__ = ("event", "keep")
+
+    def __init__(self, stream, keep=()):
+        self.event = torch.cuda.Event()
+        self.event.record(stream)
+        self.keep = tuple(keep)
+
+    def is_ready(self) -> bool:
+        return self.event.query()
+
+    def block_until_ready(self) -> None:
+        self.event.synchronize()
+
+
+class DoneBuffer:
+    """The buffer of a transfer made on CPU tensors: the copy already
+    happened when it was launched."""
+
+    __slots__ = ()
+
+    def is_ready(self) -> bool:
+        return True
+
+    def block_until_ready(self) -> None:
+        pass
+
+
+DONE = DoneBuffer()
 
 
 class Transfer:
@@ -57,7 +98,7 @@ class Transfer:
                  nbytes: float = 0.0):
         self.sid = sid
         self.kind = kind                 # OUT | IN | PERSIST
-        self.bufs = list(bufs)           # device arrays the copy waits on
+        self.bufs = list(bufs)           # EventBuffer / DoneBuffer
         self.on_complete = on_complete   # full bookkeeping (once, at drain)
         self.on_release = on_release     # poison path: free resources only
         self.done = False
@@ -66,19 +107,14 @@ class Transfer:
         self.nbytes = nbytes
 
     def ready(self) -> bool:
-        """Non-blocking: has the device finished producing every buffer?
-        A buffer deleted by a later donating dispatch has necessarily been
-        produced already (in-order execution), so deletion means ready."""
-        try:
-            return all(b.is_ready() for b in self.bufs)
-        except RuntimeError:
-            return True
+        """Non-blocking: has the device finished every buffer's copy?"""
+        return all(b.is_ready() for b in self.bufs)
 
 
 class PendingPayload:
     """Host-tier placeholder for one (sid, layer) whose device->host gather
     is still in flight.  `get()` fences the owning transfer (running its
-    completion bookkeeping) and returns the realized numpy payload — or
+    completion bookkeeping) and returns the realized host payload — or
     None if the transfer was poisoned by a crash (the data is gone; the
     caller must fall back to the disk spool or recompute, never serve it).
     """
@@ -128,10 +164,7 @@ class TransferEngine:
             return
         t.done = True                      # before callbacks: reentrancy-safe
         for b in t.bufs:
-            try:
-                b.block_until_ready()
-            except RuntimeError:
-                pass    # donated by a later dispatch: it already ran
+            b.block_until_ready()
         if t.on_complete is not None:
             t.on_complete(t)
         self.stats["completed"] += 1

@@ -1,0 +1,155 @@
+"""Twin harness of the port's serving tests: one scenario, two packages.
+
+`twins(kind)` gives the JAX package (attention through its jnp oracle,
+``kernel_mode="ref"``) and the port (CPU tensors, plain attention) as two
+`Pkg`s over the SAME weights — JAX-initialised, carried across by
+`convert.params_from_numpy` — on ``llama3-8b.reduced(dtype="float32")``
+with 4 kv heads (MHA) or 2 (GQA).  A test runs its scenario once per `Pkg`
+and asserts the two agree (tokens, counters, invariants) and that the
+port's tokens equal the port's dense prefill/decode recompute.
+
+Both cost models get the JAX package's v5e figures (`V5E`): the port's
+defaults are the H100 data sheet, so its quantize-or-swap and stall
+decisions would otherwise differ from JAX's on the same trace.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Dict
+
+import jax
+import numpy as np
+import torch
+
+from repro import configs as jconfigs
+from repro.core import advisory as jadvisory
+from repro.core.node_manager import NodeManager as JaxManager
+from repro.models.registry import get_model as jax_model
+from repro.serving import backend as jbackend
+from repro.serving.cost_model import CostModel as JaxCost
+from repro.serving.cost_model import HardwareSpec as JaxHardware
+from repro.serving.engine import NodeEngine as JaxEngine
+from repro_torch import configs as tconfigs
+from repro_torch import convert
+from repro_torch.core import advisory as tadvisory
+from repro_torch.core.node_manager import NodeManager
+from repro_torch.models.registry import get_model
+from repro_torch.serving import backend as tbackend
+from repro_torch.serving.cost_model import CostModel, HardwareSpec
+from repro_torch.serving.engine import NodeEngine
+
+GEN = 6
+PAGE = 8
+V5E = dataclasses.asdict(JaxHardware(chips_per_replica=1))
+
+
+@dataclasses.dataclass
+class Pkg:
+    """One package's entry points and the model it serves."""
+    name: str
+    cfg: Any
+    model: Any
+    params: Any
+    Request: Any
+    Advisory: Any
+    Manager: Any
+    Engine: Any
+    Cost: Any
+    Hardware: Any
+    Backend: Any
+    LostKV: Any
+    backend_kw: Dict
+
+    def cost(self):
+        cost = self.Cost(self.cfg, self.Hardware(**V5E))
+        cost.set_param_count(self.model.param_count())
+        return cost
+
+    def node(self, n_pages=32, page_size=PAGE, node_id=0, max_batch=4,
+             engine_kw=None, **backend_kw):
+        """(cost, manager, backend, engine) of one serving node."""
+        cost = self.cost()
+        mgr = self.Manager(node_id, self.cfg, cost)
+        be = self.Backend(self.cfg, self.model, self.params, mgr=mgr,
+                          n_pages=n_pages, page_size=page_size,
+                          **self.backend_kw, **backend_kw)
+        eng = self.Engine(node_id, self.cfg, cost, mgr, max_batch=max_batch,
+                          backend=be, **(engine_kw or {}))
+        return cost, mgr, be, eng
+
+
+@functools.lru_cache(maxsize=None)
+def twins(kind: str = "gqa", seed: int = 0):
+    """(JAX Pkg, port Pkg) with the same weights; kind: mha | gqa."""
+    n_kv = dict(mha=4, gqa=2)[kind]
+    jcfg = jconfigs.get_config("llama3-8b").reduced(dtype="float32",
+                                                    n_kv_heads=n_kv)
+    cfg = tconfigs.get_config("llama3-8b").reduced(dtype="float32",
+                                                   n_kv_heads=n_kv)
+    jm = jax_model(jcfg)
+    jp = jm.init(jax.random.key(seed))
+    tm = get_model(cfg, device="cpu")
+    tp = convert.params_from_numpy(cfg, jax.tree.map(np.asarray, jp),
+                                   device="cpu")
+    jpkg = Pkg("jax", jcfg, jm, jp, jadvisory.InferenceRequest,
+               jadvisory.AdvisoryRequest, JaxManager, JaxEngine, JaxCost,
+               JaxHardware, jbackend.RealBackend, jbackend.LostKV,
+               dict(kernel_mode="ref"))
+    tpkg = Pkg("torch", cfg, tm, tp, tadvisory.InferenceRequest,
+               tadvisory.AdvisoryRequest, NodeManager, NodeEngine, CostModel,
+               HardwareSpec, tbackend.RealBackend, tbackend.LostKV,
+               dict(device="cpu"))
+    return jpkg, tpkg
+
+
+def turns(cfg, lens, seed=0):
+    rng = np.random.default_rng(seed)
+    return [list(map(int, rng.integers(0, cfg.vocab, n))) for n in lens]
+
+
+def recompute(tpkg: Pkg, turn_ids, gen=GEN):
+    """Greedy multi-turn serve by full recompute each turn, on the port's
+    dense prefill/decode."""
+    cfg, model, params = tpkg.cfg, tpkg.model, tpkg.params
+    history, out = [], []
+    for t in turn_ids:
+        history = history + list(t)
+        logits, cache = model.prefill(params, torch.tensor([history]))
+        cache = model.grow_cache(cache, gen)
+        outs = []
+        for _ in range(gen):
+            nxt = torch.argmax(logits[:, :cfg.vocab], -1).to(torch.int32)
+            outs.append(int(nxt[0]))
+            logits, cache = model.decode_step(params, cache, nxt)
+        out.append(outs)
+        history = history + outs
+    return out
+
+
+def check_invariants(mgr, be):
+    for a in be.alloc:
+        a.check()
+    mgr.store.check()
+
+
+def serve_to_end(eng, reqs, mgr, be, now=0.0, hook=None):
+    """Submit ``reqs`` and step until the engine is idle, checking the
+    allocator and store invariants at every step edge (a drain point)."""
+    for r in reqs:
+        eng.submit(r)
+    while eng.waiting or eng.running:
+        now += eng.step(now)
+        check_invariants(mgr, be)
+        if hook is not None:
+            hook(now)
+    return now
+
+
+def counters(be, keys=("swaps_out", "swaps_in", "layer_evictions",
+                       "layer_promotions", "migrations_in", "disk_writes",
+                       "prefix_hits", "shared_tokens", "cow_forks",
+                       "quantized_pages", "quant_dispatches", "dequant_forks",
+                       "admit_quantized", "prefills", "decode_steps",
+                       "sub_dispatches", "split_steps", "copied_bytes")):
+    return {k: be.stats[k] for k in keys}

@@ -7,8 +7,13 @@ for CPU tensors.  Tolerances are tests/test_kernels.py's: 2e-4 in float32
 and 2e-2 in bfloat16, compared on each lane's real query rows (padded rows
 are garbage by contract); ctx = 0 lanes must be exactly zero.
 
-The ``gpu`` tests hold the hand-written CUDA kernel against the plain
-version on the card; they skip where there is no card.  The machine with
+The int8 kernel (``paged_chunk_attention_quant``) gets the same treatment
+through ``ops.paged_chunk_attention(..., quant=...)``: its plain version is
+the quant tuple of ``kernels.ref`` (held to JAX in tests/test_torch_quant.py).
+
+The ``gpu`` tests hold the hand-written CUDA kernels against the plain
+versions on the card, and the int8 kernel with every flag clear bit-exact
+against the fp kernel; they skip where there is no card.  The machine with
 the card has no JAX, so this module imports JAX only inside the CPU tests
 (``python -m pytest -m gpu`` deselects them there).
 """
@@ -21,6 +26,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.quant import quantize_int8
 
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 
@@ -60,6 +66,17 @@ def _torch(arrs, dtype):
     t = lambda a: torch.from_numpy(a).to(dtype)  # noqa: E731
     return (t(q), t(kp), t(vp), torch.from_numpy(tables),
             torch.from_numpy(qoff), torch.from_numpy(ctx))
+
+
+def _quant(kp, vp, seed, share=0.75):
+    """int8 shadow pools of float32 pools, their scales, and flags on about
+    ``share`` of the pages (torch, CPU)."""
+    kq, ks = quantize_int8(torch.from_numpy(kp), axis=(1, 2, 3))
+    vq, vs = quantize_int8(torch.from_numpy(vp), axis=(1, 2, 3))
+    rng = np.random.default_rng(seed)
+    flags = torch.from_numpy((rng.random(kp.shape[0]) < share)
+                             .astype(np.int32))
+    return kq, vq, ks, vs, flags
 
 
 def _jax(arrs, dtype: str):
@@ -152,6 +169,21 @@ def test_dispatch_follows_the_tensor_device():
     assert pa.launches == before
 
 
+def test_quant_dispatch_follows_the_tensor_device():
+    """The int8 entry the same way: CPU tensors take the plain quant
+    version, the kernel wrapper refuses them and counts nothing."""
+    arrs = _case(19, 2, 4, 4, 2, 64, 8, 3)
+    args = _torch(arrs, torch.float32)
+    quant = _quant(arrs[1], arrs[2], 19)
+    before = pa.quant_launches
+    torch.testing.assert_close(
+        ops.paged_chunk_attention(*args, quant=quant),
+        tref.paged_chunk_attention_ref(*args, quant=quant))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        pa.paged_chunk_attention_quant(*args[:3], *quant, *args[3:])
+    assert pa.quant_launches == before
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -216,3 +248,55 @@ def test_cuda_kernel_rejects_what_it_cannot_take(cuda):
                                  ctx)
     with pytest.raises(TypeError, match="int32"):
         pa.paged_chunk_attention(q, kp, vp, tables.long(), qoff, ctx)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,H,Hkv,D,page,maxp", CARD_GEOMETRIES)
+def test_cuda_quant_kernel_matches_plain(cuda, B, Sq, H, Hkv, D, page, maxp,
+                                         dtype):
+    arrs = _case(B * 11 + Sq, B, Sq, H, Hkv, D, page, maxp,
+                 decode=(Sq == 1))
+    args = [t.to(cuda) for t in _torch(arrs, getattr(torch, dtype))]
+    quant = [t.to(cuda) for t in _quant(arrs[1], arrs[2], B + Sq)]
+    before = (pa.launches, pa.quant_launches)
+    got = ops.paged_chunk_attention(*args, quant=quant)
+    torch.cuda.synchronize()
+    assert (pa.launches, pa.quant_launches) == (before[0], before[1] + 1)
+    want = tref.paged_chunk_attention_ref(*args, quant=quant)
+    assert torch.isfinite(got.float()).all()
+    _assert_real_rows(got.float().cpu(), want.float().cpu(), arrs[4],
+                      arrs[5], TOL[dtype])
+    for b, n in enumerate(arrs[5] - arrs[4]):     # bucket padding: zeros
+        assert bool((got[b, max(int(n), 0):] == 0).all()), f"lane {b}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_quant_kernel_with_flags_clear_is_the_fp_kernel(cuda, dtype):
+    arrs = _case(23, 5, 37, 32, 8, 128, 16, 6)
+    args = [t.to(cuda) for t in _torch(arrs, getattr(torch, dtype))]
+    quant = [t.to(cuda) for t in _quant(arrs[1], arrs[2], 23, share=0.0)]
+    assert not bool(quant[4].any())
+    got = ops.paged_chunk_attention(*args, quant=quant)
+    want = ops.paged_chunk_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_quant_kernel_rejects_what_it_cannot_take(cuda):
+    arrs = _case(2, 2, 4, 4, 2, 64, 8, 3)
+    q, kp, vp, tables, qoff, ctx = [t.to(cuda)
+                                    for t in _torch(arrs, torch.float32)]
+    kq, vq, ks, vs, flags = [t.to(cuda)
+                             for t in _quant(arrs[1], arrs[2], 2)]
+    with pytest.raises(TypeError, match="int8"):
+        pa.paged_chunk_attention_quant(q, kp, vp, kq.float(), vq, ks, vs,
+                                       flags, tables, qoff, ctx)
+    with pytest.raises(TypeError, match="int32"):
+        pa.paged_chunk_attention_quant(q, kp, vp, kq, vq, ks, vs,
+                                       flags.long(), tables, qoff, ctx)
+    with pytest.raises(ValueError, match="P="):
+        pa.paged_chunk_attention_quant(q, kp, vp, kq, vq, ks[:-1], vs,
+                                       flags, tables, qoff, ctx)
