@@ -1,6 +1,7 @@
 """Card check of the PyTorch/CUDA port: builds the CUDA kernels, holds each
-against its plain PyTorch version, and serves llama3-8b at full width and
-depth through the port's entry points, under memory pressure too.
+against its plain PyTorch version, and serves llama3-8b (under memory
+pressure too) and zamba2-2.7b at full width and depth through the port's
+entry points.
 
 Run from the repository root on a machine with an NVIDIA card:
 
@@ -9,15 +10,18 @@ Run from the repository root on a machine with an NVIDIA card:
 
 Phases:
   1. environment: the card's name and power limit;
-  2. build: nvcc for sm_90a, with the registers, shared memory and spills
-     that ptxas reports;
+  2. build: nvcc for sm_90a, one process per kernel source, all started
+     together, with the registers, shared memory and spills that ptxas
+     reports;
   3. kernel vs plain version at llama3-8b widths (H=32, Hkv=8, D=128,
      page 16) in bf16 and fp32: decode at B=8 and 32 (ctx up to 4096),
      chunks of 128 and 512 at q_offsets > 0, ctx=0 lanes, permuted tables
      with last-valid padding; the int8 kernel (B.2) at decode B=8 with 3/4
      of each lane's pages flagged and at a 512-token chunk with mixed
-     flags, and with every flag clear bit-identical to the fp kernel; times
-     of each kernel, the plain version, the bound and a library yardstick;
+     flags, and with every flag clear bit-identical to the fp kernel;
+     kernel 1 at D=64 (decode B=8, a 128-token chunk); times of each
+     kernel, the plain version, the bound and a library yardstick; kernel
+     1 and B.2 at D=64 and 128 bit for bit to KERNEL1_DIGESTS;
   4. serve llama3-8b (32 layers, bf16, random weights from --seed) with
      NodeEngine + NodeManager + RealBackend: 4 sessions x 3 turns, chunked
      prompts, a shared system prompt adopted across sessions with a
@@ -42,7 +46,26 @@ Phases:
      session swapped out and back, persisted and recovered after a crash,
      and migrated to a third node serves the dense recompute's tokens; a
      session served from int8 pages equals a twin whose pages were
-     re-materialized to fp by a host round trip.
+     re-materialized to fp by a host round trip;
+  8. the SSD scan kernel (B.5) against its plain version at zamba2-2.7b's
+     SSD shapes (H=80, P=64, N=64, G=1) and mamba2-2.7b's (N=128): lanes
+     1, 2, 8; 1, 256, 513 and 1024 steps; zero and random initial state;
+     bf16 and fp32; y and the final state each within 3e-2 (bf16) / 2e-4
+     (fp32) x max |plain|.  Kernel 1 and B.2 at zamba2-2.7b's shared
+     attention (H=Hkv=32, D=80): decode B=8 and a 512-token chunk;
+  9. serve zamba2-2.7b (54 Mamba2 layers, 9 shared applications, bf16,
+     random weights from --seed) with NodeEngine + NodeManager +
+     StateBackend: 4 sessions x 3 turns, one session swapped out and back,
+     one persisted, the node crashed and the session recovered from the
+     spool on a second node.  At every step ssd_scan runs on every Mamba
+     layer and kernel 1 on every shared application of every dispatch, and
+     no plain version runs; a lockstep twin on the plain versions (and in
+     float64) must agree; one more turn on a fresh node runs under
+     torch.profiler (device time by kernel family, idle share); the main
+     path's kernel calls are re-timed;
+ 10. exact tokens in fp32 (zamba2 at full width, 12 Mamba layers, 2 shared
+     applications) through swap-out/in, eviction and promotion, and spool
+     recovery after a crash: the dense prefill/decode recompute's tokens.
 
 It prints progress lines, then one line with the kernels' JSON record, the
 card's name and power limit, and as the last line
@@ -54,6 +77,8 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
+import hashlib
 import json
 import subprocess
 import sys
@@ -72,11 +97,13 @@ from repro_torch.core.advisory import (AdvisoryRequest,  # noqa: E402
 from repro_torch.core.node_manager import NodeManager  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels.quant import quantize_int8  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.serving.backend import RealBackend  # noqa: E402
 from repro_torch.serving.cost_model import CostModel  # noqa: E402
 from repro_torch.serving.engine import NodeEngine  # noqa: E402
+from repro_torch.serving.state_backend import StateBackend  # noqa: E402
 from repro_torch.serving.transfer import IN, OUT  # noqa: E402
 
 # H100 SXM data sheet, dense, at 700 W
@@ -84,8 +111,36 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # tests/test_kernels.py's tolerances, scaled by max |plain| on real rows
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
+# its ssd_scan sweep's tolerances (test_ssd_scan_sweep), scaled by max
+# |plain| of y and of the final state
+SSD_TOL = {torch.bfloat16: 3e-2, torch.float32: 2e-4}
 KERNEL = pa.paged_chunk_attention          # the wrapper; it counts pa.launches
 QKERNEL = pa.paged_chunk_attention_quant   # counts pa.quant_launches
+# sha256 (first 16 hex digits) of kernel 1's and B.2's outputs at head dims
+# 64 and 128 on the fixed inputs of kernel1_digests(), recorded from the
+# kernel source as it was before head dim 80 was added: those outputs must
+# stay bit for bit as they were.  Change an entry only with a change to the
+# kernel's arithmetic at that head dim, and say so where the change is
+# recorded.
+DIGEST_SEED = 80
+KERNEL1_DIGESTS = {
+    "decode B=8 ctx<=4096 D=64 bfloat16": "31d15be5db5a68a1",
+    "int8 decode B=8 ctx<=4096 D=64 bfloat16": "d0a704b5ea5b2e72",
+    "decode B=8 ctx<=4096 D=64 float32": "542a894bde973065",
+    "int8 decode B=8 ctx<=4096 D=64 float32": "5d1908190f26ef66",
+    "decode B=8 ctx<=4096 D=128 bfloat16": "57ec644d3ba1c94e",
+    "int8 decode B=8 ctx<=4096 D=128 bfloat16": "d2cf60cc56095d31",
+    "decode B=8 ctx<=4096 D=128 float32": "e9c7179ae9d8c868",
+    "int8 decode B=8 ctx<=4096 D=128 float32": "c002effb04babd60",
+    "chunk Sq=128 q_offset>0 D=64 bfloat16": "3ab1c447669ed598",
+    "int8 chunk Sq=128 q_offset>0 D=64 bfloat16": "c500fcb3cc9b886d",
+    "chunk Sq=128 q_offset>0 D=64 float32": "6f07af5dde41cd7c",
+    "int8 chunk Sq=128 q_offset>0 D=64 float32": "8e8d74067d660890",
+    "chunk Sq=128 q_offset>0 D=128 bfloat16": "9bb6fbeeda745c3f",
+    "int8 chunk Sq=128 q_offset>0 D=128 bfloat16": "b6b1785a9f60e13a",
+    "chunk Sq=128 q_offset>0 D=128 float32": "3b728f01c6afbcc7",
+    "int8 chunk Sq=128 q_offset>0 D=128 float32": "250ba4077152caf0",
+}
 
 
 def log(msg: str) -> None:
@@ -257,9 +312,9 @@ def compare(q, kp, vp, tables, qoff, ctx, q_lens, dtype, label, quant=None):
 
 
 def fmt(rec) -> str:
-    keys = ("max_abs_err", "err_rel", "ms", "fp_ms", "clear_ms", "plain_ms",
-            "library_ms", "bound_ms")
-    parts = [f"{k}={rec[k]:.4g}" for k in keys if k in rec]
+    keys = ("max_abs_err", "err_rel", "ms", "fp_ms",
+            "clear_ms", "plain_ms", "library_ms", "bound_ms")
+    parts = [f"{k}={rec[k]:.4g}" for k in keys if rec.get(k) is not None]
     if "bound_by" in rec:
         parts.append(f"bound_by={rec['bound_by']}")
     return f"  {rec['label']}: " + " ".join(parts)
@@ -288,36 +343,49 @@ def phase_env():
 
 
 def phase_build():
+    """Both kernel sources, one nvcc each, started together."""
     t0 = time.perf_counter()
-    path, text = build.build(pa.NAME)
-    log(f"[2] {'built' if text else 'up to date:'} {path} in "
+    built = build.build_all([pa.NAME, ssd.NAME])
+    log(f"[2] {len(built)} kernel libraries in "
         f"{time.perf_counter() - t0:.1f} s")
-    spills = []
-    for line in text.splitlines():
-        if any(w in line for w in ("Compiling entry", "registers")):
-            log(f"[2] {pa.NAME}: {line.strip()}")
-        if "spill" in line:
-            spills.append(line.strip())
-    if text:
-        log(f"[2] {pa.NAME}: spills: "
-            f"{'; '.join(spills) or 'none reported by ptxas'}")
+    for name, (path, text) in built.items():
+        log(f"[2] {'built' if text else 'up to date:'} {path}")
+        spills = []
+        for line in text.splitlines():
+            if any(w in line for w in ("Compiling entry", "registers")):
+                log(f"[2] {name}: {line.strip()}")
+            if "spill" in line:
+                spills.append(line.strip())
+        if text:
+            log(f"[2] {name}: spills: "
+                f"{'; '.join(spills) or 'none reported by ptxas'}")
 
 
 def make_case(rng, B, Sq, ctxs, q_lens, dtype, page=16, H=32, Hkv=8, D=128,
-              extra_pages=64):
+              extra_pages=64, host=False):
     """Random q and pools; lane b holds ctxs[b] tokens on a permuted page
     set, its last q_lens[b] tokens are this step's chunk; ctx 0 = padded
-    lane.  Tables are last-valid padded to a power-of-two width."""
+    lane.  Tables are last-valid padded to a power-of-two width.  q and the
+    pools are drawn on the card, or with ``host`` from ``rng`` itself."""
     dev = "cuda"
     need = [-(-c // page) for c in ctxs]
     T = 1
     while T < max(max(need), 1):
         T <<= 1
     P = sum(need) + extra_pages
-    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
-    kp = torch.randn((P + 1, page, Hkv, D), generator=gen, device=dev).to(dtype)
-    vp = torch.randn((P + 1, page, Hkv, D), generator=gen, device=dev).to(dtype)
-    q = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(dtype)
+    if host:
+        def randn(*shape):
+            a = rng.standard_normal(shape, dtype=np.float32)
+            return torch.from_numpy(a).to(dev)
+    else:
+        gen = torch.Generator(device=dev).manual_seed(
+            int(rng.integers(1 << 30)))
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+    kp = randn(P + 1, page, Hkv, D).to(dtype)
+    vp = randn(P + 1, page, Hkv, D).to(dtype)
+    q = randn(B, Sq, H, D).to(dtype)
     perm = rng.permutation(P)
     tables = np.zeros((B, T), np.int32)
     qoff = np.zeros((B,), np.int32)
@@ -333,14 +401,17 @@ def make_case(rng, B, Sq, ctxs, q_lens, dtype, page=16, H=32, Hkv=8, D=128,
     return q, kp, vp, as_t(tables), as_t(qoff), as_t(np.asarray(ctxs, np.int32))
 
 
-def phase_kernel_vs_plain(rng):
+def attention_cases(rng, decode_bs=(8, 32), chunks=((128, 4), (512, 2))):
+    """(label, B, Sq, ctxs, q_lens) of the decode and chunk cases: decode
+    lanes with ctx up to 4096 and one padded lane; ragged chunks at
+    q_offsets > 0 and one padded lane."""
     cases = []
-    for B in (8, 32):
+    for B in decode_bs:
         ctxs = [int(c) for c in rng.integers(1024, 4097, B)]
         ctxs[-1] = 0                                   # padded lane
         ctxs[0] = 4096
         cases.append((f"decode B={B} ctx<=4096", B, 1, ctxs, [1] * B))
-    for Sq, B in ((128, 4), (512, 2)):
+    for Sq, B in chunks:
         ctxs, qls = [], []
         for b in range(B):
             n = Sq if b % 2 == 0 else Sq - 27           # ragged chunk
@@ -349,17 +420,66 @@ def phase_kernel_vs_plain(rng):
         ctxs.append(0)
         qls.append(0)
         cases.append((f"chunk Sq={Sq} q_offset>0", B + 1, Sq, ctxs, qls))
-    recs = []
-    for label, B, Sq, ctxs, qls in cases:
-        for dtype in (torch.bfloat16, torch.float32):
-            q, kp, vp, tab, qoff, ctx = make_case(rng, B, Sq, ctxs, qls, dtype)
-            rec = compare(q, kp, vp, tab, qoff, ctx, qls, dtype,
-                          f"{label} {str(dtype).split('.')[-1]}")
-            log("[3]" + fmt(rec))
-            recs.append(rec)
-            del q, kp, vp
+    return cases
+
+
+def digest(t) -> str:
+    a = t.detach().cpu().contiguous()
+    if a.dtype == torch.bfloat16:
+        a = a.view(torch.int16)
+    return hashlib.sha256(a.numpy().tobytes()).hexdigest()[:16]
+
+
+def kernel1_digests():
+    """{case: digest} of kernel 1 and B.2 (half the pages int8) at D = 64
+    and 128, bf16 and fp32, on a decode and a chunk batch drawn on the host
+    from DIGEST_SEED, whatever --seed is."""
+    rng = np.random.default_rng(DIGEST_SEED)
+    out = {}
+    for label, B, Sq, ctxs, qls in attention_cases(rng, (8,), ((128, 4),)):
+        for D in (64, 128):
+            for dtype in (torch.bfloat16, torch.float32):
+                q, kp, vp, tab, qoff, ctx = make_case(
+                    rng, B, Sq, ctxs, qls, dtype, D=D, host=True)
+                name = f"{label} D={D} {str(dtype).split('.')[-1]}"
+                out[name] = digest(KERNEL(q, kp, vp, tab, qoff, ctx))
+                quant = int8_state(kp, vp, tab, ctx, 0.5)
+                out["int8 " + name] = digest(
+                    QKERNEL(q, kp, vp, *quant, tab, qoff, ctx))
+                del q, kp, vp, quant
     torch.cuda.empty_cache()
-    return recs, phase_quant_vs_plain(rng)
+    return out
+
+
+def phase_kernel_vs_plain(rng):
+    """Kernel 1 at llama3-8b widths (D = 128), B.2, then kernel 1 at D = 64
+    (the random stream of the first two is as before D = 64 was added);
+    then every D = 64 and 128 output of kernel1_digests() is held bit for
+    bit to KERNEL1_DIGESTS."""
+    def run(D, cases, recs):
+        for label, B, Sq, ctxs, qls in cases:
+            for dtype in (torch.bfloat16, torch.float32):
+                q, kp, vp, tab, qoff, ctx = make_case(rng, B, Sq, ctxs, qls,
+                                                      dtype, D=D)
+                rec = compare(q, kp, vp, tab, qoff, ctx, qls, dtype,
+                              f"{label} D={D} {str(dtype).split('.')[-1]}")
+                log("[3]" + fmt(rec))
+                recs.append(rec)
+                del q, kp, vp
+        torch.cuda.empty_cache()
+
+    recs = []
+    run(128, attention_cases(rng), recs)
+    qrecs = phase_quant_vs_plain(rng)
+    run(64, attention_cases(rng, (8,), ((128, 4),)), [])
+    got = kernel1_digests()
+    changed = sorted(k for k in got.keys() | KERNEL1_DIGESTS.keys()
+                     if got.get(k) != KERNEL1_DIGESTS.get(k))
+    check(not changed, f"kernel 1 / B.2 outputs at D = 64 and 128 are not "
+          f"bit-identical to the recorded ones: {changed}")
+    log(f"[3] {len(got)} outputs of kernel 1 / B.2 at D = 64 and 128 "
+        f"bit-identical to the recorded digests")
+    return recs, qrecs
 
 
 def int8_state(kp, vp, tables, ctx, share):
@@ -520,10 +640,17 @@ def _ref64(q, k_pages, v_pages, tables, q_offsets, ctx_lens, quant=None):
 class Float64Attention:
     """While active, the plain attention (``kernels.ref``'s public function,
     which kernels/ops.py calls for ``kernel_mode="ref"``) is _ref64; counts
-    its calls so a path that stops going through it is caught."""
+    its calls so a path that stops going through it is caught.
+    ``per_dispatch(cfg)``: the calls one serving dispatch makes."""
 
     def __init__(self):
         self.n = 0
+
+    @staticmethod
+    def per_dispatch(cfg):
+        if cfg.family == "hybrid":
+            return cfg.n_layers // cfg.shared_every
+        return cfg.n_layers
 
     @contextlib.contextmanager
     def __call__(self):
@@ -540,9 +667,70 @@ class Float64Attention:
             ref.paged_chunk_attention_ref = orig
 
 
+class Float64Scan:
+    """While active, the plain SSD scan (``kernels.ref``'s public function)
+    computes in float64; counts its calls like `Float64Attention`."""
+
+    def __init__(self):
+        self.n = 0
+
+    @staticmethod
+    def per_dispatch(cfg):
+        return cfg.n_layers
+
+    @contextlib.contextmanager
+    def __call__(self):
+        orig = ref.ssd_scan_chunked_ref
+
+        def plain64(*args, **kw):
+            self.n += 1
+            y, h = orig(*args, **kw, compute_dtype=torch.float64)
+            return y, h.float()
+
+        ref.ssd_scan_chunked_ref = plain64
+        try:
+            yield
+        finally:
+            ref.ssd_scan_chunked_ref = orig
+
+
+class PlainCalls:
+    """Counts the calls of the plain versions (kernels.ref's public
+    functions, which kernels/ops.py calls in their place) while active: the
+    kernel path must make none."""
+
+    NAMES = ("paged_chunk_attention_ref", "ssd_scan_chunked_ref")
+
+    def __init__(self):
+        self.n = 0
+
+    @contextlib.contextmanager
+    def __call__(self):
+        origs = {name: getattr(ref, name) for name in self.NAMES}
+
+        def counted(f):
+            def call(*args, **kw):
+                self.n += 1
+                return f(*args, **kw)
+            return call
+
+        for name, f in origs.items():
+            setattr(ref, name, counted(f))
+        try:
+            yield
+        finally:
+            for name, f in origs.items():
+                setattr(ref, name, f)
+
+
 def drained(be, mgr):
     """The allocator and store invariants, checked at a drain point."""
-    for a in be.alloc:
+    if isinstance(be, StateBackend):
+        be.slots.check()
+        allocs = be.kv_alloc
+    else:
+        allocs = be.alloc
+    for a in allocs:
         a.check()
     mgr.store.check()
 
@@ -563,15 +751,24 @@ class Lockstep:
     roundings (measured on the card at 1.03 of the tolerance on final
     chunks and 1.11 on decode tokens).  K must be within the tolerance of P
     on the final chunks, or within twice that floor where the floor is the
-    larger, and no further from R than twice P's distance from R."""
+    larger, and no further from R than twice P's distance from R.
+
+    A token K emits that P or R does not is a flip; the twin's logit gap
+    between the two tokens must be within the tolerance.  With
+    ``flip_floor`` (zamba2-2.7b: 54 bf16 Mamba layers put the noise floor
+    at about 4x the tolerance, measured on the card) the gap is held at
+    the end, like the logits, to the tolerance or twice the floor of its
+    kind, whichever is larger."""
 
     PAIRS = ("KP", "PR", "KR")
 
-    def __init__(self, nodes, dtype, captures=(), dt=None):
+    def __init__(self, nodes, dtype, captures=(), dt=None,
+                 f64=(Float64Attention,), flip_floor=False):
         self.nodes = nodes                    # "K"/"P"/"R" -> (eng, be, mgr)
         self.captures = captures
         self.dt = dt                          # None: K's measured step time
-        self.f64 = Float64Attention()
+        self.f64 = [f() for f in f64]         # R's float64 plain versions
+        self.flip_floor = flip_floor
         self.tol = TOL[dtype]
         self.reqs = {x: {} for x in "KPR"}
         self.res = {f"{pr}_{kind}": 0.0 for pr in self.PAIRS
@@ -600,7 +797,9 @@ class Lockstep:
                 stack.enter_context(c())
             dt = ek.step(self.now)
         ep.step(self.now)
-        with self.f64():
+        with contextlib.ExitStack() as stack:
+            for f in self.f64:
+                stack.enter_context(f())
             er.step(self.now)
         self.now += dt if self.dt is None else self.dt
         for be, mgr in ((bk, mk), (bp, mp), (br, mr)):
@@ -628,8 +827,9 @@ class Lockstep:
                 if tx == tk:
                     continue
                 gap = float(lg[x][tx] - lg[x][tk])
-                res["flips"].append((x, sid, tk, tx, gap))
-                check(gap <= tol * float(np.abs(lg[x]).max()),
+                units = gap / (tol * float(np.abs(lg[x]).max()))
+                res["flips"].append((x, sid, tk, tx, gap, kind, units))
+                check(self.flip_floor or units <= 1.0,
                       f"{sid}: token {tk} (kernel) vs {tx} ({x}) with a "
                       f"logit gap {gap:.3g} beyond tolerance")
                 be.seqs[sid].last_token = tk
@@ -644,9 +844,11 @@ class Lockstep:
 
     def verdict(self, cfg):
         res, br = self.res, self.nodes["R"][1]
-        check(self.f64.n == cfg.n_layers * br.stats["sub_dispatches"],
-              f"the float64 twin ran {self.f64.n} float64 attention calls, "
-              f"not {cfg.n_layers} x {br.stats['sub_dispatches']}")
+        subs = br.stats["sub_dispatches"]
+        for f in self.f64:
+            per = f.per_dispatch(cfg)
+            check(f.n == per * subs, f"the float64 twin ran {f.n} calls of "
+                  f"{type(f).__name__}, not {per} x {subs}")
         check(res["KP_chunk"] <= max(1.0, 2 * res["PR_chunk"]),
               f"final-chunk logits: kernel vs plain at {res['KP_chunk']:.3g}"
               f" x the tolerance, noise floor {res['PR_chunk']:.3g} x")
@@ -655,6 +857,13 @@ class Lockstep:
                   f"{kind} logits: the kernel path is "
                   f"{res[f'KR_{kind}']:.3g} x the tolerance from the float64 "
                   f"path, the plain path {res[f'PR_{kind}']:.3g} x")
+        if self.flip_floor:
+            for x, sid, tk, tx, gap, kind, units in res["flips"]:
+                floor = max(1.0, 2 * res[f"PR_{kind}"])
+                check(units <= floor,
+                      f"{sid}: token {tk} (kernel) vs {tx} ({x}) with a logit "
+                      f"gap {units:.3g} x the tolerance, beyond the {kind} "
+                      f"floor's {floor:.3g} x")
         return res
 
     def log(self, tag):
@@ -666,7 +875,7 @@ class Lockstep:
             f"{res['PR_decode']:.3g}; kernel vs float64 attention "
             f"{res['KR_chunk']:.3g} / {res['KR_decode']:.3g}")
         log(f"[{tag}] token flips (twin, sid, kernel, twin, twin's logit "
-            f"gap): {res['flips']}")
+            f"gap, kind, gap in units of the tolerance): {res['flips']}")
 
 
 def lockstep_nodes(make):
@@ -674,40 +883,54 @@ def lockstep_nodes(make):
     return dict(K=make("auto"), P=make("ref"), R=make("ref"))
 
 
-class Capture:
-    """Records one call of each distinct shape of one kernel wrapper of
-    ``kernels.paged_attention`` (``name``), which kernels/ops.py launches
-    through, with copies of its inputs, and counts the calls it sees: the
-    first call, or with ``score`` the call that scores highest (for the
-    int8 kernel, the one whose lanes read the most int8 pages).  Captures
-    happen only in the lockstep twins, never in a counted main-path run."""
+def _attention_key(args, kw):
+    q, tables = args[0], args[-3]
+    return (tuple(q.shape), tuple(tables.shape), q.dtype)
 
-    def __init__(self, name, score=None):
+
+def _scan_key(args, kw):
+    x, Bm = args[0], args[2]
+    return (tuple(x.shape), tuple(Bm.shape), x.dtype,
+            kw.get("init_state") is not None)
+
+
+class Capture:
+    """Records one call of each distinct shape of one kernel wrapper
+    (``module.name``: kernels/ops.py launches through the module attribute)
+    with copies of its inputs, and counts the calls it sees: the first
+    call, or with ``score`` the call that scores highest (for the int8
+    kernel, the one whose lanes read the most int8 pages).  Captures happen
+    only in the lockstep twins, never in a counted main-path run."""
+
+    def __init__(self, name, score=None, module=pa, key=_attention_key):
         self.name = name
         self.score = score
+        self.module = module
+        self.key = key
         self.calls = {}
         self.scores = {}
         self.n = 0
 
     @contextlib.contextmanager
     def __call__(self):
-        orig = getattr(pa, self.name)
+        orig = getattr(self.module, self.name)
 
-        def recording(*args):
+        def recording(*args, **kw):
             self.n += 1
-            q, tables = args[0], args[-3]
-            key = (tuple(q.shape), tuple(tables.shape), q.dtype)
+            key = self.key(args, kw)
             sc = 0.0 if self.score is None else self.score(args)
             if key not in self.calls or sc > self.scores[key]:
-                self.calls[key] = tuple(t.clone() for t in args)
+                self.calls[key] = (tuple(t.clone() for t in args),
+                                   {k: None if t is None else t.clone()
+                                    for k, t in kw.items()})
                 self.scores[key] = sc
-            return orig(*args)
+            return orig(*args, **kw)
 
-        setattr(pa, self.name, recording)
+        setattr(self.module, self.name, recording)
         try:
             yield
         finally:
-            setattr(pa, self.name, orig)
+            setattr(self.module, self.name, orig)
 
 
 def llama3_8b(seed, tag):
@@ -786,7 +1009,7 @@ def retime(cap, what, tag):
     """The captured calls, one per distinct shape, held against the plain
     version and timed (the int8 kernel's with their flags)."""
     recs = []
-    for key, args in sorted(cap.calls.items(), key=lambda kv: kv[0]):
+    for key, (args, _) in sorted(cap.calls.items(), key=lambda kv: kv[0]):
         q, kp, vp = args[:3]
         tab, qoff, ctx = args[-3:]
         quant = tuple(args[3:8]) if len(args) == 11 else None
@@ -1207,6 +1430,466 @@ def phase_exact_tiers(seed):
           "values materialized to fp give different tokens")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: ssd_scan (B.5) and kernel 1 / B.2 at head dim 80 against plain
+# ---------------------------------------------------------------------------
+
+def scan_inputs(gen, B, S, H, P, G, N, dtype, init):
+    """The TPU sweep's distributions (tests/test_kernels.py): x, B, C
+    standard normal, dA = -|N(0, 0.1)|; a standard-normal initial state."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    x = randn(B, S, H, P).to(dtype)
+    dA = -(0.1 * randn(B, S, H)).abs()
+    Bm, Cm = randn(B, S, G, N).to(dtype), randn(B, S, G, N).to(dtype)
+    h0 = randn(B, H, N, P) if init else None
+    return x, dA, Bm, Cm, h0
+
+
+def scan_work(x, Bm, init):
+    """Bytes the scan must move and the float32 operations it must do on
+    THESE inputs: x, dA, B, C and the initial state read once, y and the
+    final state written once; per step and head, the recurrence's state
+    update (B x^T into h, 2 N P operations) and C h (2 N P, none on the
+    first step of a zero state).  Any chunk length computes the same
+    function, and the chunked forms do more (the scores' causal tiles), so
+    this is the least; the decays' O(H) a step are left out."""
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    it = x.element_size()
+    nbytes = (2 * B * S * H * P * it + B * S * H * 4 + 2 * B * S * G * N * it
+              + B * H * N * P * 4 * (2 if init else 1))
+    steps_ch = S if init else max(S - 1, 0)
+    flops = 2 * B * H * N * P * (S + steps_ch)
+    return nbytes, flops
+
+
+def compare_scan(x, dA, Bm, Cm, h0, label, chunk=256, timed=False):
+    """ssd_scan vs its plain version on one input: y and the final state,
+    each within SSD_TOL x max |plain| of its own.  ``timed``: the kernel's
+    and the plain version's times and the bound."""
+    def kern():
+        return ssd.ssd_scan(x, dA, Bm, Cm, init_state=h0)
+
+    def plain():
+        return ref.ssd_scan_chunked_ref(x, dA, Bm, Cm, chunk, init_state=h0)
+
+    yk, hk = kern()
+    torch.cuda.synchronize()
+    yr, hr = plain()
+    tol = SSD_TOL[x.dtype]
+    rec = dict(label=label, max_abs_err=0.0, err_rel=0.0)
+    for what, a, b in (("y", yk, yr), ("state", hk, hr)):
+        check(bool(torch.isfinite(a.float()).all()),
+              f"{label}: kernel {what} not finite")
+        err = (a.float() - b.float()).abs().max().item()
+        scale = b.float().abs().max().item()
+        check(err <= tol * scale, f"{label}: {what} max abs err {err:.3g} > "
+              f"{tol} x max|plain| {scale:.3g} = {tol * scale:.3g}")
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["err_rel"] = max(rec["err_rel"], err / max(scale, 1e-30))
+    if timed:
+        nbytes, flops = scan_work(x, Bm, h0 is not None)
+        b_ms, b_by, t_b, t_f = bound(nbytes, flops, torch.float32)
+        rec.update(ms=cuda_ms(kern, 20), plain_ms=cuda_ms(plain, 5),
+                   library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                   bytes_ms=t_b, ops_ms=t_f)
+    return rec
+
+
+def phase_scan_vs_plain(seed):
+    """B.5 at zamba2-2.7b's SSD shapes (H = 80, P = 64, N = 64, G = 1) and
+    mamba2-2.7b's (N = 128): lanes 1, 2, 8; 1, 256, 513 and 1024 steps;
+    zero and random initial state; bf16 and fp32.  Timed: decode of 8
+    lanes and one 1024-step lane, with a state, in fp32 (the model's
+    working dtype)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    recs, n = [], 0
+    for model, N in (("zamba2", 64), ("mamba2", 128)):
+        for B in (1, 2, 8):
+            for S in (1, 256, 513, 1024):
+                for init in (False, True):
+                    for dtype in (torch.bfloat16, torch.float32):
+                        args = scan_inputs(gen, B, S, 80, 64, 1, N, dtype,
+                                           init)
+                        timed = (dtype == torch.float32 and init
+                                 and (B, S) in ((8, 1), (1, 1024)))
+                        label = (f"ssd_scan {model} N={N} B={B} S={S} "
+                                 f"{'state' if init else 'zero state'} "
+                                 f"{str(dtype).split('.')[-1]}")
+                        rec = compare_scan(*args, label, timed=timed)
+                        n += 1
+                        if timed:
+                            log("[8]" + fmt(rec))
+                            recs.append(rec)
+                        del args
+    worst = max(r["err_rel"] for r in recs)
+    log(f"[8] ssd_scan: {n} cases within tolerance (timed cases' worst "
+        f"error {worst:.3g} of max|plain|)")
+    torch.cuda.empty_cache()
+    return recs
+
+
+def phase_d80_vs_plain(rng):
+    """Kernel 1 and B.2 at zamba2-2.7b's shared attention: H = Hkv = 32,
+    D = 80, page 16; decode B = 8 with ctx up to 4096 and a 512-token chunk
+    at q_offset > 0, bf16 and fp32; B.2 with 3/4 (decode) and 1/2 (chunk)
+    of the pages int8, and bit-identical to kernel 1 with flags clear."""
+    recs = []
+    shares = (0.75, 0.5)
+    for (label, B, Sq, ctxs, qls), share in zip(
+            attention_cases(rng, (8,), ((512, 2),)), shares):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, kp, vp, tab, qoff, ctx = make_case(rng, B, Sq, ctxs, qls,
+                                                  dtype, H=32, Hkv=32, D=80)
+            name = f"{label} H=Hkv=32 D=80 {str(dtype).split('.')[-1]}"
+            rec = compare(q, kp, vp, tab, qoff, ctx, qls, dtype, name)
+            log("[8]" + fmt(rec))
+            recs.append(rec)
+            quant = int8_state(kp, vp, tab, ctx, share)
+            rq = compare(q, kp, vp, tab, qoff, ctx, qls, dtype,
+                         f"int8 {name} {share:.2f} flagged", quant=quant)
+            clear = quant[:4] + (torch.zeros_like(quant[4]),)
+            check(torch.equal(QKERNEL(q, kp, vp, *clear, tab, qoff, ctx),
+                              KERNEL(q, kp, vp, tab, qoff, ctx)),
+                  f"{name}: with every flag clear the int8 kernel is not "
+                  f"bit-identical to the fp kernel")
+            log("[8]" + fmt(rq) + " bit-identical with flags clear: True")
+            del q, kp, vp, quant, clear
+    torch.cuda.empty_cache()
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# phase 9: zamba2-2.7b through StateBackend
+# ---------------------------------------------------------------------------
+
+def zamba2(seed, tag, n_layers=None, dtype=None):
+    """zamba2-2.7b at its published widths (optionally fewer layers and
+    another dtype), random weights drawn on the card from ``seed``."""
+    cfg = configs.get_config("zamba2-2.7b")
+    if n_layers is not None or dtype is not None:
+        cfg = dataclasses.replace(
+            cfg, n_layers=n_layers or cfg.n_layers,
+            dtype=dtype or cfg.dtype,
+            name=f"zamba2-2.7b-{n_layers or cfg.n_layers}layer-"
+                 f"{dtype or cfg.dtype}")
+    model = get_model(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in [
+        params["emb"], params["lm_head"], params["ln_f"],
+        *params["mamba"].values(), *params["shared"].values()])
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} Mamba2 layers ({model.nh} SSD "
+        f"heads of {cfg.ssm.head_dim}, d_state {cfg.ssm.d_state}), "
+        f"{model.n_groups_outer} shared applications ({cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.d_head}), d_model {cfg.d_model}, "
+        f"{cfg.dtype}: {nbytes / 1e9:.2f} GB of weights in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return cfg, model, params
+
+
+def make_state_node(cfg, model, params, *, n_slots=8, n_pages=1024,
+                    page_size=16, spool=None, node_id=0, kernel_mode="auto",
+                    trace_logits=False, max_batch=8, token_budget=512):
+    """(NodeEngine, StateBackend, NodeManager) on the model's device, as a
+    user of the port would build them."""
+    cost = CostModel(cfg)
+    cost.set_param_count(model.param_count())
+    mgr = NodeManager(node_id, cfg, cost)
+    be = StateBackend(cfg, model, params, n_slots=n_slots, n_pages=n_pages,
+                      page_size=page_size, spool_dir=spool, mgr=mgr,
+                      trace_logits=trace_logits, kernel_mode=kernel_mode,
+                      device=model.device)
+    eng = NodeEngine(node_id, cfg, cost, mgr, max_batch=max_batch,
+                     backend=be, token_budget=token_budget)
+    return eng, be, mgr
+
+
+class Counted:
+    """Steps one StateBackend node and holds the launch rule at every step:
+    ssd_scan on every Mamba layer and (hybrid) kernel 1 on every shared
+    application of every dispatch, and no plain version anywhere."""
+
+    def __init__(self, node, cfg, plain, now=0.0):
+        self.eng, self.be, self.mgr = node
+        self.L = cfg.n_layers
+        self.A = self.be.n_apps
+        self.plain = plain
+        self.now = now
+        self.steps = []
+
+    def step(self):
+        s0, a0 = ssd.launches, pa.launches
+        d0 = self.be.stats["sub_dispatches"]
+        t0 = time.perf_counter()
+        with self.plain():
+            self.now += self.eng.step(self.now)
+        self.steps.append(time.perf_counter() - t0)
+        drained(self.be, self.mgr)
+        ds = self.be.stats["sub_dispatches"] - d0
+        check(ssd.launches - s0 == self.L * ds,
+              f"{ssd.launches - s0} ssd_scan launches for {ds} dispatches "
+              f"of {self.L} Mamba layers")
+        check(pa.launches - a0 == self.A * ds,
+              f"{pa.launches - a0} attention launches for {ds} dispatches "
+              f"of {self.A} shared applications")
+        check(self.plain.n == 0, f"a plain version ran {self.plain.n} times "
+              f"on the kernel path")
+
+    def serve(self, sid, ids, gen):
+        req = request(self.be, sid, ids, gen)
+        self.eng.submit(req)
+        while self.eng.waiting or self.eng.running:
+            self.step()
+        return req
+
+
+def phase_hybrid(cfg, model, params, seed):
+    """zamba2-2.7b (bf16, full width and depth) served through NodeEngine +
+    NodeManager + StateBackend: 4 sessions x 3 turns of 256-1024-token
+    prompts and 16 generated tokens; one session swapped out after its
+    first turn and back in at its second; at the end one session persisted,
+    the node crashed and the session recovered from the spool by a second
+    node, where it serves a fourth turn.  Then the rounds again in
+    lockstep (kernel path, plain path, float64 plain) and the main path's
+    kernel calls re-timed."""
+    rng = np.random.default_rng(seed + 9)
+    prompts = _turns(rng, cfg.vocab, system=0)
+    gen = 16
+    plain = PlainCalls()
+    with tempfile.TemporaryDirectory() as tmp:
+        node = make_state_node(cfg, model, params, spool=f"{tmp}/a")
+        eng, be, mgr = node
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ssd.launches = pa.launches = 0        # counts of the main path only
+        d = Counted(node, cfg, plain)
+        reqs = []
+        for r, rnd in enumerate(rounds(prompts)):
+            for s, t in rnd:
+                reqs.append(request(be, f"s{s}", prompts[s][t], gen))
+                eng.submit(reqs[-1])
+            while eng.waiting or eng.running:
+                d.step()
+            if r == 1:
+                be.swap_out("s1", be.session_tokens("s1"))
+                be.drain_transfers()
+                drained(be, mgr)
+                check("s1" not in be.slots.seqs, "s1 did not leave its slot")
+        swaps_in = be.stats["swaps_in"]
+        mgr.flush_session("s3", d.now)
+        be.drain_transfers()
+        check(be.spool_exists("s3"), "the persist wrote no spool file")
+        node_b = make_state_node(cfg, model, params, spool=f"{tmp}/b",
+                                 node_id=1)
+        stats_a = dict(be.stats)
+        be.crash()
+        mgr.crash(d.now)
+        check(node_b[2].recover_from_spool("s3", mgr, d.now),
+              "the second node could not recover s3 from the spool")
+        d_b = Counted(node_b, cfg, plain, now=d.now)
+        extra = [int(x) for x in rng.integers(0, cfg.vocab, 300)]
+        reqs.append(d_b.serve("s3", extra, gen))
+        torch.cuda.synchronize()
+        launches, attn_launches = ssd.launches, pa.launches
+        stats_b = dict(node_b[1].stats)
+    subs = stats_a["sub_dispatches"] + stats_b["sub_dispatches"]
+    steps = d.steps + d_b.steps
+    n_tok = sum(len(r.output_ids) for r in reqs)
+    log(f"[9] main path: {len(reqs)} requests, {n_tok} generated tokens, "
+        f"{eng.stats['prefill_tokens']} prefill tokens in "
+        f"{eng.stats['chunks']} chunks, {len(steps)} steps, mean step "
+        f"{1e3 * sum(steps) / len(steps):.2f} ms, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, of which "
+        f"{base / 1e9:.2f} GB were allocated before the phase's nodes")
+    log(f"[9] node 0 stats {stats_a}; node 1 stats {stats_b}; buckets "
+        f"{be.compile_counts()}")
+    log(f"[9] ssd_scan launches {launches} = {cfg.n_layers} Mamba layers x "
+        f"{subs} dispatches: {launches == cfg.n_layers * subs}; kernel 1 "
+        f"launches {attn_launches} = {be.n_apps} applications x {subs}: "
+        f"{attn_launches == be.n_apps * subs}; plain calls {plain.n}")
+    check(launches == cfg.n_layers * subs > 0
+          and attn_launches == be.n_apps * subs,
+          "the main path did not run the kernels on every layer")
+    check(all(len(r.output_ids) == gen for r in reqs),
+          "a request did not generate all its tokens")
+    check(stats_a["swaps_out"] >= 1 and swaps_in >= 1
+          and stats_a["disk_writes"] >= 1 and stats_b["migrations_in"] == 1,
+          f"a tier was not used: {stats_a} / {stats_b}")
+    check(eng.stats["chunks"] > len(reqs), "no prompt was chunked")
+    del node, node_b, eng, be, mgr, d, d_b
+    free_device_memory()
+
+    capa = Capture("paged_chunk_attention")
+    caps = Capture("ssd_scan", module=ssd, key=_scan_key)
+    a0, s0 = pa.launches, ssd.launches
+    lock = Lockstep(lockstep_nodes(lambda mode: make_state_node(
+        cfg, model, params, kernel_mode=mode, trace_logits=True)),
+        torch.bfloat16, captures=(capa, caps),
+        f64=(Float64Attention, Float64Scan), flip_floor=True)
+    for rnd in rounds(prompts):
+        for s, t in rnd:
+            lock.submit(f"s{s}", prompts[s][t], gen)
+        lock.run()
+    check(capa.n == pa.launches - a0 and caps.n == ssd.launches - s0
+          and capa.n > 0 and caps.n > 0,
+          f"the captures saw {capa.n} / {caps.n} kernel calls of "
+          f"{pa.launches - a0} / {ssd.launches - s0}")
+    lock.verdict(cfg)
+    lock.log(9)
+    log(f"[9] captured {len(capa.calls)} attention and {len(caps.calls)} "
+        f"ssd_scan shapes from {capa.n} / {caps.n} calls")
+    del lock
+    free_device_memory()
+    profile_turn(cfg, model, params, rng, gen)
+    free_device_memory()
+    arecs = retime(capa, "zamba2 main path D=80", 9)
+    srecs = retime_scan(caps, cfg.ssm.chunk)
+    torch.cuda.empty_cache()
+    return launches, srecs, attn_launches, arecs
+
+
+KERNEL_FAMILIES = (("ssd_scan", ("ssd_scan",)),
+                   ("paged_chunk_attention", ("paged_chunk_attention",)),
+                   ("matmul", ("gemm", "cutlass", "cublas", "xmma", "sm90",
+                               "nvjet")),
+                   ("copy", ("memcpy", "memset")))
+
+
+def profile_turn(cfg, model, params, rng, gen):
+    """One turn of a fresh session on a fresh node — a 512-token prompt in
+    one chunk, then ``gen`` - 1 decode steps — under torch.profiler, after
+    a warm-up turn of the same shapes: device time by kernel family and
+    the device's idle share of the window's wall time (1 - device time /
+    wall; copies on the side stream could overlap, none run here)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    eng, be, _ = make_state_node(cfg, model, params)
+    ids = [int(x) for x in rng.integers(0, cfg.vocab, 512)]
+
+    def turn(sid):
+        eng.submit(request(be, sid, ids, gen))
+        while eng.waiting or eng.running:
+            eng.step(0.0)
+        torch.cuda.synchronize()
+
+    turn("warm")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        turn("profiled")
+        wall = time.perf_counter() - t0
+    fam, total, other = {}, 0.0, []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = e.cuda_time_total
+        name = e.key.lower()
+        g = next((f for f, words in KERNEL_FAMILIES
+                  if any(w in name for w in words)), "other")
+        fam[g] = fam.get(g, 0.0) + t / 1e3              # us -> ms
+        total += t / 1e3
+        if g == "other":
+            other.append((t / 1e3, e.count, e.key[:60]))
+    if total == 0.0:
+        log("[9] profile: the trace holds no device time")
+        return None
+    parts = ", ".join(f"{g} {ms:.2f} ms ({100 * ms / total:.1f} %)" for g, ms
+                      in sorted(fam.items(), key=lambda kv: -kv[1]))
+    log(f"[9] profile of one turn (512-token chunk + {gen - 1} decode "
+        f"steps): wall {1e3 * wall:.2f} ms, device {total:.2f} ms, idle "
+        f"share {1 - total / (1e3 * wall):.3f}; device time by family: "
+        f"{parts}")
+    log("[9] profile: largest 'other' kernels (ms, launches, name): "
+        f"{sorted(other, reverse=True)[:6]}")
+    return dict(wall_ms=1e3 * wall, device_ms=total, families=fam)
+
+
+def retime_scan(cap, chunk):
+    """The captured ssd_scan calls, one per distinct shape, held against
+    the plain version and timed."""
+    recs = []
+    for key, (args, kw) in sorted(cap.calls.items(),
+                                  key=lambda kv: str(kv[0])):
+        x, dA, Bm, Cm = args
+        h0 = kw.get("init_state")
+        S = x.shape[1]
+        label = (f"zamba2 main path ssd_scan B={x.shape[0]} S={S}"
+                 f"{'' if h0 is not None else ' zero state'}")
+        rec = compare_scan(x, dA, Bm, Cm, h0, label, chunk=chunk,
+                           timed=True)
+        log("[9]" + fmt(rec))
+        recs.append(rec)
+    cap.calls.clear()
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# phase 10: exact fp32 tokens of zamba2 through the tiers
+# ---------------------------------------------------------------------------
+
+def phase_exact_hybrid(seed):
+    """zamba2 at full width, 2 groups (12 Mamba layers, 2 shared
+    applications), fp32: a session swapped out and back, evicted by memory
+    pressure and promoted back, persisted and recovered from the spool
+    after a crash serves the dense prefill/decode recompute's tokens."""
+    rng = np.random.default_rng(seed + 10)
+    cfg, model, params = zamba2(seed + 10, 10, n_layers=12, dtype="float32")
+    gen = 16
+    turns = [[int(x) for x in rng.integers(0, cfg.vocab, int(n))]
+             for n in rng.integers(100, 300, 4)]
+    expect = dense_turns(cfg, model, params, turns, gen)
+    plain = PlainCalls()
+    got = []
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(n_slots=4, n_pages=256, max_batch=4, token_budget=128)
+        a = make_state_node(cfg, model, params, spool=f"{tmp}/a", **kw)
+        b = make_state_node(cfg, model, params, spool=f"{tmp}/b", node_id=1,
+                            **kw)
+        da = Counted(a, cfg, plain)
+        got.append(da.serve("chat", turns[0], gen).output_ids)
+        a[1].swap_out("chat", a[1].session_tokens("chat"))    # to the host
+        a[1].drain_transfers()
+        got.append(da.serve("chat", turns[1], gen).output_ids)  # back in
+        a[2].on_memory_pressure(a[1].hbm_kv_budget() * 10, now=da.now)
+        a[1].drain_transfers()
+        check("chat" not in a[1].slots.seqs, "pressure did not evict")
+        a[2].promote("chat", da.now)                           # prefetch
+        a[1].drain_transfers()
+        check("chat" in a[1].slots.seqs, "promotion did not bring it back")
+        got.append(da.serve("chat", turns[2], gen).output_ids)
+        a[2].flush_session("chat", da.now)                     # to the spool
+        a[1].drain_transfers()
+        moved = {k: a[1].stats[k] for k in (
+            "swaps_out", "swaps_in", "layer_evictions", "layer_promotions",
+            "disk_writes")}
+        a[1].crash()
+        a[2].crash(da.now)
+        check(b[2].recover_from_spool("chat", a[2], da.now),
+              "no recovery from the spool")
+        got.append(Counted(b, cfg, plain, now=da.now).serve(
+            "chat", turns[3], gen).output_ids)
+        moved["recovered"] = b[1].stats["migrations_in"]
+    log(f"[10] fp32 12-layer full width, swap out/in -> evict/promote -> "
+        f"spool, crash, recover: served {got}")
+    log(f"[10] dense recompute {expect}; {moved}")
+    check(all(v > 0 for v in moved.values()), f"a tier was not used: {moved}")
+    check(got == expect, "fp32 served tokens through the tiers differ from "
+          "dense recompute")
+
+
+def free_device_memory():
+    """Release what a finished phase held: its nodes form reference cycles
+    (backend <-> node manager) that only the cyclic collector frees."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def kernel_entry(name, source, replaces, launches, recs):
     entry = dict(
         name=name, route="cuda", source=source, replaces=replaces,
@@ -1215,19 +1898,20 @@ def kernel_entry(name, source, replaces, launches, recs):
         ms=sum(r["ms"] for r in recs) if recs else None,
         plain_ms=sum(r["plain_ms"] for r in recs) if recs else None,
         bound_ms=sum(r["bound_ms"] for r in recs) if recs else None,
-        bound_by=None, library_ms=sum(r["library_ms"] for r in recs)
-        if recs else None)
+        bound_by=None, library_ms=None)
     if recs:
         t_b = sum(r["bytes_ms"] for r in recs)
         t_f = sum(r["ops_ms"] for r in recs)
         entry["bound_by"] = "bytes" if t_b >= t_f else "operations"
+        if all(r["library_ms"] is not None for r in recs):
+            entry["library_ms"] = sum(r["library_ms"] for r in recs)
     return entry
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     t_start = time.perf_counter()
@@ -1248,25 +1932,47 @@ def main(argv=None):
                 qlaunches, qrecs, _ = phase_pressure(cfg, model, params,
                                                      args.seed)
             del cfg, model, params
-            torch.cuda.empty_cache()
+            free_device_memory()
         if 5 in phases:
             phase_exact_fp32(args.seed)
         if 7 in phases:
             phase_exact_tiers(args.seed)
+        scan_recs, d80_recs = [], []
+        if 8 in phases:
+            scan_recs = phase_scan_vs_plain(args.seed)
+            d80_recs = phase_d80_vs_plain(np.random.default_rng(args.seed + 8))
+        slaunches, hybrid_srecs, hlaunches, hybrid_arecs = 0, [], 0, []
+        if 9 in phases:
+            cfg, model, params = zamba2(args.seed, 9)
+            slaunches, hybrid_srecs, hlaunches, hybrid_arecs = phase_hybrid(
+                cfg, model, params, args.seed)
+            del cfg, model, params
+            free_device_memory()
+        if 10 in phases:
+            phase_exact_hybrid(args.seed)
     except PhaseFailed as e:
         log(f"FAILED: {e}")
         return 1
     # each record holds its kernel's main-path shapes whenever that main
-    # path ran, and phase 3's shapes otherwise
+    # path ran, and the kernel-vs-plain phase's shapes otherwise; kernel 1
+    # serves two main paths (llama3-8b at D = 128, zamba2-2.7b at D = 80)
     src = "src/repro_torch/csrc/paged_chunk_attention.cu"
+    k1_recs = ((main_recs if 4 in phases else shape_recs)
+               + (hybrid_arecs if 9 in phases
+                  else [r for r in d80_recs if "int8" not in r["label"]]))
     entries = [
         kernel_entry(pa.NAME, src, "src/repro/kernels/paged_attention.py:291",
-                     launches, main_recs if 4 in phases else shape_recs),
+                     launches + hlaunches, k1_recs),
         kernel_entry(pa.QUANT_NAME, src,
                      "src/repro/kernels/paged_attention.py:239", qlaunches,
-                     qrecs if 6 in phases else shape_qrecs)]
+                     qrecs if 6 in phases else shape_qrecs),
+        kernel_entry(ssd.NAME, "src/repro_torch/csrc/ssd_scan.cu",
+                     "src/repro/kernels/ssd_scan.py:62", slaunches,
+                     hybrid_srecs if 9 in phases else scan_recs)]
     log(f"done in {time.perf_counter() - t_start:.1f} s; kernel times are "
-        f"one call of each distinct main-path shape, summed")
+        f"one call of each distinct main-path shape, summed (kernel 1: "
+        f"{launches} launches on the llama3-8b path, {hlaunches} on the "
+        f"zamba2-2.7b path)")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

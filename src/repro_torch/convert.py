@@ -3,8 +3,9 @@
 A test turns the JAX parameters into numpy (``jax.tree.map(np.asarray,
 params)``) and hands the nested dictionary here; this module never imports
 JAX.  The layout is already the port's — weights (in, out), the layer stack
-on a leading (L, ...) axis — so conversion is a dtype-preserving copy onto
-the device.
+on a leading (L, ...) axis — so conversion is a copy onto the device in
+``cfg.dtype``, except for the Mamba leaves the JAX package keeps in float32
+(``a_log``, ``dt_bias``, ``d_skip``), which stay float32.
 """
 from __future__ import annotations
 
@@ -13,7 +14,13 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.models.mamba2 import FLOAT32_LEAVES
 from repro_torch.models.transformer import _dtype, resolve_device
+
+# the top-level keys each ported family's parameter tree must have
+_EXPECT = {"dense": {"emb", "ln_f", "blocks"},
+           "mamba2": {"emb", "ln_f", "lm_head", "mamba"},
+           "hybrid": {"emb", "ln_f", "lm_head", "mamba", "shared"}}
 
 
 def _tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -29,21 +36,24 @@ def _tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 
 def params_from_numpy(cfg, tree: Dict, device="cuda") -> Dict:
     """The port's parameter dictionary from a numpy copy of the JAX
-    ``DenseLM`` parameters: the same keys, shapes and layout, in
-    ``cfg.dtype`` on ``device``."""
-    if cfg.family != "dense":
+    ``DenseLM`` or ``Zamba2LM`` parameters: the same keys, shapes and
+    layout, in ``cfg.dtype`` on ``device`` (the Mamba float32 leaves in
+    float32)."""
+    if cfg.family not in _EXPECT:
         raise NotImplementedError(
             f"params_from_numpy: family {cfg.family!r} is not ported yet")
     dev = resolve_device(device)
     dt = _dtype(cfg.dtype)
 
-    def conv(x):
+    def conv(x, name=""):
         if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
-        return _tensor(x, dt, dev)
+            return {k: conv(v, k) for k, v in x.items()}
+        keep32 = cfg.family != "dense" and name in FLOAT32_LEAVES
+        return _tensor(x, torch.float32 if keep32 else dt, dev)
     out = conv(tree)
-    expect = {"emb", "ln_f", "blocks"} | (set() if cfg.tie_embeddings
-                                          else {"lm_head"})
+    expect = set(_EXPECT[cfg.family])
+    if cfg.family == "dense" and not cfg.tie_embeddings:
+        expect.add("lm_head")
     missing = expect - set(out)
     if missing:
         raise KeyError(f"params_from_numpy: missing {sorted(missing)}")

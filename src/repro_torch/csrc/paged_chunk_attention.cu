@@ -47,6 +47,15 @@
 // scales a page, so decode over a mostly quantized history moves about half
 // the bytes of the bf16 kernel.
 //
+// Head dims 64, 80 and 128.  At 80 (zamba2-2.7b's shared attention) a key
+// row is 20 16-byte vectors in float32, 10 in bf16 and 5 in int8, which
+// four loaders cannot always split evenly, so each takes ceil(vectors / 4)
+// of them and the last takes fewer; and the P.V
+// accumulators cover 96 columns (3 float4s per thread) of which the 16 pad
+// columns read zeros and are never written.  At 64 and 128 every loader's
+// share and the P.V columns are what they were, so those outputs are
+// bit-identical to the kernel before head dim 80 was added.
+//
 // What this simple version leaves on the table: the math runs on the CUDA
 // cores in float32, not on the tensor cores (no mma/wgmma); the load
 // pipeline is one step deep through registers (no cp.async or TMA ring of
@@ -147,14 +156,22 @@ paged_chunk_attention_kernel(const T* __restrict__ q,
                              T* __restrict__ out, int Sq, int H, int Hkv,
                              int page, int T_width, int bq) {
   constexpr int kTpr = kThreads / kRows;  // threads per row in P.V (8)
-  constexpr int kCol4 = D / (4 * kTpr);   // float4 accumulators per thread
-  constexpr int kSegElems = D / kSeg;     // elements of one key per loader
+  // P.V columns padded to a multiple of 4 * kTpr (D = 80 -> 96); the pad
+  // columns of v_s are zeros and are never written out
+  constexpr int kDp = (D + 4 * kTpr - 1) / (4 * kTpr) * (4 * kTpr);
+  constexpr int kCol4 = kDp / (4 * kTpr); // float4 accumulators per thread
   constexpr int kPerVec = 16 / sizeof(T); // elements per 16-byte load
-  constexpr int kVecs = kSegElems / kPerVec;
-  constexpr int kVecsQ = kSegElems / 16;  // 16-byte int8 loads of a segment
+  // a key row is kRowVecs 16-byte vectors (kRowVecsQ in int8); loader seg
+  // takes vectors [seg * kVecs, seg * kVecs + kVecs) of them, the last
+  // loader fewer where kSeg does not divide the row (D = 80 in bf16, int8)
+  constexpr int kRowVecs = D * (int)sizeof(T) / 16;
+  constexpr int kVecs = (kRowVecs + kSeg - 1) / kSeg;
+  constexpr int kRowVecsQ = D / 16;
+  constexpr int kVecsQ = (kRowVecsQ + kSeg - 1) / kSeg;
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
   __shared__ __align__(16) float q_s[kRows][D];
   __shared__ __align__(16) float k_s[kKeys][D + 4];  // +4: conflict-free
-  __shared__ __align__(16) float v_s[kKeys][D];
+  __shared__ __align__(16) float v_s[kKeys][kDp];
   __shared__ float p_s[kRows][kKeys + 1];
   __shared__ float m_s[kRows], l_s[kRows], c_s[kRows];
 
@@ -198,9 +215,13 @@ paged_chunk_attention_kernel(const T* __restrict__ q,
     m_s[tid] = kMaskValue;
     l_s[tid] = 0.f;
   }
+  if constexpr (kDp > D) {
+    for (int i = tid; i < kKeys * (kDp - D); i += kThreads)
+      v_s[i / (kDp - D)][D + i % (kDp - D)] = 0.f;
+  }
 
-  // loader role: thread tid stages elements [seg * kSegElems, +kSegElems)
-  // of key ld_j of every step, prefetched into registers one step ahead
+  // loader role: thread tid stages its vectors of key ld_j of every step,
+  // prefetched into registers one step ahead
   const int ld_j = tid / kSeg;
   const int seg = tid % kSeg;
   const int* table = tables + (size_t)b * T_width;
@@ -214,8 +235,7 @@ paged_chunk_attention_kernel(const T* __restrict__ q,
     row_q = false;
     if (kpos < kv_end) {
       const size_t pid = (size_t)table[kpos / page];
-      const size_t off =
-          ((pid * page + kpos % page) * Hkv + h) * D + seg * kSegElems;
+      const size_t off = ((pid * page + kpos % page) * Hkv + h) * D;
       if constexpr (kQuant) {
         if (page_quant[pid]) {  // only the int8 tile: 1 byte an element
           row_q = true;
@@ -225,8 +245,11 @@ paged_chunk_attention_kernel(const T* __restrict__ q,
           const uint4* vs = reinterpret_cast<const uint4*>(vq_pages + off);
 #pragma unroll
           for (int v = 0; v < kVecsQ; ++v) {
-            k_reg[v] = __ldg(ks + v);
-            v_reg[v] = __ldg(vs + v);
+            const int vi = seg * kVecsQ + v;
+            if (kRowVecsQ % kSeg == 0 || vi < kRowVecsQ) {
+              k_reg[v] = __ldg(ks + vi);
+              v_reg[v] = __ldg(vs + vi);
+            }
           }
           return;
         }
@@ -235,8 +258,11 @@ paged_chunk_attention_kernel(const T* __restrict__ q,
       const uint4* vs = reinterpret_cast<const uint4*>(v_pages + off);
 #pragma unroll
       for (int v = 0; v < kVecs; ++v) {
-        k_reg[v] = __ldg(ks + v);
-        v_reg[v] = __ldg(vs + v);
+        const int vi = seg * kVecs + v;
+        if (kRowVecs % kSeg == 0 || vi < kRowVecs) {
+          k_reg[v] = __ldg(ks + vi);
+          v_reg[v] = __ldg(vs + vi);
+        }
       }
     } else {
 #pragma unroll
@@ -262,8 +288,11 @@ paged_chunk_attention_kernel(const T* __restrict__ q,
       if (row_q) {
 #pragma unroll
         for (int v = 0; v < kVecsQ; ++v) {
-          widen_i8(k_reg[v], &k_s[ld_j][seg * kSegElems + v * 16], row_ks);
-          widen_i8(v_reg[v], &v_s[ld_j][seg * kSegElems + v * 16], row_vs);
+          const int vi = seg * kVecsQ + v;
+          if (kRowVecsQ % kSeg == 0 || vi < kRowVecsQ) {
+            widen_i8(k_reg[v], &k_s[ld_j][vi * 16], row_ks);
+            widen_i8(v_reg[v], &v_s[ld_j][vi * 16], row_vs);
+          }
         }
         staged = true;
       }
@@ -271,8 +300,11 @@ paged_chunk_attention_kernel(const T* __restrict__ q,
     if (!staged) {
 #pragma unroll
       for (int v = 0; v < kVecs; ++v) {
-        widen(k_reg[v], &k_s[ld_j][seg * kSegElems + v * kPerVec], T());
-        widen(v_reg[v], &v_s[ld_j][seg * kSegElems + v * kPerVec], T());
+        const int vi = seg * kVecs + v;
+        if (kRowVecs % kSeg == 0 || vi < kRowVecs) {
+          widen(k_reg[v], &k_s[ld_j][vi * kPerVec], T());
+          widen(v_reg[v], &v_s[ld_j][vi * kPerVec], T());
+        }
       }
     }
     __syncthreads();
@@ -343,6 +375,7 @@ paged_chunk_attention_kernel(const T* __restrict__ q,
 #pragma unroll
     for (int i = 0; i < kCol4; ++i) {
       const int col = 4 * (pv_col + i * kTpr);
+      if (kDp > D && col >= D) continue;   // a pad column
       o[col + 0] = from_f32<T>(acc[i].x / denom);
       o[col + 1] = from_f32<T>(acc[i].y / denom);
       o[col + 2] = from_f32<T>(acc[i].z / denom);
@@ -395,12 +428,20 @@ int dispatch(const void* q, const void* k_pages, const void* v_pages,
     return launch<float, 64, kQuant>(q, k_pages, v_pages, qa, tables,
                                      q_offsets, ctx_lens, out, B, Sq, H, Hkv,
                                      page, T_width, s);
+  if (dtype == 0 && D == 80)
+    return launch<float, 80, kQuant>(q, k_pages, v_pages, qa, tables,
+                                     q_offsets, ctx_lens, out, B, Sq, H, Hkv,
+                                     page, T_width, s);
   if (dtype == 0 && D == 128)
     return launch<float, 128, kQuant>(q, k_pages, v_pages, qa, tables,
                                       q_offsets, ctx_lens, out, B, Sq, H, Hkv,
                                       page, T_width, s);
   if (dtype == 1 && D == 64)
     return launch<__nv_bfloat16, 64, kQuant>(q, k_pages, v_pages, qa, tables,
+                                             q_offsets, ctx_lens, out, B, Sq,
+                                             H, Hkv, page, T_width, s);
+  if (dtype == 1 && D == 80)
+    return launch<__nv_bfloat16, 80, kQuant>(q, k_pages, v_pages, qa, tables,
                                              q_offsets, ctx_lens, out, B, Sq,
                                              H, Hkv, page, T_width, s);
   if (dtype == 1 && D == 128)

@@ -1,6 +1,6 @@
-"""Build and load the port's hand-written CUDA kernel.
+"""Build and load the port's hand-written CUDA kernels.
 
-The source ``src/repro_torch/csrc/<name>.cu`` has a plain C entry point.
+Each source ``src/repro_torch/csrc/<name>.cu`` has a plain C entry point.
 It is compiled by ``nvcc`` for ``sm_90a`` into a shared library under the
 repository's ``build/`` directory (listed in .gitignore) at first use,
 named by a hash of the source so an edited kernel is rebuilt, and loaded
@@ -40,22 +40,41 @@ def build(name: str) -> Tuple[Path, str]:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists.
     Returns the library's path and the nvcc/ptxas output ("" when nothing
     was compiled); raises with that output if nvcc fails."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = BUILD / f"{name}-{digest}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"kernel build failed: {name} (nvcc exit "
-                           f"{proc.returncode})\n{proc.stdout}")
-    os.replace(tmp, lib)
-    return lib, proc.stdout
+    return build_all([name])[name]
+
+
+def build_all(names) -> Dict[str, Tuple[Path, str]]:
+    """`build` for several sources at once: one nvcc per source that is not
+    up to date, all started together and all waited for (a failure raises
+    after every compiler has exited)."""
+    out: Dict[str, Tuple[Path, str]] = {}
+    running = {}
+    for name in names:
+        src = CSRC / f"{name}.cu"
+        digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS)
+                                .encode()).hexdigest()[:12]
+        lib = BUILD / f"{name}-{digest}.so"
+        if lib.exists():
+            out[name] = (lib, "")
+            continue
+        BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                                 str(src)], stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, lib)
+    failed = []
+    for name, (proc, tmp, lib) in running.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"kernel build failed: {name} (nvcc exit "
+                          f"{proc.returncode})\n{text}")
+            continue
+        os.replace(tmp, lib)
+        out[name] = (lib, text)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

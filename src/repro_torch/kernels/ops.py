@@ -6,6 +6,10 @@ device of the tensor decides, never a failed launch.  ``mode="ref"`` asks
 for the plain version by name, which the tests and chip_smoke.py use to
 hold the kernel against it on the same inputs.
 
+``ssd_scan`` takes the model's chunk length for the plain version only: the
+CUDA kernel walks its own inner chunk, and any chunk length gives the same
+function up to rounding.
+
 The TPU package's ``_auto_tile`` (largest divisor of the bucketed length
 <= 128) has no counterpart: the CUDA kernel's query tile is set by the
 GQA group (16 / G query positions) and it masks the ragged edge of any
@@ -14,6 +18,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import ref
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import ssd_scan as _ssd
 
 MODES = ("auto", "ref")
 
@@ -36,3 +41,15 @@ def paged_chunk_attention(q, k_pages, v_pages, block_tables, q_offsets,
         return _pa.paged_chunk_attention(*args)
     return _pa.paged_chunk_attention_quant(q, k_pages, v_pages, *quant,
                                            block_tables, q_offsets, ctx_lens)
+
+
+def ssd_scan(x, dA, Bm, Cm, chunk: int, init_state=None, mode: str = "auto"):
+    """Chunked SSD scan with an initial and a final state (see
+    ``ref.ssd_scan_chunked_ref`` for the shapes).  Returns (y in x's
+    dtype, final state float32).  mode: auto | ref."""
+    if mode not in MODES:
+        raise ValueError(f"kernel mode {mode!r} not in {MODES}")
+    if mode == "ref" or x.device.type == "cpu":
+        return ref.ssd_scan_chunked_ref(x, dA, Bm, Cm, chunk,
+                                        init_state=init_state)
+    return _ssd.ssd_scan(x, dA, Bm, Cm, init_state=init_state)

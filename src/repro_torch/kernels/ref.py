@@ -66,3 +66,85 @@ def paged_chunk_attention_ref(q, k_pages, v_pages, block_tables, q_offsets,
     o = torch.where((ctx_lens > 0)[:, None, None, None, None], o,
                     torch.zeros((), dtype=o.dtype, device=dev))
     return o.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def ssd_scan_ref(x, dA, Bm, Cm):
+    """Sequential SSD/Mamba2 recurrence (token by token, float32): the
+    oracle the chunked scan is held to.
+
+    x:  (B, S, H, P)  inputs, already dt-scaled
+    dA: (B, S, H)     per-step log decay (<= 0)
+    Bm: (B, S, H, N)  input projections (per head; the caller broadcasts
+                      groups)
+    Cm: (B, S, H, N)  output projections
+    returns (y (B, S, H, P), state (B, H, N, P)), both float32"""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    h = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        h = (h * torch.exp(dA[:, t].float())[..., None, None]
+             + torch.einsum("bhn,bhp->bhnp", Bm[:, t].float(),
+                            x[:, t].float()))
+        ys.append(torch.einsum("bhn,bhnp->bhp", Cm[:, t].float(), h))
+    return torch.stack(ys, dim=1), h
+
+
+def ssd_scan_chunked_ref(x, dA, Bm, Cm, chunk: int, init_state=None,
+                         compute_dtype=torch.float32):
+    """The chunked SSD scan (Mamba-2's algorithm, arXiv:2405.21060) in
+    float32: the CUDA ``ssd_scan`` kernel's plain version.
+
+    x:  (B, S, H, P)  inputs, already dt-scaled (any float dtype)
+    dA: (B, S, H)     per-step log decay (<= 0), float32
+    Bm, Cm: (B, S, G, N) with H % G == 0 — head h reads group h // (H / G)
+    chunk: steps per chunk (Q = min(chunk, S)); S need not be a multiple:
+      the tail is padded with dA = 0 and zero inputs, which leaves the
+      state exactly as it was
+    init_state: optional (B, H, N, P) state before step 0 (zeros if None)
+    compute_dtype: float32 (the kernel's arithmetic), or float64 for a
+      rounding reference
+    returns (y (B, S, H, P) in x's dtype, final state (B, H, N, P) in
+    compute_dtype)
+
+    Per chunk, with cs the cumulative sum of dA inside it:
+      Y = ((C B^T) o exp(cs_i - cs_j) o [j <= i]) x + (C h) o exp(cs)
+      h <- exp(cs_Q) h + B^T (exp(cs_Q - cs) o x)
+    The mask is applied before the exponent (exp of a positive segment
+    overflows)."""
+    Bb, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    hpg = H // G
+    dev = x.device
+    xf, dAf, Bf, Cf = (t.to(compute_dtype) for t in (x, dA, Bm, Cm))
+    Q = max(1, min(chunk, S))
+    pad = (-S) % Q
+    if pad:
+        def zpad(t):
+            shape = (t.shape[0], pad) + tuple(t.shape[2:])
+            return torch.cat([t, t.new_zeros(shape)], dim=1)
+        xf, dAf, Bf, Cf = zpad(xf), zpad(dAf), zpad(Bf), zpad(Cf)
+    h = (torch.zeros((Bb, H, N, P), dtype=compute_dtype, device=dev)
+         if init_state is None else init_state.to(compute_dtype).clone())
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=dev))
+    neg = torch.tensor(MASK_VALUE, dtype=compute_dtype, device=dev)
+    ys = []
+    for c0 in range(0, S + pad, Q):
+        sl = slice(c0, c0 + Q)
+        dAq, xq, Bq, Cq = dAf[:, sl], xf[:, sl], Bf[:, sl], Cf[:, sl]
+        cs = torch.cumsum(dAq, dim=1)                        # (B, Q, H)
+        seg = cs[:, :, None, :] - cs[:, None, :, :]          # (B, Q, Q, H)
+        ldec = torch.exp(torch.where(causal[None, :, :, None], seg, neg))
+        cb = torch.einsum("bign,bjgn->bijg", Cq, Bq)
+        cb = cb.repeat_interleave(hpg, dim=3)                # (B, Q, Q, H)
+        yd = torch.einsum("bijh,bjhp->bihp", cb * ldec, xq)
+        ch = Cq.repeat_interleave(hpg, dim=2)                # (B, Q, H, N)
+        yo = torch.einsum("bihn,bhnp->bihp", ch, h) \
+            * torch.exp(cs)[..., None]
+        wj = torch.exp(cs[:, -1:, :] - cs)                   # (B, Q, H)
+        bh = Bq.repeat_interleave(hpg, dim=2)
+        snew = torch.einsum("bjhn,bjhp->bhnp", bh * wj[..., None], xq)
+        h = h * torch.exp(cs[:, -1, :])[..., None, None] + snew
+        ys.append(yd + yo)
+    y = torch.cat(ys, dim=1)[:, :S] if ys else xf.new_zeros((Bb, 0, H, P))
+    return y.to(x.dtype), h

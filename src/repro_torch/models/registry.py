@@ -1,15 +1,15 @@
-"""arch family -> model class resolution.  Only the dense family is ported;
-every other family raises, naming the ROADMAP item that ports it."""
+"""arch family -> model class resolution.  The dense family resolves to
+`DenseLM`, the hybrid and mamba2 families to `Zamba2LM`; every other
+family raises, naming the ROADMAP item that ports it."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
 
+# the families still to port, each with the ROADMAP item that ports it
 _NOT_PORTED = {
     "vlm": "ROADMAP A.9 (the vlm patch path of DenseLM)",
     "moe": "ROADMAP A.9 (models/moe.py)",
     "encdec": "ROADMAP A.9 (models/encdec.py)",
-    "hybrid": "ROADMAP A.7 (models/mamba2.py)",
-    "mamba2": "ROADMAP A.7 (models/mamba2.py)",
     "xlstm": "ROADMAP A.7 (models/xlstm.py)",
 }
 
@@ -20,6 +20,9 @@ def get_model(cfg: ModelConfig, device="cuda"):
     if cfg.family == "dense":
         from repro_torch.models.transformer import DenseLM
         return DenseLM(cfg, device=device)
+    if cfg.family in ("hybrid", "mamba2"):
+        from repro_torch.models.mamba2 import Zamba2LM
+        return Zamba2LM(cfg, device=device)
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: {_NOT_PORTED[cfg.family]}")

@@ -83,7 +83,8 @@ from repro_torch.serving.cost_model import CostModel
 from repro_torch.serving.kv_cache import OutOfPages, PagedAllocator
 from repro_torch.serving.transfer import (DONE, IN, OUT, PERSIST,
                                           EventBuffer, PendingPayload,
-                                          Transfer, TransferEngine)
+                                          Transfer, TransferEngine,
+                                          copy_to_host)
 
 HBM, HOST = "hbm", "host"
 
@@ -711,20 +712,8 @@ class RealBackend(Backend):
     def _copy_to_host(self, tensors):
         """Start device->host copies of ``tensors`` (made on the compute
         stream) into pinned host memory on the copy stream; returns the
-        host tensors and the buffer the transfer waits on.  CPU tensors
-        are already host tensors."""
-        if self._copy_stream is None:
-            return list(tensors), DONE
-        cur = torch.cuda.current_stream(self.device)
-        self._copy_stream.wait_stream(cur)
-        hosts = []
-        with torch.cuda.stream(self._copy_stream):
-            for t in tensors:
-                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                h.copy_(t, non_blocking=True)
-                t.record_stream(self._copy_stream)
-                hosts.append(h)
-        return hosts, EventBuffer(self._copy_stream, keep=(*tensors, *hosts))
+        host tensors and the buffer the transfer waits on."""
+        return copy_to_host(tensors, self._copy_stream, self.device)
 
     def _gather_device(self, sid: str, layers: List[int]):
         """Gather the valid token range of many (sid, layer)s on the compute
@@ -1561,12 +1550,19 @@ class RealBackend(Backend):
 
 
 def make_backend(cfg, model, params, **kw):
-    """Real-backend factory (``hbm_pages``, ``spool_dir`` and the other
-    keywords pass through to `RealBackend`).  The dense family serves
-    through `RealBackend`; the recurrent and hybrid families' `StateBackend`
-    is not ported yet."""
+    """Family-dispatching real-backend factory, as the JAX package's: the
+    mamba2 and hybrid families serve through the slot-pool `StateBackend`
+    (serving/state_backend.py), the dense family through `RealBackend`;
+    the keywords pass through.  xlstm (ROADMAP A.7) and the vlm, moe and
+    encdec families (A.9) are not ported yet and raise."""
+    if cfg.family in ("mamba2", "hybrid"):
+        from repro_torch.serving.state_backend import StateBackend
+        kw.pop("mesh", None)         # TP serving is transformer-only so far
+        kw.pop("hbm_pages", None)    # as is the quantized page tier
+        return StateBackend(cfg, model, params, **kw)
     if cfg.family != "dense":
         raise NotImplementedError(
             f"make_backend: family {cfg.family!r} is not ported yet "
-            f"(ROADMAP A.7 for mamba2/xlstm/hybrid, A.9 for the others)")
+            f"(ROADMAP A.7 for xlstm, A.9 for vlm/moe/encdec)")
+    kw.pop("n_slots", None)          # slot pools are a recurrent concept
     return RealBackend(cfg, model, params, **kw)

@@ -86,6 +86,25 @@ class DoneBuffer:
 DONE = DoneBuffer()
 
 
+def copy_to_host(tensors, stream, device):
+    """Start device->host copies of ``tensors`` (made on the compute stream
+    of ``device``) into pinned host memory on the side ``stream``; returns
+    the host tensors and the buffer a transfer waits on.  With no stream
+    (CPU tensors) the tensors already are host tensors."""
+    if stream is None:
+        return list(tensors), DONE
+    cur = torch.cuda.current_stream(device)
+    stream.wait_stream(cur)
+    hosts = []
+    with torch.cuda.stream(stream):
+        for t in tensors:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            t.record_stream(stream)
+            hosts.append(h)
+    return hosts, EventBuffer(stream, keep=(*tensors, *hosts))
+
+
 class Transfer:
     """One in-flight tier movement (all layers of one session direction)."""
 

@@ -4,9 +4,12 @@
 ``kernel_mode="ref"``) and the port (CPU tensors, plain attention) as two
 `Pkg`s over the SAME weights — JAX-initialised, carried across by
 `convert.params_from_numpy` — on ``llama3-8b.reduced(dtype="float32")``
-with 4 kv heads (MHA) or 2 (GQA).  A test runs its scenario once per `Pkg`
-and asserts the two agree (tokens, counters, invariants) and that the
-port's tokens equal the port's dense prefill/decode recompute.
+with 4 kv heads (MHA) or 2 (GQA).  `recurrent_twins(family)` does the same
+for the mamba2 and hybrid families (``mamba2-2.7b`` / ``zamba2-2.7b``
+``.reduced(dtype="float32")``), whose backend is the factory
+``make_backend`` (`StateBackend` for both).  A test runs its scenario once
+per `Pkg` and asserts the two agree (tokens, counters, invariants) and that
+the port's tokens equal the port's dense prefill/decode recompute.
 
 Both cost models get the JAX package's v5e figures (`V5E`): the port's
 defaults are the H100 data sheet, so its quantize-or-swap and stall
@@ -79,6 +82,37 @@ class Pkg:
         return cost, mgr, be, eng
 
 
+def _pkgs(jcfg, cfg, jbackend_cls, tbackend_cls, seed):
+    jm = jax_model(jcfg)
+    jp = jm.init(jax.random.key(seed))
+    tm = get_model(cfg, device="cpu")
+    tp = convert.params_from_numpy(cfg, jax.tree.map(np.asarray, jp),
+                                   device="cpu")
+    jpkg = Pkg("jax", jcfg, jm, jp, jadvisory.InferenceRequest,
+               jadvisory.AdvisoryRequest, JaxManager, JaxEngine, JaxCost,
+               JaxHardware, jbackend_cls, jbackend.LostKV,
+               dict(kernel_mode="ref"))
+    tpkg = Pkg("torch", cfg, tm, tp, tadvisory.InferenceRequest,
+               tadvisory.AdvisoryRequest, NodeManager, NodeEngine, CostModel,
+               HardwareSpec, tbackend_cls, tbackend.LostKV,
+               dict(device="cpu"))
+    return jpkg, tpkg
+
+
+RECURRENT = {"mamba2": "mamba2-2.7b", "hybrid": "zamba2-2.7b"}
+
+
+@functools.lru_cache(maxsize=None)
+def recurrent_twins(family: str, seed: int = 0):
+    """(JAX Pkg, port Pkg) of a recurrent family with the same weights;
+    family: mamba2 | hybrid."""
+    name = RECURRENT[family]
+    jcfg = jconfigs.get_config(name).reduced(dtype="float32")
+    cfg = tconfigs.get_config(name).reduced(dtype="float32")
+    return _pkgs(jcfg, cfg, jbackend.make_backend, tbackend.make_backend,
+                 seed)
+
+
 @functools.lru_cache(maxsize=None)
 def twins(kind: str = "gqa", seed: int = 0):
     """(JAX Pkg, port Pkg) with the same weights; kind: mha | gqa."""
@@ -87,20 +121,7 @@ def twins(kind: str = "gqa", seed: int = 0):
                                                     n_kv_heads=n_kv)
     cfg = tconfigs.get_config("llama3-8b").reduced(dtype="float32",
                                                    n_kv_heads=n_kv)
-    jm = jax_model(jcfg)
-    jp = jm.init(jax.random.key(seed))
-    tm = get_model(cfg, device="cpu")
-    tp = convert.params_from_numpy(cfg, jax.tree.map(np.asarray, jp),
-                                   device="cpu")
-    jpkg = Pkg("jax", jcfg, jm, jp, jadvisory.InferenceRequest,
-               jadvisory.AdvisoryRequest, JaxManager, JaxEngine, JaxCost,
-               JaxHardware, jbackend.RealBackend, jbackend.LostKV,
-               dict(kernel_mode="ref"))
-    tpkg = Pkg("torch", cfg, tm, tp, tadvisory.InferenceRequest,
-               tadvisory.AdvisoryRequest, NodeManager, NodeEngine, CostModel,
-               HardwareSpec, tbackend.RealBackend, tbackend.LostKV,
-               dict(device="cpu"))
-    return jpkg, tpkg
+    return _pkgs(jcfg, cfg, jbackend.RealBackend, tbackend.RealBackend, seed)
 
 
 def turns(cfg, lens, seed=0):
@@ -128,7 +149,14 @@ def recompute(tpkg: Pkg, turn_ids, gen=GEN):
 
 
 def check_invariants(mgr, be):
-    for a in be.alloc:
+    """Allocator and store conservation at a drain point (slot and
+    per-application page allocators for a `StateBackend`)."""
+    if hasattr(be, "slots"):
+        be.slots.check()
+        allocs = be.kv_alloc
+    else:
+        allocs = be.alloc
+    for a in allocs:
         a.check()
     mgr.store.check()
 

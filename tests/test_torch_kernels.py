@@ -104,6 +104,7 @@ GEOMETRIES = [
     (4, 16, 8, 2, 64, 16, 4),      # GQA 4:1
     (2, 8, 8, 1, 128, 32, 2),      # MQA
     (3, 5, 6, 2, 64, 8, 5),        # G = 3, ragged Sq
+    (3, 9, 4, 4, 80, 16, 4),       # zamba2-2.7b's head dim, MHA
 ]
 
 
@@ -208,6 +209,8 @@ CARD_GEOMETRIES = [
     (2, 8, 8, 1, 128, 32, 2),      # MQA
     (3, 37, 32, 8, 128, 16, 6),    # llama3-8b heads, ragged Sq
     (5, 1, 32, 8, 128, 16, 9),     # llama3-8b decode
+    (3, 37, 32, 32, 80, 16, 6),    # zamba2-2.7b's shared attention
+    (5, 1, 32, 32, 80, 16, 9),     # its decode
 ]
 
 

@@ -188,11 +188,26 @@ def test_default_device_is_the_card():
 
 @pytest.mark.parametrize("arch,item", [
     ("phi-3-vision-4.2b", "A.9"), ("qwen3-moe-30b-a3b", "A.9"),
-    ("seamless-m4t-medium", "A.9"), ("zamba2-2.7b", "A.7"),
-    ("mamba2-2.7b", "A.7"), ("xlstm-1.3b", "A.7")])
+    ("seamless-m4t-medium", "A.9"), ("xlstm-1.3b", "A.7")])
 def test_unported_families_name_their_roadmap_item(arch, item):
     with pytest.raises(NotImplementedError, match=item):
         get_model(get_config(arch), device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "mamba2-2.7b"])
+def test_recurrent_families_resolve_to_zamba2lm(arch):
+    """The hybrid and mamba2 families are ported: both resolve to
+    `Zamba2LM` (the shared attention blocks only for the hybrid), and its
+    training and dry-run entry points name their ROADMAP items."""
+    from repro_torch.models.mamba2 import Zamba2LM
+    cfg = get_config(arch).reduced(dtype="float32")
+    model = get_model(cfg, device="cpu")
+    assert isinstance(model, Zamba2LM)
+    assert model.has_attn == (cfg.family == "hybrid")
+    with pytest.raises(NotImplementedError, match="A.10"):
+        model.loss({}, {})
+    with pytest.raises(NotImplementedError, match="A.11"):
+        model.input_specs(None)
 
 
 def test_init_draws_the_jax_scales():

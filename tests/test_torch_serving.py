@@ -175,7 +175,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "             n.startswith('jax.') or n == 'repro' or\n"
         "             n.startswith('repro.'))\n"
         "assert not bad, bad\n"
-        "assert 'repro_torch.serving.backend' in sys.modules\n"
+        "for m in ('serving.backend', 'serving.state_backend',\n"
+        "          'models.mamba2', 'kernels.ssd_scan'):\n"
+        "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)
@@ -200,16 +202,15 @@ def test_backend_runs_on_the_card_by_default():
 
 def test_unported_paths_raise_naming_the_roadmap():
     """What is still unported raises, naming its ROADMAP item: the device
-    mesh (A.8) and the non-dense families (A.7); tier movement and the
-    int8 tier are ported and answer for an unknown session without
-    raising."""
+    mesh (A.8) and the xlstm family (A.7); tier movement and the int8 tier
+    are ported and answer for an unknown session without raising."""
     cfg = get_config("llama3-8b").reduced(dtype="float32")
     model = get_model(cfg, device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="A.8"):
         RealBackend(cfg, model, params, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="A.7"):
-        make_backend(get_config("mamba2-2.7b"), model, params, device="cpu")
+        make_backend(get_config("xlstm-1.3b"), model, params, device="cpu")
     be = RealBackend(cfg, model, params, device="cpu")
     assert be.quantize_session("s") == 0
     assert be.prefetch("s", [0]) == []
