@@ -1,12 +1,13 @@
 """Card check of the PyTorch/CUDA port: builds the CUDA kernels, holds each
 against its plain PyTorch version, and serves llama3-8b (under memory
-pressure too) and zamba2-2.7b at full width and depth through the port's
-entry points.
+pressure, and on a three-node cluster with migration and failure) and
+zamba2-2.7b at full width and depth through the port's entry points.
 
 Run from the repository root on a machine with an NVIDIA card:
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --phases 1,2,3
+    python3 chip_smoke.py --phases 11,12     # B.4 and the cluster
 
 Phases:
   1. environment: the card's name and power limit;
@@ -29,7 +30,8 @@ Phases:
      every dispatch; a lockstep twin on the plain attention must agree;
      the main path's kernel calls are re-timed against their bound;
   5. exact tokens in fp32 (full width, 2 layers): served turns equal the
-     dense prefill/decode recompute;
+     dense prefill/decode recompute (`dense_reference`, B.4 on every layer
+     of its prefills);
   6. the memory-pressure path: llama3-8b (32 layers, bf16) on a node whose
      fp byte budget (hbm_pages) is about 40 % of its sessions' pages, with
      twice that many physical pages and a disk spool: 6 sessions x 3 turns,
@@ -65,7 +67,26 @@ Phases:
      path's kernel calls are re-timed;
  10. exact tokens in fp32 (zamba2 at full width, 12 Mamba layers, 2 shared
      applications) through swap-out/in, eviction and promotion, and spool
-     recovery after a crash: the dense prefill/decode recompute's tokens.
+     recovery after a crash: the dense prefill/decode recompute's tokens;
+ 11. the prefill kernel (B.4) against its plain version at llama3-8b widths
+     in bf16 and fp32: one lane at Sq = Skv in {1, 100, 512, 1568, 4096},
+     two lanes of 256 tokens at q_offset 512 over 1024 keys (padding past
+     768), and that continuation as kernel 1's input (identity tables),
+     where kernel 1 must agree; times against the bound and SDPA;
+ 12. llama3-8b (32 layers, bf16) on a three-node `ClusterRuntime` in real
+     mode: (a) 2 sessions x 3 turns of 512-token prompts, a turn-2
+     advisory that migrates a session to the idle node, and the node that
+     served s0's turn 2 failed and its session recovered from the spool;
+     (b) on a fresh cluster a shared-prefix cohort of 4 routed to its
+     donor's node.  Then the full-history recompute (`dense_reference`) of
+     both traces, B.4 on every layer of every prefill, held against its
+     plain and float64 twins; the cluster's turns against the reference's
+     (flips held to the tolerance), and the prefill tokens of both;
+ 13. exact tokens in fp32 through the cluster: phase 12(a) with llama3-8b
+     at full width and 2 layers, and a mixed cluster (2 of that llama, 2
+     mamba2-2.7b at full width and 4 layers) whose recurrent session
+     migrates and whose node fails: each session equals its family's dense
+     reference.
 
 It prints progress lines, then one line with the kernels' JSON record, the
 card's name and power limit, and as the last line
@@ -96,6 +117,7 @@ from repro_torch.core.advisory import (AdvisoryRequest,  # noqa: E402
                                        InferenceRequest)
 from repro_torch.core.node_manager import NodeManager  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.kernels import flash_prefill as fp  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels.quant import quantize_int8  # noqa: E402
@@ -103,6 +125,11 @@ from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.serving.backend import RealBackend  # noqa: E402
 from repro_torch.serving.cost_model import CostModel  # noqa: E402
 from repro_torch.serving.engine import NodeEngine  # noqa: E402
+from repro_torch.serving.scenario import (MixedTrace,  # noqa: E402
+                                          MultiTurnRealTrace,
+                                          SharedPrefixTrace,
+                                          dense_reference, session_outputs)
+from repro_torch.serving.simulator import ClusterRuntime  # noqa: E402
 from repro_torch.serving.state_backend import StateBackend  # noqa: E402
 from repro_torch.serving.transfer import IN, OUT  # noqa: E402
 
@@ -343,9 +370,9 @@ def phase_env():
 
 
 def phase_build():
-    """Both kernel sources, one nvcc each, started together."""
+    """Every kernel source, one nvcc each, started together."""
     t0 = time.perf_counter()
-    built = build.build_all([pa.NAME, ssd.NAME])
+    built = build.build_all([pa.NAME, ssd.NAME, fp.NAME])
     log(f"[2] {len(built)} kernel libraries in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, (path, text) in built.items():
@@ -699,7 +726,8 @@ class PlainCalls:
     functions, which kernels/ops.py calls in their place) while active: the
     kernel path must make none."""
 
-    NAMES = ("paged_chunk_attention_ref", "ssd_scan_chunked_ref")
+    NAMES = ("paged_chunk_attention_ref", "ssd_scan_chunked_ref",
+             "flash_prefill_ref")
 
     def __init__(self):
         self.n = 0
@@ -900,7 +928,8 @@ class Capture:
     with copies of its inputs, and counts the calls it sees: the first
     call, or with ``score`` the call that scores highest (for the int8
     kernel, the one whose lanes read the most int8 pages).  Captures happen
-    only in the lockstep twins, never in a counted main-path run."""
+    only in runs that hold a kernel path against its twins (the lockstep
+    nodes, the dense reference's prefills in phase 12)."""
 
     def __init__(self, name, score=None, module=pa, key=_attention_key):
         self.name = name
@@ -920,7 +949,8 @@ class Capture:
             key = self.key(args, kw)
             sc = 0.0 if self.score is None else self.score(args)
             if key not in self.calls or sc > self.scores[key]:
-                self.calls[key] = (tuple(t.clone() for t in args),
+                self.calls[key] = (tuple(t.clone() if isinstance(
+                    t, torch.Tensor) else t for t in args),
                                    {k: None if t is None else t.clone()
                                     for k, t in kw.items()})
                 self.scores[key] = sc
@@ -1034,20 +1064,16 @@ def flag_share(tables, ctx, flags, page):
     return float(np.mean([fl[p] for p in pages])) if pages else 0.0
 
 
-def dense_turns(cfg, model, params, turns, gen):
-    """Dense recompute: every turn re-prefills the whole history."""
-    history, expect = [], []
-    for turn in turns:
-        history += turn
-        logits, cache = model.prefill(params, torch.tensor([history]))
-        cache = model.grow_cache(cache, gen)
-        outs = []
-        for _ in range(gen):
-            nxt = torch.argmax(logits[:, :cfg.vocab], -1).to(torch.int32)
-            outs.append(int(nxt[0]))
-            logits, cache = model.decode_step(params, cache, nxt)
-        expect.append(outs)
-        history += outs
+def reference_turns(cfg, model, params, turns, gen):
+    """The dense recompute (`dense_reference`) of one session's turns.  On
+    a dense model its prefill runs B.4 on every layer of every turn (held
+    here); the hybrid's windowed shared attention keeps the plain
+    version."""
+    f0 = fp.launches
+    expect = dense_reference(cfg, model, params, {"chat": turns}, gen)["chat"]
+    want = cfg.n_layers * len(turns) if cfg.family == "dense" else 0
+    check(fp.launches - f0 == want, f"the dense recompute launched B.4 "
+          f"{fp.launches - f0} times, not {want}")
     return expect
 
 
@@ -1074,7 +1100,7 @@ def phase_exact_fp32(seed):
     gen = 16
     turns = [[int(x) for x in rng.integers(0, cfg.vocab, int(n))]
              for n in rng.integers(100, 300, 3)]
-    expect = dense_turns(cfg, model, params, turns, gen)
+    expect = reference_turns(cfg, model, params, turns, gen)
     eng, be, _ = make_node(cfg, model, params, n_pages=128, max_batch=4,
                            token_budget=128)
     got, now = [], 0.0
@@ -1366,7 +1392,7 @@ def phase_exact_tiers(seed):
     gen = 16
     turns = [[int(x) for x in rng.integers(0, cfg.vocab, int(n))]
              for n in rng.integers(100, 300, 4)]
-    expect = dense_turns(cfg, model, params, turns, gen)
+    expect = reference_turns(cfg, model, params, turns, gen)
     kw = dict(n_pages=256, max_batch=4, token_budget=128)
     got, now = [], 0.0
     with tempfile.TemporaryDirectory() as tmp:
@@ -1843,7 +1869,7 @@ def phase_exact_hybrid(seed):
     gen = 16
     turns = [[int(x) for x in rng.integers(0, cfg.vocab, int(n))]
              for n in rng.integers(100, 300, 4)]
-    expect = dense_turns(cfg, model, params, turns, gen)
+    expect = reference_turns(cfg, model, params, turns, gen)
     plain = PlainCalls()
     got = []
     with tempfile.TemporaryDirectory() as tmp:
@@ -1883,6 +1909,538 @@ def phase_exact_hybrid(seed):
           "dense recompute")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: flash_prefill (B.4) against its plain version
+# ---------------------------------------------------------------------------
+
+def flash_work(q, k, q_offset):
+    """Bytes causal prefill attention must move and the operations it must
+    do on THESE inputs: q read and the output written once, each kv head's
+    K/V rows up to the last query's horizon (q_offset + Sq; keys past it
+    are padding no row sees) read once; QK and PV over the keys each query
+    row sees (4 D operations per head and key)."""
+    B, Sq, H, D = q.shape
+    Hkv = k.shape[2]
+    it = q.element_size()
+    nbytes = 2 * B * Sq * H * D * it + 2 * B * (q_offset + Sq) * Hkv * D * it
+    seen = Sq * q_offset + Sq * (Sq + 1) // 2
+    return nbytes, 4 * D * H * B * seen
+
+
+def sdpa_prefill(q, k, v, q_offset):
+    """One PyTorch call computing the same attention:
+    F.scaled_dot_product_attention on head-major copies made here, outside
+    the timed call, with is_causal where the queries are the whole
+    sequence and an explicit causal mask at q_offset otherwise, GQA through
+    enable_gqa.  The port never calls it."""
+    Sq, Skv = q.shape[1], k.shape[1]
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    F = torch.nn.functional
+    if q_offset == 0 and Sq == Skv:
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    qpos = q_offset + torch.arange(Sq, device=q.device)
+    mask = qpos[:, None] >= torch.arange(Skv, device=q.device)[None, :]
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+
+def compare_flash(q, k, v, q_offset, label):
+    """B.4 vs its plain version on one input, within TOL x max |plain|;
+    the kernel's, the plain version's and SDPA's times, and the bound."""
+    def kern():
+        return fp.flash_prefill(q, k, v, q_offset)
+
+    def plain():
+        return ref.flash_prefill_ref(q, k, v, q_offset)
+
+    out = kern()
+    torch.cuda.synchronize()
+    want = plain()
+    check(bool(torch.isfinite(out.float()).all()),
+          f"{label}: kernel output not finite")
+    err = (out.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    lim = TOL[q.dtype] * scale
+    check(err <= lim, f"{label}: max abs err {err:.3g} > {TOL[q.dtype]} x "
+          f"max|plain| {scale:.3g} = {lim:.3g}")
+    nbytes, flops = flash_work(q, k, q_offset)
+    b_ms, b_by, t_b, t_f = bound(nbytes, flops, q.dtype)
+    return dict(label=label, max_abs_err=err, err_rel=err / scale,
+                ms=cuda_ms(kern, 10), plain_ms=cuda_ms(plain, 3),
+                library_ms=cuda_ms(sdpa_prefill(q, k, v, q_offset), 10),
+                bound_ms=b_ms, bound_by=b_by, bytes_ms=t_b, ops_ms=t_f)
+
+
+def phase_flash_vs_plain(seed):
+    """B.4 at llama3-8b widths (H = 32, Hkv = 8, D = 128), bf16 and fp32:
+    one lane at Sq = Skv in {1, 100, 512, 1568, 4096}; two lanes of 256 new
+    tokens at q_offset 512 over Skv = 1024 keys (the last 256 padding).
+    The continuation, seen as pages of 16 with identity tables, q_offsets
+    512 and ctx_lens 768, is kernel 1's input: kernel 1 must agree."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    cases = [(f"B=1 Sq=Skv={S}", 1, S, S, 0) for S in (1, 100, 512, 1568,
+                                                       4096)]
+    cases.append(("B=2 q_offset=512 Sq=256 Skv=1024", 2, 256, 1024, 512))
+    H, Hkv, D, page = 32, 8, 128, 16
+    recs = []
+    for label, B, Sq, Skv, qo in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = randn(B, Sq, H, D).to(dtype)
+            k, v = randn(B, Skv, Hkv, D).to(dtype), randn(B, Skv, Hkv,
+                                                          D).to(dtype)
+            name = f"flash_prefill {label} {str(dtype).split('.')[-1]}"
+            rec = compare_flash(q, k, v, qo, name)
+            log("[11]" + fmt(rec))
+            recs.append(rec)
+            if qo:
+                n = Skv // page
+                tab = torch.arange(B * n, dtype=torch.int32,
+                                   device="cuda").view(B, n)
+                qoffs = torch.full((B,), qo, dtype=torch.int32,
+                                   device="cuda")
+                ctx = torch.full((B,), qo + Sq, dtype=torch.int32,
+                                 device="cuda")
+                k1 = KERNEL(q, k.view(B * n, page, Hkv, D),
+                            v.view(B * n, page, Hkv, D), tab, qoffs, ctx)
+                out = fp.flash_prefill(q, k, v, qo)
+                err = (out.float() - k1.float()).abs().max().item()
+                lim = TOL[dtype] * k1.float().abs().max().item()
+                check(err <= lim, f"{name}: B.4 and kernel 1 on identity "
+                      f"tables differ by {err:.3g} > {lim:.3g}")
+                log(f"[11]   kernel 1 on identity tables: max abs diff "
+                    f"{err:.3g} (limit {lim:.3g})")
+            del q, k, v
+    torch.cuda.empty_cache()
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the cluster runtime at full width, and its dense reference
+# ---------------------------------------------------------------------------
+
+def cluster(cfg, model, params, **kw):
+    """A real-mode cluster on the model's device (three nodes unless
+    ``node_groups`` says otherwise), as a user of the port builds it: the
+    SYMPHONY policy, the nodes of a group sharing one ``params``."""
+    kw = {**dict(n_nodes=3, device=model.device), **kw}
+    return ClusterRuntime(cfg, policy="symphony", mode="real", max_batch=8,
+                          page_size=16, n_pages=1024, token_budget=512,
+                          model=model, params=params, trace_logits=False,
+                          **kw)
+
+
+def run_cluster(rt, trace, tag):
+    """``rt.run(trace)`` with the invariants of every live node after it
+    (allocators, slots, store) and the kernel-1 launches of its dense
+    nodes (its mamba2 nodes have no attention); returns (result, dead
+    nodes, seconds)."""
+    dense = [i for i, c in rt.cfgs.items() if c.family == "dense"]
+    torch.cuda.synchronize()
+    a0, t0 = pa.launches, time.perf_counter()
+    res = rt.run(trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dead = [i for i, st in rt.sched.nodes.items() if not st.alive]
+    for i in rt.managers:
+        if i not in dead:
+            drained(rt.backends[i], rt.managers[i])
+    want = sum(rt.cfgs[i].n_layers * rt.backends[i].stats["sub_dispatches"]
+               for i in dense)
+    check(pa.launches - a0 == want and want > 0,
+          f"[{tag}] kernel 1 launched {pa.launches - a0} times, not "
+          f"n_layers x sub-dispatches = {want}")
+    return res, dead, wall
+
+
+def cluster_summary(rt, res, trace):
+    """Migrations, recoveries, the recompute path's extra prefill tokens,
+    the cluster's prefill tokens, and its engines' measured busy seconds
+    over their dispatches (the mean wall time of a dispatch)."""
+    m = res.metrics()
+    per = m["per_node"].values()
+    prompt = sum(len(t) for turns in trace.prompts.values() for t in turns)
+    prefill = sum(n["prefill_tokens"] for n in per)
+    shared = sum(e.stats["shared_prefix_tokens"]
+                 for e in rt.engines.values())
+    busy = sum(n["busy_s"] for n in per)
+    dispatches = sum(be.stats["sub_dispatches"] for be in rt.backends.values())
+    return dict(completed=m["completed"],
+                migrations=sum(n["migrations"] for n in per),
+                recoveries=sum(n["recoveries"] for n in per),
+                recompute_tokens=prefill + shared - prompt,
+                prefill_tokens=prefill, shared_prefix_tokens=shared,
+                disk_writes=sum(n["disk_writes"] for n in per),
+                busy_s=busy, dispatches=dispatches,
+                ms_per_dispatch=1e3 * busy / max(dispatches, 1))
+
+
+def reference_prefill_tokens(prompts, gen):
+    """Tokens the full-history recompute prefills: every turn re-prefills
+    the session's whole history."""
+    total = 0
+    for turns in prompts.values():
+        hist = 0
+        for t in turns:
+            hist += len(t)
+            total += hist
+            hist += gen
+    return total
+
+
+def _flash64(q, k, v, q_offset=0):
+    """The plain prefill attention's math in float64 (the port's plain
+    version computes in float32): the rounding reference of the twin."""
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Sq, Hkv, H // Hkv, D).double()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.double()) / D ** 0.5
+    qpos = q_offset + torch.arange(Sq, device=q.device)
+    mask = qpos[:, None] >= torch.arange(Skv, device=q.device)[None, :]
+    s = s.masked_fill(~mask, ref.MASK_VALUE)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(s, dim=-1),
+                     v.double())
+    return o.reshape(B, Sq, H, D).to(q.dtype)
+
+
+class ReferenceTwin:
+    """While active, the dense reference's prefills run on the kernel path
+    (K: B.4 on every layer and no plain call, checked at each prefill), and
+    each is repeated on the same tokens on the plain path (P) and on the
+    plain path with its attention in float64 (R).  The last-position logits
+    are held as `Lockstep` holds final chunks: K within the tolerance of P
+    or twice P's distance from R, K no further from R than twice P is; a
+    token K picks that P or R does not is a flip, whose twin logit gap must
+    be within the tolerance.  The reference goes on with K's tokens.  Every
+    logit vector the reference reads, prefill and decode, is kept on the
+    host in call order (``trail``)."""
+
+    def __init__(self, model, dtype, captures=()):
+        self.model = model
+        self.tol = TOL[dtype]
+        self.captures = captures
+        self.plain = PlainCalls()
+        self.res = dict(KP=0.0, PR=0.0, KR=0.0, flips=[], prefills=0)
+        self.trail = []
+
+    def _hold(self, lk, lp, lr):
+        vocab = self.model.cfg.vocab
+        lg = {x: t[0, :vocab].float().cpu().numpy()
+              for x, t in (("K", lk), ("P", lp), ("R", lr))}
+        for pr in ("KP", "PR", "KR"):
+            y = lg[pr[1]]
+            err = float(np.abs(lg[pr[0]] - y).max())
+            self.res[pr] = max(self.res[pr],
+                               err / (self.tol * float(np.abs(y).max())))
+        tk = int(lg["K"].argmax())
+        for x in "PR":
+            tx = int(lg[x].argmax())
+            if tx != tk:
+                gap = float(lg[x][tx] - lg[x][tk])
+                units = gap / (self.tol * float(np.abs(lg[x]).max()))
+                self.res["flips"].append((x, self.res["prefills"], tk, tx,
+                                          units))
+                check(units <= 1.0, f"reference prefill {self.res['prefills']}"
+                      f": token {tk} (kernel) vs {tx} ({x}) with a logit "
+                      f"gap {units:.3g} x the tolerance")
+        return lg["K"]
+
+    @contextlib.contextmanager
+    def __call__(self):
+        model = self.model
+        orig_p, orig_d = model.prefill, model.decode_step
+        vocab = model.cfg.vocab
+
+        def prefill(params, tokens, kernel_mode="auto"):
+            f0, n0 = fp.launches, self.plain.n
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(self.plain())
+                for c in self.captures:
+                    stack.enter_context(c())
+                lk, cache = orig_p(params, tokens, kernel_mode=kernel_mode)
+            check(fp.launches - f0 == model.cfg.n_layers
+                  and self.plain.n == n0,
+                  f"a reference prefill launched B.4 {fp.launches - f0} "
+                  f"times for {model.cfg.n_layers} layers, with "
+                  f"{self.plain.n - n0} plain calls")
+            lp, _ = orig_p(params, tokens, kernel_mode="ref")
+            saved = ref.flash_prefill_ref
+            ref.flash_prefill_ref = _flash64
+            try:
+                lr, _ = orig_p(params, tokens, kernel_mode="ref")
+            finally:
+                ref.flash_prefill_ref = saved
+            self.trail.append(self._hold(lk, lp, lr))
+            self.res["prefills"] += 1
+            return lk, cache
+
+        def decode_step(params, cache, tokens):
+            logits, cache = orig_d(params, cache, tokens)
+            self.trail.append(logits[0, :vocab].float().cpu().numpy())
+            return logits, cache
+
+        model.prefill, model.decode_step = prefill, decode_step
+        try:
+            yield
+        finally:
+            del model.prefill, model.decode_step
+
+    def verdict(self):
+        res = self.res
+        check(res["KP"] <= max(1.0, 2 * res["PR"]),
+              f"reference prefill logits: kernel vs plain at "
+              f"{res['KP']:.3g} x the tolerance, noise floor "
+              f"{res['PR']:.3g} x")
+        check(res["KR"] <= 2 * max(res["PR"], 1e-3),
+              f"reference prefill logits: the kernel path is "
+              f"{res['KR']:.3g} x the tolerance from the float64 path, the "
+              f"plain path {res['PR']:.3g} x")
+
+
+def served_vs_reference(prompts, got, want, trail, gen, tol):
+    """Turns the cluster served equal to the reference's, and each
+    session's first differing token held to the flip rule by the
+    reference's logit gap at that position (later turns of that session
+    have another history, so they are not compared).  ``trail`` holds the
+    reference's logits in its call order: per turn, the prefill's and then
+    one per decode step."""
+    equal, total, firsts, idx = 0, 0, [], 0
+    for sid, turns in prompts.items():
+        diverged = False
+        for t in range(len(turns)):
+            seg = trail[idx:idx + gen + 1]
+            idx += gen + 1
+            g, w = got[sid][t], want[sid][t]
+            total += 1
+            if g == w:
+                equal += 1
+                continue
+            if diverged:
+                continue
+            diverged = True
+            i = next(j for j in range(gen) if g[j] != w[j])
+            lg = seg[i]
+            units = float(lg[w[i]] - lg[g[i]]) / (tol * float(
+                np.abs(lg).max()))
+            firsts.append((sid, t, i, g[i], w[i], units))
+            check(units <= 1.0, f"{sid} turn {t} token {i}: the cluster "
+                  f"served {g[i]}, the reference {w[i]}, whose logit gap is "
+                  f"{units:.3g} x the tolerance")
+    check(idx == len(trail), f"the reference read {len(trail)} logit "
+          f"vectors, not {idx}")
+    return equal, total, firsts
+
+
+def phase_cluster(cfg, model, params, seed, card):
+    """llama3-8b (32 layers, bf16) on a three-node cluster: (a) the
+    deterministic migration + failure trace, (b) a shared-prefix cohort on
+    a fresh cluster; then the dense reference of both, B.4 on every layer
+    of every prefill, held against its plain twins, and the cluster's
+    turns against the reference's."""
+    gen = 16
+    traces = dict(
+        a=MultiTurnRealTrace(cfg, n_sessions=2, n_turns=3, prompt_len=512,
+                             gen=gen, seed=seed + 12, fail_after_turn=2),
+        b=SharedPrefixTrace(cfg, n_sessions=4, shared_len=512,
+                            suffix_len=128, gen=gen, seed=seed + 12))
+    served, sums = {}, {}
+    for name, trace in traces.items():
+        rt = cluster(cfg, model, params)
+        try:
+            res, dead, wall = run_cluster(rt, trace, f"12{name}")
+            served[name] = session_outputs(res)
+            sums[name] = s = cluster_summary(rt, res, trace)
+            log(f"[12{name}] {s['completed']} turns in {wall:.2f} s; "
+                f"{s}; dead nodes {dead}")
+            log(f"[12{name}] per node: " + "; ".join(
+                f"{i}: {rt.engines[i].stats['prefill_tokens']} prefill, "
+                f"{rt.managers[i].stats.get('migrations', 0)} migrations, "
+                f"{rt.managers[i].stats.get('recoveries', 0)} recoveries, "
+                f"{rt.backends[i].stats['sub_dispatches']} dispatches"
+                for i in sorted(rt.engines)))
+            check(all(len(t) == gen for turns in served[name].values()
+                      for t in turns), "a turn did not generate all its "
+                  "tokens")
+            if name == "a":
+                check(s["completed"] == 6, f"{s['completed']} of 6 turns")
+                path = ("spool recovery" if s["recoveries"] else
+                        "full-history recompute" if s["recompute_tokens"] > 0
+                        else None)
+                check(s["migrations"] >= 1 and path is not None,
+                      f"no advisory migration or no recovery path: {s}")
+                check(len(dead) == 1
+                      and rt.sched.nodes[dead[0]].outstanding == 0,
+                      f"dead nodes {dead}, outstanding "
+                      f"{[rt.sched.nodes[i].outstanding for i in dead]}")
+                log(f"[12a] the orphaned session came back by {path}")
+            else:
+                nodes = {r.node_id for r in res.completed}
+                check(len(nodes) == 1, f"cohort split across {nodes}")
+                node = nodes.pop()
+                hits = rt.backends[node].stats["prefix_hits"]
+                check(s["shared_prefix_tokens"] == 3 * 512 and hits == 3,
+                      f"node {node}: {s['shared_prefix_tokens']} shared "
+                      f"prefix tokens, {hits} prefix hits")
+        finally:
+            rt.cleanup()
+            del rt
+            free_device_memory()
+
+    cap = Capture("flash_prefill", module=fp,
+                  key=lambda args, kw: (tuple(args[0].shape),
+                                        tuple(args[1].shape)))
+    twin = ReferenceTwin(model, cfg_dtype(cfg), captures=(cap,))
+    torch.cuda.synchronize()
+    fp.launches = 0                          # counts of the main path only
+    t0 = time.perf_counter()
+    want = {}
+    with twin():
+        for name, trace in traces.items():
+            want[name] = dense_reference(cfg, model, params, trace.prompts,
+                                         gen)
+    torch.cuda.synchronize()
+    launches = fp.launches
+    n_pre = twin.res["prefills"]
+    log(f"[12] dense reference: {n_pre} prefills in "
+        f"{time.perf_counter() - t0:.2f} s with its twins; B.4 launches "
+        f"{launches} = {cfg.n_layers} layers x {n_pre} prefills: "
+        f"{launches == cfg.n_layers * n_pre}; plain calls on its path "
+        f"{twin.plain.n}")
+    check(launches == cfg.n_layers * n_pre == cfg.n_layers * sum(
+        len(t) for tr in traces.values() for t in tr.prompts.values()),
+        "B.4 did not run on every layer of every reference prefill")
+    twin.verdict()
+    log(f"[12] reference prefill logits in units of 2e-2 x max|logit|: "
+        f"kernel vs plain {twin.res['KP']:.3g}, plain vs float64 attention "
+        f"{twin.res['PR']:.3g}, kernel vs float64 {twin.res['KR']:.3g}; "
+        f"flips (twin, prefill, kernel, twin, gap in units) "
+        f"{twin.res['flips']}")
+    idx = 0
+    for name, trace in traces.items():
+        n = sum(len(t) for t in trace.prompts.values()) * (gen + 1)
+        equal, total, firsts = served_vs_reference(
+            trace.prompts, served[name], want[name],
+            twin.trail[idx:idx + n], gen, TOL[cfg_dtype(cfg)])
+        idx += n
+        ref_tok = reference_prefill_tokens(trace.prompts, gen)
+        got_tok = sums[name]["prefill_tokens"]
+        log(f"[12{name}] cluster vs dense reference, bf16: {equal} of "
+            f"{total} turns equal ({equal / total:.3f}); first differing "
+            f"tokens (sid, turn, position, cluster, reference, reference "
+            f"logit gap in units of the tolerance): {firsts}")
+        log(f"[12{name}] prefill tokens: cluster {got_tok}, full-history "
+            f"recompute {ref_tok}: recompute prefills "
+            f"{ref_tok - got_tok} redundant tokens, "
+            f"{1 - got_tok / ref_tok:.4f} of its prefill ({card})")
+    del twin
+    free_device_memory()
+    recs = []
+    for key, (args, _) in sorted(cap.calls.items()):
+        q, k, v = args[:3]
+        qo = int(args[3]) if len(args) > 3 else 0
+        rec = compare_flash(q, k, v, qo, f"reference prefill B={q.shape[0]} "
+                            f"Sq={q.shape[1]} Skv={k.shape[1]}")
+        log("[12]" + fmt(rec))
+        recs.append(rec)
+    cap.calls.clear()
+    torch.cuda.empty_cache()
+    return launches, recs
+
+
+def cfg_dtype(cfg):
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
+
+
+# ---------------------------------------------------------------------------
+# phase 13: exact fp32 tokens through the cluster
+# ---------------------------------------------------------------------------
+
+def mamba2_4layer(seed):
+    """mamba2-2.7b at its published widths, 4 layers, float32, random
+    weights drawn on the card from ``seed``."""
+    cfg = dataclasses.replace(configs.get_config("mamba2-2.7b"), n_layers=4,
+                              shared_every=4, dtype="float32",
+                              name="mamba2-2.7b-4layer-fp32")
+    model = get_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    return cfg, model, params
+
+
+def phase_exact_cluster(seed):
+    """(i) The cluster of phase 12(a) with llama3-8b at full width, 2
+    layers, fp32: served tokens equal the dense reference exactly.  (ii)
+    The mixed cluster of tests/test_cluster_mixed.py at full width: 2
+    RealBackend nodes (that llama) and 2 StateBackend nodes (mamba2-2.7b,
+    4 layers, fp32); the recurrent session migrates on an advisory and the
+    node that served its turn 2 fails.  Every session equals its family's
+    dense reference."""
+    cfg, model, params = fp32_2layer(seed + 13)
+    gen = 16
+    trace = MultiTurnRealTrace(cfg, n_sessions=2, n_turns=3, prompt_len=512,
+                               gen=gen, seed=seed + 13, fail_after_turn=2)
+    rt = cluster(cfg, model, params)
+    try:
+        res, dead, _ = run_cluster(rt, trace, "13")
+        s = cluster_summary(rt, res, trace)
+    finally:
+        rt.cleanup()
+    got = session_outputs(res)
+    want = dense_reference(cfg, model, params, trace.prompts, gen)
+    log(f"[13] fp32 2-layer cluster: {s}; dead {dead}; served {got}")
+    log(f"[13] dense reference {want}")
+    check(s["migrations"] >= 1 and (s["recoveries"] >= 1
+                                    or s["recompute_tokens"] > 0)
+          and len(dead) == 1, f"no migration or recovery: {s}")
+    check(got == want, "fp32 cluster tokens differ from the dense reference")
+    del rt, res
+    free_device_memory()
+
+    mcfg, mmodel, mparams = mamba2_4layer(seed + 14)
+    gen = 8
+    ttrace = MultiTurnRealTrace(cfg, n_sessions=2, n_turns=2, prompt_len=128,
+                                gen=gen, seed=seed + 13, sid_prefix="t")
+    mtrace = MultiTurnRealTrace(mcfg, n_sessions=1, n_turns=3,
+                                prompt_len=128, gen=gen, seed=seed + 14,
+                                group="mamba2", sid_prefix="m",
+                                fail_after_turn=2, fail_session="m0")
+    rt = cluster(cfg, model, params, node_groups={
+        "default": dict(cfg=cfg, n_nodes=2, model=model, params=params),
+        "mamba2": dict(cfg=mcfg, n_nodes=2, model=mmodel, params=mparams)})
+    try:
+        res, dead, _ = run_cluster(rt, MixedTrace(ttrace, mtrace), "13")
+        mnodes = [i for i, g in rt.node_group.items() if g == "mamba2"]
+        moved = sum(rt.managers[i].stats.get("migrations", 0)
+                    + rt.managers[i].stats.get("recoveries", 0)
+                    for i in mnodes)
+        placed = all(rt.node_group[r.node_id] == ("mamba2" if r.session_id
+                                                  .startswith("m")
+                                                  else "default")
+                     for r in res.completed)
+        outstanding = [rt.sched.nodes[i].outstanding for i in dead]
+    finally:
+        rt.cleanup()
+    got = session_outputs(res)
+    want = dense_reference(cfg, model, params, ttrace.prompts, gen)
+    want.update(dense_reference(mcfg, mmodel, mparams, mtrace.prompts, gen))
+    log(f"[13] mixed cluster (2 llama3-8b 2-layer + 2 mamba2-2.7b 4-layer "
+        f"nodes, fp32): recurrent migrations + recoveries {moved}, dead "
+        f"{dead}; served {got}")
+    log(f"[13] dense references {want}")
+    check(placed, "a session was served outside its group")
+    check(moved >= 1 and len(dead) == 1 and dead[0] in mnodes
+          and outstanding == [0], f"recurrent state did not move, or the "
+          f"failure was not the recurrent node's: moved {moved}, dead "
+          f"{dead}, outstanding {outstanding}")
+    check(got == want, "mixed cluster tokens differ from the dense "
+          "references")
+    del rt, res, model, params, mmodel, mparams
+    free_device_memory()
+
+
 def free_device_memory():
     """Release what a finished phase held: its nodes form reference cycles
     (backend <-> node manager) that only the cyclic collector frees."""
@@ -1911,7 +2469,7 @@ def kernel_entry(name, source, replaces, launches, recs):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     t_start = time.perf_counter()
@@ -1922,21 +2480,29 @@ def main(argv=None):
         shape_recs, shape_qrecs = (
             phase_kernel_vs_plain(np.random.default_rng(args.seed))
             if 3 in phases else ([], []))
+        flash_shape_recs = (phase_flash_vs_plain(args.seed)
+                            if 11 in phases else [])
         launches, main_recs, qlaunches, qrecs = 0, [], 0, []
-        if phases & {4, 6}:
-            cfg, model, params = llama3_8b(args.seed, 4 if 4 in phases else 6)
+        flaunches, flash_recs = 0, []
+        if phases & {4, 6, 12}:
+            cfg, model, params = llama3_8b(args.seed, min(phases & {4, 6, 12}))
             if 4 in phases:
                 launches, main_recs = phase_serve(cfg, model, params,
                                                   args.seed)
             if 6 in phases:
                 qlaunches, qrecs, _ = phase_pressure(cfg, model, params,
                                                      args.seed)
+            if 12 in phases:
+                flaunches, flash_recs = phase_cluster(cfg, model, params,
+                                                      args.seed, card)
             del cfg, model, params
             free_device_memory()
         if 5 in phases:
             phase_exact_fp32(args.seed)
         if 7 in phases:
             phase_exact_tiers(args.seed)
+        if 13 in phases:
+            phase_exact_cluster(args.seed)
         scan_recs, d80_recs = [], []
         if 8 in phases:
             scan_recs = phase_scan_vs_plain(args.seed)
@@ -1955,7 +2521,8 @@ def main(argv=None):
         return 1
     # each record holds its kernel's main-path shapes whenever that main
     # path ran, and the kernel-vs-plain phase's shapes otherwise; kernel 1
-    # serves two main paths (llama3-8b at D = 128, zamba2-2.7b at D = 80)
+    # serves two main paths (llama3-8b at D = 128, zamba2-2.7b at D = 80);
+    # B.4's main path is the dense reference of phase 12
     src = "src/repro_torch/csrc/paged_chunk_attention.cu"
     k1_recs = ((main_recs if 4 in phases else shape_recs)
                + (hybrid_arecs if 9 in phases
@@ -1968,11 +2535,15 @@ def main(argv=None):
                      qrecs if 6 in phases else shape_qrecs),
         kernel_entry(ssd.NAME, "src/repro_torch/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan.py:62", slaunches,
-                     hybrid_srecs if 9 in phases else scan_recs)]
+                     hybrid_srecs if 9 in phases else scan_recs),
+        kernel_entry(fp.NAME, "src/repro_torch/csrc/flash_prefill.cu",
+                     "src/repro/kernels/flash_prefill.py:81", flaunches,
+                     flash_recs if 12 in phases else flash_shape_recs)]
     log(f"done in {time.perf_counter() - t_start:.1f} s; kernel times are "
         f"one call of each distinct main-path shape, summed (kernel 1: "
         f"{launches} launches on the llama3-8b path, {hlaunches} on the "
-        f"zamba2-2.7b path)")
+        f"zamba2-2.7b path; flash_prefill: {flaunches} on the dense "
+        f"reference's prefills)")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

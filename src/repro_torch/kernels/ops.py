@@ -13,10 +13,13 @@ function up to rounding.
 The TPU package's ``_auto_tile`` (largest divisor of the bucketed length
 <= 128) has no counterpart: the CUDA kernel's query tile is set by the
 GQA group (16 / G query positions) and it masks the ragged edge of any
-Sq, so there is no tile for a caller to choose."""
+Sq, so there is no tile for a caller to choose; nor has ``flash_prefill``
+(``bq``/``bk`` in the TPU package): its query block is 64 / G positions and
+it too masks any Sq and Skv."""
 from __future__ import annotations
 
 from repro_torch.kernels import ref
+from repro_torch.kernels import flash_prefill as _fp
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ssd_scan as _ssd
 
@@ -41,6 +44,17 @@ def paged_chunk_attention(q, k_pages, v_pages, block_tables, q_offsets,
         return _pa.paged_chunk_attention(*args)
     return _pa.paged_chunk_attention_quant(q, k_pages, v_pages, *quant,
                                            block_tables, q_offsets, ctx_lens)
+
+
+def flash_prefill(q, k, v, q_offset: int = 0, mode: str = "auto"):
+    """Causal prefill attention over dense K/V with a cached prefix: query
+    i of q (B, Sq, H, D) sits at position q_offset + i of k/v (B, Skv, Hkv,
+    D).  Returns (B, Sq, H, D) in q's dtype.  mode: auto | ref."""
+    if mode not in MODES:
+        raise ValueError(f"kernel mode {mode!r} not in {MODES}")
+    if mode == "ref" or q.device.type == "cpu":
+        return ref.flash_prefill_ref(q, k, v, q_offset)
+    return _fp.flash_prefill(q, k, v, q_offset)
 
 
 def ssd_scan(x, dA, Bm, Cm, chunk: int, init_state=None, mode: str = "auto"):

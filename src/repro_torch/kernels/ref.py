@@ -68,6 +68,29 @@ def paged_chunk_attention_ref(q, k_pages, v_pages, block_tables, q_offsets,
     return o.reshape(B, Sq, H, D).to(q.dtype)
 
 
+def flash_prefill_ref(q, k, v, q_offset=0):
+    """Causal attention of new tokens over dense K/V with a cached prefix:
+    the CUDA ``flash_prefill`` kernel's plain version.
+
+    q:        (B, Sq, H, D) — query i sits at absolute position q_offset + i
+    k/v:      (B, Skv, Hkv, D), H % Hkv == 0, Skv >= q_offset + Sq
+    returns:  (B, Sq, H, D) in q's dtype, computed in float32
+
+    Query i attends to key j iff q_offset + i >= j, so keys past
+    q_offset + Sq (padding) are never seen."""
+    B, Sq, H, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    G = H // Hkv
+    qg = q.reshape(B, Sq, Hkv, G, D).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / math.sqrt(D)
+    qpos = q_offset + torch.arange(Sq, device=q.device)
+    mask = qpos[:, None] >= torch.arange(Skv, device=q.device)[None, :]
+    s = s.masked_fill(~mask, MASK_VALUE)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return o.reshape(B, Sq, H, D).to(q.dtype)
+
+
 def ssd_scan_ref(x, dA, Bm, Cm):
     """Sequential SSD/Mamba2 recurrence (token by token, float32): the
     oracle the chunked scan is held to.

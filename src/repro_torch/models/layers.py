@@ -55,20 +55,23 @@ def apply_rope(x, positions, theta: float):
 # Dense attention (the reference prefill / decode path)
 # ---------------------------------------------------------------------------
 
-def flash_attention(q, k, v, *, window: Optional[int] = None):
-    """Causal softmax attention of a whole prompt over its own K/V, float32
-    inside.
+def flash_attention(q, k, v, *, q_offset: int = 0,
+                    window: Optional[int] = None):
+    """Causal softmax attention of new tokens over K/V, float32 inside.
 
-    q: (B, S, H, D); k, v: (B, S, Hkv, D) with H % Hkv == 0.  ``window``:
-    sliding-window size.  The JAX reference chunks this computation to
-    bound memory; the result is the same softmax, so the port computes it
-    in one piece."""
+    q: (B, Sq, H, D); k, v: (B, Sk, Hkv, D) with H % Hkv == 0.
+    ``q_offset``: absolute position of q[0] relative to k[0] (a cached
+    prefix of q_offset tokens).  ``window``: sliding-window size.  The JAX
+    reference chunks this computation to bound memory; the result is the
+    same softmax, so the port computes it in one piece.  At window=None it
+    is ``kernels.ref.flash_prefill_ref``, the CUDA kernel's plain
+    version."""
     B, Sq, H, D = q.shape
     _, Sk, Hkv, _ = k.shape
     G = H // Hkv
     qg = q.reshape(B, Sq, Hkv, G, D).float()
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / math.sqrt(D)
-    qp = torch.arange(Sq, device=q.device)
+    qp = q_offset + torch.arange(Sq, device=q.device)
     kp = torch.arange(Sk, device=q.device)
     mask = qp[:, None] >= kp[None, :]
     if window is not None:

@@ -8,8 +8,10 @@ the stack with ``lax.scan``; here it is a Python loop over layers.
 Two paths, the same math:
 
 * ``prefill`` / ``decode_step`` — the dense reference: a contiguous
-  head-major cache (L, B, Hkv, S, D), dense attention.  It stands in for
-  vLLM-style recompute and is the ground truth of the paged path.
+  head-major cache (L, B, Hkv, S, D), dense attention (the prefill kernel
+  on every layer of ``prefill``, plain attention in ``decode_step``).  It
+  stands in for vLLM-style recompute and is the ground truth of the paged
+  path.
 * ``step_paged`` — the serving path: ONE mixed-batch step over the
   stacked paged pools (L, P+1, page, Hkv, D), with the per-layer KV
   scatter written IN PLACE into the pools (so pool memory stays 1x, which
@@ -165,9 +167,11 @@ class DenseLM:
         return big
 
     @torch.no_grad()
-    def prefill(self, params, tokens):
+    def prefill(self, params, tokens, kernel_mode: str = "auto"):
         """Process a full prompt; tokens (B, S).  Returns (last_logits,
-        cache)."""
+        cache).  Attention is the prefill kernel (``ops.flash_prefill``;
+        kernel_mode auto | ref) on every layer, except under a sliding
+        window, which the kernel does not compute."""
         c = self.cfg
         tokens = torch.as_tensor(tokens, device=self.device).long()
         x = self._embed(params, tokens)
@@ -178,7 +182,10 @@ class DenseLM:
             w = self._layer(params, l)
             h = L.rms_norm(x, w["ln1"], c.norm_eps)
             q, k, v = self._qkv(h, w, positions)
-            o = L.flash_attention(q, k, v, window=c.sliding_window)
+            if c.sliding_window is None:
+                o = ops.flash_prefill(q, k, v, 0, mode=kernel_mode)
+            else:
+                o = L.flash_attention(q, k, v, window=c.sliding_window)
             x = x + o.reshape(B, S, -1) @ w["wo"]
             x = self._ffn_residual(x, w)
             ks.append(k.transpose(1, 2))

@@ -82,12 +82,20 @@ class Pkg:
         return cost, mgr, be, eng
 
 
-def _pkgs(jcfg, cfg, jbackend_cls, tbackend_cls, seed):
+def same_weights(jcfg, cfg, seed):
+    """(JAX model, JAX params, port model, port params) over the same
+    weights: JAX initialises them from ``seed`` and the port (on the CPU)
+    takes a numpy copy through `convert.params_from_numpy`."""
     jm = jax_model(jcfg)
     jp = jm.init(jax.random.key(seed))
     tm = get_model(cfg, device="cpu")
     tp = convert.params_from_numpy(cfg, jax.tree.map(np.asarray, jp),
                                    device="cpu")
+    return jm, jp, tm, tp
+
+
+def _pkgs(jcfg, cfg, jbackend_cls, tbackend_cls, seed):
+    jm, jp, tm, tp = same_weights(jcfg, cfg, seed)
     jpkg = Pkg("jax", jcfg, jm, jp, jadvisory.InferenceRequest,
                jadvisory.AdvisoryRequest, JaxManager, JaxEngine, JaxCost,
                JaxHardware, jbackend_cls, jbackend.LostKV,

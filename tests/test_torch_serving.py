@@ -176,7 +176,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "             n.startswith('repro.'))\n"
         "assert not bad, bad\n"
         "for m in ('serving.backend', 'serving.state_backend',\n"
-        "          'models.mamba2', 'kernels.ssd_scan'):\n"
+        "          'models.mamba2', 'kernels.ssd_scan',\n"
+        "          'kernels.flash_prefill', 'serving.simulator',\n"
+        "          'serving.scenario', 'core.scheduler',\n"
+        "          'traces.agents'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
