@@ -1,13 +1,16 @@
 """Card check of the PyTorch/CUDA port: builds the CUDA kernels, holds each
 against its plain PyTorch version, and serves llama3-8b (under memory
-pressure, and on a three-node cluster with migration and failure) and
-zamba2-2.7b at full width and depth through the port's entry points.
+pressure, and on a three-node cluster with migration and failure),
+zamba2-2.7b and xlstm-1.3b at full width and depth through the port's
+entry points.
 
 Run from the repository root on a machine with an NVIDIA card:
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --phases 1,2,3
     python3 chip_smoke.py --phases 11,12     # B.4 and the cluster
+    python3 chip_smoke.py --phases 3,4,14    # B.3, with phase 4's replay
+    python3 chip_smoke.py --phases 15,16     # xlstm-1.3b
 
 Phases:
   1. environment: the card's name and power limit;
@@ -86,7 +89,29 @@ Phases:
      at full width and 2 layers, and a mixed cluster (2 of that llama, 2
      mamba2-2.7b at full width and 4 layers) whose recurrent session
      migrates and whose node fails: each session equals its family's dense
-     reference.
+     reference;
+ 14. the decode kernel (B.3) against its plain version and against kernel 1
+     at Sq = 1 on the same inputs, at llama3-8b widths (H=32, Hkv=8, D=128,
+     page 16) in bf16 and fp32: decode at B = 1, 8 and 32 with ctx up to
+     4096, ctx = 0 lanes (exact zeros), permuted tables with last-valid
+     padding; zamba2-2.7b's shared attention (H=Hkv=32, D=80) and a G = 1
+     case at D = 64; times of B.3, kernel 1 at Sq = 1, the plain version,
+     SDPA and the bound.  Then every decode-only kernel-1 call phase 4
+     captured, replayed through B.3 and held against kernel 1; each B.3
+     call here adds exactly one to its count, and the count over every
+     other phase (the serving paths, which decode through kernel 1) must
+     stay 0;
+ 15. serve xlstm-1.3b (48 blocks: 6 groups of 7 mLSTM + 1 sLSTM, bf16,
+     random weights from --seed) with NodeEngine + NodeManager +
+     StateBackend and 8 slots: 4 sessions x 3 turns of 256-1024 tokens, one
+     session swapped out and back cold and one advisory-led (both stalls
+     and the bytes moved), one persisted, the node crashed and the session
+     recovered from the spool by a second node; each session's first turn
+     against the dense prefill/decode recompute (phase 12's flip rule); the
+     sLSTM scan's share of a 512-token prefill step;
+ 16. exact tokens in fp32 (xlstm at full width, 8 blocks) through a swap,
+     a spool recovery after a crash and an export/import migration to a
+     third node: the dense prefill/decode recompute's tokens.
 
 It prints progress lines, then one line with the kernels' JSON record, the
 card's name and power limit, and as the last line
@@ -372,7 +397,7 @@ def phase_env():
 def phase_build():
     """Every kernel source, one nvcc each, started together."""
     t0 = time.perf_counter()
-    built = build.build_all([pa.NAME, ssd.NAME, fp.NAME])
+    built = build.build_all([pa.NAME, pa.DECODE_NAME, ssd.NAME, fp.NAME])
     log(f"[2] {len(built)} kernel libraries in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, (path, text) in built.items():
@@ -1030,9 +1055,22 @@ def phase_serve(cfg, model, params, seed):
     lock.log(4)
     del lock
     torch.cuda.empty_cache()
+    decode = decode_calls(cap)
     recs = retime(cap, "main path", 4)
     torch.cuda.empty_cache()
-    return launches, recs
+    return launches, recs, decode
+
+
+def decode_calls(cap):
+    """The captured kernel-1 calls whose real lanes are all decode (Sq = 1,
+    q_offset = ctx - 1): phase 14 replays them through B.3."""
+    out = []
+    for key, (args, _) in sorted(cap.calls.items(), key=lambda kv: kv[0]):
+        q, kp, vp, tab, qoff, ctx = args
+        real = ctx > 0
+        if q.shape[1] == 1 and bool((qoff[real] == ctx[real] - 1).all()):
+            out.append(args)
+    return out
 
 
 def retime(cap, what, tag):
@@ -2441,6 +2479,477 @@ def phase_exact_cluster(seed):
     free_device_memory()
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the decode kernel (B.3) against its plain version and kernel 1
+# ---------------------------------------------------------------------------
+
+DKERNEL = pa.paged_attention              # counts pa.decode_launches
+
+
+def decode_cases(rng):
+    """(label, B, ctxs, H, Hkv, D) of phase 14: llama3-8b's heads at B = 1,
+    8 and 32 with ctx up to 4096 (a ctx = 0 lane in the batches),
+    zamba2-2.7b's shared attention (H = Hkv = 32, D = 80) and a G = 1 case
+    at D = 64 (minicpm's 36 heads)."""
+    cases = [("decode B=1 ctx=4096", 1, [4096], 32, 8, 128)]
+    for B in (8, 32):
+        ctxs = [int(c) for c in rng.integers(1024, 4097, B)]
+        ctxs[0], ctxs[-1] = 4096, 0
+        cases.append((f"decode B={B} ctx<=4096", B, ctxs, 32, 8, 128))
+    ctxs = [int(c) for c in rng.integers(256, 2049, 8)]
+    ctxs[-1] = 0
+    cases.append(("zamba2 shared decode B=8 H=Hkv=32 D=80", 8, ctxs, 32, 32,
+                  80))
+    ctxs = [int(c) for c in rng.integers(256, 2049, 8)]
+    ctxs[-1] = 0
+    cases.append(("G=1 decode B=8 H=Hkv=36 D=64", 8, ctxs, 36, 36, 64))
+    return cases
+
+
+def compare_decode(q4, kp, vp, tab, qoff, ctx, dtype, label):
+    """B.3 on q4[:, 0] against its plain version and against kernel 1 at
+    Sq = 1 on the same inputs: each within TOL x max |plain| over the real
+    lanes, ctx = 0 lanes exactly zero; times of B.3, the plain version,
+    SDPA on gathered K/V, kernel 1 at Sq = 1, and the bound.  The record's
+    ``calls`` counts the B.3 calls made here."""
+    q = q4[:, 0].contiguous()
+    calls = [0]
+
+    def kern():
+        calls[0] += 1
+        return DKERNEL(q, kp, vp, tab, ctx)
+
+    def k1():
+        return KERNEL(q4, kp, vp, tab, qoff, ctx)
+    out_k = kern()
+    out_1 = k1()[:, 0]
+    torch.cuda.synchronize()
+    out_r = ref.paged_attention_ref(q, kp, vp, tab, ctx)
+    check(bool(torch.isfinite(out_k.float()).all()),
+          f"{label}: B.3 output not finite")
+    real = ctx > 0
+    check(bool((out_k[~real] == 0).all()),
+          f"{label}: a ctx=0 lane is not exactly zero")
+    scale = float(out_r[real].float().abs().max())
+    err = float((out_k[real].float() - out_r[real].float()).abs().max())
+    err1 = float((out_k[real].float() - out_1[real].float()).abs().max())
+    lim = TOL[dtype] * scale
+    check(err <= lim, f"{label}: max abs err {err:.3g} > {TOL[dtype]} x "
+          f"max|plain| {scale:.3g} = {lim:.3g}")
+    check(err1 <= lim, f"{label}: B.3 and kernel 1 at Sq = 1 differ by "
+          f"{err1:.3g} > {lim:.3g}")
+    _, page, hkv, d = kp.shape
+    q_lens = real.int().cpu().tolist()
+    nbytes, flops = attention_work(q4, tab, qoff, ctx, page, hkv, d,
+                                   q.element_size(), q_lens)
+    b_ms, b_by, t_b, t_f = bound(nbytes, flops, dtype)
+    t = [cuda_ms(f, 20) for f in (kern, k1, k1, kern)]   # in turns
+    return dict(
+        label=label, max_abs_err=err, err_rel=err / scale, k1_err=err1,
+        ms=0.5 * (t[0] + t[3]), k1_ms=0.5 * (t[1] + t[2]),
+        plain_ms=cuda_ms(lambda: ref.paged_attention_ref(q, kp, vp, tab,
+                                                         ctx), 5),
+        library_ms=cuda_ms(sdpa_yardstick(q4, kp, vp, tab, qoff, ctx), 20),
+        bound_ms=b_ms, bound_by=b_by, bytes_ms=t_b, ops_ms=t_f,
+        calls=calls[0])
+
+
+def fmt_decode(rec) -> str:
+    return fmt(rec) + f" kernel1_ms={rec['k1_ms']:.4g} " \
+        f"|B.3 - kernel1|={rec['k1_err']:.3g}"
+
+
+def phase_decode_vs_plain(rng, replay):
+    """B.3 on phase 14's cases in bf16 and fp32, then on every decode-only
+    kernel-1 call phase 4 captured (``replay``; empty when phase 4 did not
+    run).  Each B.3 call made here must add exactly one to
+    ``pa.decode_launches``.  Returns (the cases' records, the replayed
+    calls' records)."""
+    d0, recs = pa.decode_launches, []
+    for label, B, ctxs, H, Hkv, D in decode_cases(rng):
+        for dtype in (torch.bfloat16, torch.float32):
+            q4, kp, vp, tab, qoff, ctx = make_case(
+                rng, B, 1, ctxs, [int(c > 0) for c in ctxs], dtype, H=H,
+                Hkv=Hkv, D=D)
+            rec = compare_decode(q4, kp, vp, tab, qoff, ctx, dtype,
+                                 f"{label} {str(dtype).split('.')[-1]}")
+            log("[14]" + fmt_decode(rec))
+            recs.append(rec)
+            del q4, kp, vp
+        torch.cuda.empty_cache()
+    rrecs = []
+    for q4, kp, vp, tab, qoff, ctx in replay:
+        rec = compare_decode(q4, kp, vp, tab, qoff, ctx, q4.dtype,
+                             f"phase 4 decode B={q4.shape[0]} "
+                             f"T={tab.shape[1]}")
+        log("[14]" + fmt_decode(rec))
+        rrecs.append(rec)
+    made = sum(r["calls"] for r in recs + rrecs)
+    check(pa.decode_launches - d0 == made,
+          f"B.3's count rose by {pa.decode_launches - d0} over {made} calls")
+    log(f"[14] {len(recs)} cases within tolerance; replayed "
+        f"{len(rrecs)} decode-only kernel-1 calls of phase 4 through B.3, "
+        f"all within tolerance of kernel 1; {made} B.3 calls, each counted "
+        f"once")
+    replay.clear()
+    torch.cuda.empty_cache()
+    return recs, rrecs
+
+
+# ---------------------------------------------------------------------------
+# phase 15: xlstm-1.3b through StateBackend
+# ---------------------------------------------------------------------------
+
+def xlstm(seed, tag, n_layers=None, dtype=None):
+    """xlstm-1.3b at its published widths (optionally fewer blocks and
+    another dtype), random weights drawn on the card from ``seed``."""
+    cfg = configs.get_config("xlstm-1.3b")
+    if n_layers is not None or dtype is not None:
+        cfg = dataclasses.replace(
+            cfg, n_layers=n_layers or cfg.n_layers, dtype=dtype or cfg.dtype,
+            name=f"xlstm-1.3b-{n_layers or cfg.n_layers}block-"
+                 f"{dtype or cfg.dtype}")
+    model = get_model(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in [
+        params["emb"], params["lm_head"], params["ln_f"],
+        *params["mlstm"].values(), *params["slstm"].values()])
+    log(f"[{tag}] {cfg.name}: {model.n_m} mLSTM + {model.n_s} sLSTM blocks "
+        f"in {model.n_groups} groups, d_model {cfg.d_model}, {model.nh} "
+        f"heads (d_qk {model.d_qk}, d_v {model.d_v}), sLSTM FFN "
+        f"{model.d_ffn_s}, {cfg.dtype}: {nbytes / 1e9:.2f} GB of weights in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return cfg, model, params
+
+
+class Trail:
+    """While active, every logit vector the dense reference reads
+    (prefill and decode) is kept on the host in call order."""
+
+    def __init__(self, model):
+        self.model = model
+        self.trail = []
+
+    @contextlib.contextmanager
+    def __call__(self):
+        model, vocab = self.model, self.model.cfg.vocab
+        orig_p, orig_d = model.prefill, model.decode_step
+
+        def keep(out):
+            self.trail.append(out[0][0, :vocab].float().cpu().numpy())
+            return out
+
+        model.prefill = lambda *a, **kw: keep(orig_p(*a, **kw))
+        model.decode_step = lambda *a, **kw: keep(orig_d(*a, **kw))
+        try:
+            yield
+        finally:
+            del model.prefill, model.decode_step
+
+
+class SLSTMClock:
+    """While active, each sLSTM scan is timed between two synchronizes."""
+
+    def __init__(self, model):
+        self.model = model
+        self.s = 0.0
+        self.n = 0
+
+    @contextlib.contextmanager
+    def __call__(self):
+        model = self.model
+        orig = model._slstm_scan
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(*args, **kw)
+            torch.cuda.synchronize()
+            self.s += time.perf_counter() - t0
+            self.n += 1
+            return out
+
+        model._slstm_scan = timed
+        try:
+            yield
+        finally:
+            del model._slstm_scan
+
+
+def serve_all(d, reqs):
+    """Submit ``reqs`` ((sid, ids, gen)) to node ``d`` and step it until it
+    is idle; returns the requests.  Each step's wall time goes to
+    d["steps"] with whether it was decode-only (no prompt token)."""
+    eng, be, mgr = d["node"]
+    out = [request(be, sid, ids, gen) for sid, ids, gen in reqs]
+    for r in out:
+        eng.submit(r)
+    while eng.waiting or eng.running:
+        p0, t0 = eng.stats["prefill_tokens"], time.perf_counter()
+        d["now"] += eng.step(d["now"])
+        d["steps"].append((time.perf_counter() - t0,
+                           eng.stats["prefill_tokens"] == p0))
+        drained(be, mgr)
+    return out
+
+
+def first_turns_vs_reference(cfg, model, params, firsts, got, gen):
+    """Each session's served first turn (``got``) against the dense
+    prefill/decode recompute in bf16 (P), with the same weights upcast to
+    fp32 (R) as the rounding reference.  The noise floor of each kind
+    (the prefill's token, decode tokens) is max |P - R| over 2e-2 x
+    max |R| on the logit vectors where P and R have read the same history.
+    A served token that differs from P's first is held by phase 12's flip
+    rule, P's logit gap in units of the tolerance, to the tolerance or
+    twice the floor of its kind, whichever is larger (phase 9's rule for a
+    deep bf16 recurrent stack)."""
+    tol = TOL[torch.bfloat16]
+    turns = {sid: [ids] for sid, ids in firsts.items()}
+    trail_p = Trail(model)
+    with trail_p():
+        want = dense_reference(cfg, model, params, turns, gen)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = get_model(cfg32, device="cuda")
+    params32 = {k: ({n: t.float() for n, t in v.items()}
+                    if isinstance(v, dict) else v.float())
+                for k, v in params.items()}
+    trail_r = Trail(model32)
+    with trail_r():
+        want32 = dense_reference(cfg32, model32, params32, turns, gen)
+    del params32
+    floor = dict(prefill=0.0, decode=0.0)
+    for n, sid in enumerate(firsts):
+        p, r = want[sid][0], want32[sid][0]
+        for i in range(gen):
+            if p[:i] != r[:i]:
+                break
+            lp, lr = trail_p.trail[n * (gen + 1) + i], \
+                trail_r.trail[n * (gen + 1) + i]
+            kind = "prefill" if i == 0 else "decode"
+            floor[kind] = max(floor[kind], float(np.abs(lp - lr).max())
+                              / (tol * float(np.abs(lr).max())))
+    flips, equal, equal32 = [], 0, 0
+    for n, sid in enumerate(firsts):
+        g, w = got[sid], want[sid][0]
+        equal += g == w
+        equal32 += g == want32[sid][0]
+        if g == w:
+            continue
+        i = next(j for j in range(gen) if g[j] != w[j])
+        lg = trail_p.trail[n * (gen + 1) + i]
+        units = float(lg[w[i]] - lg[g[i]]) / (tol * float(np.abs(lg).max()))
+        kind = "prefill" if i == 0 else "decode"
+        limit = max(1.0, 2 * floor[kind])
+        flips.append((sid, i, g[i], w[i], round(units, 4), kind))
+        check(units <= limit, f"{sid} token {i}: served {g[i]}, the "
+              f"reference {w[i]}, whose logit gap is {units:.3g} x the "
+              f"tolerance, beyond the {kind} floor's {limit:.3g} x")
+    log(f"[15] first turns against the dense prefill/decode recompute: "
+        f"{equal} of {len(firsts)} equal to the bf16 reference, {equal32} to "
+        f"its fp32 twin; bf16 noise floor (bf16 vs fp32 reference logits, "
+        f"units of 2e-2 x max|logit|): prefill {floor['prefill']:.3g}, "
+        f"decode {floor['decode']:.3g}; first differing tokens (sid, index, "
+        f"served, reference, gap in units, kind): {flips}")
+    log(f"[15] served first turns {got}; bf16 reference "
+        f"{ {s: w[0] for s, w in want.items()} }; fp32 twin "
+        f"{ {s: w[0] for s, w in want32.items()} }")
+
+
+def slstm_share(cfg, model, params, rng):
+    """One 512-token prefill step (a fresh session, one chunk) with each
+    sLSTM scan timed between synchronizes, after a warm-up turn of the
+    same shape: the scan's share of the step's wall time."""
+    d = dict(node=make_state_node(cfg, model, params), now=0.0, steps=[])
+    ids = [int(x) for x in rng.integers(0, cfg.vocab, 512)]
+    serve_all(d, [("warm", ids, 1)])
+    clock = SLSTMClock(model)
+    eng = d["node"][0]
+    eng.submit(request(d["node"][1], "probe", ids, 1))
+    torch.cuda.synchronize()
+    with clock():
+        t0 = time.perf_counter()
+        eng.step(0.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check(clock.n == model.n_s, f"{clock.n} sLSTM scans timed, not "
+          f"{model.n_s}")
+    return dict(step_ms=1e3 * d["steps"][0][0], timed_step_ms=1e3 * wall,
+                slstm_ms=1e3 * clock.s, share=clock.s / wall)
+
+
+def phase_xlstm(cfg, model, params, seed):
+    """xlstm-1.3b (bf16, 48 blocks) served through NodeEngine + NodeManager
+    + StateBackend with 8 slots: 4 sessions x 3 turns of 256-1024-token
+    prompts and 16 generated tokens.  After every session's first turn, s1
+    is swapped out and comes back cold at its second turn, and s2 is
+    swapped out and prefetched by an advisory while s3's second turn runs;
+    then every session's third turn; s3 persisted, the node crashed, and
+    s3 recovered from the spool by a second node, which serves a fourth
+    turn.  Each session's first turn is held against the dense
+    prefill/decode recompute by phase 12's flip rule; the sLSTM scan's
+    share of a prefill step is timed."""
+    rng = np.random.default_rng(seed + 15)
+    prompts = _turns(rng, cfg.vocab, system=0)
+    gen = 16
+    served = {}
+
+    def serve(d, batch):
+        for r, (sid, t) in zip(serve_all(d, [(sid, prompts[int(sid[1])][t],
+                                              gen) for sid, t in batch]),
+                               batch):
+            served[(sid, t)] = r
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        d = dict(node=make_state_node(cfg, model, params, spool=f"{tmp}/a"),
+                 now=0.0, steps=[])
+        eng, be, mgr = d["node"]
+        state_mb = be.session_kv_bytes(0) / 1e6
+        serve(d, [("s0", 0)])
+        serve(d, [("s0", 1), ("s1", 0), ("s2", 0), ("s3", 0)])
+        stalls, moved = {}, {}
+        for sid, lead in (("s1", False), ("s2", True)):
+            c0 = be.stats["copied_bytes"]
+            be.swap_out(sid, be.session_tokens(sid))
+            be.drain_transfers(OUT)
+            drained(be, mgr)
+            check(sid not in be.slots.seqs, f"{sid} did not leave its slot")
+            c1 = be.stats["copied_bytes"]
+            stall0 = eng.stats["stall_s"]
+            if lead:                 # s3's turn runs while s2 comes back
+                mgr.on_advisory(AdvisoryRequest(session_id=sid,
+                                                expected_arrival=LEAD),
+                                kv_node=mgr.node_id, now=d["now"])
+                check(be.transfers.pending_for(sid, IN),
+                      "the advisory launched no prefetch")
+                served[("s3", 1)] = request(be, "s3", prompts[3][1], gen)
+                eng.submit(served[("s3", 1)])
+                for _ in range(2):
+                    d["now"] += eng.step(d["now"])
+                    drained(be, mgr)
+            serve(d, [(sid, 1)])
+            stalls[sid] = 1e3 * (eng.stats["stall_s"] - stall0)
+            moved[sid] = (c1 - c0, be.stats["copied_bytes"] - c1)
+        serve(d, [(f"s{s}", 2) for s in range(4)])
+        mgr.flush_session("s3", d["now"])
+        be.drain_transfers()
+        check(be.spool_exists("s3"), "the persist wrote no spool file")
+        stats_a = dict(be.stats)
+        d_b = dict(node=make_state_node(cfg, model, params, spool=f"{tmp}/b",
+                                        node_id=1), now=d["now"], steps=[])
+        be.crash()
+        mgr.crash(d["now"])
+        check(d_b["node"][2].recover_from_spool("s3", mgr, d["now"]),
+              "the second node could not recover s3 from the spool")
+        extra = [int(x) for x in rng.integers(0, cfg.vocab, 300)]
+        served[("s3", 3)] = serve_all(d_b, [("s3", extra, gen)])[0]
+        torch.cuda.synchronize()
+        stats_b = dict(d_b["node"][1].stats)
+        steps = d["steps"] + d_b["steps"]
+        chunks = eng.stats["chunks"]
+        peak = torch.cuda.max_memory_allocated()
+        del d, d_b, eng, be, mgr
+    free_device_memory()
+    n_tok = sum(len(r.output_ids) for r in served.values())
+    dec = [t for t, only in steps if only]
+    pre = [t for t, only in steps if not only]
+    log(f"[15] main path: {len(served)} requests, {n_tok} generated tokens, "
+        f"{chunks} chunks on node 0, {len(steps)} steps, mean step "
+        f"{1e3 * sum(t for t, _ in steps) / len(steps):.2f} ms ("
+        f"{len(dec)} decode-only steps, mean {1e3 * np.mean(dec):.2f} ms; "
+        f"{len(pre)} steps with prompt tokens, mean "
+        f"{1e3 * np.mean(pre):.2f} ms), max_memory_allocated "
+        f"{peak / 1e9:.2f} GB, of which {base / 1e9:.2f} GB were allocated "
+        f"before the phase's nodes")
+    log(f"[15] one session's state {state_mb:.1f} MB; swap out / back in "
+        f"(bytes): cold s1 {moved['s1']}, advisory-led s2 {moved['s2']}; "
+        f"stall cold {stalls['s1']:.3f} ms, advisory-led "
+        f"{stalls['s2']:.3f} ms")
+    log(f"[15] node 0 stats {stats_a}; node 1 stats {stats_b}")
+    check(all(len(r.output_ids) == gen for r in served.values()),
+          "a request did not generate all its tokens")
+    check(stats_a["swaps_out"] >= 2 and stats_a["swaps_in"] >= 1
+          and stats_a["layer_promotions"] >= 1
+          and stats_a["disk_writes"] >= 1 and stats_b["migrations_in"] == 1,
+          f"a tier was not used: {stats_a} / {stats_b}")
+    check(all(min(v) >= 0.99 * state_mb * 1e6 for v in moved.values()),
+          f"a swap moved less than the session's state: {moved}")
+    check(chunks > len(served), "no prompt was chunked")
+
+    firsts = {f"s{s}": prompts[s][0] for s in range(4)}
+    got = {sid: list(served[(sid, 0)].output_ids) for sid in firsts}
+    first_turns_vs_reference(cfg, model, params, firsts, got, gen)
+    free_device_memory()
+    share = slstm_share(cfg, model, params, rng)
+    log(f"[15] a 512-token prefill step: {share['step_ms']:.2f} ms "
+        f"unclocked (the warm-up), {share['timed_step_ms']:.2f} ms with each "
+        f"sLSTM scan timed between synchronizes, of which the {model.n_s} "
+        f"scans take {share['slstm_ms']:.2f} ms: share {share['share']:.3f}")
+    free_device_memory()
+
+
+# ---------------------------------------------------------------------------
+# phase 16: exact fp32 tokens of xlstm through the tiers
+# ---------------------------------------------------------------------------
+
+def phase_exact_xlstm(seed):
+    """xlstm at full width, one group (7 mLSTM + 1 sLSTM blocks), fp32: a
+    session swapped out and back, persisted and recovered from the spool by
+    a second node after a crash, and exported to a third node serves the
+    dense prefill/decode recompute's tokens."""
+    rng = np.random.default_rng(seed + 16)
+    cfg, model, params = xlstm(seed + 16, 16, n_layers=8, dtype="float32")
+    gen = 16
+    turns = [[int(x) for x in rng.integers(0, cfg.vocab, int(n))]
+             for n in rng.integers(100, 300, 4)]
+    expect = reference_turns(cfg, model, params, turns, gen)
+    got = []
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(n_slots=4, max_batch=4, token_budget=128)
+        a, b, c = (dict(node=make_state_node(cfg, model, params,
+                                             spool=f"{tmp}/{x}", node_id=i,
+                                             **kw), now=0.0, steps=[])
+                   for i, x in enumerate("abc"))
+        be_a, mgr_a = a["node"][1], a["node"][2]
+        got.append(serve_all(a, [("chat", turns[0], gen)])[0].output_ids)
+        be_a.swap_out("chat", be_a.session_tokens("chat"))    # to the host
+        be_a.drain_transfers()
+        check("chat" not in be_a.slots.seqs, "the swap-out left the slot")
+        got.append(serve_all(a, [("chat", turns[1], gen)])[0].output_ids)
+        mgr_a.flush_session("chat", a["now"])                 # to the spool
+        be_a.drain_transfers()
+        moved = {k: be_a.stats[k] for k in ("swaps_out", "swaps_in",
+                                            "disk_writes")}
+        be_a.crash()
+        mgr_a.crash(a["now"])
+        check(b["node"][2].recover_from_spool("chat", mgr_a, a["now"]),
+              "no recovery from the spool")
+        b["now"] = a["now"]
+        got.append(serve_all(b, [("chat", turns[2], gen)])[0].output_ids)
+        be_b, be_c = b["node"][1], c["node"][1]
+        tokens = be_b.session_tokens("chat")
+        payload = be_b.export_session("chat")                 # migration
+        be_c.import_session("chat", payload)
+        c["node"][2].mark_resident("chat", tokens,
+                                   be_c.session_kv_bytes(tokens), priority=0)
+        c["now"] = b["now"]
+        got.append(serve_all(c, [("chat", turns[3], gen)])[0].output_ids)
+        moved["recovered"] = be_b.stats["migrations_in"]
+        moved["imported"] = be_c.stats["migrations_in"]
+    log(f"[16] fp32 8-block full width, swap out/in -> spool, crash, "
+        f"recover -> export/import: served {got}")
+    log(f"[16] dense recompute {expect}; {moved}")
+    check(all(v > 0 for v in moved.values()), f"a tier was not used: {moved}")
+    check(got == expect, "fp32 served tokens through the tiers differ from "
+          "dense recompute")
+    del model, params
+    free_device_memory()
+
+
 def free_device_memory():
     """Release what a finished phase held: its nodes form reference cycles
     (backend <-> node manager) that only the cyclic collector frees."""
@@ -2469,7 +2978,7 @@ def kernel_entry(name, source, replaces, launches, recs):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13")
+    ap.add_argument("--phases", default=",".join(map(str, range(1, 17))))
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     t_start = time.perf_counter()
@@ -2483,12 +2992,15 @@ def main(argv=None):
         flash_shape_recs = (phase_flash_vs_plain(args.seed)
                             if 11 in phases else [])
         launches, main_recs, qlaunches, qrecs = 0, [], 0, []
-        flaunches, flash_recs = 0, []
+        flaunches, flash_recs, decode = 0, [], []
+        # B.3 lies on no serving path: its count over every serving phase
+        # (all but 14, which compares it) is read and must stay 0
+        pa.decode_launches = 0
         if phases & {4, 6, 12}:
             cfg, model, params = llama3_8b(args.seed, min(phases & {4, 6, 12}))
             if 4 in phases:
-                launches, main_recs = phase_serve(cfg, model, params,
-                                                  args.seed)
+                launches, main_recs, decode = phase_serve(cfg, model, params,
+                                                          args.seed)
             if 6 in phases:
                 qlaunches, qrecs, _ = phase_pressure(cfg, model, params,
                                                      args.seed)
@@ -2497,16 +3009,28 @@ def main(argv=None):
                                                       args.seed, card)
             del cfg, model, params
             free_device_memory()
+        dlaunches = pa.decode_launches
+        decode_recs, replay_recs = (
+            phase_decode_vs_plain(np.random.default_rng(args.seed + 14),
+                                  decode) if 14 in phases else ([], []))
+        decode.clear()
+        pa.decode_launches = 0
+        # a phase's nodes are freed by the cyclic collector only: every
+        # phase ends with free_device_memory(), here or in its own body, so
+        # none of its tensors is allocated when the next measures memory
         if 5 in phases:
             phase_exact_fp32(args.seed)
+            free_device_memory()
         if 7 in phases:
             phase_exact_tiers(args.seed)
+            free_device_memory()
         if 13 in phases:
             phase_exact_cluster(args.seed)
         scan_recs, d80_recs = [], []
         if 8 in phases:
             scan_recs = phase_scan_vs_plain(args.seed)
             d80_recs = phase_d80_vs_plain(np.random.default_rng(args.seed + 8))
+            free_device_memory()
         slaunches, hybrid_srecs, hlaunches, hybrid_arecs = 0, [], 0, []
         if 9 in phases:
             cfg, model, params = zamba2(args.seed, 9)
@@ -2516,13 +3040,27 @@ def main(argv=None):
             free_device_memory()
         if 10 in phases:
             phase_exact_hybrid(args.seed)
+            free_device_memory()
+        if 15 in phases:
+            cfg, model, params = xlstm(args.seed, 15)
+            phase_xlstm(cfg, model, params, args.seed)
+            del cfg, model, params
+            free_device_memory()
+        if 16 in phases:
+            phase_exact_xlstm(args.seed)
+        dlaunches += pa.decode_launches
+        check(dlaunches == 0, f"B.3 launched {dlaunches} times on the "
+              f"serving paths, which decode through kernel 1")
     except PhaseFailed as e:
         log(f"FAILED: {e}")
         return 1
     # each record holds its kernel's main-path shapes whenever that main
     # path ran, and the kernel-vs-plain phase's shapes otherwise; kernel 1
     # serves two main paths (llama3-8b at D = 128, zamba2-2.7b at D = 80);
-    # B.4's main path is the dense reference of phase 12
+    # B.4's main path is the dense reference of phase 12; B.3 lies on no
+    # serving path (its launches there, counted, are 0): its record holds
+    # phase 4's decode-only kernel-1 calls replayed through it when phase 4
+    # ran, phase 14's cases otherwise
     src = "src/repro_torch/csrc/paged_chunk_attention.cu"
     k1_recs = ((main_recs if 4 in phases else shape_recs)
                + (hybrid_arecs if 9 in phases
@@ -2538,12 +3076,17 @@ def main(argv=None):
                      hybrid_srecs if 9 in phases else scan_recs),
         kernel_entry(fp.NAME, "src/repro_torch/csrc/flash_prefill.cu",
                      "src/repro/kernels/flash_prefill.py:81", flaunches,
-                     flash_recs if 12 in phases else flash_shape_recs)]
+                     flash_recs if 12 in phases else flash_shape_recs),
+        kernel_entry(pa.DECODE_NAME, "src/repro_torch/csrc/paged_attention.cu",
+                     "src/repro/kernels/paged_attention.py:351", dlaunches,
+                     replay_recs or decode_recs)]
     log(f"done in {time.perf_counter() - t_start:.1f} s; kernel times are "
         f"one call of each distinct main-path shape, summed (kernel 1: "
         f"{launches} launches on the llama3-8b path, {hlaunches} on the "
         f"zamba2-2.7b path; flash_prefill: {flaunches} on the dense "
-        f"reference's prefills)")
+        f"reference's prefills; paged_attention (B.3): {dlaunches} on the "
+        f"serving paths, {len(replay_recs)} replayed decode calls of phase "
+        f"4)")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

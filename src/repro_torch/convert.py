@@ -4,8 +4,9 @@ A test turns the JAX parameters into numpy (``jax.tree.map(np.asarray,
 params)``) and hands the nested dictionary here; this module never imports
 JAX.  The layout is already the port's — weights (in, out), the layer stack
 on a leading (L, ...) axis — so conversion is a copy onto the device in
-``cfg.dtype``, except for the Mamba leaves the JAX package keeps in float32
-(``a_log``, ``dt_bias``, ``d_skip``), which stay float32.
+``cfg.dtype``, except for the leaves the JAX package keeps in float32
+whatever the model dtype, which stay float32: Mamba's ``a_log``,
+``dt_bias`` and ``d_skip``, xLSTM's gate biases ``b_if`` and ``b_ifzo``.
 """
 from __future__ import annotations
 
@@ -14,13 +15,18 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.models.mamba2 import FLOAT32_LEAVES
+from repro_torch.models import mamba2, xlstm
 from repro_torch.models.transformer import _dtype, resolve_device
 
 # the top-level keys each ported family's parameter tree must have
 _EXPECT = {"dense": {"emb", "ln_f", "blocks"},
            "mamba2": {"emb", "ln_f", "lm_head", "mamba"},
-           "hybrid": {"emb", "ln_f", "lm_head", "mamba", "shared"}}
+           "hybrid": {"emb", "ln_f", "lm_head", "mamba", "shared"},
+           "xlstm": {"emb", "ln_f", "lm_head", "mlstm", "slstm"}}
+# the leaves each family keeps in float32 whatever the model dtype
+FLOAT32_LEAVES = {"mamba2": mamba2.FLOAT32_LEAVES,
+                  "hybrid": mamba2.FLOAT32_LEAVES,
+                  "xlstm": xlstm.FLOAT32_LEAVES}
 
 
 def _tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -36,19 +42,20 @@ def _tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 
 def params_from_numpy(cfg, tree: Dict, device="cuda") -> Dict:
     """The port's parameter dictionary from a numpy copy of the JAX
-    ``DenseLM`` or ``Zamba2LM`` parameters: the same keys, shapes and
-    layout, in ``cfg.dtype`` on ``device`` (the Mamba float32 leaves in
-    float32)."""
+    ``DenseLM``, ``Zamba2LM`` or ``XLSTMLM`` parameters: the same keys,
+    shapes and layout, in ``cfg.dtype`` on ``device`` (the family's float32
+    leaves in float32)."""
     if cfg.family not in _EXPECT:
         raise NotImplementedError(
             f"params_from_numpy: family {cfg.family!r} is not ported yet")
     dev = resolve_device(device)
     dt = _dtype(cfg.dtype)
+    keep = FLOAT32_LEAVES.get(cfg.family, ())
 
     def conv(x, name=""):
         if isinstance(x, dict):
             return {k: conv(v, k) for k, v in x.items()}
-        keep32 = cfg.family != "dense" and name in FLOAT32_LEAVES
+        keep32 = name in keep
         return _tensor(x, torch.float32 if keep32 else dt, dev)
     out = conv(tree)
     expect = set(_EXPECT[cfg.family])

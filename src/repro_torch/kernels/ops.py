@@ -26,6 +26,21 @@ from repro_torch.kernels import ssd_scan as _ssd
 MODES = ("auto", "ref")
 
 
+def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens,
+                    mode: str = "auto"):
+    """Single-token decode attention over paged KV: q (B, H, D), pools
+    (P, page, Hkv, D), tables (B, T) int32, ctx_lens (B,) int32 -> (B, H,
+    D).  Fed by a `PagedAllocator`'s ``batch_block_tables`` and the lanes'
+    context lengths, as the JAX package's entry point is.  mode: auto |
+    ref."""
+    if mode not in MODES:
+        raise ValueError(f"kernel mode {mode!r} not in {MODES}")
+    if mode == "ref" or q.device.type == "cpu":
+        return ref.paged_attention_ref(q, k_pages, v_pages, block_tables,
+                                       ctx_lens)
+    return _pa.paged_attention(q, k_pages, v_pages, block_tables, ctx_lens)
+
+
 def paged_chunk_attention(q, k_pages, v_pages, block_tables, q_offsets,
                           ctx_lens, mode: str = "auto", quant=None):
     """Unified mixed-batch serving attention (decode = 1-token chunk).

@@ -1,5 +1,5 @@
 """Paged attention on the card: the wrappers of the hand-written CUDA
-kernels in ``csrc/paged_chunk_attention.cu``.
+kernels in ``csrc/paged_chunk_attention.cu`` and ``csrc/paged_attention.cu``.
 
 ``paged_chunk_attention`` is the unified mixed-batch kernel the serving
 step dispatches on every layer: every lane carries a CHUNK of queries at a
@@ -12,13 +12,19 @@ pool: pages whose flag is set are read from the int8 shadow pools and
 multiplied by their float32 scale, the rest from the fp pools.  The serving
 step dispatches it on every layer once the int8 tier is active.  It
 replaces the TPU kernel ``paged_chunk_attention_quant``.
+``paged_attention`` is the single-token decode kernel, q (B, H, D): its own
+source and library, so kernel 1's and B.2's build is untouched by it.  It
+lies on no serving path (decode is kernel 1's one-token chunk, as in the
+JAX package); ``kernels.ops.paged_attention`` is its entry point.  It
+replaces the TPU kernel ``paged_attention``.
 
 The wrapper only takes CUDA tensors.  It checks device, dtype, shape and
 contiguity, allocates the output, launches on the current stream, raises if
 the launch is refused, and counts its launches in the module's
-``launches`` (the fp kernel) or ``quant_launches`` (the int8 kernel).  There is no fallback: the plain version (``kernels/ref.py``)
-is chosen by ``kernels/ops.py`` only for tensors that lie on the CPU, or
-when a caller asks for it by name.
+``launches`` (the fp kernel), ``quant_launches`` (the int8 kernel) or
+``decode_launches`` (the decode kernel).  There is no fallback: the plain
+version (``kernels/ref.py``) is chosen by ``kernels/ops.py`` only for
+tensors that lie on the CPU, or when a caller asks for it by name.
 
 Table contract (the same as the TPU kernel's): columns past a lane's own
 pages may hold anything — the serving step repeats the lane's last valid
@@ -40,66 +46,76 @@ PAGE_SIZES = (8, 16, 32)
 MAX_GROUP = 16                      # query heads per kv head (kRows in .cu)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 QUANT_NAME = "paged_chunk_attention_quant"
+DECODE_NAME = "paged_attention"
+DECODE_HEAD_DIMS = (32, 64, 80, 128)
 _fns = {}
 launches = 0                        # fp kernel launches made by the wrapper
 quant_launches = 0                  # int8 kernel launches
+decode_launches = 0                 # decode kernel launches
 
 
-def _entry(symbol: str, n_ptrs: int):
+def _entry(symbol: str, n_ptrs: int, n_ints: int = 9, lib: str = NAME):
     f = _fns.get(symbol)
     if f is None:
-        f = getattr(build.load(NAME), symbol)
-        f.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 9 \
+        f = getattr(build.load(lib), symbol)
+        f.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints \
             + [ctypes.c_void_p]
         f.restype = ctypes.c_int
         _fns[symbol] = f
     return f
 
 
-def _check(q, k_pages, v_pages, block_tables, q_offsets, ctx_lens):
+def _check(q, k_pages, v_pages, block_tables, q_offsets, ctx_lens,
+           kernel=NAME, head_dims=HEAD_DIMS):
+    """Raise on what the kernel ``kernel`` does not take.  q is (B, Sq, H, D)
+    for the chunk kernels and (B, H, D) for the decode kernel, which has
+    no q_offsets (None)."""
     if q.device.type != "cuda":
-        raise ValueError(f"{NAME}: the kernel takes CUDA tensors, q is on "
+        raise ValueError(f"{kernel}: the kernel takes CUDA tensors, q is on "
                          f"{q.device}")
     if q.dtype not in _DTYPES:
-        raise TypeError(f"{NAME}: dtype {q.dtype} not supported "
+        raise TypeError(f"{kernel}: dtype {q.dtype} not supported "
                         f"(float32, bfloat16)")
-    if q.dim() != 4 or k_pages.dim() != 4:
-        raise ValueError(f"{NAME}: q must be (B, Sq, H, D) and the pages "
-                         f"(P, page, Hkv, D)")
-    B, Sq, H, D = q.shape
+    q_dims = 3 if q_offsets is None else 4
+    if q.dim() != q_dims or k_pages.dim() != 4:
+        raise ValueError(f"{kernel}: q must be "
+                         f"{'(B, H, D)' if q_dims == 3 else '(B, Sq, H, D)'} "
+                         f"and the pages (P, page, Hkv, D)")
+    B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
     _, page, Hkv, Dk = k_pages.shape
     if tuple(v_pages.shape) != tuple(k_pages.shape) or Dk != D:
-        raise ValueError(f"{NAME}: k/v pages {tuple(k_pages.shape)} / "
+        raise ValueError(f"{kernel}: k/v pages {tuple(k_pages.shape)} / "
                          f"{tuple(v_pages.shape)} do not match q's D={D}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{NAME}: head dim {D} not in {HEAD_DIMS}")
+    if D not in head_dims:
+        raise ValueError(f"{kernel}: head dim {D} not in {head_dims}")
     if page not in PAGE_SIZES:
-        raise ValueError(f"{NAME}: page size {page} not in {PAGE_SIZES}")
+        raise ValueError(f"{kernel}: page size {page} not in {PAGE_SIZES}")
     if Hkv == 0 or H % Hkv or H // Hkv > MAX_GROUP:
-        raise ValueError(f"{NAME}: {H} heads over {Hkv} kv heads "
+        raise ValueError(f"{kernel}: {H} heads over {Hkv} kv heads "
                          f"(need H % Hkv == 0 and H / Hkv <= {MAX_GROUP})")
     if block_tables.dim() != 2 or block_tables.shape[0] != B:
-        raise ValueError(f"{NAME}: block tables must be (B={B}, T)")
-    if tuple(q_offsets.shape) != (B,) or tuple(ctx_lens.shape) != (B,):
-        raise ValueError(f"{NAME}: q_offsets and ctx_lens must be (B={B},)")
+        raise ValueError(f"{kernel}: block tables must be (B={B}, T)")
+    lens = (("ctx_lens", ctx_lens),) if q_offsets is None \
+        else (("q_offsets", q_offsets), ("ctx_lens", ctx_lens))
+    for name, t in lens:
+        if tuple(t.shape) != (B,):
+            raise ValueError(f"{kernel}: {name} must be (B={B},)")
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
         if t.dtype != q.dtype:
-            raise TypeError(f"{NAME}: {name} is {t.dtype}, q is {q.dtype}")
-    for name, t in (("block_tables", block_tables), ("q_offsets", q_offsets),
-                    ("ctx_lens", ctx_lens)):
+            raise TypeError(f"{kernel}: {name} is {t.dtype}, q is {q.dtype}")
+    for name, t in (("block_tables", block_tables),) + lens:
         if t.dtype != torch.int32:
-            raise TypeError(f"{NAME}: {name} must be int32, is {t.dtype}")
+            raise TypeError(f"{kernel}: {name} must be int32, is {t.dtype}")
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-                    ("block_tables", block_tables), ("q_offsets", q_offsets),
-                    ("ctx_lens", ctx_lens)):
+                    ("block_tables", block_tables)) + lens:
         if t.device != q.device:
-            raise ValueError(f"{NAME}: {name} is on {t.device}, q on "
+            raise ValueError(f"{kernel}: {name} is on {t.device}, q on "
                              f"{q.device}")
         if not t.is_contiguous():
-            raise ValueError(f"{NAME}: {name} must be contiguous")
+            raise ValueError(f"{kernel}: {name} must be contiguous")
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
         if t.data_ptr() % 16:
-            raise ValueError(f"{NAME}: {name} must be 16-byte aligned "
+            raise ValueError(f"{kernel}: {name} must be 16-byte aligned "
                              f"(the kernel reads it with 16-byte loads)")
 
 
@@ -194,4 +210,34 @@ def _launch(symbol, name, q, k_pages, v_pages, quant, block_tables,
              _DTYPES[q.dtype], dev, stream)
     if err != 0:
         raise RuntimeError(f"{name}: launch failed with cudaError_t {err}")
+    return out
+
+
+def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens):
+    """Single-token decode attention on the card (``csrc/paged_attention.cu``).
+
+    q: (B, H, D) float32 or bfloat16, D in DECODE_HEAD_DIMS; k/v_pages:
+    (P, page, Hkv, D) of the same dtype; block_tables: (B, T) int32;
+    ctx_lens: (B,) int32.  Lane b's heads attend the KV positions <
+    ctx_lens[b] (and < T x page); a ctx_len = 0 lane comes back as zeros
+    and reads no KV.  Returns (B, H, D) in q's dtype."""
+    _check(q, k_pages, v_pages, block_tables, None, ctx_lens,
+           kernel=DECODE_NAME, head_dims=DECODE_HEAD_DIMS)
+    B, H, D = q.shape
+    _, page, Hkv, _ = k_pages.shape
+    out = torch.empty_like(q)
+    fn = _entry("paged_attention_launch", 6, n_ints=8, lib=DECODE_NAME)
+    dev = q.device.index
+    if dev is None:
+        dev = torch.cuda.current_device()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
+             B, H, Hkv, D, page, block_tables.shape[1], _DTYPES[q.dtype], dev,
+             stream)
+    if err != 0:
+        raise RuntimeError(f"{DECODE_NAME}: launch failed with cudaError_t "
+                           f"{err}")
+    global decode_launches
+    decode_launches += 1
     return out

@@ -12,6 +12,40 @@ import torch
 MASK_VALUE = -1e30
 
 
+def paged_attention_ref(q, k_pages, v_pages, block_tables, ctx_lens):
+    """Single-token decode attention over paged KV: the CUDA
+    ``paged_attention`` kernel's plain version.
+
+    q:            (B, H, D)
+    k/v_pages:    (P, page_size, Hkv, D)
+    block_tables: (B, max_pages) int
+    ctx_lens:     (B,) int — valid tokens per lane
+    returns:      (B, H, D) in q's dtype, computed in float32
+
+    Only positions < ctx_lens[b] reach the softmax, so table columns past
+    a lane's first ceil(ctx / page) may hold anything (callers repeat the
+    last valid page id).  A lane with ctx = 0 comes back as zeros, as the
+    TPU kernel's skipped page walk leaves it; the JAX package's oracle
+    returns the mean of the gathered V rows there instead."""
+    B, H, D = q.shape
+    _, page, Hkv, _ = k_pages.shape
+    G = H // Hkv
+    S = block_tables.shape[1] * page
+    tables = block_tables.long()
+    k = k_pages[tables].reshape(B, S, Hkv, D).float()
+    v = v_pages[tables].reshape(B, S, Hkv, D).float()
+    qg = q.reshape(B, Hkv, G, D).float()
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k) / math.sqrt(D)
+    mask = torch.arange(S, device=q.device)[None, :] \
+        < ctx_lens.long()[:, None]
+    s = torch.where(mask[:, None, None], s,
+                    torch.tensor(MASK_VALUE, dtype=s.dtype, device=q.device))
+    o = torch.einsum("bhgs,bshd->bhgd", torch.softmax(s, dim=-1), v)
+    o = torch.where((ctx_lens > 0)[:, None, None, None], o,
+                    torch.zeros((), dtype=o.dtype, device=q.device))
+    return o.reshape(B, H, D).to(q.dtype)
+
+
 def paged_chunk_attention_ref(q, k_pages, v_pages, block_tables, q_offsets,
                               ctx_lens, quant=None):
     """Mixed-batch paged attention: each lane is a chunk of queries.

@@ -407,15 +407,15 @@ class Zamba2LM:
                              s.head_dim), dtype=torch.float32, device=dev),
         )
 
-    def blank_state(self) -> Dict[str, torch.Tensor]:
-        """Host-side zero state for one session (used to reset a reused
-        slot): CPU tensors, conv in the model dtype and ssm in float32."""
+    def blank_state(self, device="cpu") -> Dict[str, torch.Tensor]:
+        """Zero state for one session (used to reset a reused slot) on
+        ``device``: conv in the model dtype and ssm in float32."""
         c, s = self.cfg, self.cfg.ssm
         return dict(
             conv=torch.zeros((c.n_layers, self.conv_dim, s.d_conv - 1),
-                             dtype=self.dtype),
+                             dtype=self.dtype, device=device),
             ssm=torch.zeros((c.n_layers, self.nh, s.d_state, s.head_dim),
-                            dtype=torch.float32),
+                            dtype=torch.float32, device=device),
         )
 
     def _shared_block_paged(self, x, w, kp, vp, table, q_offsets, ctx_lens,

@@ -1,6 +1,7 @@
 """arch family -> model class resolution.  The dense family resolves to
-`DenseLM`, the hybrid and mamba2 families to `Zamba2LM`; every other
-family raises, naming the ROADMAP item that ports it."""
+`DenseLM`, the hybrid and mamba2 families to `Zamba2LM`, the xlstm family
+to `XLSTMLM`; every other family raises, naming the ROADMAP item that
+ports it."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
@@ -10,7 +11,6 @@ _NOT_PORTED = {
     "vlm": "ROADMAP A.9 (the vlm patch path of DenseLM)",
     "moe": "ROADMAP A.9 (models/moe.py)",
     "encdec": "ROADMAP A.9 (models/encdec.py)",
-    "xlstm": "ROADMAP A.7 (models/xlstm.py)",
 }
 
 
@@ -23,6 +23,9 @@ def get_model(cfg: ModelConfig, device="cuda"):
     if cfg.family in ("hybrid", "mamba2"):
         from repro_torch.models.mamba2 import Zamba2LM
         return Zamba2LM(cfg, device=device)
+    if cfg.family == "xlstm":
+        from repro_torch.models.xlstm import XLSTMLM
+        return XLSTMLM(cfg, device=device)
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: {_NOT_PORTED[cfg.family]}")

@@ -59,9 +59,11 @@ takes the place of the JAX package's data dependencies:
 Host payloads are ``{k, v, n_tokens}`` with k/v (n, Hkv, D) CPU tensors in
 the model dtype (pinned when they came off the card).  At the spool and
 export boundary they become numpy: float32/float16 as they are, bfloat16
-as its raw 16-bit pattern (uint16) beside a ``dtype`` entry, since numpy
-has no bfloat16; a bfloat16 array the JAX package made (ml_dtypes) is
-read by viewing its bits as uint16.
+beside a ``dtype`` entry, since numpy has no bfloat16 — in the spool as
+its raw 16-bit pattern (uint16), in an export widened to float32 (exact),
+which the JAX package's import casts back to the same bits where it would
+read uint16 as numbers.  A bfloat16 array the JAX package made (ml_dtypes)
+is read by viewing its bits as uint16.
 
 The mesh of the JAX backend (tensor-parallel serving) is not ported yet:
 ``mesh=`` raises NotImplementedError naming ROADMAP A.8.
@@ -95,11 +97,14 @@ class LostKV(RuntimeError):
     context — the caller must recover from a spool or resubmit history."""
 
 
-def _np_array(t: torch.Tensor) -> np.ndarray:
-    """A host tensor as numpy for the spool and export formats: bfloat16
-    as its 16-bit pattern (uint16), other dtypes as they are."""
+def _np_array(t: torch.Tensor, export: bool = False) -> np.ndarray:
+    """A host tensor as numpy for the spool format (bfloat16 as its 16-bit
+    pattern, uint16) or, with ``export``, the migration format (bfloat16
+    widened to float32); other dtypes as they are."""
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
+        if export:
+            return t.float().numpy()
         return t.contiguous().view(torch.int16).numpy().view(np.uint16)
     return t.numpy()
 
@@ -1399,9 +1404,10 @@ class RealBackend(Backend):
         return launched
 
     def _np_payload(self, p: dict) -> dict:
-        """A host payload in the spool/export format (numpy; bfloat16 as
-        uint16 bits beside its ``dtype``)."""
-        return dict(k=_np_array(p["k"]), v=_np_array(p["v"]),
+        """A host payload in the migration format (numpy beside its
+        ``dtype``; bfloat16 widened to float32, see `_np_array`)."""
+        return dict(k=_np_array(p["k"], export=True),
+                    v=_np_array(p["v"], export=True),
                     n_tokens=int(p["n_tokens"]),
                     dtype=_dtype_name(self.dtype))
 
@@ -1551,11 +1557,11 @@ class RealBackend(Backend):
 
 def make_backend(cfg, model, params, **kw):
     """Family-dispatching real-backend factory, as the JAX package's: the
-    mamba2 and hybrid families serve through the slot-pool `StateBackend`
-    (serving/state_backend.py), the dense family through `RealBackend`;
-    the keywords pass through.  xlstm (ROADMAP A.7) and the vlm, moe and
-    encdec families (A.9) are not ported yet and raise."""
-    if cfg.family in ("mamba2", "hybrid"):
+    mamba2, xlstm and hybrid families serve through the slot-pool
+    `StateBackend` (serving/state_backend.py), the dense family through
+    `RealBackend`; the keywords pass through.  The vlm, moe and encdec
+    families (ROADMAP A.9) are not ported yet and raise."""
+    if cfg.family in ("mamba2", "xlstm", "hybrid"):
         from repro_torch.serving.state_backend import StateBackend
         kw.pop("mesh", None)         # TP serving is transformer-only so far
         kw.pop("hbm_pages", None)    # as is the quantized page tier
@@ -1563,6 +1569,6 @@ def make_backend(cfg, model, params, **kw):
     if cfg.family != "dense":
         raise NotImplementedError(
             f"make_backend: family {cfg.family!r} is not ported yet "
-            f"(ROADMAP A.7 for xlstm, A.9 for vlm/moe/encdec)")
+            f"(ROADMAP A.9 for vlm/moe/encdec)")
     kw.pop("n_slots", None)          # slot pools are a recurrent concept
     return RealBackend(cfg, model, params, **kw)

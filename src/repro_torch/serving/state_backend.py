@@ -15,13 +15,17 @@ write-through, crash recovery) drive all three state kinds unchanged:
   per resident session; same lease/conservation discipline as page
   allocation).  Hybrid configs add per-application paged KV pools
   ((n_apps, n_pages + 1, page, Hkv, D)) with lockstep `PagedAllocator`s.
-* One engine iteration is ONE fused `Zamba2LM.step_slots` call: every lane
-  gathers its slot, runs the masked chunked scan (the CUDA ``ssd_scan``
-  kernel on every Mamba layer) over its padded token slice, and writes the
-  advanced state back in place — decode lanes are the q_len = 1 case; the
-  hybrid's shared blocks run the paged attention kernel on every
-  application.  Shape-bucketed (lane count, tokens per step, block-table
-  width) exactly like the JAX package.
+* One engine iteration is ONE fused ``model.step_slots`` call
+  (`Zamba2LM` or `XLSTMLM`; the backend reads only the model's
+  ``state_pool_names``, ``init_slot_pools``, ``blank_state``,
+  ``step_slots`` and ``scatter_slots``): every lane gathers its slot, runs
+  the masked chunked form over its padded token slice (for Mamba the CUDA
+  ``ssd_scan`` kernel on every layer; xLSTM's mLSTM and sLSTM blocks are
+  plain tensor code, as in the JAX package), and writes the advanced
+  state back in place — decode lanes are the q_len = 1 case; the hybrid's
+  shared blocks run the paged attention kernel on every application.
+  Shape-bucketed (lane count, tokens per step, block-table width) exactly
+  like the JAX package.
 * Recurrent state is the paper's cheapest-migration case: the whole session
   is ONE fixed-size blob, so the tiered store tracks it as a single "layer"
   unit (CostModel.store_layers == 1) and every tier movement — swap-out,
@@ -36,11 +40,14 @@ stream; a swap-in is copied from host memory on the side stream into a
 device staging tensor, and the compute stream waits for it and writes the
 pools in place — every pool write stays on the compute stream.
 
-Host payloads are ``{n_tokens, state: {conv, ssm}, kv: {k, v} | None}``
-with CPU tensors (conv, k, v in the model dtype, ssm float32; k/v are
-(n_apps, n_tokens, Hkv, D)).  At the spool and export boundary they become
-numpy dicts, bfloat16 as its 16-bit pattern (uint16) beside a ``dtype``
-entry; a bfloat16 array the JAX package made is read by viewing its bits.
+Host payloads are ``{n_tokens, state: {name: tensor}, kv: {k, v} | None}``
+with CPU tensors, one per state pool in its pool's dtype (Mamba's conv
+and xLSTM's m_conv in the model dtype, the rest float32), k/v in the
+model dtype ((n_apps, n_tokens, Hkv, D)).  At the spool and export
+boundary they become numpy dicts with a ``dtype`` entry, bfloat16 as its
+16-bit pattern (uint16) in the spool and widened to float32 in an export
+(backend.py's module docstring says why); a bfloat16 array the JAX package
+made is read by viewing its bits.
 
 There is NO prefix sharing here by construction: recurrent state folds the
 whole history into one tensor, so no page-aligned span can be shared or
@@ -80,7 +87,7 @@ class StateBackend(Backend):
 
     ``device`` defaults to the card and raises on a machine without one;
     pass ``device="cpu"`` to serve with the plain versions on the CPU.
-    ``kernel_mode`` is passed to `Zamba2LM.step_slots` (auto | ref)."""
+    ``kernel_mode`` is passed to ``model.step_slots`` (auto | ref)."""
 
     def __init__(self, cfg, model, params, *, n_slots: int = 8,
                  n_pages: int = 64, page_size: int = 8,
@@ -102,7 +109,6 @@ class StateBackend(Backend):
         self.has_kv = bool(getattr(model, "has_attn", False))
         self.pools: Dict[str, torch.Tensor] = model.init_slot_pools(n_slots)
         self.pool_names = tuple(model.state_pool_names)
-        self.blank: Dict[str, torch.Tensor] = model.blank_state()
         self.slots = StateAllocator(n_slots)
         # bytes of ONE session's fixed state across every pool
         self._state_bytes = int(sum(
@@ -334,10 +340,10 @@ class StateBackend(Backend):
         blank state (a reused slot still holds its previous owner's
         tensors) and nothing crosses the bus — no transfer."""
         slot_idx = self._i32([slot])
-        if payload is None:
-            blob = {k: torch.zeros_like(self.pools[k][:, :1])
-                    for k in self.pool_names}
-            self.model.scatter_slots(self.pools, slot_idx, blob)
+        if payload is None:          # xLSTM's stabilizers start at -1e30
+            blank = self.model.blank_state(self.device)
+            self.model.scatter_slots(self.pools, slot_idx,
+                                     {k: v[:, None] for k, v in blank.items()})
             return
         state = payload["state"]
         hosts = [_host_tensor(state[k], self._pool_dtype(k))[:, None]
@@ -672,15 +678,17 @@ class StateBackend(Backend):
         self.stats["layer_promotions"] += 1
         return list(layers)
 
-    def _np_payload(self, p: dict) -> dict:
-        """A host payload's arrays in the spool/export format (numpy;
-        bfloat16 as its uint16 bits)."""
+    def _np_payload(self, p: dict, export: bool = False) -> dict:
+        """A host payload's arrays in the spool or (``export``) the
+        migration format (numpy; see `backend._np_array`)."""
         out = dict(n_tokens=int(p["n_tokens"]),
-                   state={k: _np_array(_host_tensor(v, self._pool_dtype(k)))
+                   state={k: _np_array(_host_tensor(v, self._pool_dtype(k)),
+                                       export)
                           for k, v in p["state"].items()})
         kv = p.get("kv")
         out["kv"] = None if kv is None else {
-            s: _np_array(_host_tensor(kv[s], self.dtype)) for s in ("k", "v")}
+            s: _np_array(_host_tensor(kv[s], self.dtype), export)
+            for s in ("k", "v")}
         return out
 
     def persist(self, sid: str) -> bool:
@@ -754,8 +762,8 @@ class StateBackend(Backend):
         if payload is None:
             if st.n_kv > 0:
                 return None          # state unreachable: nothing to migrate
-            payload = dict(n_tokens=0, state=dict(self.blank))
-        p = self._np_payload(payload)
+            payload = dict(n_tokens=0, state=self.model.blank_state())
+        p = self._np_payload(payload, export=True)
         return dict(state=p["state"], kv=p["kv"], n_kv=st.n_kv,
                     last_token=st.last_token, priority=st.priority,
                     ids=list(st.ids), dtype=_dtype_name(self.dtype))

@@ -5,11 +5,12 @@
 `Pkg`s over the SAME weights — JAX-initialised, carried across by
 `convert.params_from_numpy` — on ``llama3-8b.reduced(dtype="float32")``
 with 4 kv heads (MHA) or 2 (GQA).  `recurrent_twins(family)` does the same
-for the mamba2 and hybrid families (``mamba2-2.7b`` / ``zamba2-2.7b``
-``.reduced(dtype="float32")``), whose backend is the factory
-``make_backend`` (`StateBackend` for both).  A test runs its scenario once
-per `Pkg` and asserts the two agree (tokens, counters, invariants) and that
-the port's tokens equal the port's dense prefill/decode recompute.
+for the mamba2, xlstm and hybrid families (``mamba2-2.7b`` /
+``xlstm-1.3b`` / ``zamba2-2.7b`` ``.reduced(dtype="float32")``, or
+bfloat16 on request), whose backend is the factory ``make_backend``
+(`StateBackend` for all three).  A test runs its scenario once per `Pkg`
+and asserts the two agree (tokens, counters, invariants) and that the
+port's tokens equal the port's dense prefill/decode recompute.
 
 Both cost models get the JAX package's v5e figures (`V5E`): the port's
 defaults are the H100 data sheet, so its quantize-or-swap and stall
@@ -107,27 +108,28 @@ def _pkgs(jcfg, cfg, jbackend_cls, tbackend_cls, seed):
     return jpkg, tpkg
 
 
-RECURRENT = {"mamba2": "mamba2-2.7b", "hybrid": "zamba2-2.7b"}
+RECURRENT = {"mamba2": "mamba2-2.7b", "hybrid": "zamba2-2.7b",
+             "xlstm": "xlstm-1.3b"}
 
 
 @functools.lru_cache(maxsize=None)
-def recurrent_twins(family: str, seed: int = 0):
+def recurrent_twins(family: str, seed: int = 0, dtype: str = "float32"):
     """(JAX Pkg, port Pkg) of a recurrent family with the same weights;
-    family: mamba2 | hybrid."""
+    family: mamba2 | hybrid | xlstm."""
     name = RECURRENT[family]
-    jcfg = jconfigs.get_config(name).reduced(dtype="float32")
-    cfg = tconfigs.get_config(name).reduced(dtype="float32")
+    jcfg = jconfigs.get_config(name).reduced(dtype=dtype)
+    cfg = tconfigs.get_config(name).reduced(dtype=dtype)
     return _pkgs(jcfg, cfg, jbackend.make_backend, tbackend.make_backend,
                  seed)
 
 
 @functools.lru_cache(maxsize=None)
-def twins(kind: str = "gqa", seed: int = 0):
+def twins(kind: str = "gqa", seed: int = 0, dtype: str = "float32"):
     """(JAX Pkg, port Pkg) with the same weights; kind: mha | gqa."""
     n_kv = dict(mha=4, gqa=2)[kind]
-    jcfg = jconfigs.get_config("llama3-8b").reduced(dtype="float32",
+    jcfg = jconfigs.get_config("llama3-8b").reduced(dtype=dtype,
                                                     n_kv_heads=n_kv)
-    cfg = tconfigs.get_config("llama3-8b").reduced(dtype="float32",
+    cfg = tconfigs.get_config("llama3-8b").reduced(dtype=dtype,
                                                    n_kv_heads=n_kv)
     return _pkgs(jcfg, cfg, jbackend.RealBackend, tbackend.RealBackend, seed)
 

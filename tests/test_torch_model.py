@@ -188,10 +188,24 @@ def test_default_device_is_the_card():
 
 @pytest.mark.parametrize("arch,item", [
     ("phi-3-vision-4.2b", "A.9"), ("qwen3-moe-30b-a3b", "A.9"),
-    ("seamless-m4t-medium", "A.9"), ("xlstm-1.3b", "A.7")])
+    ("seamless-m4t-medium", "A.9")])
 def test_unported_families_name_their_roadmap_item(arch, item):
     with pytest.raises(NotImplementedError, match=item):
         get_model(get_config(arch), device="cpu")
+
+
+def test_xlstm_resolves_to_xlstmlm():
+    """The xlstm family is ported: it resolves to `XLSTMLM`, which has no
+    paged KV, and its training and dry-run entry points name their
+    ROADMAP items."""
+    from repro_torch.models.xlstm import XLSTMLM
+    model = get_model(get_config("xlstm-1.3b").reduced(dtype="float32"),
+                      device="cpu")
+    assert isinstance(model, XLSTMLM) and not model.has_attn
+    with pytest.raises(NotImplementedError, match="A.10"):
+        model.loss({}, {})
+    with pytest.raises(NotImplementedError, match="A.11"):
+        model.input_specs(None)
 
 
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "mamba2-2.7b"])

@@ -1,6 +1,6 @@
 """The port's recurrent and hybrid serving against the JAX package.
 
-A twin of tests/test_recurrent_parity.py for the mamba2 and hybrid
+A twin of tests/test_recurrent_parity.py for the mamba2, xlstm and hybrid
 families: the same multi-turn greedy conversations go through the JAX
 `StateBackend` and the port's, over the same weights (tests/_torch_twin.py,
 ``.reduced(dtype="float32")`` configs), and must give the same tokens and
@@ -31,7 +31,7 @@ from repro_torch import convert
 from repro_torch.models.registry import get_model
 from repro_torch.serving.state_backend import StateBackend
 
-FAMILIES = ("mamba2", "hybrid")
+FAMILIES = ("mamba2", "hybrid", "xlstm")
 TOL = dict(rtol=2e-3, atol=2e-3)          # test_recurrent_parity's logits
 KEYS = ("prefills", "decode_steps", "swaps_out", "swaps_in",
         "layer_evictions", "layer_promotions", "migrations_in",
@@ -241,19 +241,28 @@ def _slot_batch(cfg, model, rng, page=8, n_slots=5, n_pages=24):
     """A mixed batch of 4 lanes in an 8-lane bucket: two decode lanes, two
     chunk lanes of different lengths, four padded lanes on the trash slot;
     random pool contents; for the hybrid, per-application paged KV with
-    each lane's earlier context on permuted pages."""
+    each lane's earlier context on permuted pages.  xLSTM pools are drawn
+    at scale 0.3 (conv tails and stabilizers at 1), with the sLSTM
+    normalizer s_n positive, as a served state holds it."""
     B, Sq = 8, 8
     n_valid = np.array([1, 8, 5, 1, 0, 0, 0, 0], np.int32)
     slots = np.array([3, 0, 4, 1] + [n_slots] * 4, np.int32)
     ids = rng.integers(0, cfg.vocab, (B, Sq)).astype(np.int32)
     last = np.maximum(n_valid - 1, 0).astype(np.int32)
-    s = cfg.ssm
-    pools = dict(
-        conv=rng.normal(size=(cfg.n_layers, n_slots + 1, model.conv_dim,
-                              s.d_conv - 1)).astype(np.float32),
-        ssm=rng.normal(scale=0.3, size=(cfg.n_layers, n_slots + 1, model.nh,
-                                        s.d_state, s.head_dim)
-                       ).astype(np.float32))
+    if cfg.family == "xlstm":
+        pools = {k: rng.normal(scale=1.0 if k in ("m_conv", "m_m", "s_m")
+                               else 0.3, size=tuple(v.shape)
+                               ).astype(np.float32)
+                 for k, v in model.init_slot_pools(n_slots).items()}
+        pools["s_n"] = np.abs(pools["s_n"]) + 0.5
+    else:
+        s = cfg.ssm
+        pools = dict(
+            conv=rng.normal(size=(cfg.n_layers, n_slots + 1, model.conv_dim,
+                                  s.d_conv - 1)).astype(np.float32),
+            ssm=rng.normal(scale=0.3, size=(cfg.n_layers, n_slots + 1,
+                                            model.nh, s.d_state, s.head_dim)
+                           ).astype(np.float32))
     batch = dict(ids=ids, slots=slots, n_valid=n_valid, last=last,
                  pools=pools)
     if model.has_attn:
@@ -289,13 +298,13 @@ def _jax_step(jpkg, b):
             {k: jnp.asarray(v) for k, v in b["pools"].items()},
             jnp.asarray(b["slots"]), jnp.asarray(b["n_valid"]),
             jnp.asarray(b["last"])]
-    if jpkg.model.has_attn:
+    if getattr(jpkg.model, "has_attn", False):   # JAX XLSTMLM has none
         args += [jnp.asarray(b[k]) for k in ("k_pool", "v_pool", "tables",
                                              "qoff", "ctx", "pg", "off")]
     out = jpkg.model.step_slots(*args, kernel_mode="ref")
     out = jax.tree.map(np.asarray, out)
     pools = dict(out[2])
-    if jpkg.model.has_attn:
+    if getattr(jpkg.model, "has_attn", False):
         pools.update(k_pool=out[3], v_pool=out[4])
     return out[1], pools
 
@@ -328,7 +337,7 @@ def test_step_slots_matches_jax_on_mixed_batch(family):
     jl, jpools = _jax_step(jpkg, b)
     tl, tpools = _torch_step(tpkg, b)
     np.testing.assert_allclose(tl[:4], jl[:4], rtol=2e-4, atol=2e-4)
-    for k in ("conv", "ssm"):
+    for k in b["pools"]:
         np.testing.assert_allclose(tpools[k][:, :-1], jpools[k][:, :-1],
                                    rtol=2e-4, atol=2e-4, err_msg=k)
     if tpkg.model.has_attn:

@@ -205,15 +205,17 @@ def test_backend_runs_on_the_card_by_default():
 
 def test_unported_paths_raise_naming_the_roadmap():
     """What is still unported raises, naming its ROADMAP item: the device
-    mesh (A.8) and the xlstm family (A.7); tier movement and the int8 tier
-    are ported and answer for an unknown session without raising."""
+    mesh (A.8) and the moe family's backend (A.9); tier movement and the
+    int8 tier are ported and answer for an unknown session without
+    raising."""
     cfg = get_config("llama3-8b").reduced(dtype="float32")
     model = get_model(cfg, device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="A.8"):
         RealBackend(cfg, model, params, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="A.7"):
-        make_backend(get_config("xlstm-1.3b"), model, params, device="cpu")
+    with pytest.raises(NotImplementedError, match="A.9"):
+        make_backend(get_config("qwen3-moe-30b-a3b"), model, params,
+                     device="cpu")
     be = RealBackend(cfg, model, params, device="cpu")
     assert be.quantize_session("s") == 0
     assert be.prefetch("s", [0]) == []

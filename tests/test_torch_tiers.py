@@ -430,10 +430,11 @@ def test_export_import_across_packages(direction):
 
 
 def test_bf16_payloads_are_uint16_bits_beside_their_dtype(tmp_path):
-    """bfloat16 host payloads leave the port as their 16-bit pattern with a
-    ``dtype`` entry (numpy has no bfloat16), on export and in the spool;
-    they come back bit-exact (into another node too), and a JAX-made
-    bfloat16 array is read by its bits."""
+    """bfloat16 host payloads leave the port with a ``dtype`` entry (numpy
+    has no bfloat16): in the spool as their 16-bit pattern, on export
+    widened to float32 (which the JAX package casts back exactly); they
+    come back bit-exact (into another node too), and a JAX-made bfloat16
+    array is read by its bits."""
     _, tpkg = twins("gqa")
     cfg = dataclasses.replace(tpkg.cfg, dtype="bfloat16")
     model = get_model(cfg, device="cpu")
@@ -455,13 +456,46 @@ def test_bf16_payloads_are_uint16_bits_beside_their_dtype(tmp_path):
     assert torch.equal(spooled, want)
     payload = be.export_session("b")
     lay = payload["layers"][0]
-    assert lay["k"].dtype == np.uint16 and lay["dtype"] == "bfloat16"
+    assert lay["k"].dtype == np.float32 and lay["dtype"] == "bfloat16"
     assert torch.equal(_host_tensor(lay["k"], torch.bfloat16), want)
     _, _, be2, _ = pkg.node(node_id=1)
     be2.import_session("b", payload)
     assert torch.equal(be2.host[("b", 0)]["k"], want)
     jax_made = np.asarray(jnp.asarray(want.float().numpy(), jnp.bfloat16))
     assert torch.equal(_host_tensor(jax_made, torch.bfloat16), want)
+
+
+def test_bf16_export_imports_into_jax_bit_for_bit():
+    """A bf16 session exported by the port's RealBackend and imported and
+    promoted by the JAX package's holds the same KV bits in every layer."""
+    jpkg, tpkg = twins("gqa", 0, "bfloat16")
+    _, mgr, be, eng = tpkg.node()
+    now = serve_to_end(eng, [tpkg.Request("b", prompt_tokens=11,
+                                          max_new_tokens=4,
+                                          prompt_ids=turns(tpkg.cfg,
+                                                           (11,))[0])],
+                       mgr, be)
+    n_kv, tokens = be.seqs["b"].n_kv, be.session_tokens("b")
+
+    def bits(pool, alloc):
+        pages = np.asarray(alloc.seqs["b"].pages)
+        a = pool.view(torch.int16).numpy() if isinstance(
+            pool, torch.Tensor) else np.asarray(pool).view(np.int16)
+        return a[pages].reshape(-1, *a.shape[2:])[:n_kv]
+
+    want = [(bits(be.k_pool[l], be.alloc[l]), bits(be.v_pool[l], be.alloc[l]))
+            for l in range(tpkg.cfg.n_layers)]
+    payload = be.export_session("b")
+    _, jmgr, jbe, _ = jpkg.node(node_id=1)
+    jbe.import_session("b", payload)
+    jmgr.mark_resident("b", tokens, jbe._layer_page_bytes * 2)
+    for l in range(jpkg.cfg.n_layers):
+        jmgr.store.move_layer("b", l, "host")
+    jmgr.promote("b", now)
+    jbe.drain_transfers()
+    for l, (k, v) in enumerate(want):
+        np.testing.assert_array_equal(bits(jbe.k_pool[l], jbe.alloc[l]), k)
+        np.testing.assert_array_equal(bits(jbe.v_pool[l], jbe.alloc[l]), v)
 
 
 def test_pool_writes_keep_the_pools_storage():
