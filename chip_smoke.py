@@ -71,11 +71,16 @@ Phases:
  10. exact tokens in fp32 (zamba2 at full width, 12 Mamba layers, 2 shared
      applications) through swap-out/in, eviction and promotion, and spool
      recovery after a crash: the dense prefill/decode recompute's tokens;
- 11. the prefill kernel (B.4) against its plain version at llama3-8b widths
-     in bf16 and fp32: one lane at Sq = Skv in {1, 100, 512, 1568, 4096},
-     two lanes of 256 tokens at q_offset 512 over 1024 keys (padding past
-     768), and that continuation as kernel 1's input (identity tables),
-     where kernel 1 must agree; times against the bound and SDPA;
+ 11. the prefill kernel (B.4): its two bodies as ptxas built them and as
+     the runtime reports them (registers, spills, shared memory, CTAs per
+     SM), and their machine code (the bf16 body runs wgmma, the fp32 body
+     no tensor-core product); the fp32 body's outputs bit for bit to
+     FLASH_FP32_DIGESTS; then B.4 against its plain version at llama3-8b
+     widths in bf16 and fp32: one lane at Sq = Skv in {1, 100, 512, 1568,
+     4096}, two lanes of 256 tokens at q_offset 512 over 1024 keys
+     (padding past 768), and that continuation as kernel 1's input
+     (identity tables), where kernel 1 must agree; times against the
+     bound and SDPA, achieved TFLOP/s and share of the bound;
  12. llama3-8b (32 layers, bf16) on a three-node `ClusterRuntime` in real
      mode: (a) 2 sessions x 3 turns of 512-token prompts, a turn-2
      advisory that migrates a session to the idle node, and the node that
@@ -395,7 +400,8 @@ def phase_env():
 
 
 def phase_build():
-    """Every kernel source, one nvcc each, started together."""
+    """Every kernel source, one nvcc each, started together; returns
+    {name: (library, nvcc and ptxas output)}."""
     t0 = time.perf_counter()
     built = build.build_all([pa.NAME, pa.DECODE_NAME, ssd.NAME, fp.NAME])
     log(f"[2] {len(built)} kernel libraries in "
@@ -411,6 +417,7 @@ def phase_build():
         if text:
             log(f"[2] {name}: spills: "
                 f"{'; '.join(spills) or 'none reported by ptxas'}")
+    return built
 
 
 def make_case(rng, B, Sq, ctxs, q_lens, dtype, page=16, H=32, Hkv=8, D=128,
@@ -1951,6 +1958,37 @@ def phase_exact_hybrid(seed):
 # phase 11: flash_prefill (B.4) against its plain version
 # ---------------------------------------------------------------------------
 
+# sha256 (first 16 hex digits) of B.4's float32 output on the fixed inputs
+# of flash_fp32_digests(), recorded on the card from the CUDA-core body as
+# it was before the bfloat16 body moved to the tensor cores: the float32
+# body keeps its arithmetic, so its output must stay bit for bit as it was.
+FLASH_FP32_DIGESTS = {
+    "B=1 Sq=512 Skv=512 H=32/8 D=128 q_offset=0": "c535f9d946817c36",
+    "B=2 Sq=256 Skv=1024 H=32/8 D=128 q_offset=512": "389b29838cbb5f04",
+    "B=1 Sq=130 Skv=130 H=36/36 D=64 q_offset=0": "18bb1e583fe94730",
+    "B=2 Sq=33 Skv=40 H=16/1 D=128 q_offset=7": "bc790051762f7910",
+}
+# B, Sq, Skv, H, Hkv, D, q_offset of flash_fp32_digests()
+FLASH_DIGEST_CASES = ((1, 512, 512, 32, 8, 128, 0),
+                      (2, 256, 1024, 32, 8, 128, 512),
+                      (1, 130, 130, 36, 36, 64, 0),
+                      (2, 33, 40, 16, 1, 128, 7))
+
+
+def flash_fp32_digests():
+    """{case: digest} of B.4's float32 output on FLASH_DIGEST_CASES, drawn
+    on the host from DIGEST_SEED whatever --seed is."""
+    rng = np.random.default_rng(DIGEST_SEED + 11)
+    out = {}
+    for B, Sq, Skv, H, Hkv, D, qo in FLASH_DIGEST_CASES:
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            shape, dtype=np.float32)).cuda()
+            for shape in ((B, Sq, H, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
+        out[f"B={B} Sq={Sq} Skv={Skv} H={H}/{Hkv} D={D} q_offset={qo}"] = \
+            digest(fp.flash_prefill(q, k, v, qo))
+    return out
+
+
 def flash_work(q, k, q_offset):
     """Bytes causal prefill attention must move and the operations it must
     do on THESE inputs: q read and the output written once, each kv head's
@@ -2007,15 +2045,67 @@ def compare_flash(q, k, v, q_offset, label):
     return dict(label=label, max_abs_err=err, err_rel=err / scale,
                 ms=cuda_ms(kern, 10), plain_ms=cuda_ms(plain, 3),
                 library_ms=cuda_ms(sdpa_prefill(q, k, v, q_offset), 10),
-                bound_ms=b_ms, bound_by=b_by, bytes_ms=t_b, ops_ms=t_f)
+                bound_ms=b_ms, bound_by=b_by, bytes_ms=t_b, ops_ms=t_f,
+                flops=flops)
 
 
-def phase_flash_vs_plain(seed):
+def fmt_rate(recs) -> str:
+    """Achieved TFLOP/s, share of the bound and ratio to SDPA of one
+    record or, for a list, of their sums."""
+    recs = recs if isinstance(recs, list) else [recs]
+    ms = sum(r["ms"] for r in recs)
+    return (f"{sum(r['flops'] for r in recs) / ms / 1e9:.1f} TFLOP/s, "
+            f"{sum(r['bound_ms'] for r in recs) / ms:.4f} of the bound, "
+            f"{ms / sum(r['library_ms'] for r in recs):.3f} x SDPA")
+
+
+def flash_resources(built):
+    """B.4's bodies as ptxas built them (when phase 2 compiled them in
+    this run) and as the runtime reports them."""
+    text = built.get(fp.NAME, (None, ""))[1] if built else ""
+    lines = text.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and "flash_prefill" in line:
+            body = "tc" if "flash_prefill_tc" in line else "fp32 CUDA-core"
+            dim = "128" if "Li128E" in line else "64"
+            info = [x.strip() for x in lines[i + 1:i + 4]
+                    if "spill" in x or "Used" in x]
+            log(f"[11] ptxas, {body} body at D = {dim}: {'; '.join(info)}")
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in fp.HEAD_DIMS:
+            log(f"[11] runtime, {str(dtype).split('.')[-1]} at D = {d}: "
+                f"{fp.resources(dtype, d)}")
+    # which products each body's machine code runs: HGMMA (wgmma), HMMA
+    # (mma.sync), FFMA (CUDA-core float32)
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(build.build(fp.NAME)[0])],
+                          capture_output=True, text=True, timeout=120)
+    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr.strip()}")
+    for part in sass.stdout.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        body = "tc" if "flash_prefill_tc" in name else "fp32 CUDA-core"
+        dim = "128" if "Li128E" in name else "64"
+        counts = {op: part.count(op) for op in ("HGMMA", "HMMA", "FFMA")}
+        log(f"[11] SASS, {body} body at D = {dim}: {counts}")
+        check((counts["HGMMA"] > 0) == (body == "tc") and not counts["HMMA"],
+              f"B.4's {body} body at D = {dim} runs {counts}")
+
+
+def phase_flash_vs_plain(seed, built=None):
     """B.4 at llama3-8b widths (H = 32, Hkv = 8, D = 128), bf16 and fp32:
     one lane at Sq = Skv in {1, 100, 512, 1568, 4096}; two lanes of 256 new
     tokens at q_offset 512 over Skv = 1024 keys (the last 256 padding).
     The continuation, seen as pages of 16 with identity tables, q_offsets
-    512 and ctx_lens 768, is kernel 1's input: kernel 1 must agree."""
+    512 and ctx_lens 768, is kernel 1's input: kernel 1 must agree.  The
+    float32 body's outputs on flash_fp32_digests() must equal
+    FLASH_FP32_DIGESTS bit for bit."""
+    flash_resources(built)
+    got = flash_fp32_digests()
+    changed = sorted(c for c in got.keys() | FLASH_FP32_DIGESTS.keys()
+                     if got.get(c) != FLASH_FP32_DIGESTS.get(c))
+    check(not changed, f"B.4's float32 output moved on {changed}")
+    log(f"[11] float32 B.4 on {len(got)} cases: bit-identical to the "
+        f"recorded digests")
     gen = torch.Generator(device="cuda").manual_seed(seed + 11)
 
     def randn(*shape):
@@ -2034,6 +2124,7 @@ def phase_flash_vs_plain(seed):
             name = f"flash_prefill {label} {str(dtype).split('.')[-1]}"
             rec = compare_flash(q, k, v, qo, name)
             log("[11]" + fmt(rec))
+            log(f"[11]   {fmt_rate(rec)}")
             recs.append(rec)
             if qo:
                 n = Skv // page
@@ -2383,7 +2474,13 @@ def phase_cluster(cfg, model, params, seed, card):
         rec = compare_flash(q, k, v, qo, f"reference prefill B={q.shape[0]} "
                             f"Sq={q.shape[1]} Skv={k.shape[1]}")
         log("[12]" + fmt(rec))
+        log(f"[12]   {fmt_rate(rec)}")
         recs.append(rec)
+    if recs:
+        log(f"[12] B.4 over the reference's {len(recs)} shapes: "
+            f"{sum(r['ms'] for r in recs):.4g} ms, SDPA "
+            f"{sum(r['library_ms'] for r in recs):.4g} ms, bound "
+            f"{sum(r['bound_ms'] for r in recs):.4g} ms; {fmt_rate(recs)}")
     cap.calls.clear()
     torch.cuda.empty_cache()
     return launches, recs
@@ -2984,12 +3081,11 @@ def main(argv=None):
     t_start = time.perf_counter()
     try:
         kind, card = phase_env()
-        if 2 in phases:
-            phase_build()
+        built = phase_build() if 2 in phases else {}
         shape_recs, shape_qrecs = (
             phase_kernel_vs_plain(np.random.default_rng(args.seed))
             if 3 in phases else ([], []))
-        flash_shape_recs = (phase_flash_vs_plain(args.seed)
+        flash_shape_recs = (phase_flash_vs_plain(args.seed, built)
                             if 11 in phases else [])
         launches, main_recs, qlaunches, qrecs = 0, [], 0, []
         flaunches, flash_recs, decode = 0, [], []

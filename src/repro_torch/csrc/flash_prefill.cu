@@ -11,33 +11,48 @@
 // masked (the TPU kernel asks Sq to be a multiple of its query block), and
 // keys past q_offset + Sq (padding) lie in every row's masked future.
 //
-// Design.  One CTA of 256 threads owns one (lane, kv head, query block).  Its
-// tile holds kRows = 64 rows: the G heads of bq = 64 / G query positions, as
-// the TPU kernel's bq * G rows (16 positions x 4 heads for llama3-8b).  It
-// walks the block's keys kKeys = 64 at a time and only up to the causal
-// horizon of its last real position, q_offset + min(q0 + bq, Sq) - 1: tiles
-// wholly after it are neither loaded nor computed.  K/V tiles come from
-// contiguous rows with 16-byte loads, one tile ahead into registers, so the
-// next tile's loads are in flight while this one computes; they are staged
-// in shared memory as float32.  Each thread owns 4 rows x 4 keys of the
-// 64 x 64 score tile (rows tr + 16 i, keys tc + 16 j with tr = tid / 16,
-// tc = tid % 16), so 8 float4 loads from shared memory feed 64 FMAs; the
-// 16 threads of a row are one half-warp, which reduces the row's max and sum
-// with shuffles.  The same thread owns the same 4 rows of the P.V
-// accumulator (4 rows x D / 16 columns in registers), so the online
-// softmax's rescale stays in registers; only P goes through shared memory.
-// Blocks are issued longest first (the last query block sees the most keys).
-//
 // What bounds it.  Prefill attention does 4 * D operations per (query head,
 // visible key) pair and reads each K/V row once per kv head: at the dense
 // reference's lengths (hundreds to thousands of tokens) it is bound by
 // operations on the card (Sq * G / 4 operations per K/V byte in bf16, far
-// above the ~295 at which bf16 tensor cores stop waiting for memory).  This
-// first version runs its products on the CUDA cores in float32 (no
-// mma/wgmma, no TMA ring) at one CTA per SM (121 KB of shared memory at
-// D = 128), so it sits far from that bound; K/V re-reads across the query
-// blocks of a lane come mostly from L2.
+// above the ~295 at which bf16 tensor cores stop waiting for memory).  So the
+// remedy is the tensor cores, and there are two bodies, one per dtype, behind
+// one launch function.
+//
+// bfloat16: the tensor-core body (flash_prefill_tc).  One CTA owns one
+// (lane, kv head, query block) tile of kTcRows = 64 query rows: the G heads
+// of bq = 64 / G positions, row r = position q0 + r / G, head h * G + r % G,
+// as the TPU kernel packs bq * G rows, so every K/V tile is loaded once for
+// the whole group.  One producer warp streams the tile's keys, kTcKeys = 64
+// at a time, into a ring of kTcStages = 2 shared-memory stages by TMA
+// (cp.async.bulk.tensor over a (B, q_offset + Sq, Hkv * D) view of K and of
+// V, 128-byte swizzle, one 64-column box per 128 bytes of a row; rows past
+// q_offset + Sq come back as zeros, so no garbage ever meets a p of 0), with
+// a full and an empty mbarrier per stage.  One consumer warpgroup runs
+// S = Q.K^T as wgmma m64nKk16 (Q and K K-major in swizzled shared memory),
+// the online softmax on S's accumulator fragments in registers (exp2 of
+// pre-scaled scores; row max by quad shuffles; O rescaled in registers),
+// converts P to bf16 A fragments in registers and runs O += P.V as wgmma
+// m64nDk16 with P from registers and V's [keys][D] tile read as the
+// transposed (MN-major) B operand.  P never touches shared memory.  Only
+// tiles that reach past the first row's horizon are masked; tiles past the
+// last real row's horizon are neither loaded nor computed.  160 threads and
+// 83 KB of shared memory at D = 128 leave two CTAs resident per SM, so one
+// CTA's softmax overlaps the other's products.  Blocks are issued longest
+// first across all lanes and heads.  The tile constants below were chosen
+// by kernels/flash_tiles.py's times on the card at the dense reference's
+// shapes (PERF.md).
+//
+// float32: the CUDA-core body (flash_prefill_kernel).  The H100 has no
+// float32 tensor-core product other than TF32 (about three decimal digits),
+// and the fp32 paths are held to exact tokens, so this body keeps its
+// float32 FMAs: one CTA of 256 threads per 64-row tile, 64 keys a step
+// staged in shared memory (16-byte loads one tile ahead), each thread 4
+// rows x 4 keys of the score tile and the same 4 rows of the accumulator,
+// P through shared memory.  121 KB of shared memory at D = 128, one CTA per
+// SM; it sits far from the operations bound.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -60,22 +75,9 @@ template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
 }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's cast
-}
-
-// 16 bytes of T widened to float32 in smem (4 floats for float, 8 for bf16)
+// 16 bytes of T staged in smem as float32
 __device__ __forceinline__ void widen(const uint4& u, float* dst, float) {
   *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(&u);
-}
-__device__ __forceinline__ void widen(const uint4& u, float* dst,
-                                      __nv_bfloat16) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-  const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
-  reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
-  reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
 }
 
 // max / sum over the 16 lanes of a half-warp (one score row's threads)
@@ -326,10 +328,542 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; head dim 64 or 128; H % Hkv == 0 with
-// H / Hkv <= 64; Skv >= q_offset + Sq.  Returns a cudaError_t (0 = launched).
+// ---------------------------------------------------------------------------
+// bfloat16: the tensor-core body
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int kTcRows = 64;                    // query rows a CTA
+constexpr int kTcKeys = 64;                    // keys a ring stage
+constexpr int kTcStages = 2;                   // ring stages
+constexpr int kTcCtasPerSm = 2;                // __launch_bounds__ minimum
+constexpr int kTcThreads = 128 + 32;           // a consumer warpgroup and a
+                                               // producer warp
+constexpr unsigned kSpinLimit = 1u << 30;      // a wait that never ends traps
+
+static_assert(kTcKeys % 16 == 0 && kTcKeys <= 256, "wgmma N and K steps");
+
+// Byte offsets in the 1024-byte-aligned dynamic shared memory.  Each tile is
+// stored as D / 64 column blocks of [rows][128 bytes], 128-byte swizzled:
+// the 16-byte chunk c of row r sits at chunk c ^ (r % 8), as TMA writes it
+// and as wgmma's SWIZZLE_128B descriptors read it.
+template <int D>
+struct TcSmem {
+  static constexpr int kQ = 0;
+  static constexpr int kStage = kTcKeys * D * 2;           // one K or V tile
+  static constexpr int kK = kTcRows * D * 2;
+  static constexpr int kV = kK + kTcStages * kStage;
+  static constexpr int kBars = kV + kTcStages * kStage;    // full, empty
+  static constexpr int kBytes = kBars + 2 * kTcStages * 8;
+  static constexpr int kAlloc = kBytes + 1024;             // alignment slack
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (unsigned n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n == kSpinLimit) __trap();
+  }
+}
+
+// a 64-column box of a 3D tensor map into shared memory, completing on bar
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from touching accumulators across wgmma's async window
+// (and pins register writes before the wgmma.fence that must follow them)
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), swizzle mode 1
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The two products, one overload per N (the accumulator's length is N / 2)
+struct Wgmma {
+  // S = Q.K^T tile step: m64n64k16, A and B K-major in shared memory
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+
+  // O += P.V tile step: m64n64k16, A (P) in registers, B (V) MN-major
+  // in shared memory (the transposed operand, imm-trans-b = 1)
+  static __device__ __forceinline__ void rs(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+
+  // S = Q.K^T tile step: m64n128k16, A and B K-major in shared memory
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+
+  // O += P.V tile step: m64n128k16, A (P) in registers, B (V) MN-major
+  // in shared memory (the transposed operand, imm-trans-b = 1)
+  static __device__ __forceinline__ void rs(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }};
+
+// q, out (B, Sq, H, D) bf16, contiguous; K and V through their tensor maps
+// over (B, q_offset + Sq, Hkv * D).  Grid: one CTA per (query block, kv
+// head, lane), the longest query blocks first.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, kTcCtasPerSm)
+flash_prefill_tc(const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap,
+                 const __nv_bfloat16* __restrict__ q,
+                 __nv_bfloat16* __restrict__ out, int B, int Sq, int H,
+                 int Hkv, int q_offset, int bq, int n_qblk) {
+  using L = TcSmem<D>;
+  constexpr int kCb = D / 64;                 // 128-byte column blocks a row
+  constexpr int kChunks = D / 8;              // 16-byte chunks a row
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t full0 = base + L::kBars;     // full[s], then empty[s]
+  const uint32_t empty0 = full0 + 8 * kTcStages;
+
+  const int G = H / Hkv;
+  const int rows = bq * G;
+  const int hb = blockIdx.x % (Hkv * B);
+  const int h = hb % Hkv, b = hb / Hkv;
+  const int q0 = (n_qblk - 1 - blockIdx.x / (Hkv * B)) * bq;
+  const int q_last = min(q0 + bq, Sq) - 1;
+  // keys the block sees: up to its last real position's horizon
+  const int kv_end = q_offset + q_last + 1;
+  const int n_tiles = (kv_end + kTcKeys - 1) / kTcKeys;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == 4) {  // the producer warp: one thread issues every load
+    if (lane == 0) {
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kTcStages;
+        if (t >= kTcStages) mbar_wait(empty0 + 8 * s, (t / kTcStages - 1) & 1);
+        mbar_expect_tx(full0 + 8 * s, 2 * L::kStage);
+#pragma unroll
+        for (int c = 0; c < kCb; ++c) {
+          const uint32_t off = s * L::kStage + c * kTcKeys * 128;
+          tma_load_3d(base + L::kK + off, &kmap, full0 + 8 * s, h * D + 64 * c,
+                      t * kTcKeys, b);
+          tma_load_3d(base + L::kV + off, &vmap, full0 + 8 * s, h * D + 64 * c,
+                      t * kTcKeys, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: stage the block's query rows, swizzled (zeros
+  // past `rows` or Sq), then make the generic-proxy stores visible to wgmma
+  for (int i = threadIdx.x; i < kTcRows * kChunks; i += 128) {
+    const int r = i / kChunks, c = i % kChunks;
+    const int qi = q0 + r / G;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (r < rows && qi < Sq)
+      val = __ldg(reinterpret_cast<const uint4*>(
+                q + (((size_t)b * Sq + qi) * H + h * G + r % G) * D) + c);
+    *reinterpret_cast<uint4*>(smem + L::kQ + (c / 8) * kTcRows * 128 +
+                              r * 128 + (((c % 8) ^ (r % 8)) * 16)) = val;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+
+  const int g = lane / 4, tq = lane % 4;       // row group, thread in quad
+  const int r0 = warp * 16 + g;                // rows r0 and r0 + 8
+  int qpos[2];                                 // -1: a row past `rows` or Sq
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int r = r0 + 8 * j;
+    qpos[j] = (r < rows && q0 + r / G < Sq) ? q_offset + q0 + r / G : -1;
+  }
+  const int first = q_offset + q0;             // row 0's horizon; row 0 is real
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {kMaskValue, kMaskValue}, l[2] = {0.f, 0.f};
+  const float sl2 = 1.4426950408889634f / sqrtf((float)D);  // log2(e)/sqrt(D)
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kTcStages;
+    const int k0 = t * kTcKeys;
+    mbar_wait(full0 + 8 * s, (t / kTcStages) & 1);
+    // S = Q.K^T on the tensor cores: D / 16 steps of k16
+    float sc[kTcKeys / 2];
+    const uint32_t k_tile = base + L::kK + s * L::kStage;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint64_t da = sw128_desc(
+          base + L::kQ + (kk / 4) * kTcRows * 128 + (kk % 4) * 32, 16, 1024);
+      const uint64_t db = sw128_desc(
+          k_tile + (kk / 4) * kTcKeys * 128 + (kk % 4) * 32, 16, 1024);
+      Wgmma::ss(sc, da, db, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // online softmax on the fragments: sc[4 i + e] is row r0 + 8 (e / 2),
+    // key k0 + 8 i + 2 tq + e % 2; a row's keys span the 4 threads of a quad
+    const bool masked = k0 + kTcKeys - 1 > first;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < kTcKeys / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[4 * i + e] * sl2;
+        if (masked && k0 + 8 * i + 2 * tq + (e & 1) > qpos[e / 2])
+          x = __int_as_float(0xff800000);  // -inf: p = 0
+        sc[4 * i + e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+    float corr[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 1));
+      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 2));
+      corr[j] = exp2f(m[j] - mx[j]);  // m, mx >= the finite mask value
+      m[j] = mx[j];
+      l[j] *= corr[j];
+    }
+#pragma unroll
+    for (int i = 0; i < kTcKeys / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(sc[4 * i + e] - m[e / 2]);  // masked: 0
+        sc[4 * i + e] = p;
+        l[e / 2] += p;  // this thread's keys; the quad sums at the end
+      }
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      o[4 * i + 0] *= corr[0];
+      o[4 * i + 1] *= corr[0];
+      o[4 * i + 2] *= corr[1];
+      o[4 * i + 3] *= corr[1];
+    }
+    // P as bf16 A fragments: keys 16 kt .. 16 kt + 15 are S's column
+    // blocks 2 kt and 2 kt + 1
+    uint32_t pa[kTcKeys / 16][4];
+#pragma unroll
+    for (int kt = 0; kt < kTcKeys / 16; ++kt) {
+      pa[kt][0] = pack_bf16(sc[8 * kt + 0], sc[8 * kt + 1]);
+      pa[kt][1] = pack_bf16(sc[8 * kt + 2], sc[8 * kt + 3]);
+      pa[kt][2] = pack_bf16(sc[8 * kt + 4], sc[8 * kt + 5]);
+      pa[kt][3] = pack_bf16(sc[8 * kt + 6], sc[8 * kt + 7]);
+    }
+
+    // O += P.V: V's [keys][D] tile is the MN-major B operand; its 64-column
+    // blocks lie kTcKeys * 128 bytes apart (LBO), 8-key groups 1024 (SBO)
+    const uint32_t v_tile = base + L::kV + s * L::kStage;
+    fence_regs(o);
+    fence_regs(pa);
+    wgmma_fence();
+#pragma unroll
+    for (int kt = 0; kt < kTcKeys / 16; ++kt)
+      Wgmma::rs(o, pa[kt], sw128_desc(v_tile + kt * 16 * 128,
+                                      kTcKeys * 128, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);  // this warp is done with s
+  }
+
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    l[j] += __shfl_xor_sync(0xffffffffu, l[j], 1);
+    l[j] += __shfl_xor_sync(0xffffffffu, l[j], 2);
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    if (qpos[j] < 0) continue;
+    const int r = r0 + 8 * j;
+    const float denom = fmaxf(l[j], 1e-30f);
+    __nv_bfloat16* dst =
+        out + (((size_t)b * Sq + q0 + r / G) * H + h * G + r % G) * D;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * i + 2 * tq) =
+          __floats2bfloat162_rn(o[4 * i + 2 * j] / denom,
+                                o[4 * i + 2 * j + 1] / denom);
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up at run time by cudaGetDriverEntryPoint,
+// so the library needs no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// K or V (B, Skv, Hkv, D) seen as (B, keys, Hkv * D) with keys = q_offset +
+// Sq: boxes of 64 columns x kTcKeys keys, zeros past the last key
+bool kv_map(CUtensorMap* map, const void* base, int B, int keys, int Skv,
+            int Hkv, int D) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)Hkv * D, (cuuint64_t)keys,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)Hkv * D * 2,
+                                 (cuuint64_t)Skv * Hkv * D * 2};
+  const cuuint32_t box[3] = {64, kTcKeys, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
+                      int B, int Sq, int Skv, int H, int Hkv, int q_offset,
+                      cudaStream_t stream) {
+  CUtensorMap kmap, vmap;
+  if (!kv_map(&kmap, k, B, q_offset + Sq, Skv, Hkv, D) ||
+      !kv_map(&vmap, v, B, q_offset + Sq, Skv, Hkv, D))
+    return cudaErrorInvalidValue;
+  const int G = H / Hkv;
+  const int bq = kTcRows / G;
+  const int n_qblk = (Sq + bq - 1) / bq;
+  const long long n_ctas = (long long)n_qblk * Hkv * B;
+  if (n_ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
+  constexpr int smem = TcSmem<D>::kAlloc;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_prefill_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  flash_prefill_tc<D><<<(unsigned)n_ctas, kTcThreads, smem, stream>>>(
+      kmap, vmap, static_cast<const __nv_bfloat16*>(q),
+      static_cast<__nv_bfloat16*>(out), B, Sq, H, Hkv, q_offset, bq, n_qblk);
+  return cudaGetLastError();
+}
+
+// registers, local (spill) bytes, dynamic shared memory, CTAs resident per
+// SM and threads of one body, as the runtime reports them
+template <typename Kernel>
+cudaError_t resources(Kernel kernel, int threads, int smem, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  int ctas = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, threads,
+                                                      smem);
+  if (err != cudaSuccess) return err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = smem;
+  out[3] = ctas;
+  out[4] = threads;
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// dtype: 0 = float32 (the CUDA-core body), 1 = bfloat16 (the tensor-core
+// body); head dim 64 or 128; H % Hkv == 0 with H / Hkv <= 64; Skv >=
+// q_offset + Sq.  Returns a cudaError_t (0 = launched).
 extern "C" int flash_prefill_launch(const void* q, const void* k,
                                     const void* v, void* out, int B, int Sq,
                                     int Skv, int H, int Hkv, int D,
@@ -347,10 +881,29 @@ extern "C" int flash_prefill_launch(const void* q, const void* k,
   if (dtype == 0 && D == 128)
     return launch<float, 128>(q, k, v, out, B, Sq, Skv, H, Hkv, q_offset, s);
   if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, out, B, Sq, Skv, H, Hkv,
-                                     q_offset, s);
+    return launch_tc<64>(q, k, v, out, B, Sq, Skv, H, Hkv, q_offset, s);
   if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, out, B, Sq, Skv, H, Hkv,
-                                      q_offset, s);
+    return launch_tc<128>(q, k, v, out, B, Sq, Skv, H, Hkv, q_offset, s);
+  return cudaErrorInvalidValue;
+}
+
+// out[5]: the `resources` of the body that flash_prefill_launch runs for
+// (dtype, D).  Returns a cudaError_t.
+extern "C" int flash_prefill_resources(int D, int dtype, int device,
+                                       int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (dtype == 0 && D == 64)
+    return resources(flash_prefill_kernel<float, 64>, kThreads,
+                     (int)smem_bytes<64>(), out);
+  if (dtype == 0 && D == 128)
+    return resources(flash_prefill_kernel<float, 128>, kThreads,
+                     (int)smem_bytes<128>(), out);
+  if (dtype == 1 && D == 64)
+    return resources(flash_prefill_tc<64>, kTcThreads, TcSmem<64>::kAlloc,
+                     out);
+  if (dtype == 1 && D == 128)
+    return resources(flash_prefill_tc<128>, kTcThreads, TcSmem<128>::kAlloc,
+                     out);
   return cudaErrorInvalidValue;
 }

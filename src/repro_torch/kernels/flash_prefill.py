@@ -5,8 +5,11 @@ The dense reference's prefill (``DenseLM.prefill``, the full-history
 recompute that the cluster runtime is held to) runs it on every layer.  It
 replaces the TPU kernel ``flash_prefill`` in ``repro/kernels/flash_prefill.py``
 and computes what the JAX model computes there in jnp
-(``layers.flash_attention`` at window=None); the source says how the design
-differs and what bounds it.
+(``layers.flash_attention`` at window=None).  One launch function holds two
+bodies: bfloat16 runs on the tensor cores (wgmma, K/V by TMA into a
+shared-memory ring), float32 on the CUDA cores in float32; the source says
+how each is built and what bounds it.  ``resources`` reports what the
+runtime sees of each body (registers, spills, shared memory, CTAs per SM).
 
 The wrapper only takes CUDA tensors.  It checks device, dtype, shape and
 contiguity, allocates the output, launches on the current stream, raises if
@@ -40,6 +43,30 @@ def _entry():
         f.restype = ctypes.c_int
         _fns[NAME] = f
     return f
+
+
+def resources(dtype, head_dim: int, device=None) -> dict:
+    """What the runtime reports for the body that runs ``dtype`` at
+    ``head_dim`` on the card: registers a thread, local (spill) bytes a
+    thread, dynamic shared memory a CTA, CTAs resident per SM, threads a
+    CTA."""
+    if dtype not in _DTYPES or head_dim not in HEAD_DIMS:
+        raise ValueError(f"{NAME}: no body for {dtype} at head dim "
+                         f"{head_dim}")
+    f = _fns.get("resources")
+    if f is None:
+        f = build.load(NAME).flash_prefill_resources
+        f.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        f.restype = ctypes.c_int
+        _fns["resources"] = f
+    out = (ctypes.c_int * 5)()
+    dev = torch.cuda.current_device() if device is None else int(device)
+    err = f(head_dim, _DTYPES[dtype], dev, out)
+    if err != 0:
+        raise RuntimeError(f"{NAME}: resources query failed with "
+                           f"cudaError_t {err}")
+    return dict(zip(("registers", "local_bytes", "smem_bytes",
+                     "ctas_per_sm", "threads"), out))
 
 
 def _check(q, k, v, q_offset):

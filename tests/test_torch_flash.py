@@ -13,16 +13,23 @@ runs ``ops.flash_prefill`` on every layer) matches JAX's logits and cache
 on converted weights in both kernel modes.
 
 The ``gpu`` tests hold the CUDA kernel against the plain version on the
-card, at the same tolerances scaled by max |plain|, and kernel 1 on the
-same input seen as pages; they skip where there is no card.  JAX is
-imported only inside the CPU tests (the machine with the card has none).
+card, at the same tolerances scaled by max |plain| (the bf16 tensor-core
+body at the edges of its tile: ragged Sq at q_offset > 0, key tiles across
+row horizons, G of 1, 5, 8, 16 and 64, one token over 4096 keys), kernel 1
+on the same input seen as pages, the float32 body bit for bit to digests
+recorded before the bf16 body changed, and the bodies' resources; they
+skip where there is no card.  JAX is imported only inside the CPU tests
+(the machine with the card has none).
 """
+import hashlib
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import configs as tconfigs
 from repro_torch.kernels import flash_prefill as kfp
+from repro_torch.kernels import flash_tiles
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as kpa
 from repro_torch.kernels import ref as tref
@@ -167,6 +174,24 @@ def test_dense_prefill_matches_jax(n_kv, kernel_mode):
     np.testing.assert_array_equal(tc["len"].numpy(), np.asarray(jc["len"]))
 
 
+def test_resources_and_tile_variants_need_no_card():
+    """``resources`` rejects a dtype or head dim with no body before it
+    touches the card; every tile variant of ``kernels/flash_tiles.py``
+    replaces exactly one constant of the checked-in source."""
+    with pytest.raises(ValueError, match="head dim"):
+        kfp.resources(torch.bfloat16, 80)
+    with pytest.raises(ValueError, match="no body"):
+        kfp.resources(torch.float16, 128)
+    src = flash_tiles.variant_source({})
+    for consts in flash_tiles.VARIANTS.values():
+        got = flash_tiles.variant_source(consts)
+        for name, value in consts.items():
+            assert f"constexpr int {name} = {value};" in got
+            assert f"constexpr int {name} = {value};" not in src
+    with pytest.raises(ValueError, match="kNoSuchTile"):
+        flash_tiles.variant_source(dict(kNoSuchTile=1))
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -187,9 +212,26 @@ CARD_SHAPES = [                             # B, Sq, Skv, H, Hkv, D, q_offset
     (2, 256, 1024, 32, 8, 128, 512),        # continuation, padded keys
     (1, 1, 77, 32, 8, 128, 76),             # one new token
     (3, 70, 90, 8, 8, 64, 5),               # MHA, D = 64
-    (1, 130, 130, 36, 36, 64, 0),           # minicpm-2b's heads
+    (1, 130, 130, 36, 36, 64, 0),           # minicpm-2b's heads, G = 1
     (2, 33, 40, 16, 1, 128, 7),             # MQA, G = 16
+    # the tensor-core body's edges (64-row tile of 64 / G positions, keys
+    # 64 a ring stage):
+    (2, 45, 300, 32, 8, 128, 200),          # Sq % 16 != 0, padding keys
+    (1, 200, 330, 8, 1, 64, 100),           # G = 8: key tiles cross horizons
+    (1, 3, 200, 64, 1, 128, 150),           # G = 64: one position a tile
+    (1, 50, 60, 10, 2, 64, 3),              # G = 5: 60 of 64 rows real
+    (1, 1, 4096, 32, 8, 128, 4095),         # one token over 4096 keys
+    (1, 1000, 4000, 36, 36, 64, 2900),      # D = 64 at a long Skv
 ]
+# sha256 (first 16 hex digits) of the float32 output on _card_inputs,
+# recorded on the card from the CUDA-core body as it was before the bfloat16
+# body moved to the tensor cores: the float32 body keeps its arithmetic, so
+# its bits must not move
+FP32_DIGESTS = {
+    (1, 100, 100, 32, 8, 128, 0): "82d6ecd8df03bce2",
+    (3, 70, 90, 8, 8, 64, 5): "8e379e1eb1c410e8",
+    (2, 33, 40, 16, 1, 128, 7): "62f51044386a3212",
+}
 
 
 def _card_inputs(dev, dtype, B, Sq, Skv, H, Hkv, D):
@@ -211,6 +253,26 @@ def test_cuda_flash_prefill_matches_plain(cuda, B, Sq, Skv, H, Hkv, D, qo,
     assert out.dtype == q.dtype and torch.isfinite(out.float()).all()
     err = (out.float() - want.float()).abs().max().item()
     assert err <= TOL[dtype] * want.float().abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", list(FP32_DIGESTS))
+def test_cuda_flash_prefill_float32_bits_unchanged(cuda, shape):
+    q, k, v = _card_inputs(cuda, "float32", *shape[:6])
+    out = kfp.flash_prefill(q, k, v, shape[6])
+    got = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]
+    assert got == FP32_DIGESTS[shape]
+
+
+@pytest.mark.gpu
+def test_cuda_flash_prefill_resources(cuda):
+    """The bf16 body is one producer warp and one consumer warpgroup with
+    two CTAs resident per SM; neither body spills."""
+    for d in kfp.HEAD_DIMS:
+        tc = kfp.resources(torch.bfloat16, d)
+        assert tc["threads"] == 160 and tc["ctas_per_sm"] >= 2, tc
+        assert tc["local_bytes"] == 0, tc
+        assert kfp.resources(torch.float32, d)["local_bytes"] == 0
 
 
 @pytest.mark.gpu
