@@ -17,15 +17,21 @@ Phases:
   2. build: nvcc for sm_90a, one process per kernel source, all started
      together, with the registers, shared memory and spills that ptxas
      reports;
-  3. kernel vs plain version at llama3-8b widths (H=32, Hkv=8, D=128,
-     page 16) in bf16 and fp32: decode at B=8 and 32 (ctx up to 4096),
-     chunks of 128 and 512 at q_offsets > 0, ctx=0 lanes, permuted tables
+  3. kernel 1's and B.2's bodies as ptxas built them and as the runtime
+     reports them, and their machine code (every bf16 instantiation runs
+     wgmma, no fp32 one a tensor-core product); kernel vs plain version at
+     llama3-8b widths (H=32, Hkv=8, D=128, page 16) in bf16 and fp32:
+     decode at B=8 and 32 (ctx up to 4096), chunks of 128 and 512 at
+     q_offsets > 0, ctx=0 lanes, permuted tables
      with last-valid padding; the int8 kernel (B.2) at decode B=8 with 3/4
      of each lane's pages flagged and at a 512-token chunk with mixed
      flags, and with every flag clear bit-identical to the fp kernel;
      kernel 1 at D=64 (decode B=8, a 128-token chunk); times of each
-     kernel, the plain version, the bound and a library yardstick; kernel
-     1 and B.2 at D=64 and 128 bit for bit to KERNEL1_DIGESTS;
+     kernel, the plain version, the bound and a library yardstick, and the
+     achieved TFLOP/s, share of the bound and ratio to SDPA (also in phases
+     4, 6, 8 and 9, per main-path shape and summed); kernel 1 and B.2 at
+     D=64 and 128 bit for bit to KERNEL1_DIGESTS; both kernels unchanged
+     bit for bit when every page outside the lanes' relevant ones is NaN;
   4. serve llama3-8b (32 layers, bf16, random weights from --seed) with
      NodeEngine + NodeManager + RealBackend: 4 sessions x 3 turns, chunked
      prompts, a shared system prompt adopted across sessions with a
@@ -174,27 +180,28 @@ SSD_TOL = {torch.bfloat16: 3e-2, torch.float32: 2e-4}
 KERNEL = pa.paged_chunk_attention          # the wrapper; it counts pa.launches
 QKERNEL = pa.paged_chunk_attention_quant   # counts pa.quant_launches
 # sha256 (first 16 hex digits) of kernel 1's and B.2's outputs at head dims
-# 64 and 128 on the fixed inputs of kernel1_digests(), recorded from the
-# kernel source as it was before head dim 80 was added: those outputs must
-# stay bit for bit as they were.  Change an entry only with a change to the
-# kernel's arithmetic at that head dim, and say so where the change is
-# recorded.
+# 64 and 128 on the fixed inputs of kernel1_digests(): the float32 entries
+# recorded from the kernel source as it was before head dim 80 was added
+# (the float32 body keeps that arithmetic), the bfloat16 entries from the
+# tensor-core body.  Those outputs must stay bit for bit as they are.
+# Change an entry only with a change to the kernel's arithmetic at that head
+# dim and dtype, and say so where the change is recorded.
 DIGEST_SEED = 80
 KERNEL1_DIGESTS = {
-    "decode B=8 ctx<=4096 D=64 bfloat16": "31d15be5db5a68a1",
-    "int8 decode B=8 ctx<=4096 D=64 bfloat16": "d0a704b5ea5b2e72",
+    "decode B=8 ctx<=4096 D=64 bfloat16": "313716b2e937120f",
+    "int8 decode B=8 ctx<=4096 D=64 bfloat16": "1918a780b7351628",
     "decode B=8 ctx<=4096 D=64 float32": "542a894bde973065",
     "int8 decode B=8 ctx<=4096 D=64 float32": "5d1908190f26ef66",
-    "decode B=8 ctx<=4096 D=128 bfloat16": "57ec644d3ba1c94e",
-    "int8 decode B=8 ctx<=4096 D=128 bfloat16": "d2cf60cc56095d31",
+    "decode B=8 ctx<=4096 D=128 bfloat16": "1d32ade21d1175af",
+    "int8 decode B=8 ctx<=4096 D=128 bfloat16": "7a047a6e9475008d",
     "decode B=8 ctx<=4096 D=128 float32": "e9c7179ae9d8c868",
     "int8 decode B=8 ctx<=4096 D=128 float32": "c002effb04babd60",
-    "chunk Sq=128 q_offset>0 D=64 bfloat16": "3ab1c447669ed598",
-    "int8 chunk Sq=128 q_offset>0 D=64 bfloat16": "c500fcb3cc9b886d",
+    "chunk Sq=128 q_offset>0 D=64 bfloat16": "bf91264a980e2bad",
+    "int8 chunk Sq=128 q_offset>0 D=64 bfloat16": "bacfaecb43515fb9",
     "chunk Sq=128 q_offset>0 D=64 float32": "6f07af5dde41cd7c",
     "int8 chunk Sq=128 q_offset>0 D=64 float32": "8e8d74067d660890",
-    "chunk Sq=128 q_offset>0 D=128 bfloat16": "9bb6fbeeda745c3f",
-    "int8 chunk Sq=128 q_offset>0 D=128 bfloat16": "b6b1785a9f60e13a",
+    "chunk Sq=128 q_offset>0 D=128 bfloat16": "9484efd5998d838f",
+    "int8 chunk Sq=128 q_offset>0 D=128 bfloat16": "d938a80677f2a021",
     "chunk Sq=128 q_offset>0 D=128 float32": "3b728f01c6afbcc7",
     "int8 chunk Sq=128 q_offset>0 D=128 float32": "250ba4077152caf0",
 }
@@ -228,6 +235,51 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int = 20) -> float:
+    """The host's time to issue one call of ``fn`` (no synchronisation
+    inside the window): what bounds `cuda_ms` when it exceeds the device
+    time."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * t / iters
+
+
+def device_ms(fn, iters: int = 20):
+    """The device time of one call of ``fn``: ``iters`` calls captured in a
+    CUDA graph and replayed, so without the host's time between launches,
+    which `cuda_ms` includes whenever the wrapper takes longer on the host
+    than the kernel on the card.  None if the calls cannot be captured."""
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+    except RuntimeError as e:
+        log(f"  (device_ms: not captured: {str(e).splitlines()[0]})")
+        return None
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / iters
 
 
@@ -352,25 +404,29 @@ def compare(q, kp, vp, tables, qoff, ctx, q_lens, dtype, label, quant=None):
     b_ms, b_by, t_b, t_f = bound(nbytes, flops, dtype)
     rec = dict(
         label=label, max_abs_err=err, err_rel=err / scale,
-        ms=cuda_ms(kern, 20),
+        ms=cuda_ms(kern, 20), device_ms=device_ms(kern),
+        host_ms=host_ms(kern),
         plain_ms=cuda_ms(lambda: ref.paged_chunk_attention_ref(
             q, kp, vp, tables, qoff, ctx, quant=quant), 5),
         library_ms=cuda_ms(sdpa_yardstick(q, kp, vp, tables, qoff, ctx,
                                           quant), 20),
-        bound_ms=b_ms, bound_by=b_by, bytes_ms=t_b, ops_ms=t_f)
+        bound_ms=b_ms, bound_by=b_by, bytes_ms=t_b, ops_ms=t_f, flops=flops,
+        decode=q.shape[1] == 1)
     if quant is not None:
         # the fp kernel over the same context, in turns with the int8 one:
         # int8, fp, fp, int8
         def fp():
             return KERNEL(q, kp, vp, tables, qoff, ctx)
         t = [cuda_ms(f, 20) for f in (kern, fp, fp, kern)]
-        rec.update(ms=0.5 * (t[0] + t[3]), fp_ms=0.5 * (t[1] + t[2]))
+        rec.update(ms=0.5 * (t[0] + t[3]), fp_ms=0.5 * (t[1] + t[2]),
+                   fp_device_ms=device_ms(fp))
     return rec
 
 
 def fmt(rec) -> str:
-    keys = ("max_abs_err", "err_rel", "ms", "fp_ms",
-            "clear_ms", "plain_ms", "library_ms", "bound_ms")
+    keys = ("max_abs_err", "err_rel", "ms", "device_ms", "host_ms",
+            "fp_ms", "fp_device_ms", "clear_ms", "clear_device_ms",
+            "plain_ms", "library_ms", "bound_ms")
     parts = [f"{k}={rec[k]:.4g}" for k in keys if rec.get(k) is not None]
     if "bound_by" in rec:
         parts.append(f"bound_by={rec['bound_by']}")
@@ -510,11 +566,80 @@ def kernel1_digests():
     return out
 
 
-def phase_kernel_vs_plain(rng):
-    """Kernel 1 at llama3-8b widths (D = 128), B.2, then kernel 1 at D = 64
-    (the random stream of the first two is as before D = 64 was added);
-    then every D = 64 and 128 output of kernel1_digests() is held bit for
-    bit to KERNEL1_DIGESTS."""
+def sass_counts(name):
+    """[(kernel, counts)] of library ``name``'s machine code: which products
+    each kernel runs, HGMMA (wgmma), HMMA (mma.sync), FFMA (CUDA-core
+    float32)."""
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(build.build(name)[0])],
+                          capture_output=True, text=True, timeout=120)
+    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr.strip()}")
+    return [(part.split("\n", 1)[0].strip(),
+             {op: part.count(op) for op in ("HGMMA", "HMMA", "FFMA")})
+            for part in sass.stdout.split("Function : ")[1:]]
+
+
+def paged_resources(built):
+    """Kernel 1's and B.2's bodies as ptxas built them (when phase 2
+    compiled them in this run), as the runtime reports them, and their
+    machine code: every bfloat16 instantiation runs wgmma (HGMMA), no
+    float32 one runs a tensor-core product (HGMMA or HMMA)."""
+    text = built.get(pa.NAME, (None, ""))[1] if built else ""
+    lines = text.splitlines()
+
+    def body(name):
+        tc = "paged_chunk_attention_tc" in name
+        dim = next(d for d in pa.HEAD_DIMS if f"Li{d}E" in name)
+        quant = "Lb1E" in name
+        return (f"{'bf16 tensor-core' if tc else 'fp32 CUDA-core'} "
+                f"{'B.2' if quant else 'kernel 1'} at D = {dim}"), tc
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line:
+            info = [x.strip() for x in lines[i + 1:i + 4]
+                    if "spill" in x or "Used" in x]
+            log(f"[3] ptxas, {body(line)[0]}: {'; '.join(info)}")
+    for quant in (False, True):
+        for dtype in (torch.bfloat16, torch.float32):
+            for d in pa.HEAD_DIMS:
+                log(f"[3] runtime, {'B.2' if quant else 'kernel 1'} "
+                    f"{str(dtype).split('.')[-1]} at D = {d}: "
+                    f"{pa.resources(dtype, d, quant)}")
+    kernels = sass_counts(pa.NAME)
+    for name, counts in kernels:
+        label, tc = body(name)
+        log(f"[3] SASS, {label}: {counts}")
+        check(counts["HGMMA"] > 0 if tc
+              else counts["HGMMA"] == 0 and counts["HMMA"] == 0,
+              f"{label} runs {counts}")
+    check(len(kernels) == 4 * len(pa.HEAD_DIMS),
+          f"cuobjdump shows {len(kernels)} kernels of {pa.NAME}, not "
+          f"{4 * len(pa.HEAD_DIMS)}")
+
+
+def log_rates(recs, tag, what):
+    """Achieved TFLOP/s, share of the bound and ratio to SDPA of each
+    record, then summed over all of them, the decode-only (Sq = 1) shapes
+    and the chunk shapes."""
+    for r in recs:
+        log(f"[{tag}]   {r['label']}: {fmt_rate(r)}")
+    for part, sub in (("all", recs),
+                      ("decode-only", [r for r in recs if r["decode"]]),
+                      ("chunk", [r for r in recs if not r["decode"]])):
+        if sub:
+            log(f"[{tag}] {what}, {part} shapes ({len(sub)}): kernel "
+                f"{sum(r['ms'] for r in sub):.4g} ms (device "
+                f"{sum(r['device_ms'] or 0.0 for r in sub):.4g}, host "
+                f"{sum(r['host_ms'] for r in sub):.4g} ms), SDPA "
+                f"{sum(r['library_ms'] for r in sub):.4g} ms, bound "
+                f"{sum(r['bound_ms'] for r in sub):.4g} ms; {fmt_rate(sub)}")
+
+
+def phase_kernel_vs_plain(rng, built=None):
+    """Kernel 1's and B.2's bodies (``paged_resources``); kernel 1 at
+    llama3-8b widths (D = 128), B.2, then kernel 1 at D = 64 (the random
+    stream of the first two is as before D = 64 was added), then
+    ``untouched_pages``; then every D = 64 and 128 output of
+    kernel1_digests() is held bit for bit to KERNEL1_DIGESTS."""
     def run(D, cases, recs):
         for label, B, Sq, ctxs, qls in cases:
             for dtype in (torch.bfloat16, torch.float32):
@@ -527,10 +652,18 @@ def phase_kernel_vs_plain(rng):
                 del q, kp, vp
         torch.cuda.empty_cache()
 
-    recs = []
+    paged_resources(built)
+    recs, recs64 = [], []
     run(128, attention_cases(rng), recs)
     qrecs = phase_quant_vs_plain(rng)
-    run(64, attention_cases(rng, (8,), ((128, 4),)), [])
+    run(64, attention_cases(rng, (8,), ((128, 4),)), recs64)
+    untouched_pages(rng)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split('.')[-1]
+        log_rates([r for r in recs + recs64 if r["label"].endswith(name)], 3,
+                  f"kernel 1 {name}")
+        log_rates([r for r in qrecs if r["label"].endswith(name)], 3,
+                  f"B.2 {name}")
     got = kernel1_digests()
     changed = sorted(k for k in got.keys() | KERNEL1_DIGESTS.keys()
                      if got.get(k) != KERNEL1_DIGESTS.get(k))
@@ -539,6 +672,44 @@ def phase_kernel_vs_plain(rng):
     log(f"[3] {len(got)} outputs of kernel 1 / B.2 at D = 64 and 128 "
         f"bit-identical to the recorded digests")
     return recs, qrecs
+
+
+def untouched_pages(rng):
+    """Kernel 1 and B.2 read no page outside the lanes' relevant ones: on a
+    batch of ragged chunks whose table columns past the relevant pages (and
+    the ctx = 0 lane's row) name other pages, filling every other page with
+    NaN (and, for B.2, its scales, with half of them flagged) must leave
+    both outputs bit for bit as they are on the clean pools."""
+    label, B, Sq, ctxs, qls = attention_cases(rng, (), ((128, 4),))[0]
+    for dtype in (torch.bfloat16, torch.float32):
+        q, kp, vp, tab, qoff, ctx = make_case(rng, B, Sq, ctxs, qls, dtype)
+        quant = int8_state(kp, vp, tab, ctx, 0.5)
+        page = kp.shape[1]
+        tabs, cx = tab.cpu().numpy(), ctx.cpu().numpy()
+        used = {int(p) for b in range(B)
+                for p in tabs[b, :-(-int(cx[b]) // page)]}
+        junk = [p for p in range(kp.shape[0]) if p not in used]
+        for b in range(B):
+            tabs[b, -(-int(cx[b]) // page):] = junk[b]
+        tab = torch.from_numpy(tabs).to(q.device)
+        want = KERNEL(q, kp, vp, tab, qoff, ctx)
+        want_q = QKERNEL(q, kp, vp, *quant, tab, qoff, ctx)
+        j = torch.tensor(junk, device=q.device)
+        kp[j], vp[j] = float("nan"), float("nan")
+        kq, vq, ks, vs, flags = quant
+        ks[j], vs[j] = float("nan"), float("nan")
+        flags[j[::2]] = 1
+        name = f"{label} {str(dtype).split('.')[-1]}"
+        check(torch.equal(KERNEL(q, kp, vp, tab, qoff, ctx), want),
+              f"{name}: kernel 1 read a page outside the relevant ones")
+        check(torch.equal(QKERNEL(q, kp, vp, kq, vq, ks, vs, flags, tab,
+                                  qoff, ctx), want_q),
+              f"{name}: B.2 read a page outside the relevant ones")
+        log(f"[3] {name}: {len(junk)} pages outside the relevant ones (and "
+            f"the table columns past them) NaN: kernel 1 and B.2 unchanged "
+            f"bit for bit")
+        del q, kp, vp, quant
+    torch.cuda.empty_cache()
 
 
 def int8_state(kp, vp, tables, ctx, share):
@@ -585,6 +756,8 @@ def phase_quant_vs_plain(rng):
                   f"not bit-identical to the fp kernel")
             rec["clear_ms"] = cuda_ms(
                 lambda: QKERNEL(q, kp, vp, *clear, tab, qoff, ctx), 20)
+            rec["clear_device_ms"] = device_ms(
+                lambda: QKERNEL(q, kp, vp, *clear, tab, qoff, ctx))
             log("[3]" + fmt(rec) + " bit-identical with flags clear: True")
             recs.append(rec)
             del q, kp, vp, quant, clear
@@ -1097,6 +1270,7 @@ def retime(cap, what, tag):
         log(f"[{tag}]" + fmt(rec))
         recs.append(rec)
     cap.calls.clear()
+    log_rates(recs, tag, what)
     return recs
 
 
@@ -1626,8 +1800,14 @@ def phase_d80_vs_plain(rng):
                   f"{name}: with every flag clear the int8 kernel is not "
                   f"bit-identical to the fp kernel")
             log("[8]" + fmt(rq) + " bit-identical with flags clear: True")
+            recs.append(rq)
             del q, kp, vp, quant, clear
     torch.cuda.empty_cache()
+    for dtype in ("bfloat16", "float32"):
+        log_rates([r for r in recs if "int8" not in r["label"]
+                   and dtype in r["label"]], 8, f"kernel 1 D=80 {dtype}")
+        log_rates([r for r in recs if "int8" in r["label"]
+                   and dtype in r["label"]], 8, f"B.2 D=80 {dtype}")
     return recs
 
 
@@ -2075,17 +2255,9 @@ def flash_resources(built):
         for d in fp.HEAD_DIMS:
             log(f"[11] runtime, {str(dtype).split('.')[-1]} at D = {d}: "
                 f"{fp.resources(dtype, d)}")
-    # which products each body's machine code runs: HGMMA (wgmma), HMMA
-    # (mma.sync), FFMA (CUDA-core float32)
-    tool = Path(build._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass", str(build.build(fp.NAME)[0])],
-                          capture_output=True, text=True, timeout=120)
-    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr.strip()}")
-    for part in sass.stdout.split("Function : ")[1:]:
-        name = part.split("\n", 1)[0].strip()
+    for name, counts in sass_counts(fp.NAME):
         body = "tc" if "flash_prefill_tc" in name else "fp32 CUDA-core"
         dim = "128" if "Li128E" in name else "64"
-        counts = {op: part.count(op) for op in ("HGMMA", "HMMA", "FFMA")}
         log(f"[11] SASS, {body} body at D = {dim}: {counts}")
         check((counts["HGMMA"] > 0) == (body == "tc") and not counts["HMMA"],
               f"B.4's {body} body at D = {dim} runs {counts}")
@@ -3083,7 +3255,7 @@ def main(argv=None):
         kind, card = phase_env()
         built = phase_build() if 2 in phases else {}
         shape_recs, shape_qrecs = (
-            phase_kernel_vs_plain(np.random.default_rng(args.seed))
+            phase_kernel_vs_plain(np.random.default_rng(args.seed), built)
             if 3 in phases else ([], []))
         flash_shape_recs = (phase_flash_vs_plain(args.seed, built)
                             if 11 in phases else [])

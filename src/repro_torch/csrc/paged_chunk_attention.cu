@@ -8,66 +8,106 @@
 //   * paged_chunk_attention_quant_launch replaces
 //     `paged_chunk_attention_quant` (`_chunk_kernel_quant`) of the same file:
 //     each page whose flag is set is read from the int8 shadow pools and
-//     multiplied by that page's float32 scale (no rounding to the model
-//     dtype), the others from the fp pools.  Unlike the TPU kernel, which
-//     fetches both tiles of every page, it reads only the tile the flag
-//     selects, so a quantized page costs half the bytes of a bf16 one (a
-//     quarter of a float32 one).  With every flag clear it does exactly the
-//     loads and the arithmetic of the fp kernel, so its output is
-//     bit-identical.
+//     multiplied by that page's float32 scale (no rounding of the
+//     dequantised value to the model dtype), the others from the fp pools.
+//     Unlike the TPU kernel, which fetches both tiles of every page, it reads
+//     only the tile the flag selects, so a quantized page costs half the
+//     bytes of a bf16 one (a quarter of a float32 one).  With every flag
+//     clear it does exactly the loads and the arithmetic of the fp kernel, so
+//     its output is bit-identical.
 //
-// What both compute: lane b's query i sits at position q_offsets[b] + i and attends, with a float32
-// online softmax (m, l, acc), to the keys with kpos <= qpos and
-// kpos < ctx_lens[b], read through the lane's block-table row.  GQA: the G =
-// H / Hkv query heads of one kv head share its K/V.  A lane's chunk ends at
-// its context's end, so query rows at qpos >= ctx_lens[b] are bucket
+// What both compute: lane b's query i sits at position q_offsets[b] + i and
+// attends, with a float32 online softmax (m, l, acc) scaled by 1/sqrt(D), to
+// the keys with kpos <= qpos and kpos < ctx_lens[b], read through the lane's
+// block-table row; the output is acc / max(l, 1e-30) in q's dtype.  GQA: the
+// G = H / Hkv query heads of one kv head share its K/V.  A lane's chunk ends
+// at its context's end, so query rows at qpos >= ctx_lens[b] are bucket
 // padding: the kernel writes them as zeros and reads no K/V for them (the
 // TPU kernel computes them; nothing reads them).  A lane with ctx = 0 is all
-// padding.
+// padding.  Table columns past a lane's relevant pages, p >= ceil(kv_end /
+// page) for the tile's horizon kv_end, are never read, whatever they hold.
 //
-// Design.  One CTA of 128 threads owns one (lane, kv head, query tile).  A
-// query tile is kRows = 16 rows: bq = 16 / G query positions times the G
-// heads (4 x 4 for llama3-8b), so decode (Sq = 1) uses G of its rows.  The
-// CTA reads its own lane's q_offset, ctx and table row (there is no scalar
-// prefetch), and walks only the lane's RELEVANT keys, kpos <
-// min(ctx, horizon of the tile's last query + 1), 32 keys per step.  Four
-// threads load each key's row with 16-byte loads (one table lookup each),
-// one step ahead into registers, so the next step's loads are in flight
-// while this step computes; the rows are staged in shared memory as float32
-// (scores and softmax in float32 as on the TPU); the CTA computes the
-// 16 x 32 score tile, runs one warp per row for the online softmax update,
-// and accumulates P.V in registers.  Table columns past the relevant pages
-// are never read, whatever they hold.
+// What bounds it.  Each (lane, kv head) must read its relevant K/V pages
+// once and does 4 * D operations per (query head, visible key).  Decode
+// (one query a lane) does G / 2 operations per K/V byte in bf16: bound by
+// bytes.  A chunk of Sq queries does about Sq * G / 2, so from a few dozen
+// tokens on it is bound by operations, far above the ~295 operations per
+// byte at which bf16 tensor cores stop waiting for memory.  So the remedy is
+// the tensor cores, and there are two bodies, one per dtype, behind one
+// launch function.
 //
-// What bounds it.  Decode and short chunks are bound by bytes: each lane's
-// relevant K/V pages must be read once (the FLOPs per byte are G / 2 per
-// head, far below the card's ~295 bf16 FLOPs per byte).  Long chunks become
-// bound by operations.  In the int8 kernel a flagged page's rows cost one
-// byte an element instead of two (bf16) or four (float32), plus two float32
-// scales a page, so decode over a mostly quantized history moves about half
-// the bytes of the bf16 kernel.
+// bfloat16: the tensor-core body (paged_chunk_attention_tc), the tile of the
+// prefill kernel (csrc/flash_prefill.cu) on paged K/V.  One CTA owns kTcRows =
+// 64 query rows of one (lane, kv head): the G heads of bq = 64 / G positions,
+// row r = position q0 + r / G, head h * G + r % G, as the TPU kernel packs its
+// (bq * G, D) q block; where G does not divide 64 the rows past bq * G are zero
+// Q rows that are never written.  One producer warp streams the tile's keys,
+// kTcKeys = 64 a stage, into a ring of kTcStages = 2 shared-memory stages by
+// TMA, with a full and an empty mbarrier a stage.  The ring follows the block
+// table: each pool is one tensor map over (P * page, Hkv, D), a box is one
+// page's rows of one kv head, 64 columns wide, so a stage is 64 / page pages,
+// each loaded at row table[b][p] * page into the stage's rows p * page, a
+// multiple of 1024 bytes, as the 128-byte swizzle needs.  The producer warp
+// reads the lane's table row once, 32 entries (with their flags and scales) at
+// a time, one a lane, never issues a load for a page at or past ceil(kv_end /
+// page), and expects only the bytes it issues.  One consumer warpgroup runs S =
+// Q.K^T as wgmma m64n64k16 (Q and K K-major in 128-byte-swizzled shared
+// memory), the online softmax on S's accumulator fragments (exp2 of pre-scaled
+// scores, row max by quad shuffles), converts P to bf16 A fragments in
+// registers and runs O += P.V as wgmma m64nDk16 with V's [keys][D] tile read as
+// the MN-major B operand.  Only tiles that reach past row 0's horizon are
+// masked; tiles past the last real row's horizon are neither loaded nor
+// computed.  160 threads and 83 KB of shared memory at D = 128 leave two CTAs
+// resident per SM, so one CTA's softmax overlaps the other's products.  Blocks
+// are issued highest query tile first across lanes and heads.
+//   * Garbage never meets p = 0.  The rows of the last stage that no load
+//     fills (keys past the lane's relevant pages) are zeroed when the CTA
+//     starts, since uninitialised shared memory can hold NaN and 0 * NaN is
+//     NaN; a later stage that reuses a ring slot sees the earlier stage's
+//     rows there, which are the lane's own K/V.  Rows inside the last
+//     relevant page but past kv_end are the lane's own page: they are read
+//     and masked, as the TPU kernel reads whole pages.  This assumes that a
+//     pool page holds finite values in every row, which the serving pools
+//     give: they start as zeros and hold only written K/V.
+//   * D = 80 (zamba2-2.7b's shared attention): the tensor maps' D extent is
+//     80, so a row's second 64-column box comes back zero past column 80;
+//     Q.K^T takes 5 k16 steps and P.V is m64n80k16 across the two column
+//     blocks, so no product reads a column past 80.
+//   * int8 pages (kQuant): a flagged page's codes arrive by TMA, one byte an
+//     element, unswizzled, into the page's own rows of the stage's last
+//     64-column block; after the full barrier the consumer warpgroup reads
+//     them, syncs, and writes them back as bf16 (exact for |code| <= 127)
+//     into the swizzled K/V tiles, then fences the generic-proxy stores
+//     before wgmma reads them (two resident CTAs overlap that with each
+//     other's products).  The page's float32 scales apply where the
+//     arithmetic is float32: k_scale multiplies S's columns of that page's
+//     keys before the softmax (s_j = (q . kq_j) ks_j), v_scale multiplies
+//     P's columns before P is rounded to bf16 (sum_j p_j (vq_j vs_j) =
+//     sum_j (p_j vs_j) vq_j); a plain page's columns are not multiplied at
+//     all.  A stage may mix both kinds.
 //
-// Head dims 64, 80 and 128.  At 80 (zamba2-2.7b's shared attention) a key
-// row is 20 16-byte vectors in float32, 10 in bf16 and 5 in int8, which
-// four loaders cannot always split evenly, so each takes ceil(vectors / 4)
-// of them and the last takes fewer; and the P.V
-// accumulators cover 96 columns (3 float4s per thread) of which the 16 pad
-// columns read zeros and are never written.  At 64 and 128 every loader's
-// share and the P.V columns are what they were, so those outputs are
-// bit-identical to the kernel before head dim 80 was added.
-//
-// What this simple version leaves on the table: the math runs on the CUDA
-// cores in float32, not on the tensor cores (no mma/wgmma); the load
-// pipeline is one step deep through registers (no cp.async or TMA ring of
-// stages); and there is no split-KV, so a decode batch gives only B x Hkv
-// CTAs (64 at B = 8 for llama3-8b) on 132 SMs, each walking its whole
-// context alone.  Every query tile of a long chunk re-reads its lane's K/V
-// (from L2, mostly).
+// float32: the CUDA-core body (paged_chunk_attention_kernel), as it was
+// before the bf16 body moved to the tensor cores, bit for bit.  The H100's
+// only float32 tensor-core product is TF32 (about three decimal digits), and
+// the fp32 serving paths are held to exact tokens, so it keeps its float32
+// FMAs.  One CTA of 128 threads owns one (lane, kv head, query tile) of
+// kRows = 16 rows (bq = 16 / G positions), walks only the lane's relevant
+// keys 32 a step, four threads loading each key's row with 16-byte loads one
+// step ahead into registers, and stages the rows in shared memory as
+// float32; the scores, the online softmax (one warp a row) and P.V
+// (accumulators in registers) run on the CUDA cores.  At D = 80 a key row's
+// int8 vectors split unevenly over the four loaders and the P.V
+// accumulators cover 96 columns, of which the 16 pad columns read zeros and
+// are never written.  It sits far from its operations bound, and it has no
+// split-KV: a decode batch gives B x Hkv CTAs on 132 SMs.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -82,31 +122,15 @@ template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) {
   return x;
 }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(
-    __nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
 }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's cast
-}
 
-// 16 bytes of T widened to float32 in smem (4 floats for float, 8 for bf16)
+// 16 bytes of float32 staged in smem
 __device__ __forceinline__ void widen(const uint4& u, float* dst, float) {
   *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(&u);
-}
-__device__ __forceinline__ void widen(const uint4& u, float* dst,
-                                      __nv_bfloat16) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-  const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
-  reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
-  reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
 }
 
 // 16 int8 codes times their page's scale, as float32 in smem: one float32
@@ -163,7 +187,7 @@ paged_chunk_attention_kernel(const T* __restrict__ q,
   constexpr int kPerVec = 16 / sizeof(T); // elements per 16-byte load
   // a key row is kRowVecs 16-byte vectors (kRowVecsQ in int8); loader seg
   // takes vectors [seg * kVecs, seg * kVecs + kVecs) of them, the last
-  // loader fewer where kSeg does not divide the row (D = 80 in bf16, int8)
+  // loader fewer where kSeg does not divide the row (D = 80 in int8)
   constexpr int kRowVecs = D * (int)sizeof(T) / 16;
   constexpr int kVecs = (kRowVecs + kSeg - 1) / kSeg;
   constexpr int kRowVecsQ = D / 16;
@@ -393,7 +417,7 @@ struct QuantArgs {
   const int* page_quant;
 };
 
-template <typename T, int D, bool kQuant>
+template <int D, bool kQuant>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                    const QuantArgs& qa, const int* tables,
                    const int* q_offsets, const int* ctx_lens, void* out,
@@ -403,11 +427,507 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
   int bq = kRows / G;
   if (bq > Sq) bq = Sq;
   const dim3 grid((Sq + bq - 1) / bq, Hkv, B);
-  paged_chunk_attention_kernel<T, D, kQuant><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), qa.kq_pages, qa.vq_pages, qa.k_scales,
-      qa.v_scales, qa.page_quant, tables, q_offsets, ctx_lens,
-      static_cast<T*>(out), Sq, H, Hkv, page, T_width, bq);
+  paged_chunk_attention_kernel<float, D, kQuant><<<grid, kThreads, 0,
+                                                   stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k_pages),
+      static_cast<const float*>(v_pages), qa.kq_pages, qa.vq_pages,
+      qa.k_scales, qa.v_scales, qa.page_quant, tables, q_offsets, ctx_lens,
+      static_cast<float*>(out), Sq, H, Hkv, page, T_width, bq);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// bfloat16: the tensor-core body
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int kTcRows = 64;                    // query rows a CTA
+constexpr int kTcKeys = 64;                    // keys a ring stage
+constexpr int kTcStages = 2;                   // ring stages
+constexpr int kTcCtasPerSm = 2;                // __launch_bounds__ minimum
+constexpr int kTcThreads = 128 + 32;           // a consumer warpgroup and a
+                                               // producer warp
+constexpr int kMaxPages = kTcKeys / 8;         // pages a stage, at page 8
+
+// what the producer tells the consumers about a stage of the int8 kernel:
+// which of its pages come from the int8 pools, and their scales
+struct StageMeta {
+  float ks[kMaxPages];
+  float vs[kMaxPages];
+  unsigned mask;
+};
+
+// Byte offsets in the 1024-byte-aligned dynamic shared memory.  Each bf16
+// tile is stored as kCb 64-column blocks of [rows][128 bytes], 128-byte
+// swizzled: the 16-byte chunk c of row r sits at chunk c ^ (r % 8), as TMA
+// writes it and as wgmma's SWIZZLE_128B descriptors read it.  An int8 page's
+// codes land, unswizzled, [page rows][D] bytes, in the page's own rows of
+// the tile's last column block (page * 128 >= page * D bytes), and are
+// converted there in place.
+template <int D, bool kQuant>
+struct PcSmem {
+  static constexpr int kCb = (D + 63) / 64;                // column blocks
+  static constexpr int kQ = 0;
+  static constexpr int kStage = kTcKeys * kCb * 128;       // one K or V tile
+  static constexpr int kK = kTcRows * kCb * 128;
+  static constexpr int kV = kK + kTcStages * kStage;
+  static constexpr int kCodes = (kCb - 1) * kTcKeys * 128; // codes in a tile
+  static constexpr int kMeta = kV + kTcStages * kStage;
+  static constexpr int kBars =
+      kMeta + (kQuant ? kTcStages * (int)sizeof(StageMeta) : 0);
+  static constexpr int kBytes = kBars + 2 * kTcStages * 8;  // full, empty
+  static constexpr int kAlloc = kBytes + 1024;             // alignment slack
+  static_assert(kBars % 8 == 0, "mbarriers are 8-byte aligned");
+};
+
+// q, out (B, Sq, H, D) bf16, contiguous; the K and V pools (P, page, Hkv,
+// D) through kmap / vmap (bf16) and, with kQuant, their int8 shadows
+// through kqmap / vqmap, with the scales (P,) float32 and flags (P,) int32;
+// tables (B, T_width), q_offsets and ctx_lens (B,) int32.  Grid: one CTA
+// per (query tile, kv head, lane), the highest query tiles first.
+template <int D, bool kQuant>
+__global__ void __launch_bounds__(kTcThreads, kTcCtasPerSm)
+paged_chunk_attention_tc(const __grid_constant__ CUtensorMap kmap,
+               const __grid_constant__ CUtensorMap vmap,
+               const __grid_constant__ CUtensorMap kqmap,
+               const __grid_constant__ CUtensorMap vqmap,
+               const __nv_bfloat16* __restrict__ q,
+               const float* __restrict__ k_scales,
+               const float* __restrict__ v_scales,
+               const int* __restrict__ page_quant,
+               const int* __restrict__ tables,
+               const int* __restrict__ q_offsets,
+               const int* __restrict__ ctx_lens,
+               __nv_bfloat16* __restrict__ out, int B, int Sq, int H, int Hkv,
+               int page, int T_width, int bq, int n_qblk) {
+  using L = PcSmem<D, kQuant>;
+  constexpr int kCb = L::kCb;
+  constexpr int kChunks = D / 8;              // 16-byte bf16 chunks a row
+  constexpr int kUnits = D / 16;              // 16-code int8 units a row
+  static_assert(D % 16 == 0 && D <= 128, "head dim");
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t full0 = base + L::kBars;     // full[s], then empty[s]
+  const uint32_t empty0 = full0 + 8 * kTcStages;
+  StageMeta* meta = reinterpret_cast<StageMeta*>(smem + L::kMeta);
+
+  const int G = H / Hkv;
+  const int rows = bq * G;
+  const int hb = blockIdx.x % (Hkv * B);
+  const int h = hb % Hkv, b = hb / Hkv;
+  const int q0 = (n_qblk - 1 - blockIdx.x / (Hkv * B)) * bq;
+  const int ctx = ctx_lens[b];
+  const int qoff = q_offsets[b];
+  // the lane's real query rows: its chunk ends at the context's end, so a
+  // row at qpos >= ctx is bucket padding (all rows of a ctx = 0 lane)
+  const int q_end = ctx > 0 ? max(0, min(Sq, ctx - qoff)) : 0;
+  if (q0 >= q_end) {  // a tile of padding rows: zeros, no K/V read
+    for (int i = threadIdx.x; i < rows * kChunks; i += kTcThreads) {
+      const int r = i / kChunks, qi = q0 + r / G;
+      if (qi < Sq)
+        reinterpret_cast<uint4*>(out + (((size_t)b * Sq + qi) * H + h * G +
+                                        r % G) * D)[i % kChunks] =
+            make_uint4(0, 0, 0, 0);
+    }
+    return;
+  }
+  const int q_last = min(q0 + bq, q_end) - 1;
+  // relevant keys of this tile: up to the causal horizon of its last real
+  // query (which is before the context's end); never past the table
+  const int kv_end = min(qoff + q_last + 1, T_width * page);
+  const int n_tiles = (kv_end + kTcKeys - 1) / kTcKeys;
+  const int n_pages = (kv_end + page - 1) / page;
+  const int lp = __ffs(page) - 1;             // log2(page)
+  const int ppt = kTcKeys >> lp;              // pages a stage
+
+  // zero the rows of the last tile's stage that no load fills (keys past
+  // the lane's relevant pages), so that no garbage meets p = 0
+  {
+    const int t = n_tiles - 1;
+    const int filled = min(kTcKeys, n_pages * page - t * kTcKeys);
+    const int n = (kTcKeys - filled) * 8;     // 16-byte chunks a block
+    const uint32_t st = (t % kTcStages) * L::kStage + filled * 128;
+    for (int i = threadIdx.x; i < 2 * kCb * n; i += kTcThreads) {
+      const int kv = i / (kCb * n), rem = i % (kCb * n);
+      *reinterpret_cast<uint4*>(smem + (kv ? L::kV : L::kK) + st +
+                                (rem / n) * kTcKeys * 128 + (rem % n) * 16) =
+          make_uint4(0, 0, 0, 0);
+    }
+  }
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the zeros are generic-proxy stores that TMA (the async proxy) may later
+  // overwrite: order them first
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == 4) {
+    // the producer warp: lane i holds the table entry (and with kQuant the
+    // flag and scales) of page w0 + i of a 32-page window of the lane's
+    // table row, read once, 32 pages at a time; a stage's pages reach lane
+    // 0 by shuffles (64 / page divides 32, so a stage never straddles two
+    // windows), and lane 0 issues every load
+    const int* row = tables + (size_t)b * T_width;
+    int pid_l = 0, quant_l = 0;
+    float ks_l = 0.f, vs_l = 0.f;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kTcStages;
+      const int p0 = t * ppt;
+      const int np = min(ppt, n_pages - p0);  // relevant pages of stage t
+      const int l0 = p0 & 31;
+      if (l0 == 0) {
+        const int p = p0 + lane;
+        pid_l = p < n_pages ? row[p] : 0;
+        if constexpr (kQuant) {
+          quant_l = p < n_pages && page_quant[pid_l];
+          if (quant_l) {
+            ks_l = k_scales[pid_l];
+            vs_l = v_scales[pid_l];
+          }
+        }
+      }
+      int pid[kMaxPages];
+      float ks[kMaxPages], vs[kMaxPages];
+      unsigned mask = 0;
+#pragma unroll
+      for (int i = 0; i < kMaxPages; ++i) {
+        pid[i] = __shfl_sync(0xffffffffu, pid_l, (l0 + i) & 31);
+        if constexpr (kQuant) {
+          ks[i] = __shfl_sync(0xffffffffu, ks_l, (l0 + i) & 31);
+          vs[i] = __shfl_sync(0xffffffffu, vs_l, (l0 + i) & 31);
+        }
+      }
+      if constexpr (kQuant)
+        mask = (__ballot_sync(0xffffffffu, quant_l) >> l0) & ((1u << np) - 1);
+      if (t >= kTcStages) mbar_wait(empty0 + 8 * s, (t / kTcStages - 1) & 1);
+      if (lane == 0) {
+        uint32_t bytes = 0;
+#pragma unroll
+        for (int i = 0; i < kMaxPages; ++i)
+          if (i < np)
+            bytes += (mask >> i & 1) ? 2 * page * D : 2 * kCb * page * 128;
+        if constexpr (kQuant) {
+          meta[s].mask = mask;
+#pragma unroll
+          for (int i = 0; i < kMaxPages; ++i)
+            if (mask >> i & 1) {
+              meta[s].ks[i] = ks[i];
+              meta[s].vs[i] = vs[i];
+            }
+        }
+        mbar_expect_tx(full0 + 8 * s, bytes);
+#pragma unroll
+        for (int i = 0; i < kMaxPages; ++i) {
+          if (i >= np) break;
+          const int krow = pid[i] * page;
+          if (kQuant && (mask >> i & 1)) {
+            const uint32_t off = s * L::kStage + L::kCodes + i * page * 128;
+            tma_load_3d(base + L::kK + off, &kqmap, full0 + 8 * s, 0, h,
+                        krow);
+            tma_load_3d(base + L::kV + off, &vqmap, full0 + 8 * s, 0, h,
+                        krow);
+          } else {
+#pragma unroll
+            for (int c = 0; c < kCb; ++c) {
+              const uint32_t off =
+                  s * L::kStage + c * kTcKeys * 128 + i * page * 128;
+              tma_load_3d(base + L::kK + off, &kmap, full0 + 8 * s, 64 * c, h,
+                          krow);
+              tma_load_3d(base + L::kV + off, &vmap, full0 + 8 * s, 64 * c, h,
+                          krow);
+            }
+          }
+        }
+      }
+      __syncwarp();
+    }
+    return;
+  }
+
+  // the consumer warpgroup: stage the tile's query rows, swizzled (zeros
+  // for padding rows and past D), then make the generic-proxy stores
+  // visible to wgmma
+  for (int i = threadIdx.x; i < kTcRows * kCb * 8; i += 128) {
+    const int r = i / (kCb * 8), c = i % (kCb * 8);
+    const int qi = q0 + r / G;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (c < kChunks && r < rows && qi < q_end)
+      val = __ldg(reinterpret_cast<const uint4*>(
+                q + (((size_t)b * Sq + qi) * H + h * G + r % G) * D) + c);
+    *reinterpret_cast<uint4*>(smem + L::kQ + (c / 8) * kTcRows * 128 +
+                              r * 128 + (((c % 8) ^ (r % 8)) * 16)) = val;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+
+  const int g = lane / 4, tq = lane % 4;       // row group, thread in quad
+  const int r0 = warp * 16 + g;                // rows r0 and r0 + 8
+  const int lim = kv_end - 1;                  // the last relevant key
+  int hz[2];            // the last key each row sees; -1: a padding row
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int r = r0 + 8 * j, qi = q0 + r / G;
+    hz[j] = (r < rows && qi < q_end) ? min(qoff + qi, lim) : -1;
+  }
+  const int first = min(qoff + q0, lim);       // row 0's horizon; row 0 is real
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {kMaskValue, kMaskValue}, l[2] = {0.f, 0.f};
+  const float sl2 = 1.4426950408889634f / sqrtf((float)D);  // log2(e)/sqrt(D)
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kTcStages;
+    const int k0 = t * kTcKeys;
+    mbar_wait(full0 + 8 * s, (t / kTcStages) & 1);
+    unsigned mask = 0;
+    if constexpr (kQuant) {
+      mask = meta[s].mask;
+      if (mask) {
+        // the flagged pages' codes to bf16 in place, K then V, 32 keys (whole
+        // pages, whose codes lie in their own rows) a pass: every thread
+        // reads its share of the pass's codes, the warpgroup syncs, then
+        // each writes its bf16 chunks into the tile (at D = 80 the columns
+        // past 80 keep code bytes, which neither product reads)
+        constexpr int kPass = kTcKeys / 2;
+        constexpr int kPer = (kPass * kUnits + 127) / 128;
+#pragma unroll
+        for (int kv = 0; kv < 2; ++kv) {
+          uint8_t* tile = smem + (kv ? L::kV : L::kK) + s * L::kStage;
+#pragma unroll
+          for (int j0 = 0; j0 < kTcKeys; j0 += kPass) {
+            uint4 codes[kPer];
+#pragma unroll
+            for (int n = 0; n < kPer; ++n) {
+              const int idx = threadIdx.x + 128 * n;
+              const int j = j0 + idx / kUnits, u = idx % kUnits;  // key, unit
+              if (idx < kPass * kUnits && (mask >> (j >> lp) & 1))
+                codes[n] = *reinterpret_cast<const uint4*>(
+                    tile + L::kCodes + (j >> lp) * page * 128 +
+                    (j & (page - 1)) * D + u * 16);
+            }
+            asm volatile("bar.sync 1, 128;\n" ::: "memory");
+#pragma unroll
+            for (int n = 0; n < kPer; ++n) {
+              const int idx = threadIdx.x + 128 * n;
+              const int j = j0 + idx / kUnits, u = idx % kUnits;
+              if (idx >= kPass * kUnits || !(mask >> (j >> lp) & 1)) continue;
+              const int8_t* c8 = reinterpret_cast<const int8_t*>(&codes[n]);
+              uint32_t w[8];
+#pragma unroll
+              for (int e = 0; e < 8; ++e)
+                w[e] = pack_bf16((float)c8[2 * e], (float)c8[2 * e + 1]);
+#pragma unroll
+              for (int hf = 0; hf < 2; ++hf) {
+                const int ch = 2 * u + hf;                  // bf16 chunk
+                *reinterpret_cast<uint4*>(
+                    tile + (ch / 8) * kTcKeys * 128 + j * 128 +
+                    (((ch % 8) ^ (j % 8)) * 16)) =
+                    make_uint4(w[4 * hf], w[4 * hf + 1], w[4 * hf + 2],
+                               w[4 * hf + 3]);
+              }
+            }
+          }
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("bar.sync 1, 128;\n" ::: "memory");
+      }
+    }
+
+    // S = Q.K^T on the tensor cores: D / 16 steps of k16
+    float sc[kTcKeys / 2];
+    const uint32_t k_tile = base + L::kK + s * L::kStage;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint64_t da = sw128_desc(
+          base + L::kQ + (kk / 4) * kTcRows * 128 + (kk % 4) * 32, 16, 1024);
+      const uint64_t db = sw128_desc(
+          k_tile + (kk / 4) * kTcKeys * 128 + (kk % 4) * 32, 16, 1024);
+      Wgmma::ss(sc, da, db, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // online softmax on the fragments: sc[4 i + e] is row r0 + 8 (e / 2),
+    // key k0 + 8 i + 2 tq + e % 2; a row's keys span the 4 threads of a
+    // quad, and keys 8 i .. 8 i + 7 lie in one page (page >= 8)
+    const bool masked = k0 + kTcKeys - 1 > first;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < kTcKeys / 8; ++i) {
+      bool qk = false;                         // an int8 page's keys
+      float ks = 0.f;
+      if constexpr (kQuant) {
+        const int slot = (8 * i) >> lp;
+        qk = mask >> slot & 1;
+        if (qk) ks = meta[s].ks[slot];
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // __fmul_rn: never contracted, so with every flag clear the int8
+        // kernel rounds exactly as the fp kernel does
+        float x = sc[4 * i + e];
+        if (qk) x = __fmul_rn(x, ks);          // s_j = (q . kq_j) ks_j
+        x = __fmul_rn(x, sl2);
+        if (masked && k0 + 8 * i + 2 * tq + (e & 1) > hz[e / 2])
+          x = __int_as_float(0xff800000);      // -inf: p = 0
+        sc[4 * i + e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 1));
+      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 2));
+      corr[j] = exp2f(m[j] - mx[j]);  // m, mx >= the finite mask value
+      m[j] = mx[j];
+      l[j] = __fmul_rn(l[j], corr[j]);
+    }
+#pragma unroll
+    for (int i = 0; i < kTcKeys / 8; ++i) {
+      bool qv = false;
+      float vs = 0.f;
+      if constexpr (kQuant) {
+        const int slot = (8 * i) >> lp;
+        qv = mask >> slot & 1;
+        if (qv) vs = meta[s].vs[slot];
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(sc[4 * i + e] - m[e / 2]);  // masked: 0
+        l[e / 2] += p;  // this thread's keys; the quad sums at the end
+        sc[4 * i + e] = qv ? __fmul_rn(p, vs) : p;  // (p_j vs_j) . vq_j
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      o[4 * i + 0] *= corr[0];
+      o[4 * i + 1] *= corr[0];
+      o[4 * i + 2] *= corr[1];
+      o[4 * i + 3] *= corr[1];
+    }
+    // P as bf16 A fragments: keys 16 kt .. 16 kt + 15 are S's column
+    // blocks 2 kt and 2 kt + 1
+    uint32_t pa[kTcKeys / 16][4];
+#pragma unroll
+    for (int kt = 0; kt < kTcKeys / 16; ++kt) {
+      pa[kt][0] = pack_bf16(sc[8 * kt + 0], sc[8 * kt + 1]);
+      pa[kt][1] = pack_bf16(sc[8 * kt + 2], sc[8 * kt + 3]);
+      pa[kt][2] = pack_bf16(sc[8 * kt + 4], sc[8 * kt + 5]);
+      pa[kt][3] = pack_bf16(sc[8 * kt + 6], sc[8 * kt + 7]);
+    }
+
+    // O += P.V: V's [keys][D] tile is the MN-major B operand; its 64-column
+    // blocks lie kTcKeys * 128 bytes apart (LBO), 8-key groups 1024 (SBO)
+    const uint32_t v_tile = base + L::kV + s * L::kStage;
+    fence_regs(o);
+    fence_regs(pa);
+    wgmma_fence();
+#pragma unroll
+    for (int kt = 0; kt < kTcKeys / 16; ++kt)
+      Wgmma::rs(o, pa[kt], sw128_desc(v_tile + kt * 16 * 128,
+                                      kTcKeys * 128, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);  // this warp is done with s
+  }
+
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    l[j] += __shfl_xor_sync(0xffffffffu, l[j], 1);
+    l[j] += __shfl_xor_sync(0xffffffffu, l[j], 2);
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int r = r0 + 8 * j, qi = q0 + r / G;
+    if (r >= rows || qi >= Sq) continue;
+    __nv_bfloat16* dst = out + (((size_t)b * Sq + qi) * H + h * G + r % G) * D;
+    const float denom = fmaxf(l[j], 1e-30f);
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)   // a padding row (hz < 0): zeros
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * i + 2 * tq) =
+          hz[j] < 0 ? __floats2bfloat162_rn(0.f, 0.f)
+                    : __floats2bfloat162_rn(o[4 * i + 2 * j] / denom,
+                                            o[4 * i + 2 * j + 1] / denom);
+  }
+}
+
+// A pool (P, page, Hkv, D) seen as (P * page, Hkv, D), innermost first:
+// boxes of one page's rows of one kv head, 64 bf16 columns 128-byte swizzled
+// (zeros past D), or with `codes` all D int8 columns unswizzled
+bool pool_map(CUtensorMap* map, const void* base, bool codes, int P,
+              int page, int Hkv, int D) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const int elem = codes ? 1 : 2;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)Hkv,
+                              (cuuint64_t)P * page};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * elem,
+                                 (cuuint64_t)Hkv * D * elem};
+  const cuuint32_t box[3] = {codes ? (cuuint32_t)D : 64u, 1u,
+                             (cuuint32_t)page};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map,
+            codes ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            3, const_cast<void*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE,
+            codes ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, bool kQuant>
+cudaError_t launch_tc(const void* q, const void* k_pages, const void* v_pages,
+                      const QuantArgs& qa, const int* tables,
+                      const int* q_offsets, const int* ctx_lens, void* out,
+                      int B, int Sq, int H, int Hkv, int P, int page,
+                      int T_width, cudaStream_t stream) {
+  CUtensorMap kmap, vmap, kqmap, vqmap;
+  if (!pool_map(&kmap, k_pages, false, P, page, Hkv, D) ||
+      !pool_map(&vmap, v_pages, false, P, page, Hkv, D))
+    return cudaErrorInvalidValue;
+  if (kQuant) {
+    if (!pool_map(&kqmap, qa.kq_pages, true, P, page, Hkv, D) ||
+        !pool_map(&vqmap, qa.vq_pages, true, P, page, Hkv, D))
+      return cudaErrorInvalidValue;
+  } else {
+    kqmap = kmap;  // unused
+    vqmap = vmap;
+  }
+  const int G = H / Hkv;
+  const int bq = kTcRows / G;
+  const int n_qblk = (Sq + bq - 1) / bq;
+  const long long n_ctas = (long long)n_qblk * Hkv * B;
+  if (n_ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
+  constexpr int smem = PcSmem<D, kQuant>::kAlloc;
+  cudaError_t err = cudaFuncSetAttribute(
+      paged_chunk_attention_tc<D, kQuant>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  paged_chunk_attention_tc<D, kQuant>
+      <<<(unsigned)n_ctas, kTcThreads, smem, stream>>>(
+      kmap, vmap, kqmap, vqmap, static_cast<const __nv_bfloat16*>(q),
+      qa.k_scales, qa.v_scales, qa.page_quant, tables, q_offsets, ctx_lens,
+      static_cast<__nv_bfloat16*>(out), B, Sq, H, Hkv, page, T_width, bq,
+      n_qblk);
   return cudaGetLastError();
 }
 
@@ -415,54 +935,75 @@ template <bool kQuant>
 int dispatch(const void* q, const void* k_pages, const void* v_pages,
              const QuantArgs& qa, const int* tables, const int* q_offsets,
              const int* ctx_lens, void* out, int B, int Sq, int H, int Hkv,
-             int D, int page, int T_width, int dtype, int device,
+             int D, int P, int page, int T_width, int dtype, int device,
              void* stream) {
   if (page != 8 && page != 16 && page != 32) return cudaErrorInvalidValue;
   if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > kRows) return cudaErrorInvalidValue;
-  if (B > 65535 || Hkv > 65535) return cudaErrorInvalidValue;
+  if (B > 65535 || Hkv > 65535 || P <= 0) return cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return cudaSuccess;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64)
-    return launch<float, 64, kQuant>(q, k_pages, v_pages, qa, tables,
-                                     q_offsets, ctx_lens, out, B, Sq, H, Hkv,
-                                     page, T_width, s);
+    return launch<64, kQuant>(q, k_pages, v_pages, qa, tables, q_offsets,
+                              ctx_lens, out, B, Sq, H, Hkv, page, T_width, s);
   if (dtype == 0 && D == 80)
-    return launch<float, 80, kQuant>(q, k_pages, v_pages, qa, tables,
-                                     q_offsets, ctx_lens, out, B, Sq, H, Hkv,
-                                     page, T_width, s);
+    return launch<80, kQuant>(q, k_pages, v_pages, qa, tables, q_offsets,
+                              ctx_lens, out, B, Sq, H, Hkv, page, T_width, s);
   if (dtype == 0 && D == 128)
-    return launch<float, 128, kQuant>(q, k_pages, v_pages, qa, tables,
-                                      q_offsets, ctx_lens, out, B, Sq, H, Hkv,
-                                      page, T_width, s);
+    return launch<128, kQuant>(q, k_pages, v_pages, qa, tables, q_offsets,
+                               ctx_lens, out, B, Sq, H, Hkv, page, T_width,
+                               s);
   if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64, kQuant>(q, k_pages, v_pages, qa, tables,
-                                             q_offsets, ctx_lens, out, B, Sq,
-                                             H, Hkv, page, T_width, s);
+    return launch_tc<64, kQuant>(q, k_pages, v_pages, qa, tables, q_offsets,
+                                 ctx_lens, out, B, Sq, H, Hkv, P, page,
+                                 T_width, s);
   if (dtype == 1 && D == 80)
-    return launch<__nv_bfloat16, 80, kQuant>(q, k_pages, v_pages, qa, tables,
-                                             q_offsets, ctx_lens, out, B, Sq,
-                                             H, Hkv, page, T_width, s);
+    return launch_tc<80, kQuant>(q, k_pages, v_pages, qa, tables, q_offsets,
+                                 ctx_lens, out, B, Sq, H, Hkv, P, page,
+                                 T_width, s);
   if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128, kQuant>(q, k_pages, v_pages, qa,
-                                              tables, q_offsets, ctx_lens,
-                                              out, B, Sq, H, Hkv, page,
-                                              T_width, s);
+    return launch_tc<128, kQuant>(q, k_pages, v_pages, qa, tables,
+                                  q_offsets, ctx_lens, out, B, Sq, H, Hkv, P,
+                                  page, T_width, s);
+  return cudaErrorInvalidValue;
+}
+
+template <bool kQuant>
+cudaError_t body_resources(int D, int dtype, int* out) {
+  if (dtype == 0 && D == 64)
+    return resources(paged_chunk_attention_kernel<float, 64, kQuant>,
+                     kThreads, 0, out);
+  if (dtype == 0 && D == 80)
+    return resources(paged_chunk_attention_kernel<float, 80, kQuant>,
+                     kThreads, 0, out);
+  if (dtype == 0 && D == 128)
+    return resources(paged_chunk_attention_kernel<float, 128, kQuant>,
+                     kThreads, 0, out);
+  if (dtype == 1 && D == 64)
+    return resources(paged_chunk_attention_tc<64, kQuant>, kTcThreads,
+                     PcSmem<64, kQuant>::kAlloc, out);
+  if (dtype == 1 && D == 80)
+    return resources(paged_chunk_attention_tc<80, kQuant>, kTcThreads,
+                     PcSmem<80, kQuant>::kAlloc, out);
+  if (dtype == 1 && D == 128)
+    return resources(paged_chunk_attention_tc<128, kQuant>, kTcThreads,
+                     PcSmem<128, kQuant>::kAlloc, out);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32 (the CUDA-core body), 1 = bfloat16 (the tensor-core
+// body); P pool pages.  Returns a cudaError_t (0 = launched).
 extern "C" int paged_chunk_attention_launch(
     const void* q, const void* k_pages, const void* v_pages,
     const int* tables, const int* q_offsets, const int* ctx_lens, void* out,
-    int B, int Sq, int H, int Hkv, int D, int page, int T_width, int dtype,
-    int device, void* stream) {
+    int B, int Sq, int H, int Hkv, int D, int P, int page, int T_width,
+    int dtype, int device, void* stream) {
   const QuantArgs none = {nullptr, nullptr, nullptr, nullptr, nullptr};
   return dispatch<false>(q, k_pages, v_pages, none, tables, q_offsets,
-                         ctx_lens, out, B, Sq, H, Hkv, D, page, T_width,
+                         ctx_lens, out, B, Sq, H, Hkv, D, P, page, T_width,
                          dtype, device, stream);
 }
 
@@ -473,12 +1014,23 @@ extern "C" int paged_chunk_attention_quant_launch(
     const void* kq_pages, const void* vq_pages, const float* k_scales,
     const float* v_scales, const int* page_quant, const int* tables,
     const int* q_offsets, const int* ctx_lens, void* out, int B, int Sq,
-    int H, int Hkv, int D, int page, int T_width, int dtype, int device,
-    void* stream) {
+    int H, int Hkv, int D, int P, int page, int T_width, int dtype,
+    int device, void* stream) {
   const QuantArgs qa = {static_cast<const int8_t*>(kq_pages),
                         static_cast<const int8_t*>(vq_pages), k_scales,
                         v_scales, page_quant};
   return dispatch<true>(q, k_pages, v_pages, qa, tables, q_offsets, ctx_lens,
-                        out, B, Sq, H, Hkv, D, page, T_width, dtype, device,
-                        stream);
+                        out, B, Sq, H, Hkv, D, P, page, T_width, dtype,
+                        device, stream);
+}
+
+// out[5]: the `resources` of the body that the launch runs for (dtype, D,
+// quant): registers, local bytes, shared memory, CTAs per SM, threads.
+// Returns a cudaError_t.
+extern "C" int paged_chunk_attention_resources(int D, int dtype, int quant,
+                                               int device, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return quant ? body_resources<true>(D, dtype, out)
+               : body_resources<false>(D, dtype, out);
 }

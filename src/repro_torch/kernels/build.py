@@ -1,9 +1,11 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each source ``src/repro_torch/csrc/<name>.cu`` has a plain C entry point.
-It is compiled by ``nvcc`` for ``sm_90a`` into a shared library under the
+It is compiled by ``nvcc`` for ``sm_90a`` (with ``csrc/`` on the include
+path, for the shared ``*.cuh`` headers) into a shared library under the
 repository's ``build/`` directory (listed in .gitignore) at first use,
-named by a hash of the source so an edited kernel is rebuilt, and loaded
+named by a hash of the source, the headers and the flags
+(``source_digest``), so an edited kernel or header is rebuilt, and loaded
 with ``ctypes``.  Nothing here runs at import: the CPU tests import every
 module of the port on a machine with no ``nvcc``.
 """
@@ -36,6 +38,22 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def source_digest(name: str, csrc: Path = CSRC) -> str:
+    """The hash that names ``<name>``'s library: its ``.cu`` source, every
+    ``*.cuh`` header beside it (a source may include any of them) and the
+    compiler flags."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:12]
+
+
+def nvcc_command(src, out) -> list:
+    """The nvcc command that compiles ``src`` into the library ``out``."""
+    return [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out), str(src)]
+
+
 def build(name: str) -> Tuple[Path, str]:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists.
     Returns the library's path and the nvcc/ptxas output ("" when nothing
@@ -51,16 +69,14 @@ def build_all(names) -> Dict[str, Tuple[Path, str]]:
     running = {}
     for name in names:
         src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS)
-                                .encode()).hexdigest()[:12]
-        lib = BUILD / f"{name}-{digest}.so"
+        lib = BUILD / f"{name}-{source_digest(name)}.so"
         if lib.exists():
             out[name] = (lib, "")
             continue
         BUILD.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                                 str(src)], stdout=subprocess.PIPE,
+        proc = subprocess.Popen(nvcc_command(src, tmp),
+                                stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running[name] = (proc, tmp, lib)
     failed = []

@@ -11,7 +11,7 @@ repository root on a machine with an NVIDIA card:
     PYTHONPATH=src python -m repro_torch.kernels.flash_tiles
 
 Each variant is the checked-in source with its constants replaced, built
-with ``build.NVCC_FLAGS`` into the build directory and swapped in for the
+with ``build.nvcc_command`` into the build directory and swapped in for the
 wrapper's library; times are CUDA-event means over 100 launches, taken
 for every variant and then again in reverse order.  Nothing in the port
 imports this module.
@@ -56,8 +56,8 @@ def build_variants():
         src.write_text(variant_source(consts))
         lib = src.with_suffix(".so")
         procs[label] = (subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+            build.nvcc_command(src, lib), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), lib)
     libs = {}
     for label, (proc, lib) in procs.items():
         text, _ = proc.communicate()

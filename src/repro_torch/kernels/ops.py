@@ -12,8 +12,8 @@ function up to rounding.
 
 The TPU package's ``_auto_tile`` (largest divisor of the bucketed length
 <= 128) has no counterpart: the CUDA kernel's query tile is set by the
-GQA group (16 / G query positions) and it masks the ragged edge of any
-Sq, so there is no tile for a caller to choose; nor has ``flash_prefill``
+GQA group (64 / G query positions in bf16, 16 / G in float32) and it masks
+the ragged edge of any Sq, so there is no tile for a caller to choose; nor has ``flash_prefill``
 (``bq``/``bk`` in the TPU package): its query block is 64 / G positions and
 it too masks any Sq and Skv."""
 from __future__ import annotations

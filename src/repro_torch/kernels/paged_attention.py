@@ -5,8 +5,11 @@ kernels in ``csrc/paged_chunk_attention.cu`` and ``csrc/paged_attention.cu``.
 step dispatches on every layer: every lane carries a CHUNK of queries at a
 per-lane ``q_offset`` (decode lanes are the one-token chunk), so one launch
 covers chunked prefill and batched decode together.  It replaces the TPU
-kernel of the same name in ``repro/kernels/paged_attention.py``; the source
-says how the design differs and what bounds it.
+kernel of the same name in ``repro/kernels/paged_attention.py``.  One launch
+function holds two bodies: bfloat16 runs on the tensor cores (wgmma, K/V by
+TMA into a shared-memory ring that follows the block table), float32 on the
+CUDA cores in float32; the source says how each is built and what bounds
+it.  ``resources`` reports what the runtime sees of each body.
 ``paged_chunk_attention_quant`` is the same kernel over a mixed-precision
 pool: pages whose flag is set are read from the int8 shadow pools and
 multiplied by their float32 scale, the rest from the fp pools.  The serving
@@ -43,7 +46,7 @@ from repro_torch.kernels import build
 NAME = "paged_chunk_attention"
 HEAD_DIMS = (64, 80, 128)
 PAGE_SIZES = (8, 16, 32)
-MAX_GROUP = 16                      # query heads per kv head (kRows in .cu)
+MAX_GROUP = 16                      # query heads per kv head (fp32 kRows)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 QUANT_NAME = "paged_chunk_attention_quant"
 DECODE_NAME = "paged_attention"
@@ -54,7 +57,7 @@ quant_launches = 0                  # int8 kernel launches
 decode_launches = 0                 # decode kernel launches
 
 
-def _entry(symbol: str, n_ptrs: int, n_ints: int = 9, lib: str = NAME):
+def _entry(symbol: str, n_ptrs: int, n_ints: int = 10, lib: str = NAME):
     f = _fns.get(symbol)
     if f is None:
         f = getattr(build.load(lib), symbol)
@@ -63,6 +66,31 @@ def _entry(symbol: str, n_ptrs: int, n_ints: int = 9, lib: str = NAME):
         f.restype = ctypes.c_int
         _fns[symbol] = f
     return f
+
+
+def resources(dtype, head_dim: int, quant: bool = False,
+              device=None) -> dict:
+    """What the runtime reports for the body that kernel 1 (or, with
+    ``quant``, B.2) runs for ``dtype`` at ``head_dim`` on the card:
+    registers a thread, local (spill) bytes a thread, shared memory a CTA,
+    CTAs resident per SM, threads a CTA."""
+    if dtype not in _DTYPES or head_dim not in HEAD_DIMS:
+        raise ValueError(f"{NAME}: no body for {dtype} at head dim "
+                         f"{head_dim}")
+    f = _fns.get("resources")
+    if f is None:
+        f = build.load(NAME).paged_chunk_attention_resources
+        f.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        f.restype = ctypes.c_int
+        _fns["resources"] = f
+    out = (ctypes.c_int * 5)()
+    dev = torch.cuda.current_device() if device is None else int(device)
+    err = f(head_dim, _DTYPES[dtype], int(bool(quant)), dev, out)
+    if err != 0:
+        raise RuntimeError(f"{NAME}: resources query failed with "
+                           f"cudaError_t {err}")
+    return dict(zip(("registers", "local_bytes", "smem_bytes",
+                     "ctas_per_sm", "threads"), out))
 
 
 def _check(q, k_pages, v_pages, block_tables, q_offsets, ctx_lens,
@@ -206,8 +234,8 @@ def _launch(symbol, name, q, k_pages, v_pages, quant, block_tables,
     if dev is None:
         dev = torch.cuda.current_device()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(*ptrs, B, Sq, H, Hkv, D, page, block_tables.shape[1],
-             _DTYPES[q.dtype], dev, stream)
+    err = fn(*ptrs, B, Sq, H, Hkv, D, k_pages.shape[0], page,
+             block_tables.shape[1], _DTYPES[q.dtype], dev, stream)
     if err != 0:
         raise RuntimeError(f"{name}: launch failed with cudaError_t {err}")
     return out

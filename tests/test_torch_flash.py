@@ -192,6 +192,15 @@ def test_resources_and_tile_variants_need_no_card():
         flash_tiles.variant_source(dict(kNoSuchTile=1))
 
 
+def test_paged_resources_need_no_card():
+    """Kernel 1's ``resources`` imports with the port and rejects a dtype or
+    head dim with no body before it touches the card or the compiler."""
+    with pytest.raises(ValueError, match="head dim"):
+        kpa.resources(torch.bfloat16, 96)
+    with pytest.raises(ValueError, match="no body"):
+        kpa.resources(torch.float16, 128, quant=True)
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------

@@ -185,6 +185,31 @@ def test_quant_dispatch_follows_the_tensor_device():
     assert pa.quant_launches == before
 
 
+def test_library_name_follows_the_headers(tmp_path, monkeypatch):
+    """The built library is named by a hash of the source, of every shared
+    header beside it and of the flags: an edited header must give another
+    library (an edit to one source leaves the others' names alone)."""
+    import shutil
+    from repro_torch.kernels import build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    names = (pa.NAME, "flash_prefill", pa.DECODE_NAME)
+    before = {n: build.source_digest(n, csrc) for n in names}
+    assert before == {n: build.source_digest(n) for n in names}
+    header = csrc / "sm90.cuh"
+    header.write_text(header.read_text() + "// an edit\n")
+    after = {n: build.source_digest(n, csrc) for n in names}
+    assert all(after[n] != before[n] for n in names)
+    src = csrc / f"{pa.NAME}.cu"
+    src.write_text(src.read_text() + "// an edit\n")
+    again = {n: build.source_digest(n, csrc) for n in names}
+    assert again[pa.NAME] != after[pa.NAME]
+    assert all(again[n] == after[n] for n in names[1:])
+    monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
+    cmd = build.nvcc_command(src, tmp_path / "x.so")
+    assert cmd[cmd.index("-I") + 1] == str(build.CSRC)   # sees the headers
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -211,6 +236,15 @@ CARD_GEOMETRIES = [
     (5, 1, 32, 8, 128, 16, 9),     # llama3-8b decode
     (3, 37, 32, 32, 80, 16, 6),    # zamba2-2.7b's shared attention
     (5, 1, 32, 32, 80, 16, 9),     # its decode
+    # the bf16 tensor-core tile's edges (64 rows of 64 / G positions, 64
+    # keys a ring stage); every lane's chunk is ragged, crosses a tile
+    # boundary at a q_offset that is not a multiple of the page, and its
+    # context ends inside a stage
+    (3, 9, 64, 4, 128, 16, 4),     # G = 16: 4 positions a tile
+    (3, 30, 10, 2, 64, 16, 5),     # G = 5: 60 of 64 rows real
+    (3, 40, 32, 8, 128, 8, 12),    # page 8: 8 pages a stage
+    (3, 40, 32, 8, 128, 32, 5),    # page 32: 2 pages a stage
+    (3, 150, 32, 32, 80, 16, 14),  # D = 80, a chunk of 2-3 query tiles
 ]
 
 
@@ -285,6 +319,95 @@ def test_cuda_quant_kernel_with_flags_clear_is_the_fp_kernel(cuda, dtype):
     want = ops.paged_chunk_attention(*args)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _relevant_pages(tables, ctx, page):
+    """The pool pages the lanes' first ceil(ctx / page) columns name."""
+    out = set()
+    for b in range(tables.shape[0]):
+        w = -(-int(ctx[b]) // page)
+        out.update(int(p) for p in tables[b, :w])
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("quant", [False, True], ids=["kernel1", "int8"])
+def test_cuda_kernel_never_reads_irrelevant_pages(cuda, quant, dtype):
+    """Every pool page outside the lanes' relevant pages is NaN, and so are
+    the pages that the table columns past the relevant ones (and the ctx =
+    0 lane's row) point at; with ``quant`` their int8 scales are NaN and
+    half of them are flagged.  The kernel's output stays finite and equals
+    the plain version on the clean pools."""
+    B, Sq, H, Hkv, D, page, maxp = 4, 40, 32, 8, 128, 8, 16
+    arrs = _case(29, B, Sq, H, Hkv, D, page, maxp)
+    q, kp, vp, tables, qoff, ctx = arrs
+    P = kp.shape[0]
+    used = _relevant_pages(tables, ctx, page)
+    junk = [p for p in range(P) if p not in used]
+    tables = tables.copy()
+    for b in range(B):
+        w = -(-int(ctx[b]) // page)
+        tables[b, w:] = junk[(7 * b) % len(junk)]
+    clean = [t.to(cuda) for t in _torch((q, kp, vp, tables, qoff, ctx),
+                                        getattr(torch, dtype))]
+    bad = [t.clone() for t in clean]
+    junk_t = torch.tensor(junk, device=cuda)
+    bad[1][junk_t] = float("nan")
+    bad[2][junk_t] = float("nan")
+    if quant:
+        qs = [t.to(cuda) for t in _quant(kp, vp, 29, share=0.5)]
+        bad_q = [t.clone() for t in qs]
+        bad_q[2][junk_t] = float("nan")
+        bad_q[3][junk_t] = float("nan")
+        bad_q[4][junk_t[::2]] = 1
+        got = ops.paged_chunk_attention(*bad, quant=bad_q)
+        want = tref.paged_chunk_attention_ref(*clean, quant=qs)
+    else:
+        got = ops.paged_chunk_attention(*bad)
+        want = tref.paged_chunk_attention_ref(*clean)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    _assert_real_rows(got.float().cpu(), want.float().cpu(), qoff, ctx,
+                      TOL[dtype])
+    for b, n in enumerate(ctx - qoff):            # bucket padding: zeros
+        assert bool((got[b, max(int(n), 0):] == 0).all()), f"lane {b}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_quant_kernel_mixes_pages_within_a_stage(cuda, dtype):
+    """Pages alternate between int8 and fp in each lane's table order, so
+    every 64-key stage (4 pages of 16, 8 of 8) holds both kinds."""
+    for page, maxp in ((16, 10), (8, 20)):
+        arrs = _case(31 + page, 3, 50, 32, 8, 128, page, maxp)
+        args = [t.to(cuda) for t in _torch(arrs, getattr(torch, dtype))]
+        quant = [t.to(cuda) for t in _quant(arrs[1], arrs[2], 31, share=0)]
+        tables, ctx = arrs[3], arrs[5]
+        for b in range(tables.shape[0]):
+            for i in range(-(-int(ctx[b]) // page)):
+                quant[4][int(tables[b, i])] = i % 2
+        got = ops.paged_chunk_attention(*args, quant=quant)
+        torch.cuda.synchronize()
+        want = tref.paged_chunk_attention_ref(*args, quant=quant)
+        assert torch.isfinite(got.float()).all()
+        _assert_real_rows(got.float().cpu(), want.float().cpu(), arrs[4],
+                          ctx, TOL[dtype])
+        fp_only = ops.paged_chunk_attention(*args)
+        assert not torch.equal(got, fp_only)      # the int8 pages were read
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_resources(cuda):
+    """The bf16 bodies are one producer warp and one consumer warpgroup
+    with two CTAs resident per SM, and do not spill; the float32 bodies
+    are 128 threads."""
+    for quant in (False, True):
+        for d in pa.HEAD_DIMS:
+            tc = pa.resources(torch.bfloat16, d, quant)
+            assert tc["threads"] == 160 and tc["ctas_per_sm"] >= 2, tc
+            assert tc["local_bytes"] == 0, tc
+            assert pa.resources(torch.float32, d, quant)["threads"] == 128
 
 
 @pytest.mark.gpu
