@@ -16,7 +16,7 @@ Phases:
   1. environment: the card's name and power limit;
   2. build: nvcc for sm_90a, one process per kernel source, all started
      together, with the registers, shared memory and spills that ptxas
-     reports;
+     reports (no instantiation of B.3 or the scan may spill);
   3. kernel 1's and B.2's bodies as ptxas built them and as the runtime
      reports them, and their machine code (every bf16 instantiation runs
      wgmma, no fp32 one a tensor-core product); kernel vs plain version at
@@ -58,12 +58,17 @@ Phases:
      and migrated to a third node serves the dense recompute's tokens; a
      session served from int8 pages equals a twin whose pages were
      re-materialized to fp by a host round trip;
-  8. the SSD scan kernel (B.5) against its plain version at zamba2-2.7b's
-     SSD shapes (H=80, P=64, N=64, G=1) and mamba2-2.7b's (N=128): lanes
-     1, 2, 8; 1, 256, 513 and 1024 steps; zero and random initial state;
-     bf16 and fp32; y and the final state each within 3e-2 (bf16) / 2e-4
-     (fp32) x max |plain|.  Kernel 1 and B.2 at zamba2-2.7b's shared
-     attention (H=Hkv=32, D=80): decode B=8 and a 512-token chunk;
+  8. the SSD scan kernels (B.5): their runtime resources and machine code
+     (no tensor-core product), then the scan against its plain version at
+     zamba2-2.7b's SSD shapes (H=80, P=64, N=64, G=1) and mamba2-2.7b's
+     (N=128): lanes 1, 2, 8; 1 (the decode path), 256, 513 and 1024 steps
+     (the chunk path); zero and random initial state; bf16 and fp32; y and
+     the final state each within 3e-2 (bf16) / 2e-4 (fp32) x max |plain|;
+     timed cases (and phase 9's) with their device and host time, GB/s,
+     TFLOP/s, share of the bound, the kernel's and the plain version's
+     distance from float64 and the time of each device kernel.  Kernel 1
+     and B.2 at zamba2-2.7b's shared attention (H=Hkv=32, D=80): decode B=8
+     and a 512-token chunk;
   9. serve zamba2-2.7b (54 Mamba2 layers, 9 shared applications, bf16,
      random weights from --seed) with NodeEngine + NodeManager +
      StateBackend: 4 sessions x 3 turns, one session swapped out and back,
@@ -106,8 +111,10 @@ Phases:
      page 16) in bf16 and fp32: decode at B = 1, 8 and 32 with ctx up to
      4096, ctx = 0 lanes (exact zeros), permuted tables with last-valid
      padding; zamba2-2.7b's shared attention (H=Hkv=32, D=80) and a G = 1
-     case at D = 64; times of B.3, kernel 1 at Sq = 1, the plain version,
-     SDPA and the bound.  Then every decode-only kernel-1 call phase 4
+     case at D = 64; B.3's runtime resources and machine code first; times
+     of B.3 (ms, device, host), kernel 1 at Sq = 1 (ms, device), the plain
+     version, SDPA and the bound, summed per dtype and over the replayed
+     calls.  Then every decode-only kernel-1 call phase 4
      captured, replayed through B.3 and held against kernel 1; each B.3
      call here adds exactly one to its count, and the count over every
      other phase (the serving paths, which decode through kernel 1) must
@@ -137,6 +144,7 @@ import dataclasses
 import gc
 import hashlib
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -473,6 +481,11 @@ def phase_build():
         if text:
             log(f"[2] {name}: spills: "
                 f"{'; '.join(spills) or 'none reported by ptxas'}")
+        if text and name in (pa.DECODE_NAME, ssd.NAME):
+            spilled = [x for x in spills
+                       if any(int(n) for n in re.findall(
+                           r"(\d+) bytes spill (?:stores|loads)", x))]
+            check(not spilled, f"{name}: an instantiation spills: {spilled}")
     return built
 
 
@@ -1736,10 +1749,100 @@ def compare_scan(x, dA, Bm, Cm, h0, label, chunk=256, timed=False):
     if timed:
         nbytes, flops = scan_work(x, Bm, h0 is not None)
         b_ms, b_by, t_b, t_f = bound(nbytes, flops, torch.float32)
-        rec.update(ms=cuda_ms(kern, 20), plain_ms=cuda_ms(plain, 5),
+        rec.update(ms=cuda_ms(kern, 20), device_ms=device_ms(kern),
+                   host_ms=host_ms(kern), plain_ms=cuda_ms(plain, 5),
                    library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                   bytes_ms=t_b, ops_ms=t_f)
+                   bytes_ms=t_b, ops_ms=t_f, nbytes=nbytes, flops=flops,
+                   S=x.shape[1])
+        # the kernel's and the plain version's distance from float64: which
+        # of the two the error above is made of
+        y64, h64 = ref.ssd_scan_chunked_ref(x, dA, Bm, Cm, chunk,
+                                            init_state=h0,
+                                            compute_dtype=torch.float64)
+        f64 = []
+        for got in ((yk, hk), (yr, hr)):
+            f64.append(max(
+                ((a.double() - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(got, (y64, h64))))
+        split = kernel_split(kern)
+        log(f"  {label}: kernel / plain vs float64 {f64[0]:.3g} / "
+            f"{f64[1]:.3g} of max|float64|; device ms per kernel "
+            + ", ".join(f"{k} {v:.4g}" for k, v in split.items()))
     return rec
+
+
+def kernel_split(fn, calls: int = 5):
+    """{device kernel: ms per call of ``fn``} from torch.profiler over
+    ``calls`` calls: how a wrapper's time divides among the kernels it
+    issues."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = e.cuda_time_total
+        m = re.search(r"((?:ssd|split_kv|paged)_\w+)(<[^(]*>)?", e.key)
+        name = (m.group(1) + (m.group(2) or "")) if m else e.key[:40]
+        out[name] = out.get(name, 0.0) + t / 1e3 / calls
+    return out
+
+
+SCAN_PEAK = (f"peak used: float32 on the CUDA cores, "
+             f"{PEAK_FLOPS[torch.float32] / 1e12:.0f} TFLOP/s (the scan's "
+             f"products run there), and {HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+
+
+def log_scan_rates(recs, tag, what):
+    """Per timed scan record and summed (all, S = 1, S > 1): achieved GB/s
+    and TFLOP/s of the function's own bytes and operations over the device
+    time, and the share of the bound over the device time and over ms."""
+    def rate(sub):
+        dev = sum(r["device_ms"] or r["ms"] for r in sub)
+        ms = sum(r["ms"] for r in sub)
+        b = sum(r["bound_ms"] for r in sub)
+        return (f"{sum(r['nbytes'] for r in sub) / dev / 1e6:.1f} GB/s, "
+                f"{sum(r['flops'] for r in sub) / dev / 1e9:.2f} TFLOP/s, "
+                f"{b / dev:.4f} of the bound (device), {b / ms:.4f} (ms)")
+    for r in recs:
+        log(f"[{tag}]   {r['label']}: {rate([r])}")
+    log(f"[{tag}] {SCAN_PEAK}")
+    for part, sub in (("all", recs),
+                      ("decode (S = 1)", [r for r in recs if r["S"] == 1]),
+                      ("chunks (S > 1)", [r for r in recs if r["S"] > 1])):
+        if sub:
+            log(f"[{tag}] {what}, {part} shapes ({len(sub)}): kernel "
+                f"{sum(r['ms'] for r in sub):.4g} ms (device "
+                f"{sum(r['device_ms'] or 0.0 for r in sub):.4g}, host "
+                f"{sum(r['host_ms'] for r in sub):.4g} ms), bound "
+                f"{sum(r['bound_ms'] for r in sub):.4g} ms; {rate(sub)}")
+
+
+def scan_resources():
+    """The scan's kernels as the runtime reports them at N = 64 and 128 in
+    both dtypes (no local memory: no spills), and their machine code: no
+    tensor-core product (HGMMA, HMMA) in any instantiation."""
+    for kernel in ssd.KERNELS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for N in (64, 128):
+                res = ssd.resources(kernel, dtype, N)
+                log(f"[8] runtime, ssd_scan {kernel} "
+                    f"{str(dtype).split('.')[-1]} N = {N}: {res}")
+                check(res["local_bytes"] == 0,
+                      f"ssd_scan {kernel} at N = {N} uses local memory")
+    kernels = sass_counts(ssd.NAME)
+    for name, counts in kernels:
+        log(f"[8] SASS, {name[:60]}: {counts}")
+        check(counts["HGMMA"] == 0 and counts["HMMA"] == 0,
+              f"{name} runs {counts}")
 
 
 def phase_scan_vs_plain(seed):
@@ -1748,6 +1851,7 @@ def phase_scan_vs_plain(seed):
     zero and random initial state; bf16 and fp32.  Timed: decode of 8
     lanes and one 1024-step lane, with a state, in fp32 (the model's
     working dtype)."""
+    scan_resources()
     gen = torch.Generator(device="cuda").manual_seed(seed + 8)
     recs, n = [], 0
     for model, N in (("zamba2", 64), ("mamba2", 128)):
@@ -1771,6 +1875,7 @@ def phase_scan_vs_plain(seed):
     worst = max(r["err_rel"] for r in recs)
     log(f"[8] ssd_scan: {n} cases within tolerance (timed cases' worst "
         f"error {worst:.3g} of max|plain|)")
+    log_scan_rates(recs, 8, "ssd_scan fp32")
     torch.cuda.empty_cache()
     return recs
 
@@ -2003,7 +2108,8 @@ def phase_hybrid(cfg, model, params, seed):
     return launches, srecs, attn_launches, arecs
 
 
-KERNEL_FAMILIES = (("ssd_scan", ("ssd_scan",)),
+KERNEL_FAMILIES = (("ssd_scan", ("ssd_scan", "ssd_decode", "ssd_chunk",
+                                 "ssd_state_pass")),
                    ("paged_chunk_attention", ("paged_chunk_attention",)),
                    ("matmul", ("gemm", "cutlass", "cublas", "xmma", "sm90",
                                "nvjet")),
@@ -2077,6 +2183,7 @@ def retime_scan(cap, chunk):
         log("[9]" + fmt(rec))
         recs.append(rec)
     cap.calls.clear()
+    log_scan_rates(recs, 9, "zamba2 main path ssd_scan")
     return recs
 
 
@@ -2816,6 +2923,8 @@ def compare_decode(q4, kp, vp, tab, qoff, ctx, dtype, label):
     return dict(
         label=label, max_abs_err=err, err_rel=err / scale, k1_err=err1,
         ms=0.5 * (t[0] + t[3]), k1_ms=0.5 * (t[1] + t[2]),
+        device_ms=device_ms(kern), host_ms=host_ms(kern),
+        k1_device_ms=device_ms(k1), flops=flops, nbytes=nbytes,
         plain_ms=cuda_ms(lambda: ref.paged_attention_ref(q, kp, vp, tab,
                                                          ctx), 5),
         library_ms=cuda_ms(sdpa_yardstick(q4, kp, vp, tab, qoff, ctx), 20),
@@ -2825,7 +2934,50 @@ def compare_decode(q4, kp, vp, tab, qoff, ctx, dtype, label):
 
 def fmt_decode(rec) -> str:
     return fmt(rec) + f" kernel1_ms={rec['k1_ms']:.4g} " \
+        f"kernel1_device_ms={rec['k1_device_ms'] or 0.0:.4g} " \
         f"|B.3 - kernel1|={rec['k1_err']:.3g}"
+
+
+def log_decode_rates(recs, what):
+    """B.3's summed ms, device and host ms against kernel 1 at Sq = 1, SDPA
+    and the bound, with the achieved GB/s and the share of the (bytes)
+    bound over the device time, per record and summed."""
+    def rate(sub):
+        dev = sum(r["device_ms"] or r["ms"] for r in sub)
+        ms = sum(r["ms"] for r in sub)
+        lib = sum(r["library_ms"] for r in sub)
+        return (f"{sum(r['nbytes'] for r in sub) / dev / 1e6:.1f} GB/s, "
+                f"{sum(r['bound_ms'] for r in sub) / dev:.4f} of the bound "
+                f"(device), {ms / lib:.3f} x SDPA (ms), "
+                f"{dev / sum(r['k1_device_ms'] or 0.0 for r in sub):.3f} x "
+                f"kernel 1 (device)")
+    for r in recs:
+        log(f"[14]   {r['label']}: {rate([r])}")
+    log(f"[14] {what} ({len(recs)}): B.3 {sum(r['ms'] for r in recs):.4g} "
+        f"ms (device {sum(r['device_ms'] or 0.0 for r in recs):.4g}, host "
+        f"{sum(r['host_ms'] for r in recs):.4g}), kernel 1 at Sq = 1 "
+        f"{sum(r['k1_ms'] for r in recs):.4g} ms (device "
+        f"{sum(r['k1_device_ms'] or 0.0 for r in recs):.4g}), SDPA "
+        f"{sum(r['library_ms'] for r in recs):.4g} ms, bound "
+        f"{sum(r['bound_ms'] for r in recs):.4g} ms; {rate(recs)}")
+
+
+def decode_resources():
+    """B.3's split kernel as the runtime reports it at every head dim in
+    both dtypes (no local memory: no spills), and the library's machine
+    code: no tensor-core product (HGMMA, HMMA) in the split kernel or the
+    merge."""
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in pa.DECODE_HEAD_DIMS:
+            res = pa.decode_resources(dtype, d)
+            log(f"[14] runtime, B.3 {str(dtype).split('.')[-1]} at D = {d}: "
+                f"{res}")
+            check(res["local_bytes"] == 0,
+                  f"B.3 at D = {d} uses local memory")
+    for name, counts in sass_counts(pa.DECODE_NAME):
+        log(f"[14] SASS, {name[:60]}: {counts}")
+        check(counts["HGMMA"] == 0 and counts["HMMA"] == 0,
+              f"{name} runs {counts}")
 
 
 def phase_decode_vs_plain(rng, replay):
@@ -2834,6 +2986,7 @@ def phase_decode_vs_plain(rng, replay):
     run).  Each B.3 call made here must add exactly one to
     ``pa.decode_launches``.  Returns (the cases' records, the replayed
     calls' records)."""
+    decode_resources()
     d0, recs = pa.decode_launches, []
     for label, B, ctxs, H, Hkv, D in decode_cases(rng):
         for dtype in (torch.bfloat16, torch.float32):
@@ -2853,6 +3006,11 @@ def phase_decode_vs_plain(rng, replay):
                              f"T={tab.shape[1]}")
         log("[14]" + fmt_decode(rec))
         rrecs.append(rec)
+    for dtype in ("bfloat16", "float32"):
+        log_decode_rates([r for r in recs if r["label"].endswith(dtype)],
+                         f"phase 14 cases, {dtype}")
+    if rrecs:
+        log_decode_rates(rrecs, "phase 4's decode calls replayed")
     made = sum(r["calls"] for r in recs + rrecs)
     check(pa.decode_launches - d0 == made,
           f"B.3's count rose by {pa.decode_launches - d0} over {made} calls")
@@ -3232,6 +3390,8 @@ def kernel_entry(name, source, replaces, launches, recs):
         launches=launches,
         max_abs_err=max((r["max_abs_err"] for r in recs), default=None),
         ms=sum(r["ms"] for r in recs) if recs else None,
+        device_ms=(sum(r["device_ms"] for r in recs) if recs and all(
+            r.get("device_ms") is not None for r in recs) else None),
         plain_ms=sum(r["plain_ms"] for r in recs) if recs else None,
         bound_ms=sum(r["bound_ms"] for r in recs) if recs else None,
         bound_by=None, library_ms=None)

@@ -1,5 +1,7 @@
-// Hopper (sm_90a) building blocks shared by the port's tensor-core kernels,
-// csrc/flash_prefill.cu and csrc/paged_chunk_attention.cu: mbarriers, TMA
+// Hopper (sm_90a) building blocks shared by the port's kernels
+// (csrc/flash_prefill.cu, csrc/paged_chunk_attention.cu, and for cp.async
+// and `resources` csrc/paged_attention.cu and csrc/ssd_scan.cu): cp.async
+// 16-byte copies, mbarriers, TMA
 // loads through tensor maps, wgmma with shared-memory descriptors of
 // 128-byte-swizzled tiles, and the runtime lookups around them.  Each source
 // includes it into its own library, so everything here has internal linkage.
@@ -50,6 +52,24 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
     if (done) return;
     if (n == kSpinLimit) __trap();
   }
+}
+
+// cp.async: 16 bytes from global to shared memory, bypassing L1; with
+// valid false nothing is read and the 16 bytes are zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // a 64-column box of a 3D tensor map into shared memory, completing on bar

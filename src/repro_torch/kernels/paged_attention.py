@@ -17,15 +17,18 @@ step dispatches it on every layer once the int8 tier is active.  It
 replaces the TPU kernel ``paged_chunk_attention_quant``.
 ``paged_attention`` is the single-token decode kernel, q (B, H, D): its own
 source and library, so kernel 1's and B.2's build is untouched by it.  It
-lies on no serving path (decode is kernel 1's one-token chunk, as in the
-JAX package); ``kernels.ops.paged_attention`` is its entry point.  It
-replaces the TPU kernel ``paged_attention``.
+splits each lane's context over CTAs (``decode_split_plan``) and merges the
+float32 partials in a second device kernel (``csrc/split_kv.cuh``) issued by
+the same library call.  It lies on no serving path (decode is kernel 1's
+one-token chunk, as in the JAX package); ``kernels.ops.paged_attention`` is
+its entry point.  It replaces the TPU kernel ``paged_attention``.
 
 The wrapper only takes CUDA tensors.  It checks device, dtype, shape and
 contiguity, allocates the output, launches on the current stream, raises if
 the launch is refused, and counts its launches in the module's
 ``launches`` (the fp kernel), ``quant_launches`` (the int8 kernel) or
-``decode_launches`` (the decode kernel).  There is no fallback: the plain
+``decode_launches`` (the decode kernel, one per call whether or not the
+merge ran).  There is no fallback: the plain
 version (``kernels/ref.py``) is chosen by ``kernels/ops.py`` only for
 tensors that lie on the CPU, or when a caller asks for it by name.
 
@@ -241,6 +244,64 @@ def _launch(symbol, name, q, k_pages, v_pages, quant, block_tables,
     return out
 
 
+# B.3's split of a lane's context (csrc/paged_attention.cu): splits are whole
+# CTA tiles of 32 keys and at least 64 keys long; enough of them to give the
+# grid about four CTAs per SM
+SPLIT_ALIGN = 32
+MIN_SPLIT = 64
+SPLIT_CTAS_PER_SM = 4
+MAX_SPLITS = 128                    # csrc/split_kv.cuh kSplitMax
+_n_sm = {}
+
+
+def decode_split_plan(B: int, Hkv: int, T_width: int, page: int,
+                      n_sm: int):
+    """(n_split, split): how B.3 cuts a lane's context, from what the host
+    knows without reading ctx_lens — the table's width T_width x page is the
+    most keys a lane can have.  split is a multiple of SPLIT_ALIGN keys,
+    n_split x split covers the table, and B x Hkv x n_split is about
+    SPLIT_CTAS_PER_SM x n_sm, with no split shorter than MIN_SPLIT keys
+    (one split when the table is that short), and at most MAX_SPLITS
+    splits.  Lane b then needs
+    ceil(min(ctx_b, T_width x page) / split) of the splits."""
+    keys = T_width * page
+    want = -(-SPLIT_CTAS_PER_SM * n_sm // max(B * Hkv, 1))
+    n = max(1, min(want, -(-keys // MIN_SPLIT), MAX_SPLITS))
+    split = -(-max(-(-keys // n), 1) // SPLIT_ALIGN) * SPLIT_ALIGN
+    return max(1, -(-keys // split)), split
+
+
+def _sm_count(dev: int) -> int:
+    n = _n_sm.get(dev)
+    if n is None:
+        n = _n_sm[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return n
+
+
+def decode_resources(dtype, head_dim: int, device=None) -> dict:
+    """What the runtime reports for B.3's split kernel for ``dtype`` at
+    ``head_dim``: registers a thread, local (spill) bytes a thread, shared
+    memory a CTA, CTAs resident per SM, threads a CTA."""
+    if dtype not in _DTYPES or head_dim not in DECODE_HEAD_DIMS:
+        raise ValueError(f"{DECODE_NAME}: no body for {dtype} at head dim "
+                         f"{head_dim}")
+    f = _fns.get("decode_resources")
+    if f is None:
+        f = build.load(DECODE_NAME).paged_attention_resources
+        f.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        f.restype = ctypes.c_int
+        _fns["decode_resources"] = f
+    out = (ctypes.c_int * 5)()
+    dev = torch.cuda.current_device() if device is None else int(device)
+    err = f(head_dim, _DTYPES[dtype], dev, out)
+    if err != 0:
+        raise RuntimeError(f"{DECODE_NAME}: resources query failed with "
+                           f"cudaError_t {err}")
+    return dict(zip(("registers", "local_bytes", "smem_bytes",
+                     "ctas_per_sm", "threads"), out))
+
+
 def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens):
     """Single-token decode attention on the card (``csrc/paged_attention.cu``).
 
@@ -248,21 +309,34 @@ def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens):
     (P, page, Hkv, D) of the same dtype; block_tables: (B, T) int32;
     ctx_lens: (B,) int32.  Lane b's heads attend the KV positions <
     ctx_lens[b] (and < T x page); a ctx_len = 0 lane comes back as zeros
-    and reads no KV.  Returns (B, H, D) in q's dtype."""
+    and reads no KV.  Returns (B, H, D) in q's dtype.
+
+    The context is split (``decode_split_plan``); with more than one split
+    the float32 partials go to a workspace allocated here and a second
+    device kernel merges them, both issued by one call into the library and
+    counted as one launch."""
     _check(q, k_pages, v_pages, block_tables, None, ctx_lens,
            kernel=DECODE_NAME, head_dims=DECODE_HEAD_DIMS)
     B, H, D = q.shape
     _, page, Hkv, _ = k_pages.shape
+    T_width = block_tables.shape[1]
     out = torch.empty_like(q)
-    fn = _entry("paged_attention_launch", 6, n_ints=8, lib=DECODE_NAME)
+    fn = _entry("paged_attention_launch", 7, n_ints=10, lib=DECODE_NAME)
     dev = q.device.index
     if dev is None:
         dev = torch.cuda.current_device()
+    n_split, split = decode_split_plan(B, Hkv, T_width, page, _sm_count(dev))
+    ws = None
+    if n_split > 1:
+        rows = B * Hkv * n_split * (H // Hkv)     # csrc/split_kv.cuh
+        ws = torch.empty(-(-2 * rows // 4) * 4 + rows * D,
+                         dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
-             B, H, Hkv, D, page, block_tables.shape[1], _DTYPES[q.dtype], dev,
-             stream)
+             None if ws is None else ws.data_ptr(),
+             B, H, Hkv, D, page, T_width, split, n_split, _DTYPES[q.dtype],
+             dev, stream)
     if err != 0:
         raise RuntimeError(f"{DECODE_NAME}: launch failed with cudaError_t "
                            f"{err}")

@@ -46,6 +46,55 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, ctx_lens):
     return o.reshape(B, H, D).to(q.dtype)
 
 
+def paged_attention_split_ref(q, k_pages, v_pages, block_tables, ctx_lens,
+                              split: int):
+    """B.3's split-KV decode written out plainly: the arithmetic of the CUDA
+    ``paged_attention`` kernel (csrc/paged_attention.cu, merge in
+    csrc/split_kv.cuh), the same function as `paged_attention_ref`.
+
+    Lane b's relevant keys [0, min(ctx_b, T x page)) are cut into splits of
+    ``split`` keys.  Each split gives float32 partials per query head: m its
+    score maximum, l = sum exp(s - m), acc = sum exp(s - m) v.  The merge
+    takes M = max m over the lane's splits and returns sum exp(m - M) acc /
+    max(sum exp(m - M) l, 1e-30) in q's dtype; a lane with no relevant key
+    (ctx = 0) is zeros.  Splits past a lane's end hold no key and weigh
+    nothing (m = MASK_VALUE, l = acc = 0)."""
+    B, H, D = q.shape
+    _, page, Hkv, _ = k_pages.shape
+    G = H // Hkv
+    S = block_tables.shape[1] * page
+    n_split = max(1, -(-S // split))
+    tables = block_tables.long()
+    k = k_pages[tables].reshape(B, S, Hkv, D).float()
+    v = v_pages[tables].reshape(B, S, Hkv, D).float()
+    qg = q.reshape(B, Hkv, G, D).float()
+    kv_end = torch.clamp(ctx_lens.long(), min=0, max=S)
+    neg = torch.tensor(MASK_VALUE, dtype=torch.float32, device=q.device)
+    ms, ls, accs = [], [], []
+    for s0 in range(0, n_split * split, split):
+        ks, vs = k[:, s0:s0 + split], v[:, s0:s0 + split]
+        pos = s0 + torch.arange(ks.shape[1], device=q.device)
+        valid = pos[None, :] < kv_end[:, None]               # (B, n)
+        sc = torch.einsum("bhgd,bshd->bhgs", qg, ks) / math.sqrt(D)
+        sc = torch.where(valid[:, None, None], sc, neg)
+        m = sc.max(dim=-1).values if sc.shape[-1] else \
+            neg.expand(B, Hkv, G).clone()
+        p = torch.where(valid[:, None, None], torch.exp(sc - m[..., None]),
+                        torch.zeros((), device=q.device))
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bhgs,bshd->bhgd", p, vs))
+    m = torch.stack(ms)                                      # (n, B, Hkv, G)
+    M = m.max(dim=0).values
+    e = torch.exp(m - M)
+    l_sum = (torch.stack(ls) * e).sum(dim=0)
+    acc = (torch.stack(accs) * e[..., None]).sum(dim=0)
+    o = acc / torch.clamp(l_sum, min=1e-30)[..., None]
+    o = torch.where((kv_end > 0)[:, None, None, None], o,
+                    torch.zeros((), dtype=o.dtype, device=q.device))
+    return o.reshape(B, H, D).to(q.dtype)
+
+
 def paged_chunk_attention_ref(q, k_pages, v_pages, block_tables, q_offsets,
                               ctx_lens, quant=None):
     """Mixed-batch paged attention: each lane is a chunk of queries.
@@ -125,19 +174,22 @@ def flash_prefill_ref(q, k, v, q_offset=0):
     return o.reshape(B, Sq, H, D).to(q.dtype)
 
 
-def ssd_scan_ref(x, dA, Bm, Cm):
+def ssd_scan_ref(x, dA, Bm, Cm, init_state=None):
     """Sequential SSD/Mamba2 recurrence (token by token, float32): the
-    oracle the chunked scan is held to.
+    oracle the chunked scan is held to, and the arithmetic of the CUDA
+    scan's decode path (h <- exp(dA) h + B x^T, y = C h).
 
     x:  (B, S, H, P)  inputs, already dt-scaled
     dA: (B, S, H)     per-step log decay (<= 0)
     Bm: (B, S, H, N)  input projections (per head; the caller broadcasts
                       groups)
     Cm: (B, S, H, N)  output projections
+    init_state: optional (B, H, N, P) state before step 0 (zeros if None)
     returns (y (B, S, H, P), state (B, H, N, P)), both float32"""
     B, S, H, P = x.shape
     N = Bm.shape[-1]
-    h = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+    h = (torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+         if init_state is None else init_state.float().clone())
     ys = []
     for t in range(S):
         h = (h * torch.exp(dA[:, t].float())[..., None, None]
@@ -204,4 +256,73 @@ def ssd_scan_chunked_ref(x, dA, Bm, Cm, chunk: int, init_state=None,
         h = h * torch.exp(cs[:, -1, :])[..., None, None] + snew
         ys.append(yd + yo)
     y = torch.cat(ys, dim=1)[:, :S] if ys else xf.new_zeros((Bb, 0, H, P))
+    return y.to(x.dtype), h
+
+
+def ssd_scan_state_passing_ref(x, dA, Bm, Cm, chunk: int, init_state=None):
+    """The chunk-parallel state-passing form of the chunked scan, pass by
+    pass: the arithmetic of the CUDA scan's chunk path (csrc/ssd_scan.cu),
+    the same function as `ssd_scan_chunked_ref`, in float32.
+
+    Shapes as `ssd_scan_chunked_ref`.  With nc = ceil(S / chunk) chunks
+    (the tail padded with dA = 0 and zero inputs) and cs the running sum of
+    dA inside each chunk:
+      (a) every chunk at once: C B^T per group, and per head the
+          chunk-local state  S_c = B^T (exp(cs_last - cs) o x)  and the
+          intra-chunk output  y_diag = ((C B^T) o exp(cs_i - cs_j) o
+          [j <= i]) x, each decay cs_i - cs_j summed over its own steps
+          (dA_{j+1} + ... + dA_i) rather than taken as a difference;
+      (b) in chunk order:  h_prev_0 = init,  h_prev_{c+1} = exp(cs_last_c)
+          h_prev_c + S_c; the final state is h_prev_nc;
+      (c) every chunk at once:  y = y_diag + (C h_prev_c) o exp(cs).
+    returns (y (B, S, H, P) in x's dtype, final state (B, H, N, P)
+    float32)."""
+    Bb, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    hpg = H // G
+    dev = x.device
+    Q = max(1, chunk)
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    xf, dAf, Bf, Cf = (t.float() for t in (x, dA, Bm, Cm))
+    if pad:
+        def zpad(t):
+            shape = (t.shape[0], pad) + tuple(t.shape[2:])
+            return torch.cat([t, t.new_zeros(shape)], dim=1)
+        xf, dAf, Bf, Cf = zpad(xf), zpad(dAf), zpad(Bf), zpad(Cf)
+    xc = xf.reshape(Bb, nc, Q, H, P)
+    Bc = Bf.reshape(Bb, nc, Q, G, N)
+    Cc = Cf.reshape(Bb, nc, Q, G, N)
+    # (a); decays over a segment are sums of its own steps, never
+    # differences of running sums (as the kernel forms them)
+    cs = torch.cumsum(dAf.reshape(Bb, nc, Q, H), dim=2)      # (B, nc, Q, H)
+    cb = torch.einsum("bcign,bcjgn->bcgij", Cc, Bc)          # per group
+    cb = cb.repeat_interleave(hpg, dim=2)                    # (B,nc,H,Q,Q)
+    a = dAf.reshape(Bb, nc, Q, H).permute(0, 1, 3, 2)        # (B,nc,H,Q)
+    below = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=dev), -1)
+    steps = torch.where(below, a[..., :, None], torch.zeros((), device=dev))
+    seg = torch.cumsum(steps, dim=-2)      # [i, j] = dA_{j+1} + ... + dA_i
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=dev))
+    ldec = torch.exp(torch.where(causal, seg,
+                                 torch.tensor(MASK_VALUE, device=dev)))
+    y_diag = torch.einsum("bchij,bcjhp->bcihp", cb * ldec, xc)
+    w = torch.exp(seg[..., -1, :])                           # (B,nc,H,Q)
+    bh = Bc.repeat_interleave(hpg, dim=3)                    # (B,nc,Q,H,N)
+    s_loc = torch.einsum("bcjhn,bchj,bcjhp->bchnp", bh, w, xc)
+    # (b)
+    h = (torch.zeros((Bb, H, N, P), dtype=torch.float32, device=dev)
+         if init_state is None else init_state.float().clone())
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(h)
+        h = torch.exp(cs[:, c, -1])[..., None, None] * h + s_loc[:, c]
+    # (c)
+    if nc:
+        hp = torch.stack(h_prev, dim=1)                      # (B,nc,H,N,P)
+        ch = Cc.repeat_interleave(hpg, dim=3)                # (B,nc,Q,H,N)
+        y_off = torch.einsum("bcihn,bchnp->bcihp", ch, hp) \
+            * torch.exp(cs)[..., None]
+        y = (y_diag + y_off).reshape(Bb, nc * Q, H, P)[:, :S]
+    else:
+        y = xf.new_zeros((Bb, 0, H, P))
     return y.to(x.dtype), h

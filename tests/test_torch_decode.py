@@ -193,6 +193,65 @@ def test_plain_decode_is_plain_kernel1_at_one_token(B, H, Hkv, D, page,
     assert not got[-1].any()
 
 
+# (B, H, Hkv, D, page, maxp, ctxs, split): the split-KV decode's edges
+SPLIT_CASES = [
+    (3, 8, 2, 32, 8, 8, [31, 32, 33], 32),     # ctx straddling a split edge
+    (2, 4, 2, 64, 16, 4, [5, 17], 64),         # ctx shorter than one split
+    (3, 8, 4, 32, 8, 4, [0, 9, 32], 32),       # ctx = 0 (zeros)
+    (2, 16, 1, 32, 8, 6, [47, 48], 32),        # G = 16, straddling
+    (2, 4, 4, 32, 16, 8, [128, 97], 32),       # D = 32, four splits, full
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,Hkv,D,page,maxp,ctxs,split", SPLIT_CASES)
+def test_split_decode_matches_plain_and_jax(B, H, Hkv, D, page, maxp, ctxs,
+                                            split, dtype):
+    """B.3's split-KV arithmetic (`ref.paged_attention_split_ref`: float32
+    partials over shares of the context, then the merge) equals the plain
+    B.3 and the JAX Pallas kernel (interpret) on every lane, ctx = 0
+    included (zeros), and the JAX oracle on lanes with ctx >= 1;
+    tolerance 2e-4 (float32) / 2e-2 (bfloat16)."""
+    rng = np.random.default_rng(sum(ctxs) + D)
+    q, kp, vp, tables, _ = _mk_paged(rng, B, H, Hkv, D, page, maxp)
+    ctx = np.asarray(ctxs, np.int32)
+    for b in range(B):                        # last-valid padding
+        w = max(-(-int(ctx[b]) // page), 1)
+        tables[b, w:] = tables[b, w - 1]
+    arrs = (q, kp, vp, tables, ctx)
+    tdt = getattr(torch, dtype)
+    got = tref.paged_attention_split_ref(*_torch(arrs, tdt), split)
+    assert got.dtype == tdt and got.shape == (B, H, D)
+    tol = dict(rtol=TOL[dtype], atol=TOL[dtype])
+    np.testing.assert_allclose(_np(got), _np(ops.paged_attention(
+        *_torch(arrs, tdt))), **tol)
+    oracle, kernel = _jax()
+    np.testing.assert_allclose(_np(got), _np(kernel(*_jnp(arrs, dtype))),
+                               **tol)
+    real = ctx > 0
+    np.testing.assert_allclose(_np(got)[real],
+                               _np(oracle(*_jnp(arrs, dtype)))[real], **tol)
+    assert not _np(got)[~real].any()
+
+
+@pytest.mark.parametrize("B,Hkv,T,page", [
+    (1, 8, 256, 16), (8, 8, 256, 16), (32, 8, 256, 16), (1, 8, 32, 16),
+    (4, 32, 9, 8), (1, 1, 1, 8), (2, 8, 0, 16), (64, 8, 1024, 32)])
+def test_decode_split_plan_covers_the_table(B, Hkv, T, page):
+    """The wrapper's split plan: whole 32-key CTA tiles, the table covered,
+    no split shorter than MIN_SPLIT unless there is one split, and about
+    SPLIT_CTAS_PER_SM CTAs per SM of an H100 (132 SMs) where the table is
+    long enough to give them."""
+    n, split = pa.decode_split_plan(B, Hkv, T, page, 132)
+    keys = T * page
+    assert n >= 1 and split % pa.SPLIT_ALIGN == 0 and split > 0
+    assert n * split >= keys and (n - 1) * split < max(keys, 1)
+    assert n == 1 or split >= pa.MIN_SPLIT
+    target = pa.SPLIT_CTAS_PER_SM * 132
+    if keys >= pa.MIN_SPLIT * target:
+        assert B * Hkv * n >= min(target, B * Hkv * (keys // split))
+
+
 def test_entry_point_dispatch_on_the_cpu():
     """On CPU tensors the entry point takes the plain version (no launch);
     the wrapper itself refuses them, and an unknown mode raises."""
@@ -274,6 +333,72 @@ def test_cuda_decode_matches_plain_and_kernel1(cuda, B, H, Hkv, D, page,
         lim = TOL[dtype] * float(ref_out[:-1].abs().max())
         err = float((got[:-1].float() - ref_out[:-1]).abs().max())
         assert err <= lim, (err, lim)
+
+
+def _regime_case(seed, B, H, Hkv, D, page, T, ctxs):
+    """Pools and tables where each lane's relevant pages are its own and its
+    other columns repeat its last page (a ctx = 0 lane names page 0), and
+    the mask of the pages no lane reads."""
+    rng = np.random.default_rng(seed)
+    need = [-(-c // page) for c in ctxs]
+    P = sum(need) + 4
+    q = rng.normal(size=(B, H, D)).astype(np.float32)
+    kp = rng.normal(size=(P, page, Hkv, D)).astype(np.float32)
+    vp = rng.normal(size=(P, page, Hkv, D)).astype(np.float32)
+    tables = np.zeros((B, T), np.int32)
+    used = np.zeros(P, bool)
+    nxt = 1
+    for b, n in enumerate(need):
+        if n:
+            tables[b, :n] = np.arange(nxt, nxt + n)
+            tables[b, n:] = nxt + n - 1
+            used[nxt:nxt + n] = True
+            nxt += n
+    return (q, kp, vp, tables, np.asarray(ctxs, np.int32)), ~used
+
+
+# (B, H, Hkv, D, page, T, ctxs): one split (a short table), a few long
+# splits (many lanes), many short splits (one lane); each with a lane at
+# the table's full width, one inside the first split, one just past a split
+# edge and a ctx = 0 lane where there is room
+SPLIT_REGIMES = [
+    (3, 32, 8, 128, 16, 4, [64, 7, 0]),
+    (32, 32, 8, 128, 16, 256, [4096, 30, 1377, 0] + [2048] * 28),
+    (2, 32, 8, 128, 16, 256, [4096, 129]),
+    (4, 16, 1, 80, 8, 40, [320, 33, 97, 0]),
+    (3, 36, 36, 64, 32, 16, [512, 1, 129]),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,Hkv,D,page,T,ctxs", SPLIT_REGIMES)
+def test_cuda_decode_split_regimes(cuda, B, H, Hkv, D, page, T, ctxs, dtype):
+    """B.3 in every split-count regime: within tolerance of the plain
+    version on the real lanes, ctx = 0 lanes exact zeros, one count per
+    call; and bit for bit unchanged when every page no lane reads is NaN."""
+    n_split, split = pa.decode_split_plan(
+        B, Hkv, T, page,
+        torch.cuda.get_device_properties(cuda).multi_processor_count)
+    arrs, unused = _regime_case(B * 7 + T, B, H, Hkv, D, page, T, ctxs)
+    q, kp, vp, tables, ctx = [t.to(cuda) for t in
+                              _torch(arrs, getattr(torch, dtype))]
+    before = pa.decode_launches
+    got = pa.paged_attention(q, kp, vp, tables, ctx)
+    torch.cuda.synchronize()
+    assert pa.decode_launches == before + 1
+    real = ctx > 0
+    assert bool((got[~real] == 0).all())
+    want = tref.paged_attention_ref(q, kp, vp, tables, ctx).float()
+    lim = TOL[dtype] * float(want[real].abs().max())
+    err = float((got[real].float() - want[real]).abs().max())
+    assert err <= lim, (n_split, split, err, lim)
+    mask = torch.from_numpy(unused).to(cuda)
+    kp[mask] = float("nan")
+    vp[mask] = float("nan")
+    again = pa.paged_attention(q, kp, vp, tables, ctx)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got), (n_split, split)
 
 
 @pytest.mark.gpu

@@ -155,6 +155,60 @@ def test_chunk_length_does_not_change_the_function():
     torch.testing.assert_close(hz, ho, rtol=5e-4, atol=5e-4)
 
 
+def _prefixed(x, dA, Bm, Cm, h0):
+    """The same scan with no initial state: N steps put h0 into the state
+    first (dA = 0, B_t the unit vector e_t, x_t = h0[:, :, t]), so y past
+    them and the final state are the original's.  Per-head B/C (G = H), as
+    the JAX kernel and oracle take them."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Bh = np.repeat(Bm, H // Bm.shape[2], axis=2)
+    Ch = np.repeat(Cm, H // Cm.shape[2], axis=2)
+    if h0 is None:
+        return x, dA, Bh, Ch, 0
+    eye = np.broadcast_to(np.eye(N, dtype=np.float32)[None, :, None, :],
+                          (B, N, H, N))
+    return (np.concatenate([h0.transpose(0, 2, 1, 3), x], 1),
+            np.concatenate([np.zeros((B, N, H), np.float32), dA], 1),
+            np.concatenate([eye, Bh], 1),
+            np.concatenate([np.zeros((B, N, H, N), np.float32), Ch], 1), N)
+
+
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("S", [1, 2, 31, 32, 33, 513])
+def test_state_passing_and_recurrence_match_jax(S, G, init):
+    """The CUDA scan's two paths written out plainly — the three-pass
+    state-passing scan (chunk 16: chunk-local states, the pass over the
+    chunks, the output correction) and the step-by-step recurrence of the
+    decode path — against the JAX Pallas ssd_scan (interpret, one chunk)
+    and the JAX sequential oracle, with and without an initial state
+    (given to JAX as N leading steps that build it); tolerance 2e-4."""
+    import jax.numpy as jnp
+    from repro.kernels import ref as jref
+    from repro.kernels.ssd_scan import ssd_scan
+    B, H, P, N = 2, 4, 8, 16
+    x, dA, Bm, Cm, h0 = _inputs(S * 10 + G + 100 * init, B, S, H, P, G, N,
+                                init=init)
+    px, pdA, pB, pC, lead = _prefixed(x, dA, Bm, Cm, h0)
+    jargs = [jnp.asarray(a) for a in (px, pdA, pB, pC)]
+    want_k = np.asarray(ssd_scan(*jargs, chunk=px.shape[1],
+                                 interpret=True))[:, lead:]
+    want_y, want_h = (np.asarray(a) for a in jref.ssd_scan_ref(*jargs))
+    want_y = want_y[:, lead:]
+    targs = [_t(a) for a in (x, dA, Bm, Cm)]
+    y3, h3 = tref.ssd_scan_state_passing_ref(*targs, 16, init_state=_t(h0))
+    Bh, Ch = (a.repeat_interleave(H // G, dim=2) for a in targs[2:])
+    yr, hr = tref.ssd_scan_ref(targs[0], targs[1], Bh, Ch,
+                               init_state=_t(h0))
+    tol = dict(rtol=2e-4, atol=2e-4)
+    for y, h in ((y3, h3), (yr, hr)):
+        assert tuple(y.shape) == (B, S, H, P) and h.dtype == torch.float32
+        np.testing.assert_allclose(y.numpy(), want_k, **tol)
+        np.testing.assert_allclose(y.numpy(), want_y, **tol)
+        np.testing.assert_allclose(h.numpy(), want_h, **tol)
+
+
 def test_dispatch_follows_the_tensor_device():
     """CPU tensors take the plain version; the kernel wrapper refuses them
     (no fallback) and counts nothing; unknown modes raise."""
@@ -215,6 +269,85 @@ def test_cuda_ssd_scan_matches_plain(cuda, B, S, H, P, G, N, dtype, init):
         assert torch.isfinite(got.float()).all()
         err = (got.float() - want.float()).abs().max().item()
         assert err <= TOL[dtype] * want.float().abs().max().item()
+
+
+def _card_args(cuda, seed, B, S, H, P, G, N, dtype, init=True):
+    x, dA, Bm, Cm, h0 = _inputs(seed, B, S, H, P, G, N, init=init)
+    tdt = getattr(torch, dtype)
+    args = [_t(a, d).to(cuda) for a, d in ((x, tdt), (dA, torch.float32),
+                                           (Bm, tdt), (Cm, tdt))]
+    return args, None if h0 is None else _t(h0).to(cuda)
+
+
+def _close(got, want, dtype):
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL[dtype] * want.float().abs().max().item(), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,P,G,N", [(4, 80, 64, 1, 64), (2, 6, 24, 3, 40),
+                                       (1, 8, 18, 2, 128)])
+def test_cuda_ssd_decode_path_equals_chunk_path(cuda, B, H, P, G, N, dtype):
+    """One step through the decode path equals the same step through the
+    chunk path: the S = 1 input followed by DECODE_MAX_S steps that change
+    nothing (dA = 0, zero x, B and C), which makes S long enough for the
+    chunk path; y of the first step and the final state agree."""
+    (x, dA, Bm, Cm), h0 = _card_args(cuda, B * 5 + N, B, 1, H, P, G, N,
+                                     dtype)
+    y1, h1 = kssd.ssd_scan(x, dA, Bm, Cm, init_state=h0)
+    pad = kssd.DECODE_MAX_S
+
+    def ext(t):
+        return torch.cat([t, torch.zeros_like(t[:, :1]).repeat(
+            1, pad, *([1] * (t.dim() - 2)))], 1).contiguous()
+    yc, hc = kssd.ssd_scan(ext(x), ext(dA), ext(Bm), ext(Cm), init_state=h0)
+    torch.cuda.synchronize()
+    _close(y1, yc[:, :1], dtype)
+    _close(h1, hc, dtype)
+    yr, hr = tref.ssd_scan_chunked_ref(x, dA, Bm, Cm, 16, init_state=h0)
+    _close(y1, yr, dtype)
+    _close(h1, hr, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [1, 2, 16, 17, 64, 65])
+def test_cuda_ssd_paths_meet_at_the_boundary(cuda, S, dtype):
+    """S on both sides of DECODE_MAX_S and of a 64-step chunk, against the
+    plain version; and S steps equal S - 1 steps continued by one."""
+    assert kssd.DECODE_MAX_S == 16
+    (x, dA, Bm, Cm), h0 = _card_args(cuda, S, 2, S, 8, 64, 1, 64, dtype)
+    y, h = kssd.ssd_scan(x, dA, Bm, Cm, init_state=h0)
+    yr, hr = tref.ssd_scan_chunked_ref(x, dA, Bm, Cm, 16, init_state=h0)
+    _close(y, yr, dtype)
+    _close(h, hr, dtype)
+    if S > 1:
+        head = [a[:, :S - 1].contiguous() for a in (x, dA, Bm, Cm)]
+        tail = [a[:, S - 1:].contiguous() for a in (x, dA, Bm, Cm)]
+        _, hp = kssd.ssd_scan(*head, init_state=h0)
+        yl, hl = kssd.ssd_scan(*tail, init_state=hp)
+        torch.cuda.synchronize()
+        _close(yl, y[:, S - 1:], dtype)
+        _close(hl, h, dtype)
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_decode_continues_a_long_scan(cuda):
+    """A decode step (S = 1) continued from the state of 1023 steps equals
+    step 1024 of the 1024-step scan, y and the final state, at zamba2-2.7b's
+    SSD widths in float32."""
+    (x, dA, Bm, Cm), h0 = _card_args(cuda, 1024, 2, 1024, 80, 64, 1, 64,
+                                     "float32")
+    y, h = kssd.ssd_scan(x, dA, Bm, Cm, init_state=h0)
+    _, hp = kssd.ssd_scan(*[a[:, :1023].contiguous() for a in
+                            (x, dA, Bm, Cm)], init_state=h0)
+    yl, hl = kssd.ssd_scan(*[a[:, 1023:].contiguous() for a in
+                             (x, dA, Bm, Cm)], init_state=hp)
+    torch.cuda.synchronize()
+    _close(yl, y[:, 1023:], "float32")
+    _close(hl, h, "float32")
 
 
 @pytest.mark.gpu
