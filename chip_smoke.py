@@ -1,8 +1,9 @@
 """Card check of the PyTorch/CUDA port: builds the CUDA kernels, holds each
 against its plain PyTorch version, and serves llama3-8b (under memory
 pressure, and on a three-node cluster with migration and failure),
-zamba2-2.7b and xlstm-1.3b at full width and depth through the port's
-entry points.
+zamba2-2.7b, xlstm-1.3b and phi-3-vision-4.2b at full width and depth
+through the port's entry points; granite-moe-3b, qwen3-moe-30b (12 of 48
+layers) and seamless-m4t-medium prefill and decode at full width.
 
 Run from the repository root on a machine with an NVIDIA card:
 
@@ -11,6 +12,7 @@ Run from the repository root on a machine with an NVIDIA card:
     python3 chip_smoke.py --phases 11,12     # B.4 and the cluster
     python3 chip_smoke.py --phases 3,4,14    # B.3, with phase 4's replay
     python3 chip_smoke.py --phases 15,16     # xlstm-1.3b
+    python3 chip_smoke.py --phases 17,18,19,20   # vlm, moe, encdec
 
 Phases:
   1. environment: the card's name and power limit;
@@ -129,7 +131,30 @@ Phases:
      sLSTM scan's share of a 512-token prefill step;
  16. exact tokens in fp32 (xlstm at full width, 8 blocks) through a swap,
      a spool recovery after a crash and an export/import migration to a
-     third node: the dense prefill/decode recompute's tokens.
+     third node: the dense prefill/decode recompute's tokens;
+ 17. phi-3-vision-4.2b (32 layers, bf16, H = Hkv = 32, D = 96): (a) a
+     prefill of 576 random 1024-d patch embeddings and 128 tokens at B = 2,
+     B.4 at D = 96 on every layer, its input held against the plain
+     version and timed; (b) phase 4's serve through `make_backend`'s
+     RealBackend (kernel 1 at D = 96 on every layer of every dispatch,
+     the lockstep twins, the main path's calls re-timed); (c) one pass of
+     phase 6's pressure rounds (4 sessions x 3 turns, no host link, spool
+     or migration): B.2 at D = 96 on every layer once the int8 tier is
+     active, held and re-timed as in phase 6;
+ 18. granite-moe-3b-a800m (32 layers, 40 experts padded to 48, top-8) and
+     qwen3-moe-30b-a3b at full width and 12 of its 48 layers (128 experts,
+     D = 128, G = 8, qk-norm), bf16: a prefill of B = 2 x 512 tokens with
+     B.4 at G = 3 and G = 8 on every layer (held and timed), 16 greedy
+     decode steps, and the shares of expert assignments dropped by
+     capacity and dumped by the reference's last-write rule;
+ 19. seamless-m4t-medium (12 + 12 layers, vocab 256206, bf16): encode 2 x
+     256 random frames, prefill 64 decoder tokens (B.4 at D = 64, G = 1 on
+     the decoder's layers, held and timed), 16 greedy decode steps;
+ 20. exact tokens in fp32 at full width and 2 layers (2 + 2 for
+     seamless): phi-3-vision (with patches), both MoE models and
+     seamless-m4t greedy for 16 tokens with the kernels equal
+     kernel_mode="ref"; phi-3-vision served through RealBackend with a
+     swap-out between turns equals the dense recompute.
 
 It prints progress lines, then one line with the kernels' JSON record, the
 card's name and power limit, and as the last line
@@ -166,7 +191,8 @@ from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels.quant import quantize_int8  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
-from repro_torch.serving.backend import RealBackend  # noqa: E402
+from repro_torch.serving.backend import (RealBackend,  # noqa: E402
+                                         make_backend)
 from repro_torch.serving.cost_model import CostModel  # noqa: E402
 from repro_torch.serving.engine import NodeEngine  # noqa: E402
 from repro_torch.serving.scenario import (MixedTrace,  # noqa: E402
@@ -800,14 +826,16 @@ def make_node(cfg, model, params, *, n_pages, page_size=16, hbm_pages=None,
               spool=None, node_id=0, kernel_mode="auto", trace_logits=False,
               max_batch=8, token_budget=512):
     """(NodeEngine, RealBackend, NodeManager) on the model's device, as a
-    user of the port would build them."""
+    user of the port would build them (`make_backend` picks RealBackend
+    for the dense and vlm families)."""
     cost = CostModel(cfg)
     cost.set_param_count(model.param_count())
     mgr = NodeManager(node_id, cfg, cost)
-    be = RealBackend(cfg, model, params, n_pages=n_pages, page_size=page_size,
-                     hbm_pages=hbm_pages, spool_dir=spool, mgr=mgr,
-                     trace_logits=trace_logits, kernel_mode=kernel_mode,
-                     device=model.device)
+    be = make_backend(cfg, model, params, n_pages=n_pages,
+                      page_size=page_size, hbm_pages=hbm_pages,
+                      spool_dir=spool, mgr=mgr, trace_logits=trace_logits,
+                      kernel_mode=kernel_mode, device=model.device)
+    check(isinstance(be, RealBackend), f"make_backend gave {type(be)}")
     eng = NodeEngine(node_id, cfg, cost, mgr, max_batch=max_batch,
                      backend=be, token_budget=token_budget)
     return eng, be, mgr
@@ -1199,7 +1227,7 @@ def llama3_8b(seed, tag):
     return cfg, model, params
 
 
-def phase_serve(cfg, model, params, seed):
+def phase_serve(cfg, model, params, seed, tag=4):
     rng = np.random.default_rng(seed)
     prompts = _turns(rng, cfg.vocab)
     gen = 16
@@ -1207,13 +1235,13 @@ def phase_serve(cfg, model, params, seed):
                                                    prompts, gen)
     subs = be.stats["sub_dispatches"]
     n_tok = sum(len(r.output_ids) for r in reqs)
-    log(f"[4] main path: {len(reqs)} requests, {n_tok} generated tokens, "
+    log(f"[{tag}] main path: {len(reqs)} requests, {n_tok} generated tokens, "
         f"{eng.stats['prefill_tokens']} prefill tokens in "
         f"{eng.stats['chunks']} chunks, {len(steps)} steps, mean step "
         f"{1e3 * sum(steps) / len(steps):.2f} ms, max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    log(f"[4] backend stats: {be.stats}; buckets: {be.compile_counts()}")
-    log(f"[4] kernel launches {launches} = n_layers {cfg.n_layers} x "
+    log(f"[{tag}] backend stats: {be.stats}; buckets: {be.compile_counts()}")
+    log(f"[{tag}] kernel launches {launches} = n_layers {cfg.n_layers} x "
         f"sub-dispatches {subs}: {launches == cfg.n_layers * subs}")
     check(launches == cfg.n_layers * subs and launches > 0,
           f"kernel launches {launches} != {cfg.n_layers} x {subs}")
@@ -1240,16 +1268,16 @@ def phase_serve(cfg, model, params, seed):
           f"the capture saw {cap.n} kernel calls of the "
           f"{pa.launches - launches0} the kernel path launched")
     lock.verdict(cfg)
-    log(f"[4] captured {len(cap.calls)} distinct main-path kernel shapes "
+    log(f"[{tag}] captured {len(cap.calls)} distinct main-path kernel shapes "
         f"from {cap.n} calls")
     check(len(cap.calls) == buckets,
           f"captured {len(cap.calls)} distinct kernel shapes, the main path "
           f"ran {buckets} step buckets")
-    lock.log(4)
+    lock.log(tag)
     del lock
     torch.cuda.empty_cache()
     decode = decode_calls(cap)
-    recs = retime(cap, "main path", 4)
+    recs = retime(cap, "main path", tag)
     torch.cuda.empty_cache()
     return launches, recs, decode
 
@@ -1303,7 +1331,8 @@ def reference_turns(cfg, model, params, turns, gen):
     version."""
     f0 = fp.launches
     expect = dense_reference(cfg, model, params, {"chat": turns}, gen)["chat"]
-    want = cfg.n_layers * len(turns) if cfg.family == "dense" else 0
+    want = (cfg.n_layers * len(turns) if cfg.family in ("dense", "vlm")
+            else 0)
     check(fp.launches - f0 == want, f"the dense recompute launched B.4 "
           f"{fp.launches - f0} times, not {want}")
     return expect
@@ -1585,7 +1614,15 @@ def phase_pressure(cfg, model, params, seed):
         check(tot[k] > 0, f"the pressure path never moved {k}: {tot}")
     check(q_launches > 0, "the int8 kernel never ran on the main path")
 
-    # the rounds again in lockstep: kernel path vs plain vs float64
+    recs = pressure_lockstep(cfg, model, params, prompts, gen, n_pages,
+                             hbm_pages, 6)
+    return q_launches, recs, link
+
+
+def pressure_lockstep(cfg, model, params, prompts, gen, n_pages, hbm_pages,
+                      tag):
+    """The pressure rounds again in lockstep (kernel path vs plain vs
+    float64), then the int8 kernel's captured main-path calls re-timed."""
     capq = Capture("paged_chunk_attention_quant", score=lambda a: flag_share(
         a[-3], a[-1], a[7], a[1].shape[1]))
     capf = Capture("paged_chunk_attention")
@@ -1603,15 +1640,15 @@ def phase_pressure(cfg, model, params, seed):
     check(capq.n > 0 and max(capq.scores.values()) > 0,
           "the lockstep twin never read an int8 page")
     lock.verdict(cfg)
-    lock.log(6)
-    log(f"[6] captured {len(capq.calls)} distinct int8-kernel shapes from "
-        f"{capq.n} calls")
+    lock.log(tag)
+    log(f"[{tag}] captured {len(capq.calls)} distinct int8-kernel shapes "
+        f"from {capq.n} calls")
     del lock
     capf.calls.clear()
     torch.cuda.empty_cache()
-    recs = retime(capq, "pressure", 6)
+    recs = retime(capq, "pressure", tag)
     torch.cuda.empty_cache()
-    return q_launches, recs, link
+    return recs
 
 
 # ---------------------------------------------------------------------------
@@ -2330,7 +2367,8 @@ def compare_flash(q, k, v, q_offset, label):
     nbytes, flops = flash_work(q, k, q_offset)
     b_ms, b_by, t_b, t_f = bound(nbytes, flops, q.dtype)
     return dict(label=label, max_abs_err=err, err_rel=err / scale,
-                ms=cuda_ms(kern, 10), plain_ms=cuda_ms(plain, 3),
+                ms=cuda_ms(kern, 10), device_ms=device_ms(kern, 10),
+                plain_ms=cuda_ms(plain, 3),
                 library_ms=cuda_ms(sdpa_prefill(q, k, v, q_offset), 10),
                 bound_ms=b_ms, bound_by=b_by, bytes_ms=t_b, ops_ms=t_f,
                 flops=flops)
@@ -2354,7 +2392,7 @@ def flash_resources(built):
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and "flash_prefill" in line:
             body = "tc" if "flash_prefill_tc" in line else "fp32 CUDA-core"
-            dim = "128" if "Li128E" in line else "64"
+            dim = next(d for d in fp.HEAD_DIMS if f"Li{d}E" in line)
             info = [x.strip() for x in lines[i + 1:i + 4]
                     if "spill" in x or "Used" in x]
             log(f"[11] ptxas, {body} body at D = {dim}: {'; '.join(info)}")
@@ -2364,7 +2402,7 @@ def flash_resources(built):
                 f"{fp.resources(dtype, d)}")
     for name, counts in sass_counts(fp.NAME):
         body = "tc" if "flash_prefill_tc" in name else "fp32 CUDA-core"
-        dim = "128" if "Li128E" in name else "64"
+        dim = next(d for d in fp.HEAD_DIMS if f"Li{d}E" in name)
         log(f"[11] SASS, {body} body at D = {dim}: {counts}")
         check((counts["HGMMA"] > 0) == (body == "tc") and not counts["HMMA"],
               f"B.4's {body} body at D = {dim} runs {counts}")
@@ -3377,6 +3415,311 @@ def phase_exact_xlstm(seed):
     free_device_memory()
 
 
+# ---------------------------------------------------------------------------
+# phases 17-20: phi-3-vision (vlm), the MoE models, seamless-m4t (encdec)
+# ---------------------------------------------------------------------------
+
+def tensors(tree):
+    """The tensors of a nested parameter dictionary."""
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from tensors(v)
+        else:
+            yield v
+
+
+def published(name, seed, tag, **cut):
+    """The registered config ``name`` at its published widths, random
+    weights drawn on the card from ``seed``; ``cut`` replaces fields (fewer
+    layers, another dtype) and is printed."""
+    cfg = configs.get_config(name)
+    if cut:
+        cfg = dataclasses.replace(cfg, name=name + "-" + "-".join(
+            f"{k}={v}" for k, v in cut.items()), **cut)
+    model = get_model(cfg, device="cuda")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in tensors(params))
+    depth = (f"{cfg.n_enc_layers} + {cfg.n_dec_layers} layers"
+             if cfg.family == "encdec" else f"{cfg.n_layers} layers")
+    extra = (f", {cfg.moe.n_experts} experts (padded to {model.e_pad}) "
+             f"top-{cfg.moe.top_k} of d_ff {cfg.moe.d_expert_ff}, capacity "
+             f"factor {cfg.moe.capacity_factor}" if cfg.moe else "")
+    log(f"[{tag}] {cfg.name}: {cfg.family}, {depth}, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.d_head}{extra}, vocab "
+        f"{cfg.vocab}, {cfg.dtype}: {nbytes / 1e9:.2f} GB of weights in "
+        f"{time.perf_counter() - t0:.1f} s" + (
+            f"; cut from the published config: {cut}" if cut else ""))
+    return cfg, model, params
+
+
+def attn_layers(cfg):
+    """Layers whose causal self-attention prefill runs B.4."""
+    return cfg.n_dec_layers if cfg.family == "encdec" else cfg.n_layers
+
+
+def held_prefill(model, params, args, tag, what):
+    """One prefill on the kernel path with B.4's count set to 0 just before
+    and read just after: B.4 on every layer and no plain call; its input
+    (one call of each distinct shape) held against the plain version and
+    timed; the logits finite.  Returns (logits, cache, launches, recs)."""
+    cfg = model.cfg
+    cap = Capture("flash_prefill", module=fp,
+                  key=lambda a, kw: (tuple(a[0].shape), tuple(a[1].shape)))
+    plain = PlainCalls()
+    torch.cuda.synchronize()
+    fp.launches = 0                          # counts of this main path only
+    t0 = time.perf_counter()
+    with cap(), plain():
+        logits, cache = model.prefill(params, *args)
+    torch.cuda.synchronize()
+    launches, wall = fp.launches, time.perf_counter() - t0
+    log(f"[{tag}] {what}: prefill {1e3 * wall:.1f} ms; B.4 launches "
+        f"{launches} = {attn_layers(cfg)} layers: "
+        f"{launches == attn_layers(cfg)}; plain calls {plain.n}")
+    check(launches == attn_layers(cfg) and plain.n == 0 and cap.n == launches,
+          f"{what}: B.4 ran {launches} times for {attn_layers(cfg)} layers "
+          f"({plain.n} plain calls)")
+    check(bool(torch.isfinite(logits.float()).all()),
+          f"{what}: prefill logits not finite")
+    recs = []
+    for key, (a, _) in sorted(cap.calls.items()):
+        q, k, v = a[:3]
+        G = q.shape[2] // k.shape[2]
+        rec = compare_flash(q, k, v, int(a[3]) if len(a) > 3 else 0,
+                            f"{what} B={q.shape[0]} Sq={q.shape[1]} "
+                            f"D={q.shape[3]} G={G}")
+        log(f"[{tag}]" + fmt(rec))
+        log(f"[{tag}]   {fmt_rate(rec)}")
+        recs.append(rec)
+    cap.calls.clear()
+    return logits, cache, launches, recs
+
+
+def greedy(model, params, logits, cache, n):
+    """``n`` greedy decode steps after a prefill; (tokens per step, mean
+    step ms on the host clock to a synchronisation, last logits)."""
+    vocab, out, times = model.cfg.vocab, [], []
+    cache = model.grow_cache(cache, n)
+    for _ in range(n):
+        nxt = torch.argmax(logits[:, :vocab], -1).to(torch.int32)
+        out.append(nxt.cpu().tolist())
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(params, cache, nxt)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return out, 1e3 * float(np.mean(times)), logits
+
+
+def phase_vlm_prefill(cfg, model, params, seed, tag=17):
+    """phi-3-vision's prefill at B = 2: 576 random 1024-d patch embeddings
+    in front of 128 text tokens (B.4 at D = 96 on every layer)."""
+    rng = np.random.default_rng(seed + 17)
+    dev = model.device
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 128))).to(dev)
+    patches = torch.randn((2, cfg.n_patches, cfg.d_frontend), device=dev,
+                          generator=torch.Generator(device=dev)
+                          .manual_seed(seed + 17))
+    logits, cache, launches, recs = held_prefill(
+        model, params, (tokens, patches), tag,
+        f"vlm prefill ({cfg.n_patches} patches + 128 tokens)")
+    check(tuple(cache["k"].shape[3:]) == (cfg.n_patches + 128, cfg.d_head),
+          f"the cache holds {tuple(cache['k'].shape)}")
+    return launches, recs
+
+
+def phase_vlm_pressure(cfg, model, params, seed, tag=17):
+    """One pressure pass of phase 6's rounds (4 sessions x 3 turns, the
+    fp budget at 40 % of the sessions' pages; no host-link timing, spool
+    or migration): the second turn's advisories make idle sessions int8,
+    so B.2 serves every layer once the tier is active, and the third
+    turn's lanes read their own int8 pages; then held like phase 6
+    (lockstep twins, the int8 kernel's calls re-timed)."""
+    rng = np.random.default_rng(seed + 17)
+    gen = 16
+    prompts = pressure_prompts(rng, cfg.vocab, n_sessions=4, n_turns=3)
+    total = sum(-(-(sum(map(len, turns)) + len(turns) * gen) // PAGE)
+                for turns in prompts)
+    hbm_pages = int(0.4 * total)
+    n_pages = 2 * hbm_pages
+    torch.cuda.synchronize()
+    pa.launches = pa.quant_launches = 0   # counts of this main path only
+    node = make_node(cfg, model, params, n_pages=n_pages,
+                     hbm_pages=hbm_pages)
+    d = Single(node, cfg)
+    pressure_rounds(d, prompts, gen)
+    fl, ql = pa.launches, pa.quant_launches
+    be = node[1]
+    log(f"[{tag}] pressure pass: {len(prompts)} sessions x "
+        f"{len(prompts[0])} turns, hbm_pages {hbm_pages} of {total}, "
+        f"{len(d.steps)} steps, mean step {1e3 * float(np.mean(d.steps)):.2f}"
+        f" ms; kernel launches: fp {fl}, int8 {ql}; backend stats "
+        f"{be.stats}")
+    check(be.stats["quantized_pages"] > 0 and ql > 0,
+          "the pressure pass put no int8 page on the path")
+    del d, node, be
+    free_device_memory()
+    return fl, ql, pressure_lockstep(cfg, model, params, prompts, gen,
+                                     n_pages, hbm_pages, tag)
+
+
+class RouteStats:
+    """While active, counts each MoE layer's dispatch (``route_stats``):
+    assignments, those dropped by capacity, and kept ones the reference's
+    dump discards."""
+
+    def __init__(self, model):
+        self.model = model
+        self.n = dict(assignments=0, dropped=0, dumped=0)
+
+    @contextlib.contextmanager
+    def __call__(self):
+        model, ffn = self.model, self.model._ffn
+
+        def counted(x, w):
+            for k, v in model.route_stats(x, w).items():
+                self.n[k] += v
+            return ffn(x, w)
+
+        model._ffn = counted
+        try:
+            yield
+        finally:
+            del model._ffn
+
+    def shares(self):
+        a = max(self.n["assignments"], 1)
+        return (f"{self.n['assignments']} assignments, dropped by capacity "
+                f"{self.n['dropped'] / a:.4f}, kept but dumped "
+                f"{self.n['dumped'] / a:.4f}")
+
+
+def phase_moe(seed, tag=18):
+    """granite-moe-3b-a800m in full and qwen3-moe-30b-a3b at full width and
+    12 of its 48 layers, bf16: prefill B = 2 x 512 tokens (B.4 at G = 3 and
+    G = 8 on every layer, held against the plain version), then 16 greedy
+    decode steps; each model's share of assignments dropped by capacity."""
+    launches, recs = 0, []
+    for name, cut in (("granite-moe-3b-a800m", {}),
+                      ("qwen3-moe-30b-a3b", dict(n_layers=12))):
+        cfg, model, params = published(name, seed, tag, **cut)
+        rng = np.random.default_rng(seed + 18)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 512))).to(
+            model.device)
+        stats = RouteStats(model)
+        with stats():
+            logits, cache, n, r = held_prefill(model, params, (tokens,), tag,
+                                               f"{name} prefill")
+            pre = stats.shares()
+            toks, step_ms, last = greedy(model, params, logits, cache, 16)
+        check(bool(torch.isfinite(last.float()).all()),
+              f"{name}: decode logits not finite")
+        log(f"[{tag}] {name}: 16 decode steps at B = 2, mean "
+            f"{step_ms:.2f} ms; tokens {toks[:4]} ...; prefill routing: "
+            f"{pre}; prefill and decode: {stats.shares()}")
+        launches += n
+        recs += r
+        del cfg, model, params, cache, logits, last
+        free_device_memory()
+    return launches, recs
+
+
+def phase_encdec(seed, tag=19):
+    """seamless-m4t-medium in full, bf16: encode 2 x 256 random 1024-d
+    frames, prefill 64 decoder tokens (B.4 at D = 64, G = 1 on the
+    decoder's 12 layers), then 16 greedy decode steps."""
+    cfg, model, params = published("seamless-m4t-medium", seed, tag)
+    rng = np.random.default_rng(seed + 19)
+    dev = model.device
+    frames = torch.randn((2, 256, cfg.d_frontend), device=dev,
+                         generator=torch.Generator(device=dev)
+                         .manual_seed(seed + 19))
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 64))).to(dev)
+    logits, cache, launches, recs = held_prefill(
+        model, params, (frames, tokens), tag, "encdec prefill (256 frames + "
+        "64 tokens)")
+    toks, step_ms, last = greedy(model, params, logits, cache, 16)
+    check(bool(torch.isfinite(last.float()).all()),
+          "encdec: decode logits not finite")
+    log(f"[{tag}] 16 decode steps at B = 2 over 256 encoder positions, mean "
+        f"{step_ms:.2f} ms; tokens {toks[:4]} ...")
+    del cfg, model, params, cache, logits, last
+    free_device_memory()
+    return launches, recs
+
+
+EXACT_A9 = (("phi-3-vision-4.2b", dict(n_layers=2)),
+            ("granite-moe-3b-a800m", dict(n_layers=2)),
+            ("qwen3-moe-30b-a3b", dict(n_layers=2)),
+            ("seamless-m4t-medium", dict(n_layers=4, n_enc_layers=2,
+                                         n_dec_layers=2)))
+
+
+def phase_exact_a9(seed, tag=20):
+    """Exact tokens in fp32 at full width and 2 layers (2 encoder and 2
+    decoder layers for encdec): 16 greedy tokens with the kernels equal
+    ``kernel_mode="ref"``'s, for phi-3-vision (with patches), both MoE
+    models and seamless-m4t; then phi-3-vision served through RealBackend
+    with a swap-out between turns equals the dense recompute."""
+    rng = np.random.default_rng(seed + 20)
+    gen = 16
+    for name, cut in EXACT_A9:
+        cfg, model, params = published(name, seed + 20, tag, dtype="float32",
+                                       **cut)
+        dev = model.device
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 100))).to(dev)
+        if cfg.family == "vlm":
+            args = (tokens, torch.randn((1, cfg.n_patches, cfg.d_frontend),
+                                        device=dev))
+        elif cfg.family == "encdec":
+            args = (torch.randn((1, 256, cfg.d_frontend), device=dev),
+                    tokens[:, :64])
+        else:
+            args = (tokens,)
+        got = {}
+        for mode in ("auto", "ref"):
+            f0 = fp.launches
+            logits, cache = model.prefill(params, *args, kernel_mode=mode)
+            got[mode], _, _ = greedy(model, params, logits, cache, gen)
+            ran = fp.launches - f0
+            want = attn_layers(cfg) if mode == "auto" else 0
+            check(ran == want, f"{name} fp32 ({mode}): B.4 ran {ran} times, "
+                  f"not {want}")
+        log(f"[{tag}] {cfg.name}: kernels {sum(got['auto'], [])}")
+        log(f"[{tag}] {cfg.name}: plain   {sum(got['ref'], [])}")
+        check(got["auto"] == got["ref"], f"{name} fp32: tokens with the "
+              f"kernels differ from kernel_mode='ref'")
+        if cfg.family == "vlm":
+            turns = [[int(x) for x in rng.integers(0, cfg.vocab, int(n))]
+                     for n in rng.integers(100, 300, 3)]
+            expect = reference_turns(cfg, model, params, turns, gen)
+            eng, be, _ = make_node(cfg, model, params, n_pages=256,
+                                   max_batch=4, token_budget=128)
+            served, now = [], 0.0
+            before = pa.launches
+            for i, turn in enumerate(turns):
+                toks, now = serve_turn(eng, be, "chat", turn, gen, now)
+                served.append(toks)
+                if i == 0:
+                    be.swap_out("chat", be.session_tokens("chat"))
+                    be.drain_transfers()
+            ran = pa.launches - before
+            log(f"[{tag}] {cfg.name} served with a swap: {served}")
+            log(f"[{tag}] dense recompute {expect}; swaps out/in "
+                f"{be.stats['swaps_out']}/{be.stats['swaps_in']}, kernel "
+                f"launches {ran}")
+            check(be.stats["swaps_out"] > 0 and be.stats["swaps_in"] > 0,
+                  "the session was not swapped out and back in")
+            check(ran == cfg.n_layers * be.stats["sub_dispatches"],
+                  "the fp32 serve did not go through kernel 1 on every layer")
+            check(served == expect, f"{name} fp32: served tokens differ "
+                  f"from the dense recompute")
+            del eng, be
+        del cfg, model, params
+        free_device_memory()
+
+
 def free_device_memory():
     """Release what a finished phase held: its nodes form reference cycles
     (backend <-> node manager) that only the cyclic collector frees."""
@@ -3407,18 +3750,26 @@ def kernel_entry(name, source, replaces, launches, recs):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default=",".join(map(str, range(1, 17))))
+    ap.add_argument("--phases", default=",".join(map(str, range(1, 21))))
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     t_start = time.perf_counter()
+    mark = [t_start]
+
+    def lap(what):
+        now = time.perf_counter()
+        log(f"[{what}] in {now - mark[0]:.1f} s")
+        mark[0] = now
     try:
         kind, card = phase_env()
         built = phase_build() if 2 in phases else {}
         shape_recs, shape_qrecs = (
             phase_kernel_vs_plain(np.random.default_rng(args.seed), built)
             if 3 in phases else ([], []))
+        lap("phases 1-3")
         flash_shape_recs = (phase_flash_vs_plain(args.seed, built)
                             if 11 in phases else [])
+        lap("phase 11")
         launches, main_recs, qlaunches, qrecs = 0, [], 0, []
         flaunches, flash_recs, decode = 0, [], []
         # B.3 lies on no serving path: its count over every serving phase
@@ -3437,11 +3788,13 @@ def main(argv=None):
                                                       args.seed, card)
             del cfg, model, params
             free_device_memory()
+        lap("phases 4, 6, 12")
         dlaunches = pa.decode_launches
         decode_recs, replay_recs = (
             phase_decode_vs_plain(np.random.default_rng(args.seed + 14),
                                   decode) if 14 in phases else ([], []))
         decode.clear()
+        lap("phase 14")
         pa.decode_launches = 0
         # a phase's nodes are freed by the cyclic collector only: every
         # phase ends with free_device_memory(), here or in its own body, so
@@ -3454,11 +3807,13 @@ def main(argv=None):
             free_device_memory()
         if 13 in phases:
             phase_exact_cluster(args.seed)
+        lap("phases 5, 7, 13")
         scan_recs, d80_recs = [], []
         if 8 in phases:
             scan_recs = phase_scan_vs_plain(args.seed)
             d80_recs = phase_d80_vs_plain(np.random.default_rng(args.seed + 8))
             free_device_memory()
+        lap("phase 8")
         slaunches, hybrid_srecs, hlaunches, hybrid_arecs = 0, [], 0, []
         if 9 in phases:
             cfg, model, params = zamba2(args.seed, 9)
@@ -3469,6 +3824,7 @@ def main(argv=None):
         if 10 in phases:
             phase_exact_hybrid(args.seed)
             free_device_memory()
+        lap("phases 9, 10")
         if 15 in phases:
             cfg, model, params = xlstm(args.seed, 15)
             phase_xlstm(cfg, model, params, args.seed)
@@ -3476,6 +3832,33 @@ def main(argv=None):
             free_device_memory()
         if 16 in phases:
             phase_exact_xlstm(args.seed)
+            free_device_memory()
+        lap("phases 15, 16")
+        # phases 17-19: each main path is driven with its counts set to 0
+        # just before it and read just after, inside the phase
+        vk1, vk1_recs, vq, vq_recs, af, af_recs = 0, [], 0, [], 0, []
+        if 17 in phases:
+            cfg, model, params = published("phi-3-vision-4.2b", args.seed,
+                                           17)
+            af, af_recs = phase_vlm_prefill(cfg, model, params, args.seed)
+            vk1, vk1_recs, _ = phase_serve(cfg, model, params, args.seed,
+                                           tag=17)
+            free_device_memory()
+            fl, vq, vq_recs = phase_vlm_pressure(cfg, model, params,
+                                                 args.seed)
+            vk1 += fl
+            del cfg, model, params
+            free_device_memory()
+            lap("phase 17")
+        for ph, fn in ((18, phase_moe), (19, phase_encdec)):
+            if ph in phases:
+                n, recs = fn(args.seed)
+                af += n
+                af_recs += recs
+                lap(f"phase {ph}")
+        if 20 in phases:
+            phase_exact_a9(args.seed)
+            lap("phase 20")
         dlaunches += pa.decode_launches
         check(dlaunches == 0, f"B.3 launched {dlaunches} times on the "
               f"serving paths, which decode through kernel 1")
@@ -3484,9 +3867,12 @@ def main(argv=None):
         return 1
     # each record holds its kernel's main-path shapes whenever that main
     # path ran, and the kernel-vs-plain phase's shapes otherwise; kernel 1
-    # serves two main paths (llama3-8b at D = 128, zamba2-2.7b at D = 80);
-    # B.4's main path is the dense reference of phase 12; B.3 lies on no
-    # serving path (its launches there, counted, are 0): its record holds
+    # serves three main paths (llama3-8b at D = 128, zamba2-2.7b at D = 80,
+    # phi-3-vision at D = 96), B.2 two (llama3-8b and phi-3-vision under
+    # pressure); B.4's main paths are the dense reference of phase 12 and
+    # the prefills of phases 17-19 (D = 96, G = 3, G = 8, D = 64); B.3
+    # lies on no serving path (its launches there, counted, are 0): its
+    # record holds
     # phase 4's decode-only kernel-1 calls replayed through it when phase 4
     # ran, phase 14's cases otherwise
     src = "src/repro_torch/csrc/paged_chunk_attention.cu"
@@ -3495,24 +3881,30 @@ def main(argv=None):
                   else [r for r in d80_recs if "int8" not in r["label"]]))
     entries = [
         kernel_entry(pa.NAME, src, "src/repro/kernels/paged_attention.py:291",
-                     launches + hlaunches, k1_recs),
+                     launches + hlaunches + vk1, k1_recs + vk1_recs),
         kernel_entry(pa.QUANT_NAME, src,
-                     "src/repro/kernels/paged_attention.py:239", qlaunches,
-                     qrecs if 6 in phases else shape_qrecs),
+                     "src/repro/kernels/paged_attention.py:239",
+                     qlaunches + vq,
+                     (qrecs if 6 in phases else shape_qrecs) + vq_recs),
         kernel_entry(ssd.NAME, "src/repro_torch/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan.py:62", slaunches,
                      hybrid_srecs if 9 in phases else scan_recs),
         kernel_entry(fp.NAME, "src/repro_torch/csrc/flash_prefill.cu",
-                     "src/repro/kernels/flash_prefill.py:81", flaunches,
-                     flash_recs if 12 in phases else flash_shape_recs),
+                     "src/repro/kernels/flash_prefill.py:81",
+                     flaunches + af,
+                     (flash_recs if 12 in phases else flash_shape_recs)
+                     + af_recs),
         kernel_entry(pa.DECODE_NAME, "src/repro_torch/csrc/paged_attention.cu",
                      "src/repro/kernels/paged_attention.py:351", dlaunches,
                      replay_recs or decode_recs)]
     log(f"done in {time.perf_counter() - t_start:.1f} s; kernel times are "
         f"one call of each distinct main-path shape, summed (kernel 1: "
         f"{launches} launches on the llama3-8b path, {hlaunches} on the "
-        f"zamba2-2.7b path; flash_prefill: {flaunches} on the dense "
-        f"reference's prefills; paged_attention (B.3): {dlaunches} on the "
+        f"zamba2-2.7b path, {vk1} on the phi-3-vision paths; int8 kernel: "
+        f"{qlaunches} on llama3-8b's pressure path, {vq} on phi-3-vision's; "
+        f"flash_prefill: {flaunches} on the dense reference's prefills, "
+        f"{af} on the prefills of phases 17-19; paged_attention (B.3): "
+        f"{dlaunches} on the "
         f"serving paths, {len(replay_recs)} replayed decode calls of phase "
         f"4)")
     print(json.dumps({"kernels": entries}))

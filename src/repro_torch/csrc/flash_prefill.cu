@@ -39,9 +39,20 @@
 // last real row's horizon are neither loaded nor computed.  160 threads and
 // 83 KB of shared memory at D = 128 leave two CTAs resident per SM, so one
 // CTA's softmax overlaps the other's products.  Blocks are issued longest
-// first across all lanes and heads.  The tile constants below were chosen
-// by kernels/flash_tiles.py's times on the card at the dense reference's
-// shapes (PERF.md).
+// first across all lanes and heads.
+//   * Where G does not divide 64 (granite-moe's G = 3: bq = 21 positions,
+//     63 rows), the rows past bq * G are zero Q rows whose horizon is -1:
+//     masked in every tile, never written.  That keeps one tile shape and
+//     one row map for every G (a row count that is a multiple of G would
+//     need another wgmma M, which is 64 only) at the cost of 1 / 64 of the
+//     tile's products.
+//   * D = 96 (phi-3-vision): a row takes two 64-column blocks, as at D =
+//     128; the second box of a row reads the next head's first 32 columns
+//     (zeros past the last head), which no product reads: Q.K^T takes 6
+//     k16 steps and P.V is m64n96k16, so neither reaches a column past 96.
+//     The staged Q rows are zero past 96.
+// The tile constants below were chosen by kernels/flash_tiles.py's times on
+// the card at the dense reference's shapes (PERF.md).
 //
 // float32: the CUDA-core body (flash_prefill_kernel).  The H100 has no
 // float32 tensor-core product other than TF32 (about three decimal digits),
@@ -50,7 +61,9 @@
 // staged in shared memory (16-byte loads one tile ahead), each thread 4
 // rows x 4 keys of the score tile and the same 4 rows of the accumulator,
 // P through shared memory.  121 KB of shared memory at D = 128, one CTA per
-// SM; it sits far from the operations bound.
+// SM; it sits far from the operations bound.  At D = 96 the P.V accumulators
+// cover 128 columns, of which the 32 pad columns read zeros and are never
+// written; the scores and the loads take D's own 96.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -94,11 +107,20 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
+// P.V columns a thread row covers: D rounded up to 4 * kTile (D = 96 ->
+// 128); the pad columns of v_s are zeros and are never written out
+template <int D>
+__host__ __device__ constexpr int pv_cols() {
+  return (D + 4 * kTile - 1) / (4 * kTile) * (4 * kTile);
+}
+
 template <int D>
 constexpr size_t smem_bytes() {
-  // q_s [kRows][D + 4], k_s [kKeys][D + 4], v_s [kKeys][D], p_s [kRows][kPStride]
+  // q_s [kRows][D + 4], k_s [kKeys][D + 4], v_s [kKeys][kDp],
+  // p_s [kRows][kPStride]
   return sizeof(float) * ((size_t)kRows * (D + 4) + (size_t)kKeys * (D + 4) +
-                          (size_t)kKeys * D + (size_t)kRows * kPStride);
+                          (size_t)kKeys * pv_cols<D>() +
+                          (size_t)kRows * kPStride);
 }
 
 // q (B, Sq, H, D); k, v (B, Skv, Hkv, D); out (B, Sq, H, D).  All
@@ -109,18 +131,19 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out, int Sq,
                      int Skv, int H, int Hkv, int q_offset, int bq) {
   constexpr int kQs = D + 4;               // +4: conflict-free float4 rows
+  constexpr int kDp = pv_cols<D>();        // v_s row: D and its pad columns
   constexpr int kPerVec = 16 / sizeof(T);  // elements per 16-byte load
   constexpr int kRowVecs = D / kPerVec;    // 16-byte vectors per K/V row
   constexpr int kLd = kKeys * kRowVecs / kThreads;  // vectors per thread
-  constexpr int kCol4 = D / (4 * kTile);   // float4 accumulators per row
-  static_assert(D % (4 * kTile) == 0, "head dim must be a multiple of 64");
+  constexpr int kCol4 = kDp / (4 * kTile); // float4 accumulators per row
+  static_assert(D % 32 == 0, "head dim must be a multiple of 32");
   static_assert(kKeys * kRowVecs % kThreads == 0, "whole loads per thread");
 
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                           // [kRows][kQs]
   float* k_s = q_s + kRows * kQs;              // [kKeys][kQs]
-  float* v_s = k_s + kKeys * kQs;              // [kKeys][D]
-  float* p_s = v_s + kKeys * D;                // [kRows][kPStride]
+  float* v_s = k_s + kKeys * kQs;              // [kKeys][kDp]
+  float* p_s = v_s + kKeys * kDp;              // [kRows][kPStride]
 
   const int G = H / Hkv;
   const int rows = bq * G;
@@ -149,6 +172,11 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < kPerVec; ++e) dst[e] = 0.f;
     }
+  }
+
+  if constexpr (kDp > D) {  // the pad columns, read by P.V, stay zero
+    for (int i = tid; i < kKeys * (kDp - D); i += kThreads)
+      v_s[(i / (kDp - D)) * kDp + D + i % (kDp - D)] = 0.f;
   }
 
   // loader role: thread tid stages vectors tid + n * kThreads of the tile
@@ -202,7 +230,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int e = tid + n * kThreads;
       const int j = e / kRowVecs, vi = e % kRowVecs;
       widen(k_reg[n], k_s + j * kQs + vi * kPerVec, T());
-      widen(v_reg[n], v_s + j * D + vi * kPerVec, T());
+      widen(v_reg[n], v_s + j * kDp + vi * kPerVec, T());
     }
     __syncthreads();
     if (k0 + kKeys < kv_end) fetch(k0 + kKeys);  // in flight during the math
@@ -274,7 +302,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
         p4[i] = *reinterpret_cast<const float4*>(p_s + (tr + kTile * i) * kPStride + j);
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        const float* vrow = v_s + (j + jj) * D;
+        const float* vrow = v_s + (j + jj) * kDp;
 #pragma unroll
         for (int cc = 0; cc < kCol4; ++cc) {
           const float4 vv = *reinterpret_cast<const float4*>(
@@ -303,6 +331,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int cc = 0; cc < kCol4; ++cc) {
       const int col = 4 * (tc + kTile * cc);
+      if (kDp > D && col >= D) continue;   // a pad column
       o[col + 0] = from_f32<T>(acc[i][cc].x / denom);
       o[col + 1] = from_f32<T>(acc[i][cc].y / denom);
       o[col + 2] = from_f32<T>(acc[i][cc].z / denom);
@@ -349,14 +378,15 @@ constexpr int kTcThreads = 128 + 32;           // a consumer warpgroup and a
 static_assert(kTcKeys % 16 == 0 && kTcKeys <= 256, "wgmma N and K steps");
 
 // Byte offsets in the 1024-byte-aligned dynamic shared memory.  Each tile is
-// stored as D / 64 column blocks of [rows][128 bytes], 128-byte swizzled:
-// the 16-byte chunk c of row r sits at chunk c ^ (r % 8), as TMA writes it
-// and as wgmma's SWIZZLE_128B descriptors read it.
+// stored as kCb = ceil(D / 64) column blocks of [rows][128 bytes], 128-byte
+// swizzled: the 16-byte chunk c of row r sits at chunk c ^ (r % 8), as TMA
+// writes it and as wgmma's SWIZZLE_128B descriptors read it.
 template <int D>
 struct TcSmem {
+  static constexpr int kCb = (D + 63) / 64;                // column blocks
   static constexpr int kQ = 0;
-  static constexpr int kStage = kTcKeys * D * 2;           // one K or V tile
-  static constexpr int kK = kTcRows * D * 2;
+  static constexpr int kStage = kTcKeys * kCb * 128;       // one K or V tile
+  static constexpr int kK = kTcRows * kCb * 128;
   static constexpr int kV = kK + kTcStages * kStage;
   static constexpr int kBars = kV + kTcStages * kStage;    // full, empty
   static constexpr int kBytes = kBars + 2 * kTcStages * 8;
@@ -374,7 +404,7 @@ flash_prefill_tc(const __grid_constant__ CUtensorMap kmap,
                  __nv_bfloat16* __restrict__ out, int B, int Sq, int H,
                  int Hkv, int q_offset, int bq, int n_qblk) {
   using L = TcSmem<D>;
-  constexpr int kCb = D / 64;                 // 128-byte column blocks a row
+  constexpr int kCb = L::kCb;                 // 128-byte column blocks a row
   constexpr int kChunks = D / 8;              // 16-byte chunks a row
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -423,12 +453,13 @@ flash_prefill_tc(const __grid_constant__ CUtensorMap kmap,
   }
 
   // the consumer warpgroup: stage the block's query rows, swizzled (zeros
-  // past `rows` or Sq), then make the generic-proxy stores visible to wgmma
-  for (int i = threadIdx.x; i < kTcRows * kChunks; i += 128) {
-    const int r = i / kChunks, c = i % kChunks;
+  // past `rows` or Sq, and past D), then make the generic-proxy stores
+  // visible to wgmma
+  for (int i = threadIdx.x; i < kTcRows * kCb * 8; i += 128) {
+    const int r = i / (kCb * 8), c = i % (kCb * 8);
     const int qi = q0 + r / G;
     uint4 val = make_uint4(0, 0, 0, 0);
-    if (r < rows && qi < Sq)
+    if (c < kChunks && r < rows && qi < Sq)
       val = __ldg(reinterpret_cast<const uint4*>(
                 q + (((size_t)b * Sq + qi) * H + h * G + r % G) * D) + c);
     *reinterpret_cast<uint4*>(smem + L::kQ + (c / 8) * kTcRows * 128 +
@@ -603,7 +634,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // dtype: 0 = float32 (the CUDA-core body), 1 = bfloat16 (the tensor-core
-// body); head dim 64 or 128; H % Hkv == 0 with H / Hkv <= 64; Skv >=
+// body); head dim 64, 96 or 128; H % Hkv == 0 with H / Hkv <= 64; Skv >=
 // q_offset + Sq.  Returns a cudaError_t (0 = launched).
 extern "C" int flash_prefill_launch(const void* q, const void* k,
                                     const void* v, void* out, int B, int Sq,
@@ -619,10 +650,14 @@ extern "C" int flash_prefill_launch(const void* q, const void* k,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64)
     return launch<float, 64>(q, k, v, out, B, Sq, Skv, H, Hkv, q_offset, s);
+  if (dtype == 0 && D == 96)
+    return launch<float, 96>(q, k, v, out, B, Sq, Skv, H, Hkv, q_offset, s);
   if (dtype == 0 && D == 128)
     return launch<float, 128>(q, k, v, out, B, Sq, Skv, H, Hkv, q_offset, s);
   if (dtype == 1 && D == 64)
     return launch_tc<64>(q, k, v, out, B, Sq, Skv, H, Hkv, q_offset, s);
+  if (dtype == 1 && D == 96)
+    return launch_tc<96>(q, k, v, out, B, Sq, Skv, H, Hkv, q_offset, s);
   if (dtype == 1 && D == 128)
     return launch_tc<128>(q, k, v, out, B, Sq, Skv, H, Hkv, q_offset, s);
   return cudaErrorInvalidValue;
@@ -637,11 +672,17 @@ extern "C" int flash_prefill_resources(int D, int dtype, int device,
   if (dtype == 0 && D == 64)
     return resources(flash_prefill_kernel<float, 64>, kThreads,
                      (int)smem_bytes<64>(), out);
+  if (dtype == 0 && D == 96)
+    return resources(flash_prefill_kernel<float, 96>, kThreads,
+                     (int)smem_bytes<96>(), out);
   if (dtype == 0 && D == 128)
     return resources(flash_prefill_kernel<float, 128>, kThreads,
                      (int)smem_bytes<128>(), out);
   if (dtype == 1 && D == 64)
     return resources(flash_prefill_tc<64>, kTcThreads, TcSmem<64>::kAlloc,
+                     out);
+  if (dtype == 1 && D == 96)
+    return resources(flash_prefill_tc<96>, kTcThreads, TcSmem<96>::kAlloc,
                      out);
   if (dtype == 1 && D == 128)
     return resources(flash_prefill_tc<128>, kTcThreads, TcSmem<128>::kAlloc,

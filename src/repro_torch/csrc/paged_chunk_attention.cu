@@ -69,10 +69,12 @@
 //     and masked, as the TPU kernel reads whole pages.  This assumes that a
 //     pool page holds finite values in every row, which the serving pools
 //     give: they start as zeros and hold only written K/V.
-//   * D = 80 (zamba2-2.7b's shared attention): the tensor maps' D extent is
-//     80, so a row's second 64-column box comes back zero past column 80;
-//     Q.K^T takes 5 k16 steps and P.V is m64n80k16 across the two column
-//     blocks, so no product reads a column past 80.
+//   * D = 80 (zamba2-2.7b's shared attention) and D = 96 (phi-3-vision):
+//     the tensor maps' D extent is D, so a row's second 64-column box comes
+//     back zero past column D; Q.K^T takes D / 16 k16 steps (5, 6) and P.V
+//     is m64n80k16 / m64n96k16 across the two column blocks, so no product
+//     reads a column past D.  Shared memory is D = 128's (two column blocks
+//     a row), so two CTAs stay resident per SM.
 //   * int8 pages (kQuant): a flagged page's codes arrive by TMA, one byte an
 //     element, unswizzled, into the page's own rows of the stage's last
 //     64-column block; after the full barrier the consumer warpgroup reads
@@ -95,11 +97,12 @@
 // keys 32 a step, four threads loading each key's row with 16-byte loads one
 // step ahead into registers, and stages the rows in shared memory as
 // float32; the scores, the online softmax (one warp a row) and P.V
-// (accumulators in registers) run on the CUDA cores.  At D = 80 a key row's
-// int8 vectors split unevenly over the four loaders and the P.V
-// accumulators cover 96 columns, of which the 16 pad columns read zeros and
-// are never written.  It sits far from its operations bound, and it has no
-// split-KV: a decode batch gives B x Hkv CTAs on 132 SMs.
+// (accumulators in registers) run on the CUDA cores.  At D = 80 and 96 a key
+// row's int8 vectors split unevenly over the four loaders (5 and 6 over 4);
+// at D = 80 the P.V accumulators cover 96 columns, of which the 16 pad
+// columns read zeros and are never written (96 needs no pad).  It sits far
+// from its operations bound, and it has no split-KV: a decode batch gives
+// B x Hkv CTAs on 132 SMs.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -950,6 +953,9 @@ int dispatch(const void* q, const void* k_pages, const void* v_pages,
   if (dtype == 0 && D == 80)
     return launch<80, kQuant>(q, k_pages, v_pages, qa, tables, q_offsets,
                               ctx_lens, out, B, Sq, H, Hkv, page, T_width, s);
+  if (dtype == 0 && D == 96)
+    return launch<96, kQuant>(q, k_pages, v_pages, qa, tables, q_offsets,
+                              ctx_lens, out, B, Sq, H, Hkv, page, T_width, s);
   if (dtype == 0 && D == 128)
     return launch<128, kQuant>(q, k_pages, v_pages, qa, tables, q_offsets,
                                ctx_lens, out, B, Sq, H, Hkv, page, T_width,
@@ -960,6 +966,10 @@ int dispatch(const void* q, const void* k_pages, const void* v_pages,
                                  T_width, s);
   if (dtype == 1 && D == 80)
     return launch_tc<80, kQuant>(q, k_pages, v_pages, qa, tables, q_offsets,
+                                 ctx_lens, out, B, Sq, H, Hkv, P, page,
+                                 T_width, s);
+  if (dtype == 1 && D == 96)
+    return launch_tc<96, kQuant>(q, k_pages, v_pages, qa, tables, q_offsets,
                                  ctx_lens, out, B, Sq, H, Hkv, P, page,
                                  T_width, s);
   if (dtype == 1 && D == 128)
@@ -977,6 +987,9 @@ cudaError_t body_resources(int D, int dtype, int* out) {
   if (dtype == 0 && D == 80)
     return resources(paged_chunk_attention_kernel<float, 80, kQuant>,
                      kThreads, 0, out);
+  if (dtype == 0 && D == 96)
+    return resources(paged_chunk_attention_kernel<float, 96, kQuant>,
+                     kThreads, 0, out);
   if (dtype == 0 && D == 128)
     return resources(paged_chunk_attention_kernel<float, 128, kQuant>,
                      kThreads, 0, out);
@@ -986,6 +999,9 @@ cudaError_t body_resources(int D, int dtype, int* out) {
   if (dtype == 1 && D == 80)
     return resources(paged_chunk_attention_tc<80, kQuant>, kTcThreads,
                      PcSmem<80, kQuant>::kAlloc, out);
+  if (dtype == 1 && D == 96)
+    return resources(paged_chunk_attention_tc<96, kQuant>, kTcThreads,
+                     PcSmem<96, kQuant>::kAlloc, out);
   if (dtype == 1 && D == 128)
     return resources(paged_chunk_attention_tc<128, kQuant>, kTcThreads,
                      PcSmem<128, kQuant>::kAlloc, out);

@@ -27,7 +27,7 @@ import torch
 from repro_torch.kernels import build
 
 NAME = "flash_prefill"
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 96, 128)
 MAX_GROUP = 64                      # query heads per kv head (kRows in .cu)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fns = {}
@@ -111,7 +111,7 @@ def flash_prefill(q, k, v, q_offset: int = 0):
     """Causal prefill attention on the card.
 
     q: (B, Sq, H, D) float32 or bfloat16; k/v: (B, Skv, Hkv, D) of the same
-    dtype, D in (64, 128), H % Hkv == 0; q_offset: the absolute position of
+    dtype, D in HEAD_DIMS, H % Hkv == 0; q_offset: the absolute position of
     q[:, 0], with q_offset + Sq <= Skv.  Query i attends to the keys at
     positions <= q_offset + i.  Returns (B, Sq, H, D) in q's dtype."""
     q_offset = int(q_offset)

@@ -47,7 +47,7 @@ import torch
 from repro_torch.kernels import build
 
 NAME = "paged_chunk_attention"
-HEAD_DIMS = (64, 80, 128)
+HEAD_DIMS = (64, 80, 96, 128)
 PAGE_SIZES = (8, 16, 32)
 MAX_GROUP = 16                      # query heads per kv head (fp32 kRows)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}

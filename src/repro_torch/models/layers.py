@@ -4,8 +4,10 @@ Plain PyTorch, with the JAX package's conventions: norms and RoPE compute
 in float32 and cast back, attention softmax runs in float32, and RoPE
 rotates halves (the two halves of the head dimension, not interleaved
 pairs).  The dense attention here serves the reference ``prefill`` /
-``decode_step``; the serving path's paged attention is a kernel
-(``repro_torch.kernels``) held against these semantics.
+``decode_step`` and the attention the JAX package computes outside any
+Pallas kernel (the encoder's and the cross attention of ``EncDecLM``);
+the serving path's paged attention is a kernel (``repro_torch.kernels``)
+held against these semantics.
 """
 from __future__ import annotations
 
@@ -16,6 +18,13 @@ import torch
 import torch.nn.functional as F
 
 NEG_INF = -1e30
+
+
+def einsum32(spec, *ops):
+    """einsum with float32 accumulation and a float32 result: the JAX
+    package's ``einsum32`` in the mode it runs on the CPU (operands cast
+    to float32)."""
+    return torch.einsum(spec, *[o.float() for o in ops])
 
 
 # ---------------------------------------------------------------------------
@@ -55,17 +64,18 @@ def apply_rope(x, positions, theta: float):
 # Dense attention (the reference prefill / decode path)
 # ---------------------------------------------------------------------------
 
-def flash_attention(q, k, v, *, q_offset: int = 0,
+def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
                     window: Optional[int] = None):
-    """Causal softmax attention of new tokens over K/V, float32 inside.
+    """Softmax attention of new tokens over K/V, float32 inside.
 
     q: (B, Sq, H, D); k, v: (B, Sk, Hkv, D) with H % Hkv == 0.
-    ``q_offset``: absolute position of q[0] relative to k[0] (a cached
-    prefix of q_offset tokens).  ``window``: sliding-window size.  The JAX
-    reference chunks this computation to bound memory; the result is the
-    same softmax, so the port computes it in one piece.  At window=None it
-    is ``kernels.ref.flash_prefill_ref``, the CUDA kernel's plain
-    version."""
+    ``causal``: query i sees the keys at positions <= q_offset + i (False:
+    every key).  ``q_offset``: absolute position of q[0] relative to k[0]
+    (a cached prefix of q_offset tokens).  ``window``: sliding-window size.
+    The JAX reference chunks this computation to bound memory; the result
+    is the same softmax, so the port computes it in one piece.  Causal at
+    window=None it is ``kernels.ref.flash_prefill_ref``, the CUDA kernel's
+    plain version."""
     B, Sq, H, D = q.shape
     _, Sk, Hkv, _ = k.shape
     G = H // Hkv
@@ -73,7 +83,9 @@ def flash_attention(q, k, v, *, q_offset: int = 0,
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / math.sqrt(D)
     qp = q_offset + torch.arange(Sq, device=q.device)
     kp = torch.arange(Sk, device=q.device)
-    mask = qp[:, None] >= kp[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qp[:, None] >= kp[None, :]
     if window is not None:
         mask &= qp[:, None] - kp[None, :] < window
     s = s.masked_fill(~mask, NEG_INF)
@@ -83,11 +95,16 @@ def flash_attention(q, k, v, *, q_offset: int = 0,
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *,
-                     window: Optional[int] = None):
-    """Single-position attention over a (possibly padded) head-major cache.
+                     window: Optional[int] = None, layout: str = "bshd"):
+    """Single-position attention over a (possibly padded) cache.
 
-    q: (B, 1, H, D); k_cache/v_cache: (B, Hkv, S, D); cache_len: (B,)
-    valid entries *including* the current token's KV."""
+    q: (B, 1, H, D); k_cache/v_cache: (B, S, Hkv, D) for layout="bshd"
+    (sequence-major) or (B, Hkv, S, D) for layout="bhsd" (head-major);
+    cache_len: (B,) valid entries *including* the current token's KV."""
+    if layout == "bshd":
+        k_cache, v_cache = k_cache.transpose(1, 2), v_cache.transpose(1, 2)
+    elif layout != "bhsd":
+        raise ValueError(f"decode_attention: layout {layout!r}")
     B, _, H, D = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     G = H // Hkv

@@ -281,8 +281,7 @@ class Zamba2LM:
             valid = torch.minimum(cache_len + 1,
                                   torch.full_like(cache_len, Wc))
             # ring: every valid slot is inside the window
-            o = L.decode_attention(q, k_c.transpose(1, 2), v_c.transpose(1, 2),
-                                   valid)
+            o = L.decode_attention(q, k_c, v_c, valid)
             new_cache = (k_c, v_c)
         return self._shared_out(x, w, o), new_cache
 

@@ -1,4 +1,6 @@
-"""Dense decoder-only transformer (llama/qwen/yi/minicpm families).
+"""Dense decoder-only transformer (llama/qwen/yi/minicpm families) and the
+phi-3-vision backbone (family "vlm": the same block, precomputed patch
+embeddings projected by ``patch_proj`` and put in front of the text).
 
 Parameters are a plain dictionary of tensors laid out as in the JAX
 package: weights stored (in, out), the layer stack stacked on a leading
@@ -21,8 +23,10 @@ Two paths, the same math:
 
 The tier-movement and int8-tier helpers (``scatter_paged``,
 ``fork_paged``, ``fork_paged_quant``, ``compress_paged``) also write the
-pools in place.  The phi-3-vision patch path and the device mesh of the
-JAX ``DenseLM`` are not ported yet (ROADMAP A.9, A.8).
+pools in place.  Serving is text-only, as in the JAX package: only
+``prefill`` takes patches.  The FFN is ``_ffn``, which returns (out, aux)
+as the JAX package's does, so that ``MoELM`` (models/moe.py) replaces it.
+The device mesh of the JAX ``DenseLM`` is not ported yet (ROADMAP A.8).
 """
 from __future__ import annotations
 
@@ -53,11 +57,12 @@ def _dtype(name: str) -> torch.dtype:
 
 
 class DenseLM:
+    FAMILIES = ("dense", "vlm")
+
     def __init__(self, cfg: ModelConfig, device="cuda"):
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {cfg.family!r}: only 'dense' is ported "
-                f"(the vlm patch path is ROADMAP A.9)")
+        if cfg.family not in self.FAMILIES:
+            raise ValueError(f"{type(self).__name__} serves the families "
+                             f"{self.FAMILIES}, not {cfg.family!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = _dtype(cfg.dtype)
@@ -99,6 +104,9 @@ class DenseLM:
         if c.qk_norm:
             p["blocks"]["qn"] = torch.ones((n, c.d_head), dtype=dt, device=dev)
             p["blocks"]["kn"] = torch.ones((n, c.d_head), dtype=dt, device=dev)
+        if c.family == "vlm":
+            p["patch_proj"] = L.dense_init(gen, (c.d_frontend, c.d_model), dt,
+                                           device=dev)
         return p
 
     def param_count(self) -> int:
@@ -106,10 +114,21 @@ class DenseLM:
         per_layer = (c.d_model * (c.q_dim + 2 * c.kv_dim) + c.q_dim * c.d_model
                      + 3 * c.d_model * c.d_ff + 2 * c.d_model)
         emb = c.vocab * c.d_model * (1 if c.tie_embeddings else 2)
-        return c.n_layers * per_layer + emb + c.d_model
+        extra = c.d_frontend * c.d_model if c.family == "vlm" else 0
+        return c.n_layers * per_layer + emb + c.d_model + extra
 
     def active_param_count(self) -> int:
         return self.param_count()
+
+    def loss(self, params, batch):
+        raise NotImplementedError(
+            f"{type(self).__name__}.loss is not ported yet: ROADMAP A.10 "
+            f"(training)")
+
+    def input_specs(self, cell):
+        raise NotImplementedError(
+            f"{type(self).__name__}.input_specs is not ported yet: ROADMAP "
+            f"A.11 (the dry-run cells)")
 
     # -- blocks -------------------------------------------------------------
 
@@ -130,14 +149,22 @@ class DenseLM:
         k = L.apply_rope(k, positions, c.rope_theta)
         return q, k, v
 
+    def _ffn(self, x, w):
+        """Returns (ffn_out, aux_loss)."""
+        return L.swiglu(x, w["w1"], w["w3"], w["w2"]), 0.0
+
     def _ffn_residual(self, x, w):
-        h = L.rms_norm(x, w["ln2"], self.cfg.norm_eps)
-        return x + L.swiglu(h, w["w1"], w["w3"], w["w2"])
+        h, _ = self._ffn(L.rms_norm(x, w["ln2"], self.cfg.norm_eps), w)
+        return x + h
 
     # -- embedding / unembedding --------------------------------------------
 
-    def _embed(self, params, tokens):
-        return params["emb"][tokens]
+    def _embed(self, params, tokens, patches=None):
+        x = params["emb"][tokens]
+        if patches is not None:
+            pe = patches.to(self.dtype) @ params["patch_proj"]
+            x = torch.cat([pe, x], dim=1)
+        return x
 
     def _unembed(self, params, x):
         head = params["emb"] if self.cfg.tie_embeddings else params["lm_head"]
@@ -167,14 +194,19 @@ class DenseLM:
         return big
 
     @torch.no_grad()
-    def prefill(self, params, tokens, kernel_mode: str = "auto"):
-        """Process a full prompt; tokens (B, S).  Returns (last_logits,
-        cache).  Attention is the prefill kernel (``ops.flash_prefill``;
-        kernel_mode auto | ref) on every layer, except under a sliding
-        window, which the kernel does not compute."""
+    def prefill(self, params, tokens, patches=None,
+                kernel_mode: str = "auto"):
+        """Process a full prompt; tokens (B, S), and for the vlm family
+        optional patch embeddings (B, P, d_frontend) put in front of them.
+        Returns (last_logits, cache) over the P + S positions.  Attention is
+        the prefill kernel (``ops.flash_prefill``; kernel_mode auto | ref)
+        on every layer, except under a sliding window, which the kernel does
+        not compute."""
         c = self.cfg
         tokens = torch.as_tensor(tokens, device=self.device).long()
-        x = self._embed(params, tokens)
+        if patches is not None:
+            patches = torch.as_tensor(patches, device=self.device)
+        x = self._embed(params, tokens, patches)
         B, S, _ = x.shape
         positions = torch.arange(S, device=self.device)[None, :]
         ks, vs = [], []
@@ -216,7 +248,7 @@ class DenseLM:
             k_c[bi, :, clen] = k[:, 0]
             v_c[bi, :, clen] = v[:, 0]
             o = L.decode_attention(q, k_c, v_c, clen + 1,
-                                   window=c.sliding_window)
+                                   window=c.sliding_window, layout="bhsd")
             x = x + o.reshape(B, 1, -1) @ w["wo"]
             x = self._ffn_residual(x, w)
         x = L.rms_norm(x, params["ln_f"], c.norm_eps)

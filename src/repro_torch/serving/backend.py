@@ -1558,17 +1558,20 @@ class RealBackend(Backend):
 def make_backend(cfg, model, params, **kw):
     """Family-dispatching real-backend factory, as the JAX package's: the
     mamba2, xlstm and hybrid families serve through the slot-pool
-    `StateBackend` (serving/state_backend.py), the dense family through
-    `RealBackend`; the keywords pass through.  The vlm, moe and encdec
-    families (ROADMAP A.9) are not ported yet and raise."""
+    `StateBackend` (serving/state_backend.py), the dense and vlm families
+    through `RealBackend` (text-only, as in the JAX package); the keywords
+    pass through.  The moe and encdec families have no paged serving step
+    in the reference (MoELM drops the dense FFN weights that step_paged
+    reads; EncDecLM has no step_paged), so they raise."""
     if cfg.family in ("mamba2", "xlstm", "hybrid"):
         from repro_torch.serving.state_backend import StateBackend
         kw.pop("mesh", None)         # TP serving is transformer-only so far
         kw.pop("hbm_pages", None)    # as is the quantized page tier
         return StateBackend(cfg, model, params, **kw)
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(
-            f"make_backend: family {cfg.family!r} is not ported yet "
-            f"(ROADMAP A.9 for vlm/moe/encdec)")
+            f"make_backend: family {cfg.family!r} has no paged serving step "
+            f"in the reference (it serves through prefill / decode_step "
+            f"only)")
     kw.pop("n_slots", None)          # slot pools are a recurrent concept
     return RealBackend(cfg, model, params, **kw)

@@ -8,9 +8,11 @@ with 4 kv heads (MHA) or 2 (GQA).  `recurrent_twins(family)` does the same
 for the mamba2, xlstm and hybrid families (``mamba2-2.7b`` /
 ``xlstm-1.3b`` / ``zamba2-2.7b`` ``.reduced(dtype="float32")``, or
 bfloat16 on request), whose backend is the factory ``make_backend``
-(`StateBackend` for all three).  A test runs its scenario once per `Pkg`
-and asserts the two agree (tokens, counters, invariants) and that the
-port's tokens equal the port's dense prefill/decode recompute.
+(`StateBackend` for all three); `vlm_twins` for phi-3-vision, which
+``make_backend`` serves text-only through `RealBackend`.  A test runs its
+scenario once per `Pkg` and asserts the two agree (tokens, counters,
+invariants) and that the port's tokens equal the port's dense
+prefill/decode recompute.
 
 Both cost models get the JAX package's v5e figures (`V5E`): the port's
 defaults are the H100 data sheet, so its quantize-or-swap and stall
@@ -117,6 +119,18 @@ def recurrent_twins(family: str, seed: int = 0, dtype: str = "float32"):
     """(JAX Pkg, port Pkg) of a recurrent family with the same weights;
     family: mamba2 | hybrid | xlstm."""
     name = RECURRENT[family]
+    jcfg = jconfigs.get_config(name).reduced(dtype=dtype)
+    cfg = tconfigs.get_config(name).reduced(dtype=dtype)
+    return _pkgs(jcfg, cfg, jbackend.make_backend, tbackend.make_backend,
+                 seed)
+
+
+@functools.lru_cache(maxsize=None)
+def vlm_twins(seed: int = 0, dtype: str = "float32"):
+    """(JAX Pkg, port Pkg) of ``phi-3-vision-4.2b.reduced()`` with the same
+    weights, served text-only through ``make_backend`` (`RealBackend` in
+    both packages)."""
+    name = "phi-3-vision-4.2b"
     jcfg = jconfigs.get_config(name).reduced(dtype=dtype)
     cfg = tconfigs.get_config(name).reduced(dtype=dtype)
     return _pkgs(jcfg, cfg, jbackend.make_backend, tbackend.make_backend,

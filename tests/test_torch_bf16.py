@@ -1,6 +1,7 @@
 """The port against the JAX package in bfloat16, for the families that carry
 attention: dense llama (MHA and GQA), the zamba2 hybrid, and mamba2 beside
-them.
+them; phi-3-vision (vlm), qwen3-moe (moe) and seamless-m4t (encdec) through
+their prefill and decode steps.
 
 The float32 twins (tests/test_torch_model.py, tests/test_torch_recurrent.py)
 hold tokens and values to 2e-4, but a bf16 cast or promotion fault (a
@@ -32,7 +33,10 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_twin import recurrent_twins, twins
+from _torch_twin import recurrent_twins, same_weights, twins
+from test_torch_archs import _jax_grow
+from repro import configs as jconfigs
+from repro_torch import configs as tconfigs
 from test_torch_model import _mixed_steps
 from test_torch_recurrent import _slot_batch
 
@@ -124,6 +128,90 @@ def test_bf16_prefill_and_decode_match_jax(kind):
         jl, jc = decode(jpkg.params, jc, jnp.asarray(nxt))
         tl, tc = tpkg.model.decode_step(tpkg.params, tc, _t(nxt))
         hold(f"decode {i}")
+    gaps.check()
+
+
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "qwen3-moe-30b-a3b",
+                                  "seamless-m4t-medium"])
+def test_bf16_vlm_moe_encdec_prefill_and_decode_match_jax(arch):
+    """The vlm (with patch embeddings), moe and encdec families: the dense
+    prefill of two prompts, then three decode steps on the same tokens in
+    both packages; logits and every cache entry (the encoder's cross K/V
+    too) after each call.
+
+    The moe family's routing is discontinuous: where two router
+    probabilities are within the bf16 noise of the two frameworks (this
+    input has two tokens at layer 1 whose second and third probabilities
+    differ by 1.1e-5 and 2.9e-5), the packages pick different experts and
+    the following layers' states differ by up to a third of their largest
+    value.  So for moe the values held are each FFN call's, on the port's
+    own input of that call (every layer of the prefill and of the decode
+    steps): JAX's ``_ffn`` on the same bf16 input within the logits limit,
+    with the same dtype; the end-to-end logits and caches are held by
+    dtype and shape."""
+    jm, jp, tm, tp = same_weights(jconfigs.get_config(arch).reduced(
+        dtype="bfloat16"), tconfigs.get_config(arch).reduced(
+        dtype="bfloat16"), 0)
+    cfg = tm.cfg
+    gaps = Gaps(f"{arch} prefill/decode")
+    moe = cfg.family == "moe"
+    ffn_calls = []
+    if moe:
+        ffn = tm._ffn
+
+        def recorded(x, w):
+            out = ffn(x, w)
+            ffn_calls.append((x, w, out[0]))
+            return out
+        tm._ffn = recorded
+    rng = np.random.default_rng(6)
+    toks = rng.integers(0, cfg.vocab, (2, 40)).astype(np.int32)
+    if cfg.family == "vlm":
+        extra = rng.normal(size=(2, cfg.n_patches, cfg.d_frontend))
+    else:
+        extra = rng.normal(size=(2, 24, cfg.d_frontend))
+    jx = jnp.asarray(extra.astype(np.float32), jnp.bfloat16)
+    tx = _t(extra.astype(np.float32)).to(torch.bfloat16)
+    if cfg.family == "encdec":
+        jl, jc = jax.jit(jm.prefill)(jp, jx, jnp.asarray(toks))
+        tl, tc = tm.prefill(tp, tx, _t(toks))
+    elif cfg.family == "vlm":
+        jl, jc = jax.jit(jm.prefill)(jp, jnp.asarray(toks), jx)
+        tl, tc = tm.prefill(tp, _t(toks), tx)
+    else:
+        jl, jc = jax.jit(jm.prefill)(jp, jnp.asarray(toks))
+        tl, tc = tm.prefill(tp, _t(toks))
+    names = [k for k in ("k", "v", "xk", "xv") if k in jc]
+
+    def hold(step):
+        for name, got, want in [("logits", tl, jl)] + [
+                (n, tc[n], jc[n]) for n in names]:
+            if moe:
+                assert _dtype(got) == _dtype(want), name
+                assert tuple(got.shape) == tuple(want.shape), name
+            else:
+                gaps.hold(f"{step} {name}", got, want,
+                          states=name != "logits")
+        np.testing.assert_array_equal(tc["len"].numpy(),
+                                      np.asarray(jc["len"]))
+
+    hold("prefill")
+    jc, tc = _jax_grow(jm, cfg, jc, 3), tm.grow_cache(tc, 3)
+    decode = jax.jit(jm.decode_step)
+    for i in range(3):
+        nxt = rng.integers(0, cfg.vocab, (2,)).astype(np.int32)
+        jl, jc = decode(jp, jc, jnp.asarray(nxt))
+        tl, tc = tm.decode_step(tp, tc, _t(nxt))
+        hold(f"decode {i}")
+    if moe:
+        del tm._ffn
+        jffn = jax.jit(jm._ffn)
+        assert len(ffn_calls) == 4 * cfg.n_layers
+        for n, (x, w, out) in enumerate(ffn_calls):
+            l = n % cfg.n_layers
+            want, _ = jffn(jnp.asarray(x.float().numpy()).astype(jnp.bfloat16),
+                           {k: v[l] for k, v in jp["blocks"].items()})
+            gaps.hold(f"ffn call {n}", out, want)
     gaps.check()
 
 

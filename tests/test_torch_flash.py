@@ -15,7 +15,8 @@ on converted weights in both kernel modes.
 The ``gpu`` tests hold the CUDA kernel against the plain version on the
 card, at the same tolerances scaled by max |plain| (the bf16 tensor-core
 body at the edges of its tile: ragged Sq at q_offset > 0, key tiles across
-row horizons, G of 1, 5, 8, 16 and 64, one token over 4096 keys), kernel 1
+row horizons, G of 1, 3, 5, 8, 16 and 64, D of 64, 96 and 128, one token
+over 4096 keys), kernel 1
 on the same input seen as pages, the float32 body bit for bit to digests
 recorded before the bf16 body changed, and the bodies' resources; they
 skip where there is no card.  JAX is imported only inside the CPU tests
@@ -196,7 +197,7 @@ def test_paged_resources_need_no_card():
     """Kernel 1's ``resources`` imports with the port and rejects a dtype or
     head dim with no body before it touches the card or the compiler."""
     with pytest.raises(ValueError, match="head dim"):
-        kpa.resources(torch.bfloat16, 96)
+        kpa.resources(torch.bfloat16, 112)
     with pytest.raises(ValueError, match="no body"):
         kpa.resources(torch.float16, 128, quant=True)
 
@@ -231,6 +232,15 @@ CARD_SHAPES = [                             # B, Sq, Skv, H, Hkv, D, q_offset
     (1, 50, 60, 10, 2, 64, 3),              # G = 5: 60 of 64 rows real
     (1, 1, 4096, 32, 8, 128, 4095),         # one token over 4096 keys
     (1, 1000, 4000, 36, 36, 64, 2900),      # D = 64 at a long Skv
+    # phi-3-vision (D = 96), granite-moe (G = 3: 21 positions, 63 of 64
+    # rows real) and qwen3-moe (G = 8, D = 128), at Sq not a multiple of
+    # the tile's positions
+    (2, 704, 704, 32, 32, 96, 0),           # phi-3: 576 patches + 128 text
+    (1, 77, 300, 32, 32, 96, 223),          # D = 96 continuation
+    (2, 130, 130, 24, 8, 64, 0),            # G = 3 prompt
+    (1, 50, 400, 24, 8, 64, 350),           # G = 3 continuation
+    (2, 99, 99, 32, 4, 128, 0),             # G = 8 prompt
+    (1, 1, 513, 32, 4, 128, 512),           # G = 8, one token
 ]
 # sha256 (first 16 hex digits) of the float32 output on _card_inputs,
 # recorded on the card from the CUDA-core body as it was before the bfloat16

@@ -105,6 +105,7 @@ GEOMETRIES = [
     (2, 8, 8, 1, 128, 32, 2),      # MQA
     (3, 5, 6, 2, 64, 8, 5),        # G = 3, ragged Sq
     (3, 9, 4, 4, 80, 16, 4),       # zamba2-2.7b's head dim, MHA
+    (3, 9, 4, 4, 96, 16, 4),       # phi-3-vision's head dim, MHA
 ]
 
 
@@ -245,6 +246,9 @@ CARD_GEOMETRIES = [
     (3, 40, 32, 8, 128, 8, 12),    # page 8: 8 pages a stage
     (3, 40, 32, 8, 128, 32, 5),    # page 32: 2 pages a stage
     (3, 150, 32, 32, 80, 16, 14),  # D = 80, a chunk of 2-3 query tiles
+    (3, 37, 32, 32, 96, 16, 6),    # phi-3-vision's attention (D = 96)
+    (5, 1, 32, 32, 96, 16, 9),     # its decode
+    (3, 150, 32, 32, 96, 16, 14),  # D = 96, a chunk of 2-3 query tiles
 ]
 
 

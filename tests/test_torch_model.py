@@ -186,12 +186,31 @@ def test_default_device_is_the_card():
     assert DenseLM(cfg, device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("phi-3-vision-4.2b", "A.9"), ("qwen3-moe-30b-a3b", "A.9"),
-    ("seamless-m4t-medium", "A.9")])
-def test_unported_families_name_their_roadmap_item(arch, item):
-    with pytest.raises(NotImplementedError, match=item):
-        get_model(get_config(arch), device="cpu")
+@pytest.mark.parametrize("arch,cls", [
+    ("phi-3-vision-4.2b", "DenseLM"), ("qwen3-moe-30b-a3b", "MoELM"),
+    ("seamless-m4t-medium", "EncDecLM")])
+def test_vlm_moe_encdec_resolve_to_their_models(arch, cls):
+    """The vlm family resolves to `DenseLM` (with ``patch_proj``), moe to
+    `MoELM` (its router float32 in every dtype), encdec to `EncDecLM`; at
+    full size on the meta device for their counts, as the JAX package's.
+    Their training and dry-run entry points name their ROADMAP items."""
+    assert type(get_model(get_config(arch), device="meta")).__name__ == cls
+    cfg = get_config(arch).reduced(dtype="bfloat16")
+    model = get_model(cfg, device="cpu")
+    assert type(model).__name__ == cls
+    params = model.init(torch.Generator().manual_seed(0))
+    if cfg.family == "vlm":
+        assert tuple(params["patch_proj"].shape) == (cfg.d_frontend,
+                                                     cfg.d_model)
+    if cfg.family == "moe":
+        assert params["blocks"]["router"].dtype == torch.float32
+        assert "w1" not in params["blocks"]
+    if cfg.family == "encdec":
+        assert {"enc", "dec", "frame_proj"} <= set(params)
+    with pytest.raises(NotImplementedError, match="A.10"):
+        model.loss(params, {})
+    with pytest.raises(NotImplementedError, match="A.11"):
+        model.input_specs(None)
 
 
 def test_xlstm_resolves_to_xlstmlm():

@@ -9,8 +9,9 @@
   and forks a page mid-way (copy-on-write), with the JAX backend's tokens
   and counters;
 * guards: the port imports neither JAX nor the JAX package, runs on the
-  card by default, and raises for what it has not ported yet (the mesh
-  and the non-dense families).
+  card by default, and raises for what it has not ported yet (the mesh)
+  and for the families the reference serves with no paged step (moe,
+  encdec).
 
 Float32 configs (bf16 rounds differently in the two frameworks on the
 CPU), page 8, CPU tensors: the port's attention takes its plain version.
@@ -176,7 +177,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "             n.startswith('repro.'))\n"
         "assert not bad, bad\n"
         "for m in ('serving.backend', 'serving.state_backend',\n"
-        "          'models.mamba2', 'kernels.ssd_scan',\n"
+        "          'models.mamba2', 'models.moe', 'models.encdec',\n"
+        "          'kernels.ssd_scan',\n"
         "          'kernels.flash_prefill', 'serving.simulator',\n"
         "          'serving.scenario', 'core.scheduler',\n"
         "          'traces.agents'):\n"
@@ -205,17 +207,19 @@ def test_backend_runs_on_the_card_by_default():
 
 def test_unported_paths_raise_naming_the_roadmap():
     """What is still unported raises, naming its ROADMAP item: the device
-    mesh (A.8) and the moe family's backend (A.9); tier movement and the
-    int8 tier are ported and answer for an unknown session without
-    raising."""
+    mesh (A.8).  The moe and encdec families raise from ``make_backend``,
+    which says that the reference has no paged step for them; tier
+    movement and the int8 tier are ported and answer for an unknown
+    session without raising."""
     cfg = get_config("llama3-8b").reduced(dtype="float32")
     model = get_model(cfg, device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="A.8"):
         RealBackend(cfg, model, params, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="A.9"):
-        make_backend(get_config("qwen3-moe-30b-a3b"), model, params,
-                     device="cpu")
+    for arch in ("qwen3-moe-30b-a3b", "seamless-m4t-medium"):
+        with pytest.raises(NotImplementedError,
+                           match="no paged serving step"):
+            make_backend(get_config(arch), model, params, device="cpu")
     be = RealBackend(cfg, model, params, device="cpu")
     assert be.quantize_session("s") == 0
     assert be.prefetch("s", [0]) == []
