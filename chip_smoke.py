@@ -1,6 +1,7 @@
 """Card check of the PyTorch/CUDA port: builds the CUDA kernels, holds each
 against its plain PyTorch version, and serves llama3-8b (under memory
-pressure, and on a three-node cluster with migration and failure),
+pressure, on a three-node cluster with migration and failure, and
+tensor-parallel on shards of the card, as yi-6b is),
 zamba2-2.7b, xlstm-1.3b and phi-3-vision-4.2b at full width and depth
 through the port's entry points; granite-moe-3b, qwen3-moe-30b (12 of 48
 layers) and seamless-m4t-medium prefill and decode at full width.
@@ -13,6 +14,7 @@ Run from the repository root on a machine with an NVIDIA card:
     python3 chip_smoke.py --phases 3,4,14    # B.3, with phase 4's replay
     python3 chip_smoke.py --phases 15,16     # xlstm-1.3b
     python3 chip_smoke.py --phases 17,18,19,20   # vlm, moe, encdec
+    python3 chip_smoke.py --phases 1,2,21,22     # tensor-parallel serving
 
 Phases:
   1. environment: the card's name and power limit;
@@ -154,7 +156,32 @@ Phases:
      seamless): phi-3-vision (with patches), both MoE models and
      seamless-m4t greedy for 16 tokens with the kernels equal
      kernel_mode="ref"; phi-3-vision served through RealBackend with a
-     swap-out between turns equals the dense recompute.
+     swap-out between turns equals the dense recompute;
+ 21. tensor-parallel serving on a mesh whose shards all live on the card
+     (`make_serving_mesh(tp, devices=["cuda:0"] * tp)`), bf16, full width,
+     random weights from --seed: phase 4's traffic on llama3-8b at tp 2
+     and 4 (the kv-head rung: kernel 1 on each shard's 16 or 8 q heads
+     over its 4 or 2 kv heads) and on yi-6b (Hkv = 4) at tp 8 (the
+     split-K rung: each shard holds 2 rows of every 16-row page and runs
+     kernel 1's partial mode for all 32 heads; the shards' outputs merged
+     by their log-sum-exp), each against the single device: where the
+     tokens first diverge, and the first traced logits within 2e-2 x
+     max|logits|; launches one a layer, shard and sub-dispatch; the
+     memory each run reckons, holds and gives back.  A pressure pass
+     (phase 6's rounds, 4 sessions x 3 turns, and a turn of a session
+     compressed just before it; full width, 16 of the 32 layers) at tp 2
+     on llama3-8b and at tp 8 on yi-6b: B.2 and B.2's partial mode on
+     lanes that read int8 pages.  Every partial call shape held against its plain version
+     shard by shard, timed per shard and summed with the merge, beside
+     the unsplit kernel on the same call and SDPA on the gathered K/V;
+     kernel 1's per-shard shapes at tp 4 and B.2's at tp 2 re-timed;
+ 22. exact fp32 tokens at full width and 2 layers on the mesh: llama3-8b
+     at tp 1, 2 and 4, yi-6b at tp 8, with a mid-decode preemption (a
+     swap-out and back), equal to the single device's and to
+     kernel_mode="ref"; a session exported at
+     tp 2 resumes at tp 4; one payload imported and quantized on one
+     device and on each mesh: int8 scales and codes bit-equal, and its
+     next turn read from the int8 pages gives the same tokens.
 
 It prints progress lines, then one line with the kernels' JSON record, the
 card's name and power limit, and as the last line
@@ -185,11 +212,14 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.core.advisory import (AdvisoryRequest,  # noqa: E402
                                        InferenceRequest)
 from repro_torch.core.node_manager import NodeManager  # noqa: E402
+from repro_torch.distributed.collectives import merge_partials  # noqa: E402
+from repro_torch.distributed.sharding import unshard  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import flash_prefill as fp  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels.quant import quantize_int8  # noqa: E402
+from repro_torch.launch.mesh import make_serving_mesh  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.serving.backend import (RealBackend,  # noqa: E402
                                          make_backend)
@@ -213,6 +243,8 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
 SSD_TOL = {torch.bfloat16: 3e-2, torch.float32: 2e-4}
 KERNEL = pa.paged_chunk_attention          # the wrapper; it counts pa.launches
 QKERNEL = pa.paged_chunk_attention_quant   # counts pa.quant_launches
+KPART = pa.paged_chunk_attention_partial   # counts pa.partial_launches
+QKPART = pa.paged_chunk_attention_quant_partial  # pa.quant_partial_launches
 # sha256 (first 16 hex digits) of kernel 1's and B.2's outputs at head dims
 # 64 and 128 on the fixed inputs of kernel1_digests(): the float32 entries
 # recorded from the kernel source as it was before head dim 80 was added
@@ -824,17 +856,18 @@ def _turns(rng, vocab, n_sessions=4, n_turns=3, system=200):
 
 def make_node(cfg, model, params, *, n_pages, page_size=16, hbm_pages=None,
               spool=None, node_id=0, kernel_mode="auto", trace_logits=False,
-              max_batch=8, token_budget=512):
-    """(NodeEngine, RealBackend, NodeManager) on the model's device, as a
-    user of the port would build them (`make_backend` picks RealBackend
-    for the dense and vlm families)."""
+              max_batch=8, token_budget=512, mesh=None):
+    """(NodeEngine, RealBackend, NodeManager) on the model's device (or on
+    ``mesh``), as a user of the port would build them (`make_backend`
+    picks RealBackend for the dense and vlm families)."""
     cost = CostModel(cfg)
     cost.set_param_count(model.param_count())
     mgr = NodeManager(node_id, cfg, cost)
     be = make_backend(cfg, model, params, n_pages=n_pages,
                       page_size=page_size, hbm_pages=hbm_pages,
                       spool_dir=spool, mgr=mgr, trace_logits=trace_logits,
-                      kernel_mode=kernel_mode, device=model.device)
+                      kernel_mode=kernel_mode, device=model.device,
+                      mesh=mesh)
     check(isinstance(be, RealBackend), f"make_backend gave {type(be)}")
     eng = NodeEngine(node_id, cfg, cost, mgr, max_batch=max_batch,
                      backend=be, token_budget=token_budget)
@@ -1393,11 +1426,12 @@ class Single:
     step: the kernels run on every layer of every sub-dispatch, and once
     the int8 tier is active, only the int8 kernel."""
 
-    def __init__(self, node, cfg, now=0.0):
+    def __init__(self, node, cfg, now=0.0, max_steps=None):
         self.eng, self.be, self.mgr = node
         self.L = cfg.n_layers
         self.now = now
         self.steps = []
+        self.max_steps = max_steps      # fail, rather than spin, past it
 
     def submit(self, sid, ids, gen):
         req = request(self.be, sid, ids, gen)
@@ -1412,21 +1446,28 @@ class Single:
 
     def step(self):
         be = self.be
-        f0, q0 = pa.launches, pa.quant_launches
+        # a meshed node launches once a shard, kernel 1 / B.2 or (on the
+        # split-K rung) their partial mode
+        f0 = pa.launches + pa.partial_launches
+        q0 = pa.quant_launches + pa.quant_partial_launches
         s0 = be.stats["sub_dispatches"]
         active = be._quant_active
         t0 = time.perf_counter()
         self.eng.step(self.now)
         self.steps.append(time.perf_counter() - t0)
         self.now += STEP_S
+        check(self.max_steps is None or len(self.steps) <= self.max_steps,
+              f"no end after {len(self.steps)} steps: {len(self.eng.waiting)}"
+              f" waiting, {len(self.eng.running)} running")
         drained(be, self.mgr)
         if be.device.type != "cuda":
             return                  # CPU tensors take the plain versions
-        df, dq = pa.launches - f0, pa.quant_launches - q0
+        df = pa.launches + pa.partial_launches - f0
+        dq = pa.quant_launches + pa.quant_partial_launches - q0
         ds = be.stats["sub_dispatches"] - s0
-        check(df + dq == self.L * ds,
+        check(df + dq == self.L * ds * be.tp,
               f"{df} fp + {dq} int8 kernel launches for {ds} sub-dispatches "
-              f"of {self.L} layers")
+              f"of {self.L} layers on {be.tp} shards")
         check(not active or df == 0,
               f"the int8 tier is active but the fp kernel ran {df} times")
 
@@ -3720,6 +3761,641 @@ def phase_exact_a9(seed, tag=20):
         free_device_memory()
 
 
+# ---------------------------------------------------------------------------
+# phases 21-22: tensor-parallel serving on a mesh of shards on the card
+# ---------------------------------------------------------------------------
+
+# memory a finished tp run may leave allocated beyond its base (the model's
+# census and small index tensors; the pools and shards are freed)
+TP_SLACK = 64 << 20
+
+
+def tp_mesh(tp):
+    """A serving mesh of ``tp`` shards, every one on card 0 (the script
+    needs one card); None for a single-device node."""
+    return None if tp is None else make_serving_mesh(
+        tp, devices=["cuda:0"] * tp)
+
+
+def zero_counts():
+    pa.launches = pa.quant_launches = 0
+    pa.partial_launches = pa.quant_partial_launches = 0
+
+
+def counts():
+    return dict(k1=pa.launches, b2=pa.quant_launches,
+                k1_partial=pa.partial_launches,
+                b2_partial=pa.quant_partial_launches)
+
+
+def expected_counts(be, kind="k1"):
+    """Launches a run on ``be`` must have made: one a layer, a shard and a
+    sub-dispatch, of kernel 1 / B.2 or, on the split-K rung, their partial
+    mode (``kind`` k1 or b2; None: a mix of both kinds, checked summed)."""
+    lay = be._layout
+    n = be.cfg.n_layers * be.stats["sub_dispatches"] * be.tp
+    key = kind + ("_partial" if lay is not None and lay.rung == "rows"
+                  else "")
+    return key, n
+
+
+def _partial_key(args, kw):
+    q, kp, tables = args[0], args[1], args[-5]
+    return (tuple(q.shape), tuple(kp.shape), tuple(tables.shape), q.dtype,
+            args[-2])
+
+
+def reckon(cfg, params, n_pages, page=PAGE):
+    """The device bytes a tp run should take: the weights (shards are views
+    of them on the one card) and its pools."""
+    w = sum(t.numel() * t.element_size() for t in tensors(params))
+    pools = (2 * cfg.n_layers * (n_pages + 1) * page * cfg.n_kv_heads
+             * cfg.d_head * torch.tensor([], dtype=getattr(
+                 torch, cfg.dtype)).element_size())
+    return w, pools
+
+
+def tp_serve(cfg, model, params, prompts, gen, tp, tag, captures=()):
+    """Phase 4's traffic (``rounds(prompts)``) on a node of ``tp`` shards
+    (None: one device) with its logits traced; its kernel launches, checked
+    against one a layer, shard and sub-dispatch; the memory it held, which
+    must return to its base once the node is freed."""
+    free_device_memory()
+    base = torch.cuda.memory_allocated()
+    w, pools = reckon(cfg, params, 1024)
+    log(f"[{tag}] tp={tp}: reckoned {w / 1e9:.2f} GB of weights (the shards "
+        f"are views of them) + {pools / 1e9:.2f} GB of pools; allocated "
+        f"before {base / 1e9:.2f} GB")
+    eng, be, mgr = make_node(cfg, model, params, n_pages=1024,
+                             trace_logits=True, mesh=tp_mesh(tp))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()                       # counts of this main path only
+    reqs, steps, now = [], [], 0.0
+    with contextlib.ExitStack() as stack:
+        for c in captures:
+            stack.enter_context(c())
+        for rnd in rounds(prompts):
+            for s, t in rnd:
+                reqs.append(request(be, f"s{s}", prompts[s][t], gen))
+                eng.submit(reqs[-1])
+            while eng.waiting or eng.running:
+                t0 = time.perf_counter()
+                now += eng.step(now)
+                steps.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    got = counts()
+    peak = torch.cuda.max_memory_allocated()
+    key, want = expected_counts(be)
+    rung = "single device" if be._layout is None else be._layout.rung
+    log(f"[{tag}] tp={tp} ({rung}): {len(reqs)} requests, {len(steps)} "
+        f"steps, mean step {1e3 * sum(steps) / len(steps):.2f} ms, "
+        f"{be.stats['sub_dispatches']} sub-dispatches; launches {got}; "
+        f"pool bytes a shard {be.pool_device_bytes() / 1e9:.3f} GB; "
+        f"max_memory_allocated {peak / 1e9:.2f} GB")
+    check(got[key] == want and sum(got.values()) == want,
+          f"tp={tp}: launches {got}, want {key} = {want}")
+    check(all(len(r.output_ids) == gen for r in reqs),
+          f"tp={tp}: a request did not generate all its tokens")
+    check(be.stats["prefix_hits"] >= 1 and be.stats["cow_forks"] >= 1,
+          f"tp={tp}: no prefix adoption / CoW fork: {be.stats}")
+    for a in be.alloc:
+        a.check()
+    out = dict(tokens=[list(r.output_ids) for r in reqs],
+               first=be.logit_trace[0], launches=got[key], key=key,
+               step_ms=1e3 * sum(steps) / len(steps), steps=len(steps),
+               subs=be.stats["sub_dispatches"],
+               shard_bytes=be.pool_device_bytes(), peak=peak)
+    del eng, be, mgr, reqs
+    free_device_memory()
+    held = sum(t.numel() * t.element_size() for c in captures
+               for args, _ in c.calls.values() for t in args
+               if isinstance(t, torch.Tensor))
+    after = torch.cuda.memory_allocated()
+    log(f"[{tag}] tp={tp}: allocated after {after / 1e9:.2f} GB (captured "
+        f"inputs {held / 1e6:.1f} MB)")
+    check(after - base <= held + TP_SLACK,
+          f"tp={tp}: {(after - base - held) / 1e6:.1f} MB still allocated "
+          f"after the node was freed")
+    return out
+
+
+def first_logits_floor(cfg, model, params, prompts, gen, single, tag):
+    """The bf16 noise floor of the first traced logits (session 0's first
+    turn, a final chunk's): the single device's kernel path against its
+    plain path (``kernel_mode="ref"``), two correct roundings, as max
+    |diff| over max |logit| in units of the bf16 tolerance.  Only that
+    turn's first token is served on the plain path."""
+    eng, be, mgr = make_node(cfg, model, params, n_pages=1024,
+                             trace_logits=True, kernel_mode="ref")
+    eng.submit(request(be, "s0", prompts[0][0], gen))
+    now = 0.0
+    while not be.logit_trace:
+        now += eng.step(now)
+    sid, lg = be.logit_trace[0]
+    del eng, be, mgr
+    free_device_memory()
+    sid0, l0 = single["first"]
+    check(sid == sid0, f"the plain path's first traced token is {sid}'s")
+    floor = float(np.abs(l0 - lg).max()) / float(np.abs(l0).max()) \
+        / TOL[torch.bfloat16]
+    log(f"[{tag}] {cfg.name}: first logits, kernel vs plain on one device: "
+        f"{floor:.4g} x the bf16 tolerance (2e-2 x max|logit|)")
+    return floor
+
+
+def held_to_single(ref, run, tp, tag, floor):
+    """Where tp's tokens first diverge from the single device's, and its
+    first traced logits (a final chunk's) held to 2e-2 x max |logits|, or
+    to twice the floor where that is larger (the lockstep rule of phases
+    4 and 6): bf16 row-parallel sums and split-K merges round differently,
+    as in the JAX package, and on these random 32-layer models a
+    one-rounding change already moves the logits by about the tolerance
+    (``first_logits_floor``)."""
+    div = []
+    for i, (a, b) in enumerate(zip(ref["tokens"], run["tokens"])):
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is not None:
+            div.append((i, j))
+    (sid0, l0), (sid1, l1) = ref["first"], run["first"]
+    err = float(np.abs(l0 - l1).max())
+    units = err / float(np.abs(l0).max()) / TOL[torch.bfloat16]
+    lim = max(1.0, 2 * floor)
+    log(f"[{tag}] tp={tp} vs one device: {len(div)} of "
+        f"{len(ref['tokens'])} requests diverge (request, first token): "
+        f"{div}; first logits max |diff| {err:.4g} = {units:.4g} x the "
+        f"tolerance (limit {lim:.4g}: the floor {floor:.4g})")
+    check(sid0 == sid1 and units <= lim,
+          f"tp={tp}: first logits {units:.3g} x the tolerance from the "
+          f"single device's, beyond {lim:.3g}")
+    return dict(diverged=len(div), first_units=units)
+
+
+def partial_work(q, tables, q_offsets, ctx_lens, page_g, pl, shard, hkv, d,
+                 itemsize, q_lens, flags=None):
+    """`attention_work` of one shard's partial call: its real query rows
+    read and outputs (and lse) written, the shard's rows of each lane's
+    relevant pages (int8 where flagged), and QK and PV over the keys of
+    the shard each real row sees."""
+    B, Sq, H, D = q.shape
+    qo = q_offsets.cpu().numpy().astype(np.int64)
+    cx = ctx_lens.cpu().numpy().astype(np.int64)
+    tab = tables.cpu().numpy()
+    fl = None if flags is None else flags.cpu().numpy()
+    nbytes, flops = 2 * B * 4, 0
+    for b in range(B):
+        if cx[b] == 0:
+            continue
+        n, c = int(q_lens[b]), int(cx[b])
+        npg = -(-c // page_g)
+        nbytes += 2 * n * H * D * itemsize + 4 * n * H + 4 * npg
+        pos = (np.arange(npg)[:, None] * page_g + shard * pl
+               + np.arange(pl)[None, :])
+        rows = (pos < c).sum(axis=1)
+        for i in range(npg):
+            if fl is not None and fl[tab[b, i]]:
+                nbytes += 2 * rows[i] * hkv * d + 8 + 4
+            else:
+                nbytes += 2 * rows[i] * hkv * d * itemsize + (
+                    0 if fl is None else 4)
+        keys = np.sort(pos[pos < c])
+        seen = np.searchsorted(keys, qo[b] + np.arange(n), side="right")
+        flops += 4 * D * H * int(seen.sum())
+    return nbytes, flops
+
+
+def compare_partial(group, label):
+    """One split-K call, captured shard by shard (one layer of one
+    dispatch): each shard's kernel against its plain version (real rows
+    within TOL x max|plain|, padding rows zeros, -inf lse where the plain
+    one is), the merge against the unsplit kernel and its plain version on
+    the whole pool; times per shard, summed with the merge, of the unsplit
+    kernel on the same call and of SDPA on the gathered K/V."""
+    quant = len(group[0]) == 13
+    kern = QKPART if quant else KPART
+    q = group[0][0]
+    dtype = q.dtype
+    tab, qoff, ctx = group[0][-5:-2]
+    n = group[0][-1]
+    q_lens = (ctx - qoff).clamp(min=0).cpu().tolist()
+    cx = ctx.cpu().tolist()
+    outs, lses = [], []
+    err, scale, lerr = 0.0, 0.0, 0.0
+    ms = dev = plain = 0.0
+    nbytes = flops = 0
+    dev_ok = True
+    for args in group:
+        o, lse = kern(*args)
+        torch.cuda.synchronize()
+        qt = tuple(args[3:8]) if quant else None
+        wo, wl = ref.paged_chunk_attention_partial_ref(
+            args[0], args[1], args[2], tab, qoff, ctx, args[-2], n, quant=qt)
+        check(bool(torch.isfinite(o.float()).all()),
+              f"{label} shard {args[-2]}: output not finite")
+        check(torch.equal(torch.isfinite(lse), torch.isfinite(wl)),
+              f"{label} shard {args[-2]}: rows with no key differ from the "
+              f"plain version's")
+        for b in range(q.shape[0]):
+            m = int(q_lens[b]) if cx[b] else 0
+            check(bool((o[b, m:] == 0).all()),
+                  f"{label} shard {args[-2]}: lane {b}'s padding rows are "
+                  f"not zeros")
+            if m:
+                err = max(err, (o[b, :m].float() - wo[b, :m].float())
+                          .abs().max().item())
+                scale = max(scale, wo[b, :m].float().abs().max().item())
+        fin = torch.isfinite(wl)
+        if bool(fin.any()):
+            lerr = max(lerr, (lse[fin] - wl[fin]).abs().max().item())
+        outs.append(o)
+        lses.append(lse)
+        ms += cuda_ms(lambda a=args: kern(*a), 5)
+        d_ms = device_ms(lambda a=args: kern(*a), 5)
+        dev_ok = dev_ok and d_ms is not None
+        dev += d_ms or 0.0
+        plain += cuda_ms(lambda a=args: ref.paged_chunk_attention_partial_ref(
+            a[0], a[1], a[2], tab, qoff, ctx, a[-2], n, quant=qt), 1,
+            warmup=0)
+        kp = args[1]
+        nb, fl = partial_work(q, tab, qoff, ctx, kp.shape[1] * n,
+                              kp.shape[1], args[-2], kp.shape[2],
+                              kp.shape[3], q.element_size(), q_lens,
+                              args[7] if quant else None)
+        nbytes += nb
+        flops += fl
+    lim = TOL[dtype] * scale
+    check(err <= lim, f"{label}: max abs err {err:.3g} > {TOL[dtype]} x "
+          f"max|plain| {scale:.3g} = {lim:.3g}")
+    check(lerr <= 1e-2, f"{label}: lse off the plain version's by {lerr:.3g}")
+    merged = merge_partials(outs, lses)
+    merge_ms = cuda_ms(lambda: merge_partials(outs, lses), 10)
+    kp = torch.cat([a[1] for a in group], dim=1)
+    vp = torch.cat([a[2] for a in group], dim=1)
+    full = None
+    if quant:
+        full = (torch.cat([a[3] for a in group], dim=1),
+                torch.cat([a[4] for a in group], dim=1), *group[0][5:8])
+
+    def unsplit():
+        if full is None:
+            return KERNEL(q, kp, vp, tab, qoff, ctx)
+        return QKERNEL(q, kp, vp, *full, tab, qoff, ctx)
+    whole = unsplit()
+    plain_whole = ref.paged_chunk_attention_ref(q, kp, vp, tab, qoff, ctx,
+                                                quant=full)
+    merr, mscale = 0.0, 0.0
+    for b in range(q.shape[0]):
+        m = int(q_lens[b]) if cx[b] else 0
+        if m:
+            want = plain_whole[b, :m].float()
+            merr = max(merr, (merged[b, :m].float() - want).abs().max()
+                       .item(), (whole[b, :m].float() - want).abs().max()
+                       .item())
+            mscale = max(mscale, want.abs().max().item())
+    check(merr <= TOL[dtype] * mscale,
+          f"{label}: merged shards or the unsplit kernel off the plain "
+          f"version by {merr:.3g} > {TOL[dtype]} x {mscale:.3g}")
+    b_ms, b_by, t_b, t_f = bound(nbytes, flops, dtype)
+    rec = dict(
+        label=label, max_abs_err=err, err_rel=err / max(scale, 1e-30),
+        lse_err=lerr, merged_err_rel=merr / max(mscale, 1e-30),
+        ms=ms, device_ms=dev if dev_ok else None, plain_ms=plain,
+        merge_ms=merge_ms, split_ms=ms + merge_ms,
+        unsplit_ms=cuda_ms(unsplit, 20), unsplit_device_ms=device_ms(unsplit),
+        library_ms=cuda_ms(sdpa_yardstick(q, kp, vp, tab, qoff, ctx, full),
+                           20),
+        bound_ms=b_ms, bound_by=b_by, bytes_ms=t_b, ops_ms=t_f, flops=flops,
+        decode=q.shape[1] == 1, shards=n)
+    return rec
+
+
+def fmt_partial(rec) -> str:
+    keys = ("max_abs_err", "err_rel", "lse_err", "merged_err_rel", "ms",
+            "device_ms", "merge_ms", "split_ms", "unsplit_ms",
+            "unsplit_device_ms", "plain_ms", "library_ms", "bound_ms")
+    parts = [f"{k}={rec[k]:.4g}" for k in keys if rec.get(k) is not None]
+    return f"  {rec['label']}: " + " ".join(parts) + \
+        f" bound_by={rec['bound_by']}"
+
+
+def retime_partial(cap, what, tag):
+    """The captured partial calls, grouped by shape (shard 0..n-1 of one
+    layer of one dispatch), held and timed by `compare_partial`."""
+    groups = {}
+    for key, (args, _) in cap.calls.items():
+        groups.setdefault(key[:-1], {})[key[-1]] = args
+    recs = []
+    for key in sorted(groups):
+        by_shard = groups[key]
+        n = next(iter(by_shard.values()))[-1]
+        check(sorted(by_shard) == list(range(n)),
+              f"{what}: shards {sorted(by_shard)} captured of {n}")
+        group = [by_shard[r] for r in range(n)]
+        q, tab = group[0][0], group[0][-5]
+        label = (f"{what} B={q.shape[0]} Sq={q.shape[1]} T={tab.shape[1]} "
+                 f"x {n} shards of {group[0][1].shape[1]} rows")
+        if len(group[0]) == 13:
+            g = group[0]
+            label += (f" int8 pages "
+                      f"{flag_share(tab, g[-3], g[7], g[1].shape[1] * n):.2f}")
+        rec = compare_partial(group, label)
+        log(f"[{tag}]" + fmt_partial(rec))
+        recs.append(rec)
+    cap.calls.clear()
+    if recs:
+        tot = {k: sum(r[k] for r in recs) for k in (
+            "ms", "merge_ms", "split_ms", "unsplit_ms", "library_ms",
+            "bound_ms", "plain_ms")}
+        devs = [r["device_ms"] for r in recs]
+        udevs = [r["unsplit_device_ms"] for r in recs]
+        log(f"[{tag}] {what}, {len(recs)} shapes: shards {tot['ms']:.4g} ms"
+            f" (device {sum(devs) if None not in devs else 'n/a'}) + merge "
+            f"{tot['merge_ms']:.4g} = {tot['split_ms']:.4g} ms; unsplit "
+            f"kernel {tot['unsplit_ms']:.4g} ms (device "
+            f"{sum(udevs) if None not in udevs else 'n/a'}); SDPA "
+            f"{tot['library_ms']:.4g} ms; bound {tot['bound_ms']:.4g} ms; "
+            f"plain {tot['plain_ms']:.4g} ms")
+    return recs
+
+
+def tp_pressure(cfg, model, params, seed, tp, tag):
+    """One pressure pass of phase 6's rounds (4 sessions x 3 turns, the fp
+    budget at 40 % of the sessions' pages) on a node of ``tp`` shards, and
+    one more turn of a session compressed just before it: B.2 (or its
+    partial mode) on every layer and shard once the int8 tier is active;
+    checks that its lanes read int8 pages, and returns the launches and
+    the captured calls."""
+    rng = np.random.default_rng(seed + 21)
+    gen = 16
+    prompts = pressure_prompts(rng, cfg.vocab, n_sessions=4, n_turns=3)
+    total = sum(-(-(sum(map(len, turns)) + len(turns) * gen) // PAGE)
+                for turns in prompts)
+    hbm_pages = int(0.4 * total)
+    n_pages = 2 * hbm_pages
+    free_device_memory()
+    base = torch.cuda.memory_allocated()
+    rows = tp_mesh(tp) is not None and cfg.n_kv_heads % tp != 0
+    if rows:
+        cap = Capture("paged_chunk_attention_quant_partial",
+                      score=lambda a: flag_share(a[-5], a[-3], a[7],
+                                                 a[1].shape[1] * a[-1]),
+                      key=_partial_key)
+    else:
+        cap = Capture("paged_chunk_attention_quant", score=lambda a:
+                      flag_share(a[-3], a[-1], a[7], a[1].shape[1]))
+    zero_counts()
+    node = make_node(cfg, model, params, n_pages=n_pages,
+                     hbm_pages=hbm_pages, mesh=tp_mesh(tp))
+    d = Single(node, cfg, max_steps=1000)     # phase 6's rounds: ~160
+    be = node[1]
+    with cap():
+        pressure_rounds(d, prompts, gen)
+        # whether the rounds' own lanes read int8 pages depends on the
+        # prompts (the turn-2 layer evictions dequantize idle sessions): a
+        # session resident in every layer is compressed and serves one more
+        # turn, so B.2's lanes read int8 pages whatever the rounds did
+        sid = next(f"p{s}" for s in reversed(range(len(prompts)))
+                   if all(f"p{s}" in a.seqs for a in be.alloc))
+        be.quantize_session(sid)        # 0 if already compressed
+        check(all(a.quantized_pages_of(sid) for a in be.alloc),
+              f"tp={tp}: {sid} holds no int8 page")
+        d.submit(sid, [int(x) for x in rng.integers(0, cfg.vocab, 64)], gen)
+        d.run()
+    got = counts()
+    log(f"[{tag}] pressure pass at tp={tp} ({be._layout.rung}): "
+        f"{len(prompts)} sessions x {len(prompts[0])} turns and {sid}'s "
+        f"turn from its int8 pages, hbm_pages "
+        f"{hbm_pages} of {total}, {len(d.steps)} steps, mean step "
+        f"{1e3 * float(np.mean(d.steps)):.2f} ms; launches {got}; "
+        f"backend stats {be.stats}")
+    key = "b2_partial" if rows else "b2"
+    check(be.stats["quantized_pages"] > 0 and got[key] > 0,
+          f"tp={tp}: the pressure pass put no int8 page on the path")
+    check(cap.n == got[key] and max(cap.scores.values()) > 0,
+          f"tp={tp}: B.2's lanes never read an int8 page ({cap.n} calls "
+          f"captured of {got[key]})")
+    log(f"[{tag}] tp={tp}: B.2's lanes read int8 pages: the most of any "
+        f"captured call {max(cap.scores.values()):.2f} of its relevant "
+        f"pages")
+    del d, node, be
+    free_device_memory()
+    held = sum(t.numel() * t.element_size() for args, _ in cap.calls.values()
+               for t in args if isinstance(t, torch.Tensor))
+    after = torch.cuda.memory_allocated()
+    check(after - base <= held + TP_SLACK,
+          f"tp={tp} pressure: {(after - base - held) / 1e6:.1f} MB still "
+          f"allocated after the node was freed")
+    return got, cap
+
+
+def phase_tp(seed, tag=21):
+    """Phase 21: llama3-8b (kv-head rung at tp 2 and 4) and yi-6b (split-K
+    rung at tp 8) served at full width and depth in bf16 on shards of the
+    one card; pressure passes at tp 2 and 8 (full width, 16 of the 32
+    layers); every kernel call of the tp paths held against its plain
+    version and timed.  Returns (kernel-1 launches and
+    records on the kv-head rung, B.2's, the partial modes')."""
+    rng = np.random.default_rng(seed)
+    gen = 16
+    out = dict(k1=0, k1_recs=[], b2=0, b2_recs=[], k1p=0, k1p_recs=[],
+               b2p=0, b2p_recs=[], table=[])
+    for name, tps in (("llama3-8b", (2, 4)), ("yi-6b", (8,))):
+        cfg, model, params = published(name, seed, tag)
+        prompts = _turns(rng, cfg.vocab)
+        single = tp_serve(cfg, model, params, prompts, gen, None, tag)
+        floor = first_logits_floor(cfg, model, params, prompts, gen, single,
+                                   tag)
+        out["table"].append((name, None, single["step_ms"],
+                             single["launches"] / single["steps"],
+                             single["shard_bytes"]))
+        for tp in tps:
+            rows = cfg.n_kv_heads % tp != 0
+            cap = (Capture("paged_chunk_attention_partial", key=_partial_key)
+                   if rows else Capture("paged_chunk_attention"))
+            run = tp_serve(cfg, model, params, prompts, gen, tp, tag,
+                           captures=(cap,) if rows or tp == 4 else ())
+            held_to_single(single, run, tp, tag, floor)
+            out["table"].append((name, tp, run["step_ms"],
+                                 run["launches"] / run["steps"],
+                                 run["shard_bytes"]))
+            if rows:
+                out["k1p"] += run["launches"]
+                out["k1p_recs"] += retime_partial(cap, f"{name} tp={tp}",
+                                                  tag)
+            else:
+                out["k1"] += run["launches"]
+                if tp == 4:
+                    out["k1_recs"] += retime(cap, f"{name} tp={tp} shard",
+                                             tag)
+            free_device_memory()
+        del cfg, model, params
+        free_device_memory()
+        # the pressure pass at 16 of the 32 layers (widths as published):
+        # a tp step is host-bound, one process issuing every shard's
+        # operations, and the full depth would take phases 21-22 well
+        # past 120 s
+        cfg, model, params = published(name, seed, tag, n_layers=16)
+        ptp = tps[-1] if name == "yi-6b" else 2
+        got, cap = tp_pressure(cfg, model, params, seed, ptp, tag)
+        if cfg.n_kv_heads % ptp:
+            out["b2p"] += got["b2_partial"]
+            out["k1p"] += got["k1_partial"]
+            out["b2p_recs"] += retime_partial(cap, f"{name} pressure "
+                                              f"tp={ptp}", tag)
+        else:
+            out["b2"] += got["b2"]
+            out["k1"] += got["k1"]
+            out["b2_recs"] += retime(cap, f"{name} pressure tp={ptp} shard",
+                                     tag)
+        del cfg, model, params
+        free_device_memory()
+    log(f"[{tag}] step ms and launches a step (model, tp, mean step ms, "
+        f"kernel launches a step, pool bytes a shard): {out['table']}")
+    return out
+
+
+def exact_serve(cfg, model, params, turns, gen, tp, mode):
+    """The session's turns on a node of ``tp`` shards, the second one
+    preempted halfway through its decode (swapped out and back in); its
+    tokens, launch rule checked."""
+    eng, be, mgr = make_node(cfg, model, params, n_pages=128, max_batch=4,
+                             token_budget=128, kernel_mode=mode,
+                             mesh=tp_mesh(tp))
+    zero_counts()
+    got, now = [], 0.0
+    for i, turn in enumerate(turns):
+        req = request(be, "chat", turn, gen)
+        eng.submit(req)
+        preempted = i != 1
+        while eng.waiting or eng.running:
+            now += eng.step(now)
+            if not preempted and eng.running and \
+                    len(req.output_ids) >= gen // 2:
+                eng.preempt_one(now)
+                preempted = True
+        got.append(list(req.output_ids))
+    ran = counts()
+    key, want = expected_counts(be)
+    if mode == "ref":
+        want = 0
+    check(ran.get(key, 0) == want and sum(ran.values()) == want,
+          f"{cfg.name} tp={tp} {mode}: launches {ran}, want {key} = {want}")
+    check(be.stats["swaps_out"] > 0 and be.stats["swaps_in"] > 0,
+          f"{cfg.name} tp={tp}: the preemption swapped nothing out and in")
+    del eng, be, mgr
+    free_device_memory()
+    return got
+
+
+def int8_snapshot(be, pages):
+    """(k codes, v codes, k scales, v scales) of ``pages`` in every layer,
+    full heads and rows (one tensor whatever the shard count)."""
+    lay = be._layout
+    if lay is None:
+        parts = (be.kq_pool, be.vq_pool, be.k_scale, be.v_scale)
+    else:
+        parts = (unshard(be.kq_pool, lay.spec), unshard(be.vq_pool, lay.spec),
+                 be.k_scale[0], be.v_scale[0])
+    return [t[:, pages].clone() for t in parts]
+
+
+def phase_exact_tp(seed, tag=22):
+    """Phase 22: exact fp32 tokens at full width and 2 layers through the
+    mesh — llama3-8b at tp 1, 2, 4 (the kv-head rung) and yi-6b at tp 8
+    (split-K): served with a mid-decode preemption (a swap-out and back),
+    equal to the single device and to ``kernel_mode="ref"``; a session exported at tp 2 resumes at tp
+    4; one payload imported on one device and on the mesh, quantized: the
+    int8 scales and codes bit-equal, and its next turn served from its
+    int8 pages gives the same tokens."""
+    rng = np.random.default_rng(seed + 22)
+    gen = 16
+    for name, tps in (("llama3-8b", (1, 2, 4)), ("yi-6b", (8,))):
+        cfg, model, params = published(name, seed + 22, tag, n_layers=2,
+                                       dtype="float32")
+        turns = [[int(x) for x in rng.integers(0, cfg.vocab, int(n))]
+                 for n in rng.integers(100, 300, 3)]
+        want = exact_serve(cfg, model, params, turns, gen, None, "auto")
+        got_ref = exact_serve(cfg, model, params, turns, gen, None, "ref")
+        log(f"[{tag}] {cfg.name} one device: {want}")
+        check(got_ref == want, f"{cfg.name}: the kernels' tokens differ "
+              f"from kernel_mode='ref'")
+        for tp in tps:
+            for mode in ("auto", "ref"):
+                got = exact_serve(cfg, model, params, turns, gen, tp, mode)
+                check(got == want, f"{cfg.name} tp={tp} {mode}: tokens "
+                      f"{got} differ from one device's {want}")
+            log(f"[{tag}] {cfg.name} tp={tp}: auto and ref equal one "
+                f"device's tokens")
+        if 2 in tps and 4 in tps:
+            eng2, be2, mgr2 = make_node(cfg, model, params, n_pages=128,
+                                     max_batch=4, token_budget=128,
+                                     mesh=tp_mesh(2))
+            now, got = 0.0, []
+            for turn in turns[:2]:
+                toks, now = serve_turn(eng2, be2, "chat", turn, gen, now)
+                got.append(toks)
+            tokens = be2.session_tokens("chat")
+            payload = be2.export_session("chat")
+            check(all(p["k"].shape[1:] == (cfg.n_kv_heads, cfg.d_head)
+                      for p in payload["layers"].values()),
+                  "the tp=2 export is not full-head")
+            eng4, be4, mgr4 = make_node(cfg, model, params, n_pages=128,
+                                        max_batch=4, token_budget=128,
+                                        mesh=tp_mesh(4))
+            be4.import_session("chat", payload)
+            mgr4.mark_resident("chat", tokens, be4.session_kv_bytes(tokens),
+                               priority=0)
+            toks, _ = serve_turn(eng4, be4, "chat", turns[2], gen, now)
+            got.append(toks)
+            check(got == want, f"{cfg.name}: exported at tp=2 and resumed "
+                  f"at tp=4: {got}, one device {want}")
+            log(f"[{tag}] {cfg.name}: exported at tp=2, resumed at tp=4: "
+                f"equal")
+            del eng2, be2, mgr2, eng4, be4, mgr4
+        # one payload on one device and on each mesh, quantized
+        eng, be, mgr = make_node(cfg, model, params, n_pages=128,
+                                 max_batch=4, token_budget=128)
+        toks, now = serve_turn(eng, be, "chat", turns[0], gen, 0.0)
+        tokens = be.session_tokens("chat")
+        payload = be.export_session("chat")
+        del eng, be, mgr
+        res = {}
+        for tp in (None,) + tps:
+            eng, be, mgr = make_node(cfg, model, params, n_pages=128,
+                                     max_batch=4, token_budget=128,
+                                     mesh=tp_mesh(tp))
+            be.import_session("chat", payload)
+            mgr.mark_resident("chat", tokens, be.session_kv_bytes(tokens),
+                              priority=0)
+            be._ensure_resident("chat")
+            be.drain_transfers()
+            check(be.quantize_session("chat") > 0,
+                  f"{cfg.name} tp={tp}: nothing quantized")
+            snap = int8_snapshot(be, be.alloc[0].seqs["chat"].pages[
+                :payload["n_kv"] // PAGE])
+            zero_counts()
+            t2, _ = serve_turn(eng, be, "chat", turns[1], gen, now)
+            key, n = expected_counts(be, "b2")
+            check(counts()[key] == n, f"{cfg.name} tp={tp}: B.2 ran "
+                  f"{counts()} for {n} {key}")
+            res[tp] = (snap, t2)
+            del eng, be, mgr
+        for tp in tps:
+            for a, b, what in zip(res[tp][0], res[None][0],
+                                  ("k codes", "v codes", "k scales",
+                                   "v scales")):
+                check(a.dtype == b.dtype and torch.equal(a, b),
+                      f"{cfg.name} tp={tp}: int8 {what} differ from one "
+                      f"device's")
+            check(res[tp][1] == res[None][1], f"{cfg.name} tp={tp}: the "
+                  f"turn served from int8 pages differs from one device's")
+        log(f"[{tag}] {cfg.name}: int8 scales and codes at tp {tps} "
+            f"bit-equal to one device's; the turn read from int8 pages "
+            f"{res[None][1]} at every tp")
+        del cfg, model, params, res
+        free_device_memory()
+
+
 def free_device_memory():
     """Release what a finished phase held: its nodes form reference cycles
     (backend <-> node manager) that only the cyclic collector frees."""
@@ -3750,7 +4426,7 @@ def kernel_entry(name, source, replaces, launches, recs):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default=",".join(map(str, range(1, 21))))
+    ap.add_argument("--phases", default=",".join(map(str, range(1, 23))))
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     t_start = time.perf_counter()
@@ -3859,6 +4535,20 @@ def main(argv=None):
         if 20 in phases:
             phase_exact_a9(args.seed)
             lap("phase 20")
+        # phase 21 drives each tp main path with the counts set to 0 just
+        # before it and reads them just after, inside the phase
+        tp = dict(k1=0, k1_recs=[], b2=0, b2_recs=[], k1p=0, k1p_recs=[],
+                  b2p=0, b2p_recs=[])
+        if 21 in phases:
+            tp = phase_tp(args.seed)
+            check(tp["k1p"] > 0 and tp["b2p"] > 0,
+                  f"the partial modes ran {tp['k1p']} and {tp['b2p']} "
+                  f"times on phase 21's split-K paths")
+            lap("phase 21")
+        if 22 in phases:
+            phase_exact_tp(args.seed)
+            free_device_memory()
+            lap("phase 22")
         dlaunches += pa.decode_launches
         check(dlaunches == 0, f"B.3 launched {dlaunches} times on the "
               f"serving paths, which decode through kernel 1")
@@ -3881,11 +4571,22 @@ def main(argv=None):
                   else [r for r in d80_recs if "int8" not in r["label"]]))
     entries = [
         kernel_entry(pa.NAME, src, "src/repro/kernels/paged_attention.py:291",
-                     launches + hlaunches + vk1, k1_recs + vk1_recs),
+                     launches + hlaunches + vk1 + tp["k1"],
+                     k1_recs + vk1_recs + tp["k1_recs"]),
         kernel_entry(pa.QUANT_NAME, src,
                      "src/repro/kernels/paged_attention.py:239",
-                     qlaunches + vq,
-                     (qrecs if 6 in phases else shape_qrecs) + vq_recs),
+                     qlaunches + vq + tp["b2"],
+                     (qrecs if 6 in phases else shape_qrecs) + vq_recs
+                     + tp["b2_recs"]),
+        # the split-K partial mode of both (phase 21's yi-6b at tp 8): its
+        # records sum the shards' calls of each captured shape; library_ms
+        # is SDPA over the whole call's gathered K/V
+        kernel_entry(pa.NAME + "_partial", src,
+                     "src/repro/kernels/paged_attention.py:291", tp["k1p"],
+                     tp["k1p_recs"]),
+        kernel_entry(pa.QUANT_NAME + "_partial", src,
+                     "src/repro/kernels/paged_attention.py:239", tp["b2p"],
+                     tp["b2p_recs"]),
         kernel_entry(ssd.NAME, "src/repro_torch/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan.py:62", slaunches,
                      hybrid_srecs if 9 in phases else scan_recs),
@@ -3902,6 +4603,8 @@ def main(argv=None):
         f"{launches} launches on the llama3-8b path, {hlaunches} on the "
         f"zamba2-2.7b path, {vk1} on the phi-3-vision paths; int8 kernel: "
         f"{qlaunches} on llama3-8b's pressure path, {vq} on phi-3-vision's; "
+        f"phase 21's shards: kernel 1 {tp['k1']}, int8 kernel {tp['b2']}, "
+        f"their partial modes {tp['k1p']} and {tp['b2p']}; "
         f"flash_prefill: {flaunches} on the dense reference's prefills, "
         f"{af} on the prefills of phases 17-19; paged_attention (B.3): "
         f"{dlaunches} on the "

@@ -16,6 +16,21 @@
 //     clear it does exactly the loads and the arithmetic of the fp kernel, so
 //     its output is bit-identical.
 //
+//   * paged_chunk_attention_partial_launch is either kernel's split-K
+//     partial mode, for tensor-parallel serving when the kv heads do not
+//     divide over the shards: the pools passed are shard r's slice of every
+//     page, rows [r * page, (r + 1) * page) of pages of page * n_shards rows,
+//     so local row j of table entry t is the key at position t * page *
+//     n_shards + r * page + j.  The causal mask and ctx use those positions,
+//     the output is normalised over the shard's keys, and lse (B, Sq, H)
+//     float32 gets each row's natural log-sum-exp of its scaled scores (-inf
+//     where the shard holds no key the row sees, whose output is zeros).
+//     The shards' pairs are merged outside the kernel
+//     (repro_torch/distributed/collectives.py, merge_partials), as GSPMD's
+//     softmax combine does for the TPU kernel.  A shard page may hold 2 to 32
+//     rows; without a split the mode is the kernel itself (page_g = page,
+//     r_off = 0 below), so both bodies gained integer arithmetic only.
+//
 // What both compute: lane b's query i sits at position q_offsets[b] + i and
 // attends, with a float32 online softmax (m, l, acc) scaled by 1/sqrt(D), to
 // the keys with kpos <= qpos and kpos < ctx_lens[b], read through the lane's
@@ -148,6 +163,9 @@ __device__ __forceinline__ void widen_i8(const uint4& u, float* dst,
                     (float)c[i + 2] * scale, (float)c[i + 3] * scale);
 }
 
+// -inf: the lse of a row that saw no key, and a masked score
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
@@ -180,8 +198,9 @@ paged_chunk_attention_kernel(const T* __restrict__ q,
                              const int* __restrict__ tables,
                              const int* __restrict__ q_offsets,
                              const int* __restrict__ ctx_lens,
-                             T* __restrict__ out, int Sq, int H, int Hkv,
-                             int page, int T_width, int bq) {
+                             T* __restrict__ out, float* __restrict__ lse,
+                             int Sq, int H, int Hkv, int page, int page_g,
+                             int r_off, int T_width, int bq) {
   constexpr int kTpr = kThreads / kRows;  // threads per row in P.V (8)
   // P.V columns padded to a multiple of 4 * kTpr (D = 80 -> 96); the pad
   // columns of v_s are zeros and are never written out
@@ -223,12 +242,21 @@ paged_chunk_attention_kernel(const T* __restrict__ q,
         out[(((size_t)b * Sq + qi) * H + h * G + r % G) * D + i % D] =
             from_f32<T>(0.f);
     }
+    if (lse != nullptr)
+      for (int r = tid; r < rows; r += kThreads)
+        if (q0 + r / G < Sq)
+          lse[((size_t)b * Sq + q0 + r / G) * H + h * G + r % G] = neg_inf();
     return;
   }
   const int q_last = min(q0 + bq, q_end) - 1;
   // relevant keys of this tile: up to the causal horizon of its last real
   // query (which is before the context's end); never past the table
-  const int kv_end = min(qoff + q_last + 1, T_width * page);
+  const int kv_end = min(qoff + q_last + 1, T_width * page_g);
+  // the local keys (rows of this pool) before kv_end: kl = table entry *
+  // page + row sits at position gpos(kl); all of them without a split
+  const int n_local = kv_end / page_g * page +
+                      min(max(kv_end % page_g - r_off, 0), page);
+  auto gpos = [&](int kl) { return kl / page * page_g + r_off + kl % page; };
 
   for (int i = tid; i < kRows * D; i += kThreads) {
     const int r = i / D, d = i % D;
@@ -258,11 +286,11 @@ paged_chunk_attention_kernel(const T* __restrict__ q,
   bool row_q = false;
   float row_ks = 0.f, row_vs = 0.f;
   auto fetch = [&](int k0) {
-    const int kpos = k0 + ld_j;
+    const int kl = k0 + ld_j;
     row_q = false;
-    if (kpos < kv_end) {
-      const size_t pid = (size_t)table[kpos / page];
-      const size_t off = ((pid * page + kpos % page) * Hkv + h) * D;
+    if (kl < n_local) {
+      const size_t pid = (size_t)table[kl / page];
+      const size_t off = ((pid * page + kl % page) * Hkv + h) * D;
       if constexpr (kQuant) {
         if (page_quant[pid]) {  // only the int8 tile: 1 byte an element
           row_q = true;
@@ -307,8 +335,8 @@ paged_chunk_attention_kernel(const T* __restrict__ q,
   for (int i = 0; i < kCol4; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   const float scale = 1.f / sqrtf((float)D);
 
-  if (kv_end > 0) fetch(0);
-  for (int k0 = 0; k0 < kv_end; k0 += kKeys) {
+  if (n_local > 0) fetch(0);
+  for (int k0 = 0; k0 < n_local; k0 += kKeys) {
     __syncthreads();  // the previous step is done with k_s, v_s and p_s
     bool staged = false;
     if constexpr (kQuant) {
@@ -335,14 +363,14 @@ paged_chunk_attention_kernel(const T* __restrict__ q,
       }
     }
     __syncthreads();
-    if (k0 + kKeys < kv_end) fetch(k0 + kKeys);  // in flight during the math
+    if (k0 + kKeys < n_local) fetch(k0 + kKeys);  // in flight during the math
     // scores: a warp takes one row (kKeys == 32), a lane one key
     for (int i = tid; i < kRows * kKeys; i += kThreads) {
       const int r = i / kKeys, j = i % kKeys;
       const int qi = q0 + r / G;
-      const int kpos = k0 + j;
+      const int kl = k0 + j;
       float s = kMaskValue;
-      if (r < rows && qi < q_end && kpos < kv_end && kpos <= qoff + qi) {
+      if (r < rows && qi < q_end && kl < n_local && gpos(kl) <= qoff + qi) {
         const float4* qa = reinterpret_cast<const float4*>(q_s[r]);
         const float4* ka = reinterpret_cast<const float4*>(k_s[j]);
         float dot = 0.f;
@@ -356,8 +384,8 @@ paged_chunk_attention_kernel(const T* __restrict__ q,
     // online softmax update, one warp per row, one lane per key
     for (int r = warp; r < rows; r += kWarps) {
       const int qi = q0 + r / G;
-      const int kpos = k0 + lane;
-      const bool valid = qi < q_end && kpos < kv_end && kpos <= qoff + qi;
+      const int kl = k0 + lane;
+      const bool valid = qi < q_end && kl < n_local && gpos(kl) <= qoff + qi;
       const float s = p_s[r][lane];
       const float m_old = m_s[r];
       const float m_new = fmaxf(m_old, warp_max(s));
@@ -408,6 +436,9 @@ paged_chunk_attention_kernel(const T* __restrict__ q,
       o[col + 2] = from_f32<T>(acc[i].z / denom);
       o[col + 3] = from_f32<T>(acc[i].w / denom);
     }
+    if (lse != nullptr && pv_col == 0)
+      lse[((size_t)b * Sq + qi) * H + h * G + r % G] =
+          qi < q_end && l_s[r] > 0.f ? m_s[r] + logf(l_s[r]) : neg_inf();
   }
 }
 
@@ -424,8 +455,8 @@ template <int D, bool kQuant>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                    const QuantArgs& qa, const int* tables,
                    const int* q_offsets, const int* ctx_lens, void* out,
-                   int B, int Sq, int H, int Hkv, int page, int T_width,
-                   cudaStream_t stream) {
+                   float* lse, int B, int Sq, int H, int Hkv, int page,
+                   int page_g, int r_off, int T_width, cudaStream_t stream) {
   const int G = H / Hkv;
   int bq = kRows / G;
   if (bq > Sq) bq = Sq;
@@ -435,7 +466,8 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
       static_cast<const float*>(q), static_cast<const float*>(k_pages),
       static_cast<const float*>(v_pages), qa.kq_pages, qa.vq_pages,
       qa.k_scales, qa.v_scales, qa.page_quant, tables, q_offsets, ctx_lens,
-      static_cast<float*>(out), Sq, H, Hkv, page, T_width, bq);
+      static_cast<float*>(out), lse, Sq, H, Hkv, page, page_g, r_off, T_width,
+      bq);
   return cudaGetLastError();
 }
 
@@ -453,7 +485,7 @@ constexpr int kTcStages = 2;                   // ring stages
 constexpr int kTcCtasPerSm = 2;                // __launch_bounds__ minimum
 constexpr int kTcThreads = 128 + 32;           // a consumer warpgroup and a
                                                // producer warp
-constexpr int kMaxPages = kTcKeys / 8;         // pages a stage, at page 8
+constexpr int kMaxPages = kTcKeys / 2;         // pages a stage, at 2 rows
 
 // what the producer tells the consumers about a stage of the int8 kernel:
 // which of its pages come from the int8 pools, and their scales
@@ -504,8 +536,9 @@ paged_chunk_attention_tc(const __grid_constant__ CUtensorMap kmap,
                const int* __restrict__ tables,
                const int* __restrict__ q_offsets,
                const int* __restrict__ ctx_lens,
-               __nv_bfloat16* __restrict__ out, int B, int Sq, int H, int Hkv,
-               int page, int T_width, int bq, int n_qblk) {
+               __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+               int B, int Sq, int H, int Hkv, int page, int page_g, int r_off,
+               int T_width, int bq, int n_qblk) {
   using L = PcSmem<D, kQuant>;
   constexpr int kCb = L::kCb;
   constexpr int kChunks = D / 8;              // 16-byte bf16 chunks a row
@@ -536,16 +569,25 @@ paged_chunk_attention_tc(const __grid_constant__ CUtensorMap kmap,
                                         r % G) * D)[i % kChunks] =
             make_uint4(0, 0, 0, 0);
     }
+    if (lse != nullptr)
+      for (int r = threadIdx.x; r < rows; r += kTcThreads)
+        if (q0 + r / G < Sq)
+          lse[((size_t)b * Sq + q0 + r / G) * H + h * G + r % G] = neg_inf();
     return;
   }
   const int q_last = min(q0 + bq, q_end) - 1;
   // relevant keys of this tile: up to the causal horizon of its last real
   // query (which is before the context's end); never past the table
-  const int kv_end = min(qoff + q_last + 1, T_width * page);
-  const int n_tiles = (kv_end + kTcKeys - 1) / kTcKeys;
-  const int n_pages = (kv_end + page - 1) / page;
+  const int kv_end = min(qoff + q_last + 1, T_width * page_g);
+  const int n_pages = (kv_end + page_g - 1) / page_g;  // relevant entries
+  const int n_tiles = (n_pages * page + kTcKeys - 1) / kTcKeys;
   const int lp = __ffs(page) - 1;             // log2(page)
   const int ppt = kTcKeys >> lp;              // pages a stage
+  // position of the local key kl (row kl % page of table entry kl / page);
+  // kl itself without a split
+  auto gpos = [&](int kl) {
+    return (kl >> lp) * page_g + r_off + (kl & (page - 1));
+  };
 
   // zero the rows of the last tile's stage that no load fills (keys past
   // the lane's relevant pages), so that no garbage meets p = 0
@@ -579,8 +621,11 @@ paged_chunk_attention_tc(const __grid_constant__ CUtensorMap kmap,
     // the producer warp: lane i holds the table entry (and with kQuant the
     // flag and scales) of page w0 + i of a 32-page window of the lane's
     // table row, read once, 32 pages at a time; a stage's pages reach lane
-    // 0 by shuffles (64 / page divides 32, so a stage never straddles two
-    // windows), and lane 0 issues every load
+    // 0 by shuffles (64 / page divides 32 for page >= 2, so a stage never
+    // straddles two windows), and lane 0 issues every load.  A 2-row shard
+    // page lands 256 bytes into a 1024-byte swizzle atom: TMA swizzles by
+    // the shared-memory address, so its rows land as the tile's rows 2 and 3
+    // of that atom would
     const int* row = tables + (size_t)b * T_width;
     int pid_l = 0, quant_l = 0;
     float ks_l = 0.f, vs_l = 0.f;
@@ -600,56 +645,45 @@ paged_chunk_attention_tc(const __grid_constant__ CUtensorMap kmap,
           }
         }
       }
-      int pid[kMaxPages];
-      float ks[kMaxPages], vs[kMaxPages];
       unsigned mask = 0;
-#pragma unroll
-      for (int i = 0; i < kMaxPages; ++i) {
-        pid[i] = __shfl_sync(0xffffffffu, pid_l, (l0 + i) & 31);
-        if constexpr (kQuant) {
-          ks[i] = __shfl_sync(0xffffffffu, ks_l, (l0 + i) & 31);
-          vs[i] = __shfl_sync(0xffffffffu, vs_l, (l0 + i) & 31);
-        }
-      }
       if constexpr (kQuant)
-        mask = (__ballot_sync(0xffffffffu, quant_l) >> l0) & ((1u << np) - 1);
+        mask = (__ballot_sync(0xffffffffu, quant_l) >> l0) &
+               (0xffffffffu >> (32 - np));
       if (t >= kTcStages) mbar_wait(empty0 + 8 * s, (t / kTcStages - 1) & 1);
-      if (lane == 0) {
-        uint32_t bytes = 0;
-#pragma unroll
-        for (int i = 0; i < kMaxPages; ++i)
-          if (i < np)
-            bytes += (mask >> i & 1) ? 2 * page * D : 2 * kCb * page * 128;
-        if constexpr (kQuant) {
-          meta[s].mask = mask;
-#pragma unroll
-          for (int i = 0; i < kMaxPages; ++i)
-            if (mask >> i & 1) {
-              meta[s].ks[i] = ks[i];
-              meta[s].vs[i] = vs[i];
-            }
+      if constexpr (kQuant) {
+        // lane 0 writes the stage's flags and scales before it arrives
+        for (int i = 0; i < np; ++i) {
+          const float ks = __shfl_sync(0xffffffffu, ks_l, (l0 + i) & 31);
+          const float vs = __shfl_sync(0xffffffffu, vs_l, (l0 + i) & 31);
+          if (lane == 0 && (mask >> i & 1)) {
+            meta[s].ks[i] = ks;
+            meta[s].vs[i] = vs;
+          }
         }
-        mbar_expect_tx(full0 + 8 * s, bytes);
+        if (lane == 0) meta[s].mask = mask;
+      }
+      if (lane == 0) {
+        const int nq = __popc(mask);
+        mbar_expect_tx(full0 + 8 * s, nq * 2 * page * D +
+                                          (np - nq) * 2 * kCb * page * 128);
+      }
+      for (int i = 0; i < np; ++i) {
+        const int pid = __shfl_sync(0xffffffffu, pid_l, (l0 + i) & 31);
+        if (lane != 0) continue;
+        const int krow = pid * page;
+        if (kQuant && (mask >> i & 1)) {
+          const uint32_t off = s * L::kStage + L::kCodes + i * page * 128;
+          tma_load_3d(base + L::kK + off, &kqmap, full0 + 8 * s, 0, h, krow);
+          tma_load_3d(base + L::kV + off, &vqmap, full0 + 8 * s, 0, h, krow);
+        } else {
 #pragma unroll
-        for (int i = 0; i < kMaxPages; ++i) {
-          if (i >= np) break;
-          const int krow = pid[i] * page;
-          if (kQuant && (mask >> i & 1)) {
-            const uint32_t off = s * L::kStage + L::kCodes + i * page * 128;
-            tma_load_3d(base + L::kK + off, &kqmap, full0 + 8 * s, 0, h,
+          for (int c = 0; c < kCb; ++c) {
+            const uint32_t off =
+                s * L::kStage + c * kTcKeys * 128 + i * page * 128;
+            tma_load_3d(base + L::kK + off, &kmap, full0 + 8 * s, 64 * c, h,
                         krow);
-            tma_load_3d(base + L::kV + off, &vqmap, full0 + 8 * s, 0, h,
+            tma_load_3d(base + L::kV + off, &vmap, full0 + 8 * s, 64 * c, h,
                         krow);
-          } else {
-#pragma unroll
-            for (int c = 0; c < kCb; ++c) {
-              const uint32_t off =
-                  s * L::kStage + c * kTcKeys * 128 + i * page * 128;
-              tma_load_3d(base + L::kK + off, &kmap, full0 + 8 * s, 64 * c, h,
-                          krow);
-              tma_load_3d(base + L::kV + off, &vmap, full0 + 8 * s, 64 * c, h,
-                          krow);
-            }
           }
         }
       }
@@ -766,19 +800,20 @@ paged_chunk_attention_tc(const __grid_constant__ CUtensorMap kmap,
     fence_regs(sc);
 
     // online softmax on the fragments: sc[4 i + e] is row r0 + 8 (e / 2),
-    // key k0 + 8 i + 2 tq + e % 2; a row's keys span the 4 threads of a
-    // quad, and keys 8 i .. 8 i + 7 lie in one page (page >= 8)
-    const bool masked = k0 + kTcKeys - 1 > first;
+    // local key k0 + 8 i + 2 tq + e % 2; a row's keys span the 4 threads of
+    // a quad, and keys 2 tq and 2 tq + 1 lie in one page (page >= 2)
+    const bool masked = gpos(k0 + kTcKeys - 1) > first;
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int i = 0; i < kTcKeys / 8; ++i) {
       bool qk = false;                         // an int8 page's keys
       float ks = 0.f;
       if constexpr (kQuant) {
-        const int slot = (8 * i) >> lp;
+        const int slot = (8 * i + 2 * tq) >> lp;
         qk = mask >> slot & 1;
         if (qk) ks = meta[s].ks[slot];
       }
+      const int g0 = masked ? gpos(k0 + 8 * i + 2 * tq) : 0;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         // __fmul_rn: never contracted, so with every flag clear the int8
@@ -786,8 +821,8 @@ paged_chunk_attention_tc(const __grid_constant__ CUtensorMap kmap,
         float x = sc[4 * i + e];
         if (qk) x = __fmul_rn(x, ks);          // s_j = (q . kq_j) ks_j
         x = __fmul_rn(x, sl2);
-        if (masked && k0 + 8 * i + 2 * tq + (e & 1) > hz[e / 2])
-          x = __int_as_float(0xff800000);      // -inf: p = 0
+        if (masked && g0 + (e & 1) > hz[e / 2])
+          x = neg_inf();                       // p = 0
         sc[4 * i + e] = x;
         mx[e / 2] = fmaxf(mx[e / 2], x);
       }
@@ -806,7 +841,7 @@ paged_chunk_attention_tc(const __grid_constant__ CUtensorMap kmap,
       bool qv = false;
       float vs = 0.f;
       if constexpr (kQuant) {
-        const int slot = (8 * i) >> lp;
+        const int slot = (8 * i + 2 * tq) >> lp;
         qv = mask >> slot & 1;
         if (qv) vs = meta[s].vs[slot];
       }
@@ -869,6 +904,12 @@ paged_chunk_attention_tc(const __grid_constant__ CUtensorMap kmap,
           hz[j] < 0 ? __floats2bfloat162_rn(0.f, 0.f)
                     : __floats2bfloat162_rn(o[4 * i + 2 * j] / denom,
                                             o[4 * i + 2 * j + 1] / denom);
+    // the natural-log lse: m is in log2 units of the scaled scores
+    if (lse != nullptr && tq == 0)
+      lse[((size_t)b * Sq + qi) * H + h * G + r % G] =
+          hz[j] < 0 || !(l[j] > 0.f)
+              ? neg_inf()
+              : (m[j] + log2f(l[j])) * 0.6931471805599453f;
   }
 }
 
@@ -901,8 +942,9 @@ template <int D, bool kQuant>
 cudaError_t launch_tc(const void* q, const void* k_pages, const void* v_pages,
                       const QuantArgs& qa, const int* tables,
                       const int* q_offsets, const int* ctx_lens, void* out,
-                      int B, int Sq, int H, int Hkv, int P, int page,
-                      int T_width, cudaStream_t stream) {
+                      float* lse, int B, int Sq, int H, int Hkv, int P,
+                      int page, int page_g, int r_off, int T_width,
+                      cudaStream_t stream) {
   CUtensorMap kmap, vmap, kqmap, vqmap;
   if (!pool_map(&kmap, k_pages, false, P, page, Hkv, D) ||
       !pool_map(&vmap, v_pages, false, P, page, Hkv, D))
@@ -929,53 +971,52 @@ cudaError_t launch_tc(const void* q, const void* k_pages, const void* v_pages,
       <<<(unsigned)n_ctas, kTcThreads, smem, stream>>>(
       kmap, vmap, kqmap, vqmap, static_cast<const __nv_bfloat16*>(q),
       qa.k_scales, qa.v_scales, qa.page_quant, tables, q_offsets, ctx_lens,
-      static_cast<__nv_bfloat16*>(out), B, Sq, H, Hkv, page, T_width, bq,
-      n_qblk);
+      static_cast<__nv_bfloat16*>(out), lse, B, Sq, H, Hkv, page, page_g,
+      r_off, T_width, bq, n_qblk);
   return cudaGetLastError();
 }
 
+// page: the rows a pool page holds; with n_shards > 1 (the split-K
+// partial mode) the pool is shard `shard`'s slice of pages of page *
+// n_shards rows, and lse (B, Sq, H) float32 receives each row's
+// log-sum-exp; otherwise lse is null.
 template <bool kQuant>
 int dispatch(const void* q, const void* k_pages, const void* v_pages,
              const QuantArgs& qa, const int* tables, const int* q_offsets,
-             const int* ctx_lens, void* out, int B, int Sq, int H, int Hkv,
-             int D, int P, int page, int T_width, int dtype, int device,
-             void* stream) {
-  if (page != 8 && page != 16 && page != 32) return cudaErrorInvalidValue;
+             const int* ctx_lens, void* out, float* lse, int B, int Sq, int H,
+             int Hkv, int D, int P, int page, int T_width, int n_shards,
+             int shard, int dtype, int device, void* stream) {
+  if (n_shards == 1) {
+    if (page != 8 && page != 16 && page != 32) return cudaErrorInvalidValue;
+  } else {
+    if (n_shards < 1 || shard < 0 || shard >= n_shards || lse == nullptr)
+      return cudaErrorInvalidValue;
+    if (page != 2 && page != 4 && page != 8 && page != 16 && page != 32)
+      return cudaErrorInvalidValue;
+  }
+  if ((long long)T_width * page * n_shards > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const int page_g = page * n_shards, r_off = shard * page;
   if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > kRows) return cudaErrorInvalidValue;
   if (B > 65535 || Hkv > 65535 || P <= 0) return cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return cudaSuccess;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return launch<64, kQuant>(q, k_pages, v_pages, qa, tables, q_offsets,
-                              ctx_lens, out, B, Sq, H, Hkv, page, T_width, s);
-  if (dtype == 0 && D == 80)
-    return launch<80, kQuant>(q, k_pages, v_pages, qa, tables, q_offsets,
-                              ctx_lens, out, B, Sq, H, Hkv, page, T_width, s);
-  if (dtype == 0 && D == 96)
-    return launch<96, kQuant>(q, k_pages, v_pages, qa, tables, q_offsets,
-                              ctx_lens, out, B, Sq, H, Hkv, page, T_width, s);
-  if (dtype == 0 && D == 128)
-    return launch<128, kQuant>(q, k_pages, v_pages, qa, tables, q_offsets,
-                               ctx_lens, out, B, Sq, H, Hkv, page, T_width,
-                               s);
-  if (dtype == 1 && D == 64)
-    return launch_tc<64, kQuant>(q, k_pages, v_pages, qa, tables, q_offsets,
-                                 ctx_lens, out, B, Sq, H, Hkv, P, page,
-                                 T_width, s);
-  if (dtype == 1 && D == 80)
-    return launch_tc<80, kQuant>(q, k_pages, v_pages, qa, tables, q_offsets,
-                                 ctx_lens, out, B, Sq, H, Hkv, P, page,
-                                 T_width, s);
-  if (dtype == 1 && D == 96)
-    return launch_tc<96, kQuant>(q, k_pages, v_pages, qa, tables, q_offsets,
-                                 ctx_lens, out, B, Sq, H, Hkv, P, page,
-                                 T_width, s);
-  if (dtype == 1 && D == 128)
-    return launch_tc<128, kQuant>(q, k_pages, v_pages, qa, tables,
-                                  q_offsets, ctx_lens, out, B, Sq, H, Hkv, P,
-                                  page, T_width, s);
+#define PCA_FP32(DIM)                                                       \
+  if (dtype == 0 && D == DIM)                                               \
+    return launch<DIM, kQuant>(q, k_pages, v_pages, qa, tables, q_offsets,  \
+                               ctx_lens, out, lse, B, Sq, H, Hkv, page,     \
+                               page_g, r_off, T_width, s);
+#define PCA_BF16(DIM)                                                       \
+  if (dtype == 1 && D == DIM)                                               \
+    return launch_tc<DIM, kQuant>(q, k_pages, v_pages, qa, tables,          \
+                                  q_offsets, ctx_lens, out, lse, B, Sq, H,  \
+                                  Hkv, P, page, page_g, r_off, T_width, s);
+  PCA_FP32(64) PCA_FP32(80) PCA_FP32(96) PCA_FP32(128)
+  PCA_BF16(64) PCA_BF16(80) PCA_BF16(96) PCA_BF16(128)
+#undef PCA_FP32
+#undef PCA_BF16
   return cudaErrorInvalidValue;
 }
 
@@ -1019,8 +1060,8 @@ extern "C" int paged_chunk_attention_launch(
     int dtype, int device, void* stream) {
   const QuantArgs none = {nullptr, nullptr, nullptr, nullptr, nullptr};
   return dispatch<false>(q, k_pages, v_pages, none, tables, q_offsets,
-                         ctx_lens, out, B, Sq, H, Hkv, D, P, page, T_width,
-                         dtype, device, stream);
+                         ctx_lens, out, nullptr, B, Sq, H, Hkv, D, P, page,
+                         T_width, 1, 0, dtype, device, stream);
 }
 
 // The int8 kernel: kq/vq_pages (P, page, Hkv, D) int8, k/v_scales (P,)
@@ -1036,8 +1077,30 @@ extern "C" int paged_chunk_attention_quant_launch(
                         static_cast<const int8_t*>(vq_pages), k_scales,
                         v_scales, page_quant};
   return dispatch<true>(q, k_pages, v_pages, qa, tables, q_offsets, ctx_lens,
-                        out, B, Sq, H, Hkv, D, P, page, T_width, dtype,
-                        device, stream);
+                        out, nullptr, B, Sq, H, Hkv, D, P, page, T_width, 1,
+                        0, dtype, device, stream);
+}
+
+// The split-K partial mode of either kernel: the pools (P, page, Hkv, D)
+// are shard `shard`'s rows of pages of page * n_shards rows (and the quant
+// pointers are null for kernel 1); lse (B, Sq, H) float32.
+extern "C" int paged_chunk_attention_partial_launch(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* kq_pages, const void* vq_pages, const float* k_scales,
+    const float* v_scales, const int* page_quant, const int* tables,
+    const int* q_offsets, const int* ctx_lens, void* out, float* lse, int B,
+    int Sq, int H, int Hkv, int D, int P, int page, int T_width, int n_shards,
+    int shard, int dtype, int device, void* stream) {
+  const QuantArgs qa = {static_cast<const int8_t*>(kq_pages),
+                        static_cast<const int8_t*>(vq_pages), k_scales,
+                        v_scales, page_quant};
+  if (page_quant != nullptr)
+    return dispatch<true>(q, k_pages, v_pages, qa, tables, q_offsets,
+                          ctx_lens, out, lse, B, Sq, H, Hkv, D, P, page,
+                          T_width, n_shards, shard, dtype, device, stream);
+  return dispatch<false>(q, k_pages, v_pages, qa, tables, q_offsets,
+                         ctx_lens, out, lse, B, Sq, H, Hkv, D, P, page,
+                         T_width, n_shards, shard, dtype, device, stream);
 }
 
 // out[5]: the `resources` of the body that the launch runs for (dtype, D,

@@ -61,6 +61,27 @@ def paged_chunk_attention(q, k_pages, v_pages, block_tables, q_offsets,
                                            block_tables, q_offsets, ctx_lens)
 
 
+def paged_chunk_attention_partial(q, k_pages, v_pages, block_tables,
+                                  q_offsets, ctx_lens, shard: int,
+                                  n_shards: int, mode: str = "auto",
+                                  quant=None):
+    """One shard's part of `paged_chunk_attention` on the split-K rung of
+    tensor-parallel serving: the pools (and int8 shadows) are shard
+    ``shard``'s slice of every page's rows.  Returns (o, lse) for
+    ``distributed.collectives.merge_partials``.  mode: auto | ref."""
+    if mode not in MODES:
+        raise ValueError(f"kernel mode {mode!r} not in {MODES}")
+    args = (q, k_pages, v_pages, block_tables, q_offsets, ctx_lens)
+    if mode == "ref" or q.device.type == "cpu":
+        return ref.paged_chunk_attention_partial_ref(
+            *args, shard, n_shards, quant=quant)
+    if quant is None:
+        return _pa.paged_chunk_attention_partial(*args, shard, n_shards)
+    return _pa.paged_chunk_attention_quant_partial(
+        q, k_pages, v_pages, *quant, block_tables, q_offsets, ctx_lens,
+        shard, n_shards)
+
+
 def flash_prefill(q, k, v, q_offset: int = 0, mode: str = "auto"):
     """Causal prefill attention over dense K/V with a cached prefix: query
     i of q (B, Sq, H, D) sits at position q_offset + i of k/v (B, Skv, Hkv,

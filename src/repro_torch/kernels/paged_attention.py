@@ -15,6 +15,13 @@ pool: pages whose flag is set are read from the int8 shadow pools and
 multiplied by their float32 scale, the rest from the fp pools.  The serving
 step dispatches it on every layer once the int8 tier is active.  It
 replaces the TPU kernel ``paged_chunk_attention_quant``.
+``paged_chunk_attention_partial`` and ``paged_chunk_attention_quant_partial``
+are the two kernels' split-K partial mode for tensor-parallel serving
+(`DenseLM.step_paged_tp` on a pool whose kv heads do not divide over the
+shards): the pools are one shard's slice of every page's rows, and each
+launch returns the output normalised over that shard's keys with their
+log-sum-exp, which ``distributed.collectives.merge_partials`` combines
+across the shards.
 ``paged_attention`` is the single-token decode kernel, q (B, H, D): its own
 source and library, so kernel 1's and B.2's build is untouched by it.  It
 splits each lane's context over CTAs (``decode_split_plan``) and merges the
@@ -26,7 +33,8 @@ its entry point.  It replaces the TPU kernel ``paged_attention``.
 The wrapper only takes CUDA tensors.  It checks device, dtype, shape and
 contiguity, allocates the output, launches on the current stream, raises if
 the launch is refused, and counts its launches in the module's
-``launches`` (the fp kernel), ``quant_launches`` (the int8 kernel) or
+``launches`` (the fp kernel), ``quant_launches`` (the int8 kernel),
+``partial_launches`` / ``quant_partial_launches`` (their partial mode) or
 ``decode_launches`` (the decode kernel, one per call whether or not the
 merge ran).  There is no fallback: the plain
 version (``kernels/ref.py``) is chosen by ``kernels/ops.py`` only for
@@ -49,6 +57,7 @@ from repro_torch.kernels import build
 NAME = "paged_chunk_attention"
 HEAD_DIMS = (64, 80, 96, 128)
 PAGE_SIZES = (8, 16, 32)
+SHARD_ROWS = (2, 4, 8, 16, 32)      # rows of a split-K shard's page
 MAX_GROUP = 16                      # query heads per kv head (fp32 kRows)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 QUANT_NAME = "paged_chunk_attention_quant"
@@ -58,6 +67,8 @@ _fns = {}
 launches = 0                        # fp kernel launches made by the wrapper
 quant_launches = 0                  # int8 kernel launches
 decode_launches = 0                 # decode kernel launches
+partial_launches = 0                # fp kernel launches in partial mode
+quant_partial_launches = 0          # int8 kernel launches in partial mode
 
 
 def _entry(symbol: str, n_ptrs: int, n_ints: int = 10, lib: str = NAME):
@@ -97,7 +108,7 @@ def resources(dtype, head_dim: int, quant: bool = False,
 
 
 def _check(q, k_pages, v_pages, block_tables, q_offsets, ctx_lens,
-           kernel=NAME, head_dims=HEAD_DIMS):
+           kernel=NAME, head_dims=HEAD_DIMS, page_sizes=PAGE_SIZES):
     """Raise on what the kernel ``kernel`` does not take.  q is (B, Sq, H, D)
     for the chunk kernels and (B, H, D) for the decode kernel, which has
     no q_offsets (None)."""
@@ -119,8 +130,8 @@ def _check(q, k_pages, v_pages, block_tables, q_offsets, ctx_lens,
                          f"{tuple(v_pages.shape)} do not match q's D={D}")
     if D not in head_dims:
         raise ValueError(f"{kernel}: head dim {D} not in {head_dims}")
-    if page not in PAGE_SIZES:
-        raise ValueError(f"{kernel}: page size {page} not in {PAGE_SIZES}")
+    if page not in page_sizes:
+        raise ValueError(f"{kernel}: page size {page} not in {page_sizes}")
     if Hkv == 0 or H % Hkv or H // Hkv > MAX_GROUP:
         raise ValueError(f"{kernel}: {H} heads over {Hkv} kv heads "
                          f"(need H % Hkv == 0 and H / Hkv <= {MAX_GROUP})")
@@ -226,21 +237,81 @@ def paged_chunk_attention_quant(q, k_pages, v_pages, kq_pages, vq_pages,
 
 
 def _launch(symbol, name, q, k_pages, v_pages, quant, block_tables,
-            q_offsets, ctx_lens):
+            q_offsets, ctx_lens, split=None):
+    """Launch ``symbol``; with ``split = (shard, n_shards)`` the partial
+    entry point, which also writes and returns the (B, Sq, H) float32
+    log-sum-exp (its quant pointers null for the fp kernel)."""
     B, Sq, H, D = q.shape
     _, page, Hkv, _ = k_pages.shape
     out = torch.empty_like(q)
-    ptrs = [t.data_ptr() for t in (q, k_pages, v_pages, *quant,
-                                   block_tables, q_offsets, ctx_lens, out)]
-    fn = _entry(symbol, len(ptrs))
+    tensors = [q, k_pages, v_pages, *quant, block_tables, q_offsets,
+               ctx_lens, out]
+    ints = [B, Sq, H, Hkv, D, k_pages.shape[0], page, block_tables.shape[1]]
+    lse = None
+    if split is not None:
+        lse = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
+        tensors.append(lse)
+        ints += [split[1], split[0]]
+    ptrs = [t.data_ptr() for t in tensors]
+    if split is not None and not quant:
+        ptrs[3:3] = [None] * 5                 # no int8 state
+    fn = _entry(symbol, len(ptrs), n_ints=len(ints) + 2)
     dev = q.device.index
     if dev is None:
         dev = torch.cuda.current_device()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(*ptrs, B, Sq, H, Hkv, D, k_pages.shape[0], page,
-             block_tables.shape[1], _DTYPES[q.dtype], dev, stream)
+    err = fn(*ptrs, *ints, _DTYPES[q.dtype], dev, stream)
     if err != 0:
         raise RuntimeError(f"{name}: launch failed with cudaError_t {err}")
+    return out if split is None else (out, lse)
+
+
+def _check_split(k_pages, shard: int, n_shards: int, kernel: str):
+    if not 0 <= shard < n_shards:
+        raise ValueError(f"{kernel}: shard {shard} not in [0, {n_shards})")
+    if k_pages.shape[1] * n_shards > 2 ** 16:
+        raise ValueError(f"{kernel}: pages of {k_pages.shape[1]} x "
+                         f"{n_shards} rows")
+
+
+def paged_chunk_attention_partial(q, k_pages, v_pages, block_tables,
+                                  q_offsets, ctx_lens, shard: int,
+                                  n_shards: int):
+    """Kernel 1's split-K partial mode on the card: `paged_chunk_attention`
+    over shard ``shard``'s slice (P, pl, Hkv, D) of pages of pl x
+    ``n_shards`` rows, pl in SHARD_ROWS (see ``ref.
+    paged_chunk_attention_partial_ref``).  Returns (o (B, Sq, H, D) in q's
+    dtype, normalised over the shard's keys; lse (B, Sq, H) float32, -inf
+    where the row sees no key of the shard, whose o is zeros)."""
+    _check(q, k_pages, v_pages, block_tables, q_offsets, ctx_lens,
+           page_sizes=SHARD_ROWS)
+    _check_split(k_pages, shard, n_shards, NAME)
+    out = _launch("paged_chunk_attention_partial_launch", NAME, q, k_pages,
+                  v_pages, (), block_tables, q_offsets, ctx_lens,
+                  split=(shard, n_shards))
+    global partial_launches
+    partial_launches += 1
+    return out
+
+
+def paged_chunk_attention_quant_partial(q, k_pages, v_pages, kq_pages,
+                                        vq_pages, k_scales, v_scales,
+                                        page_quant, block_tables, q_offsets,
+                                        ctx_lens, shard: int, n_shards: int):
+    """B.2's split-K partial mode on the card: the int8 shadows are the same
+    shard's slices, the scales and flags (P,) are per page, as in
+    `paged_chunk_attention_quant`; returns (o, lse) as
+    `paged_chunk_attention_partial`."""
+    _check(q, k_pages, v_pages, block_tables, q_offsets, ctx_lens,
+           page_sizes=SHARD_ROWS)
+    _check_quant(k_pages, kq_pages, vq_pages, k_scales, v_scales, page_quant)
+    _check_split(k_pages, shard, n_shards, QUANT_NAME)
+    out = _launch("paged_chunk_attention_partial_launch", QUANT_NAME, q,
+                  k_pages, v_pages,
+                  (kq_pages, vq_pages, k_scales, v_scales, page_quant),
+                  block_tables, q_offsets, ctx_lens, split=(shard, n_shards))
+    global quant_partial_launches
+    quant_partial_launches += 1
     return out
 
 

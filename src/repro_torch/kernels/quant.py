@@ -29,10 +29,22 @@ def quantize_int8(x: torch.Tensor, axis: Axis = None
     else:
         dims = tuple(axis)
     xf = x.float()
-    s = torch.clamp(torch.amax(xf.abs(), dim=dims, keepdim=True),
-                    min=1e-12) / 127.0
-    q = torch.clamp(torch.round(xf / s), -127, 127)
-    return q.to(torch.int8), s.squeeze(dims) if dims else s
+    s = int8_scale(torch.amax(xf.abs(), dim=dims, keepdim=True))
+    return int8_codes(xf, s), s.squeeze(dims) if dims else s
+
+
+def int8_scale(amax: torch.Tensor) -> torch.Tensor:
+    """The float32 scale of a group whose max |x| is ``amax``.  A group cut
+    over several shards takes the maximum of their maxima first, which is
+    exact, so its scale is the unsharded one bit for bit."""
+    return torch.clamp(amax.float(), min=1e-12) / 127.0
+
+
+def int8_codes(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``round(x / scale)`` clipped to [-127, 127], as int8; ``scale``
+    broadcasts against ``x``."""
+    return torch.clamp(torch.round(x.float() / scale), -127, 127) \
+        .to(torch.int8)
 
 
 def dequantize_int8(q: torch.Tensor, scale: torch.Tensor,

@@ -151,6 +151,62 @@ def paged_chunk_attention_ref(q, k_pages, v_pages, block_tables, q_offsets,
     return o.reshape(B, Sq, H, D).to(q.dtype)
 
 
+def paged_chunk_attention_partial_ref(q, k_pages, v_pages, block_tables,
+                                      q_offsets, ctx_lens, shard: int,
+                                      n_shards: int, quant=None):
+    """One shard's part of `paged_chunk_attention_ref` on the split-K rung:
+    kernel 1's (with ``quant``, B.2's) partial mode.
+
+    k/v_pages (and the int8 shadows in ``quant``): (P, pl, Hkv, D), the
+    shard's slice of every page — rows [shard·pl, (shard+1)·pl) of pages
+    of ``pl · n_shards`` rows, so local row j of table entry t holds the
+    key at position t·pl·n_shards + shard·pl + j.  The causal mask and
+    ``ctx_lens`` use those global positions.  Returns (o, lse): o (B, Sq,
+    H, D) in q's dtype, the attention normalised over this shard's
+    visible keys; lse (B, Sq, H) float32, the log-sum-exp of their scaled
+    scores.  A row with no visible key in this shard (every row of a ctx =
+    0 lane, bucket padding) has o = 0 and lse = -inf.  Merging every
+    shard's pair (``distributed.collectives.merge_partials``) gives the
+    unsharded attention."""
+    B, Sq, H, D = q.shape
+    _, pl, Hkv, _ = k_pages.shape
+    G = H // Hkv
+    T = block_tables.shape[1]
+    tables = block_tables.long()
+    k = k_pages[tables].float()
+    v = v_pages[tables].float()
+    if quant is not None:
+        kq_pages, vq_pages, k_scales, v_scales, page_quant = quant
+        isq = (page_quant[tables] > 0)[..., None, None, None]
+        kd = kq_pages[tables].float() \
+            * k_scales[tables].float()[..., None, None, None]
+        vd = vq_pages[tables].float() \
+            * v_scales[tables].float()[..., None, None, None]
+        k = torch.where(isq, kd, k)
+        v = torch.where(isq, vd, v)
+    k = k.reshape(B, T * pl, Hkv, D)
+    v = v.reshape(B, T * pl, Hkv, D)
+    qg = q.reshape(B, Sq, Hkv, G, D).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k) / math.sqrt(D)
+    dev = q.device
+    qpos = q_offsets.long()[:, None] + torch.arange(Sq, device=dev)[None, :]
+    j = torch.arange(T * pl, device=dev)
+    kpos = (j // pl) * (pl * n_shards) + shard * pl + j % pl
+    ctx = ctx_lens.long()
+    # a row past its lane's context is bucket padding: it sees nothing
+    mask = (qpos[:, :, None] >= kpos[None, None, :]) \
+        & (kpos[None, None, :] < ctx[:, None, None]) \
+        & (qpos[:, :, None] < ctx[:, None, None])
+    neg = torch.tensor(-torch.inf, dtype=s.dtype, device=dev)
+    s = torch.where(mask[:, None, None], s, neg)
+    lse = torch.logsumexp(s, dim=-1)                       # (B, Hkv, G, Sq)
+    seen = torch.isfinite(lse)
+    p = torch.exp(s - torch.where(seen, lse, 0.0)[..., None])
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v)
+    lse = lse.permute(0, 3, 1, 2).reshape(B, Sq, H)
+    return o.reshape(B, Sq, H, D).to(q.dtype), lse
+
+
 def flash_prefill_ref(q, k, v, q_offset=0):
     """Causal attention of new tokens over dense K/V with a cached prefix:
     the CUDA ``flash_prefill`` kernel's plain version.

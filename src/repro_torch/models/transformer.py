@@ -26,17 +26,27 @@ The tier-movement and int8-tier helpers (``scatter_paged``,
 pools in place.  Serving is text-only, as in the JAX package: only
 ``prefill`` takes patches.  The FFN is ``_ffn``, which returns (out, aux)
 as the JAX package's does, so that ``MoELM`` (models/moe.py) replaces it.
-The device mesh of the JAX ``DenseLM`` is not ported yet (ROADMAP A.8).
+
+Tensor-parallel serving (the JAX package's ``pool_sharding=`` on a device
+mesh): each paged entry point takes ``layout=`` (a
+`distributed.sharding.PoolLayout`) and then one pool a shard;
+``step_paged`` then takes the `ShardedParams` of the layout's plan.  The
+JAX package hands sharded arrays to GSPMD; here one controller runs every
+shard's part of each layer and the collectives between them
+(`step_paged_tp`).  Without ``layout`` every entry point is the
+single-device one, unchanged.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as C
 from repro_torch.kernels import ops
-from repro_torch.kernels.quant import quantize_int8
+from repro_torch.kernels.quant import int8_codes, int8_scale, quantize_int8
 from repro_torch.models import layers as L
 
 
@@ -49,6 +59,42 @@ def resolve_device(device) -> torch.device:
             f"device {device!r} requested but torch.cuda.is_available() is "
             f"False; pass device='cpu' explicitly to run on the CPU")
     return dev
+
+
+def _once(fn, *per_shard):
+    """``fn`` over each shard's arguments, computed once per distinct tuple
+    of argument objects: shards that share a device share a replicated
+    value (and its computation), shards on distinct devices compute their
+    own copy."""
+    done, out = {}, []
+    for args in zip(*per_shard):
+        key = tuple(map(id, args))
+        if key not in done:
+            done[key] = fn(*args)
+        out.append(done[key])
+    return out
+
+
+def _row_partial(a, w):
+    """A shard's part of a row-parallel product ``a @ w`` with a float32
+    result: the shards' parts are added in float32 and rounded once to the
+    model dtype, as one device's product rounds its float32 accumulator
+    once (rounding each part first would add a rounding per shard).  A
+    float32 product is ``a @ w`` itself; the CPU has no bf16 product with a
+    float32 result, so it multiplies in float32."""
+    if a.dtype == torch.float32:
+        return a @ w
+    if a.is_cuda:
+        return torch.mm(a.reshape(-1, a.shape[-1]), w,
+                        out_dtype=torch.float32).reshape(
+                            *a.shape[:-1], w.shape[-1])
+    return a.float() @ w.float()
+
+
+def _row_reduce(parts, dtype):
+    """`collectives.all_reduce_sum` of `_row_partial` results, rounded to
+    ``dtype`` once (the same tensor for shards on one device)."""
+    return _once(lambda t: t.to(dtype), C.all_reduce_sum(parts))
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -137,17 +183,22 @@ class DenseLM:
         return {k: v[l] for k, v in params["blocks"].items()}
 
     def _qkv(self, h, w, positions):
+        return self._heads(h @ w["wq"], h @ w["wk"], h @ w["wv"], w.get("qn"),
+                           w.get("kn"), positions)
+
+    def _heads(self, q2, k2, v2, qn, kn, positions):
+        """Projected rows (B, S, heads·D) to RoPE'd q, k and v heads (a
+        shard's heads on a mesh, all of them otherwise)."""
         c = self.cfg
-        B, S, _ = h.shape
-        q = (h @ w["wq"]).reshape(B, S, c.n_heads, c.d_head)
-        k = (h @ w["wk"]).reshape(B, S, c.n_kv_heads, c.d_head)
-        v = (h @ w["wv"]).reshape(B, S, c.n_kv_heads, c.d_head)
+        B, S, _ = q2.shape
+        q = q2.reshape(B, S, -1, c.d_head)
+        k = k2.reshape(B, S, -1, c.d_head)
+        v = v2.reshape(B, S, -1, c.d_head)
         if c.qk_norm:
-            q = L.rms_norm(q, w["qn"], c.norm_eps)
-            k = L.rms_norm(k, w["kn"], c.norm_eps)
-        q = L.apply_rope(q, positions, c.rope_theta)
-        k = L.apply_rope(k, positions, c.rope_theta)
-        return q, k, v
+            q = L.rms_norm(q, qn, c.norm_eps)
+            k = L.rms_norm(k, kn, c.norm_eps)
+        return (L.apply_rope(q, positions, c.rope_theta),
+                L.apply_rope(k, positions, c.rope_theta), v)
 
     def _ffn(self, x, w):
         """Returns (ffn_out, aux_loss)."""
@@ -272,7 +323,7 @@ class DenseLM:
     @torch.no_grad()
     def step_paged(self, params, token_ids, k_pool, v_pool, tables,
                    q_offsets, ctx_lens, last_idx, slot_pages, slot_offs,
-                   quant=None, kernel_mode: str = "auto"):
+                   quant=None, kernel_mode: str = "auto", layout=None):
         """ONE fused mixed-batch serving iteration over paged KV.
 
         token_ids: (B, Sq) int, bucket-padded both ways; lane b's first
@@ -293,7 +344,15 @@ class DenseLM:
           kernel, which reads flagged pages from the int8 pools.  None
           keeps the all-fp kernel and the all-fp bucket key.
         kernel_mode: auto | ref (see kernels/ops.py).
+        layout: a `PoolLayout` of a mesh: ``params`` is then the plan's
+          `ShardedParams` and the pools (and int8 pools and scales) are
+          lists of one tensor a shard; see `step_paged_tp`.
         Returns (argmax token ids (B,) int32, logits (B, padded_vocab))."""
+        if layout is not None:
+            return self.step_paged_tp(params, token_ids, k_pool, v_pool,
+                                      tables, q_offsets, ctx_lens, last_idx,
+                                      slot_pages, slot_offs, layout,
+                                      quant=quant, kernel_mode=kernel_mode)
         c = self.cfg
         self._compile_keys["step"].add(self._shape_sig(
             (params, token_ids, k_pool, v_pool, tables, q_offsets, ctx_lens,
@@ -326,67 +385,314 @@ class DenseLM:
         toks = torch.argmax(logits[:, :c.vocab], dim=-1).to(torch.int32)
         return toks, logits
 
+    # -- tensor-parallel paged step ------------------------------------------
+    #
+    # One controller runs every shard's part of each layer; shard r's
+    # tensors live on layout.devices[r].  The residual stream is replicated
+    # (`_once` computes a replicated value once per device); the weights are
+    # the plan's pieces: embeddings and the unembedding vocab-sharded,
+    # wq/wk/wv and w1/w3 column-parallel, wo and w2 row-parallel followed by
+    # an all-reduce of float32 parts (`_row_partial`), leaves the plan
+    # replicates computed whole.  Attention
+    # follows the pool's rung: on "heads" shard r runs the kernel on its own
+    # q heads [r·H/tp, (r+1)·H/tp) over its kv heads [r·Hkv/tp, ...) — the
+    # kernel maps q head h to kv head h // G within the shard, and G is the
+    # same — and its output is exactly the column slice that wo's row slice
+    # takes.  On "rows" (split-K) q, k and v are gathered to full heads,
+    # shard r writes only the rows of its slice of each page and runs the
+    # kernel's partial mode over them for all H heads, and
+    # `collectives.merge_partials` combines the shards; each shard keeps its
+    # column slice of the merged output for wo.  On "replicated" every shard
+    # holds the whole pool and runs the kernel on it.
+
+    def _embed_tp(self, sp, ids):
+        embs = [p["emb"] for p in sp.shards]
+        d = sp.specs["emb"].dim_of()
+        if d is None:
+            return _once(lambda e, i: e[i], embs, ids)
+        if d == 1:
+            return C.all_gather([e[i] for e, i in zip(embs, ids)], -1)
+        # vocab rows over the shards: each looks up the ids in its range
+        # and writes zeros elsewhere; the all-reduce adds exact zeros
+        parts = []
+        for r, (e, i) in enumerate(zip(embs, ids)):
+            n = e.shape[0]
+            j = i - r * n
+            inside = (j >= 0) & (j < n)
+            rows = e[j.clamp(0, n - 1)]
+            parts.append(torch.where(inside[..., None], rows,
+                                     torch.zeros((), dtype=rows.dtype,
+                                                 device=rows.device)))
+        return C.all_reduce_sum(parts)
+
+    def _unembed_tp(self, sp, rows):
+        name = "emb" if self.cfg.tie_embeddings else "lm_head"
+        heads = [p[name] for p in sp.shards]
+        d = sp.specs[name].dim_of()
+        if d is None:
+            return _once(lambda x, w: x @ w.T, rows, heads)[0]
+        if d == 0:
+            return C.all_gather([x @ w.T for x, w in zip(rows, heads)],
+                                -1)[0]
+        n = heads[0].shape[1]
+        return _row_reduce([_row_partial(x[..., r * n:(r + 1) * n], w.T)
+                            for r, (x, w) in enumerate(zip(rows, heads))],
+                           rows[0].dtype)[0]
+
+    @staticmethod
+    def _quant_layer(quant, flags, r: int, l: int):
+        if quant is None:
+            return None
+        kq, vq, ks, vs = quant[:4]
+        return (kq[r][l], vq[r][l], ks[r][l], vs[r][l], flags[r][l])
+
     @torch.no_grad()
-    def fork_paged(self, k_pool, v_pool, layer_ids, src, dst):
+    def step_paged_tp(self, sp, token_ids, k_pools, v_pools, tables,
+                      q_offsets, ctx_lens, last_idx, slot_pages, slot_offs,
+                      layout, quant=None, kernel_mode: str = "auto"):
+        """`step_paged` on a mesh: the same arguments on shard 0's device,
+        except ``sp`` (the plan's `ShardedParams`), the pools (one a shard,
+        `layout.shard_shape`, updated in place) and ``quant``, whose int8
+        pools and scales are lists of one a shard (its flags one (L, P+1)
+        tensor).  Returns (argmax token ids (B,) int32, logits (B,
+        padded_vocab)) on shard 0's device; the argmax reads the full
+        (gathered) row, so ties go to the first index as in `step_paged`."""
+        c = self.cfg
+        tp = layout.tp
+        blocks = sp.specs["blocks"]
+        for a, b in (("w1", "w2"), ("w3", "w2"), ("wq", "wo")):
+            if (blocks[a].dim_of() is None) != (blocks[b].dim_of() is None):
+                raise ValueError(f"{a} and {b} must be sharded together")
+        if layout.rung == "heads" and blocks["wo"].dim_of() is None:
+            raise ValueError("the kv-head rung needs wo row-parallel")
+        self._census("step", layout,
+                     (sp.shards[0], token_ids, k_pools, v_pools, tables,
+                      q_offsets, ctx_lens, last_idx, slot_pages, slot_offs,
+                      None if quant is None else
+                      tuple(t[0] if isinstance(t, list) else t
+                            for t in quant)), kernel_mode)
+        put = layout.to_shards
+        B, Sq = token_ids.shape
+        ids = _once(lambda t: t.long(), put(token_ids))
+        qoff, ctx, tab = put(q_offsets), put(ctx_lens), put(tables)
+        positions = _once(lambda o: o.long()[:, None] + torch.arange(
+            Sq, device=o.device)[None, :], qoff)
+        slots = _once(lambda p, o: (p.long(), o.long()), put(slot_pages),
+                      put(slot_offs))
+        dest = [layout.slots(*slots[r], r) for r in range(tp)]
+        flags = None if quant is None else put(quant[4])
+        x = self._embed_tp(sp, ids)
+        eps = c.norm_eps
+
+        def col(h, w, name):
+            """A column-parallel projection gathered to full width (a leaf
+            the plan replicates gives the full width already)."""
+            y = _once(lambda a, b: a @ b, h, [wr[name] for wr in w])
+            return y if blocks[name].dim_of() is None else \
+                C.all_gather(y, -1)
+
+        for l in range(c.n_layers):
+            # layer l of each shard's weights; a leaf that shards share (a
+            # replicated one on one device) gives them one view, so that
+            # `_once` computes what it feeds once
+            views = {}
+            for p in sp.shards:
+                for v in p["blocks"].values():
+                    if id(v) not in views:
+                        views[id(v)] = v[l]
+            w = [{k: views[id(v)] for k, v in p["blocks"].items()}
+                 for p in sp.shards]
+            h = _once(lambda a, g: L.rms_norm(a, g, eps), x,
+                      [wr["ln1"] for wr in w])
+            qn = [wr.get("qn") for wr in w]
+            kn = [wr.get("kn") for wr in w]
+            if layout.rung == "heads":
+                o_in = []
+                for r in range(tp):
+                    q, k, v = self._heads(h[r] @ w[r]["wq"],
+                                          h[r] @ w[r]["wk"],
+                                          h[r] @ w[r]["wv"], qn[r], kn[r],
+                                          positions[r])
+                    kp, vp = k_pools[r][l], v_pools[r][l]
+                    kp.index_put_((dest[r][0][l], dest[r][1][l]),
+                                  k.to(kp.dtype))
+                    vp.index_put_((dest[r][0][l], dest[r][1][l]),
+                                  v.to(vp.dtype))
+                    o = ops.paged_chunk_attention(
+                        q, kp, vp, tab[r][l], qoff[r], ctx[r],
+                        mode=kernel_mode,
+                        quant=self._quant_layer(quant, flags, r, l))
+                    o_in.append(o.reshape(B, Sq, -1))
+            else:
+                qkv = _once(self._heads, col(h, w, "wq"), col(h, w, "wk"),
+                            col(h, w, "wv"), qn, kn, positions)
+                outs, lses = [], []
+                for r in range(tp):
+                    q, k, v = qkv[r]
+                    kp, vp = k_pools[r][l], v_pools[r][l]
+                    kp.index_put_((dest[r][0][l], dest[r][1][l]),
+                                  k.to(kp.dtype))
+                    vp.index_put_((dest[r][0][l], dest[r][1][l]),
+                                  v.to(vp.dtype))
+                    qt = self._quant_layer(quant, flags, r, l)
+                    if layout.rung == "rows":
+                        o, lse = ops.paged_chunk_attention_partial(
+                            q, kp, vp, tab[r][l], qoff[r], ctx[r], r, tp,
+                            mode=kernel_mode, quant=qt)
+                        lses.append(lse)
+                    else:
+                        o = ops.paged_chunk_attention(
+                            q, kp, vp, tab[r][l], qoff[r], ctx[r],
+                            mode=kernel_mode, quant=qt)
+                    outs.append(o)
+                if layout.rung == "rows":
+                    outs = put(C.merge_partials(outs, lses))
+                o_in = [o.reshape(B, Sq, -1) for o in outs]
+                if blocks["wo"].dim_of() is not None:
+                    n = c.q_dim // tp
+                    o_in = [o[..., r * n:(r + 1) * n]
+                            for r, o in enumerate(o_in)]
+            if blocks["wo"].dim_of() is None:
+                a = _once(lambda o, wo: o @ wo, o_in, [wr["wo"] for wr in w])
+            else:
+                a = _row_reduce([_row_partial(o, wr["wo"])
+                                 for o, wr in zip(o_in, w)], o_in[0].dtype)
+            x = _once(torch.add, x, a)
+            h2 = _once(lambda a, g: L.rms_norm(a, g, eps), x,
+                       [wr["ln2"] for wr in w])
+            if blocks["w1"].dim_of() is None:
+                f = _once(L.swiglu, h2, [wr["w1"] for wr in w],
+                          [wr["w3"] for wr in w], [wr["w2"] for wr in w])
+            else:
+                f = _row_reduce([_row_partial(
+                    F.silu(a @ wr["w1"]) * (a @ wr["w3"]), wr["w2"])
+                    for a, wr in zip(h2, w)], h2[0].dtype)
+            x = _once(torch.add, x, f)
+        xf = _once(lambda a, g: L.rms_norm(a, g, eps), x,
+                   [p["ln_f"] for p in sp.shards])
+        last = put(last_idx)
+        rows = _once(lambda a, i: a[torch.arange(B, device=a.device),
+                                    i.long()], xf, last)
+        logits = self._unembed_tp(sp, rows)
+        toks = torch.argmax(logits[:, :c.vocab], dim=-1).to(torch.int32)
+        return toks, logits
+
+    @torch.no_grad()
+    def fork_paged(self, k_pool, v_pool, layer_ids, src, dst, layout=None):
         """Copy-on-write page fork, in place: pool[l, dst] <- pool[l, src]
         for a batch of (layer, src, dst) rows.  Pad rows point src == dst
         == the trash page (a harmless self-copy), so one row-count bucket
-        covers every batch size up to it."""
-        self._compile_keys["fork"].add(self._shape_sig(
-            (k_pool, v_pool, layer_ids, src, dst), "fork"))
-        li, s, d = layer_ids.long(), src.long(), dst.long()
-        k_pool[li, d] = k_pool[li, s]
-        v_pool[li, d] = v_pool[li, s]
+        covers every batch size up to it.  With ``layout`` the pools are
+        lists and every shard copies its part of the pages."""
+        self._census("fork", layout, (k_pool, v_pool, layer_ids, src, dst),
+                     "fork")
+        for kp, vp in self._per_shard(layout, k_pool, v_pool):
+            li, s, d = (t.to(kp.device).long()
+                        for t in (layer_ids, src, dst))
+            kp[li, d] = kp[li, s]
+            vp[li, d] = vp[li, s]
 
     @torch.no_grad()
-    def scatter_paged(self, k_pool, v_pool, layer_ids, pages, offs, ks, vs):
+    def scatter_paged(self, k_pool, v_pool, layer_ids, pages, offs, ks, vs,
+                      layout=None):
         """Swap-in / prefetch scatter of host-staged KV into the stacked
         pools, in place (1x pool memory, as the JAX package gets from
         donation).  layer_ids: (G, 1) int; pages/offs: (G, n) int
-        destinations; ks/vs: (G, n, Hkv, D) on the pools' device.  Census
-        key "scatter"."""
-        self._compile_keys["scatter"].add(self._shape_sig(
-            (k_pool, v_pool, layer_ids, pages, offs, ks, vs), "scatter"))
-        idx = (layer_ids.long(), pages.long(), offs.long())
-        k_pool.index_put_(idx, ks.to(k_pool.dtype))
-        v_pool.index_put_(idx, vs.to(v_pool.dtype))
+        destinations; ks/vs: (G, n, Hkv, D) on the pools' device (shard 0's
+        with ``layout``: full heads, which each shard cuts to its part).
+        Census key "scatter"."""
+        self._census("scatter", layout,
+                     (k_pool, v_pool, layer_ids, pages, offs, ks, vs),
+                     "scatter")
+        if layout is None:
+            idx = (layer_ids.long(), pages.long(), offs.long())
+            k_pool.index_put_(idx, ks.to(k_pool.dtype))
+            v_pool.index_put_(idx, vs.to(v_pool.dtype))
+            return
+        for r, (kp, vp) in enumerate(zip(k_pool, v_pool)):
+            dev = kp.device
+            pg, off = layout.slots(pages.to(dev).long(), offs.to(dev).long(),
+                                   r)
+            idx = (layer_ids.to(dev).long(), pg, off)
+            kp.index_put_(idx, layout.kv_part(ks, r).to(dev, kp.dtype))
+            vp.index_put_(idx, layout.kv_part(vs, r).to(dev, vp.dtype))
 
     @torch.no_grad()
     def fork_paged_quant(self, k_pool, v_pool, kq_pool, vq_pool, k_scale,
-                         v_scale, layer_ids, src, dst, srcq):
+                         v_scale, layer_ids, src, dst, srcq, layout=None):
         """`fork_paged` over mixed-precision sources, in place: rows with
         ``srcq`` set write ``int8 * scale`` of the source page (rounded to
         the pool dtype) instead of its stale fp bytes.  src != dst is the
         copy-on-write fork of a quantized donor page; src == dst is an
         in-place dequant (the caller clears the page's precision bit).  Pad
         rows point src == dst == the trash page with srcq = 0.  Census key
-        "fork", with its own signature."""
-        self._compile_keys["fork"].add(self._shape_sig(
-            (k_pool, v_pool, kq_pool, vq_pool, k_scale, v_scale, layer_ids,
-             src, dst, srcq), "fork_quant"))
-        li, s, d = layer_ids.long(), src.long(), dst.long()
-        isq = (srcq > 0)[:, None, None, None]
-        for pool, qpool, scale in ((k_pool, kq_pool, k_scale),
-                                   (v_pool, vq_pool, v_scale)):
-            deq = qpool[li, s].float() * scale[li, s][:, None, None, None]
-            pool[li, d] = torch.where(isq, deq.to(pool.dtype), pool[li, s])
+        "fork", with its own signature.  With ``layout`` every argument
+        that is a pool or a scale is a list of one a shard."""
+        self._census("fork", layout,
+                     (k_pool, v_pool, kq_pool, vq_pool, k_scale, v_scale,
+                      layer_ids, src, dst, srcq), "fork_quant")
+        for kp, vp, kq, vq, ks, vs in self._per_shard(
+                layout, k_pool, v_pool, kq_pool, vq_pool, k_scale, v_scale):
+            li, s, d, q = (t.to(kp.device) for t in (layer_ids, src, dst,
+                                                     srcq))
+            li, s, d = li.long(), s.long(), d.long()
+            isq = (q > 0)[:, None, None, None]
+            for pool, qpool, scale in ((kp, kq, ks), (vp, vq, vs)):
+                deq = qpool[li, s].float() \
+                    * scale[li, s][:, None, None, None]
+                pool[li, d] = torch.where(isq, deq.to(pool.dtype),
+                                          pool[li, s])
 
     @torch.no_grad()
     def compress_paged(self, k_pool, v_pool, kq_pool, vq_pool, k_scale,
-                       v_scale, layer_ids, pages):
+                       v_scale, layer_ids, pages, layout=None):
         """Quantize a batch of (layer, page) rows into the int8 shadow pools
         and their per-page float32 scales, in place; the fp pools are only
         read.  Pad rows point at (layer 0, trash page).  Census key
-        "compress"."""
-        self._compile_keys["compress"].add(self._shape_sig(
-            (k_pool, v_pool, kq_pool, vq_pool, k_scale, v_scale, layer_ids,
-             pages), "compress"))
-        li, pg = layer_ids.long(), pages.long()
-        for pool, qpool, scale in ((k_pool, kq_pool, k_scale),
-                                   (v_pool, vq_pool, v_scale)):
-            q, s = quantize_int8(pool[li, pg], axis=(1, 2, 3))
-            qpool[li, pg] = q
-            scale[li, pg] = s
+        "compress".  With ``layout`` a page's scale is the maximum over
+        every shard's part of it (an all-reduce of the shards' maxima), so
+        scales and codes are the single-device ones bit for bit."""
+        self._census("compress", layout,
+                     (k_pool, v_pool, kq_pool, vq_pool, k_scale, v_scale,
+                      layer_ids, pages), "compress")
+        if layout is None:
+            li, pg = layer_ids.long(), pages.long()
+            for pool, qpool, scale in ((k_pool, kq_pool, k_scale),
+                                       (v_pool, vq_pool, v_scale)):
+                q, s = quantize_int8(pool[li, pg], axis=(1, 2, 3))
+                qpool[li, pg] = q
+                scale[li, pg] = s
+            return
+        idx = [(layer_ids.to(p.device).long(), pages.to(p.device).long())
+               for p in k_pool]
+        for pools, qpools, scales in ((k_pool, kq_pool, k_scale),
+                                      (v_pool, vq_pool, v_scale)):
+            rows = [p[i].float() for p, i in zip(pools, idx)]
+            amax = C.all_reduce_max([x.abs().amax(dim=(1, 2, 3))
+                                     for x in rows])
+            s = [int8_scale(a) for a in amax]
+            for r, (x, i) in enumerate(zip(rows, idx)):
+                qpools[r][i] = int8_codes(x, s[r][:, None, None, None])
+                scales[r][i] = s[r]
+
+    def _census(self, key: str, layout, args, kernel_mode: str) -> None:
+        """Record a dispatch's bucket: a meshed one under its mesh
+        signature, so that tp placements of one shape bucket count apart
+        (shard 0's tensors stand for the lists)."""
+        if layout is None:
+            self._compile_keys[key].add(self._shape_sig(args, kernel_mode))
+            return
+        first = tuple(a[0] if isinstance(a, list) else a for a in args)
+        self._compile_keys[key].add(
+            (layout.sig,) + self._shape_sig(first, kernel_mode))
+
+    @staticmethod
+    def _per_shard(layout, *pools):
+        """One tuple a shard of the given pools (a single tuple without a
+        layout)."""
+        if layout is None:
+            return [pools]
+        return list(zip(*pools))
 
     @staticmethod
     def _shape_sig(args, kernel_mode: str):

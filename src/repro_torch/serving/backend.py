@@ -65,8 +65,20 @@ which the JAX package's import casts back to the same bits where it would
 read uint16 as numbers.  A bfloat16 array the JAX package made (ml_dtypes)
 is read by viewing its bits as uint16.
 
-The mesh of the JAX backend (tensor-parallel serving) is not ported yet:
-``mesh=`` raises NotImplementedError naming ROADMAP A.8.
+TENSOR-PARALLEL NODE (``mesh=``, a 1-D ``("model",)`` mesh from
+`launch.mesh.make_serving_mesh`): one node is tp shards serving one
+replica, driven by this one process.  The pools are cut by
+`ShardingPlan.pool_spec` (kv heads over the shards when divisible, else
+the split-K rung: each shard holds a slice of every page's rows), the int8
+shadow pools like them, the per-page scales replicated; the weights by the
+plan's column/row specs.  Every dispatch passes ``layout=`` to the model,
+which runs each shard's part and the collectives between them
+(`DenseLM.step_paged_tp`).  Tier movement gathers every shard's part of a
+session and concatenates it to full heads before the host copy, and a
+scatter cuts a full-head payload into the shards, so host, spool and
+export payloads do not depend on the shard count (a session exported at
+tp = 2 imports at tp = 4).  All byte accounting stays logical;
+`pool_device_bytes` is one shard's.
 """
 from __future__ import annotations
 
@@ -80,6 +92,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.memory import PrefixIndex
+from repro_torch.distributed.sharding import PoolLayout, ShardingPlan
 from repro_torch.models.transformer import resolve_device
 from repro_torch.serving.cost_model import CostModel
 from repro_torch.serving.kv_cache import OutOfPages, PagedAllocator
@@ -356,7 +369,9 @@ class RealBackend(Backend):
 
     ``device`` defaults to the card and raises on a machine without one;
     pass ``device="cpu"`` to serve with the plain attention on the CPU.
-    ``kernel_mode`` is passed to `DenseLM.step_paged` (auto | ref).
+    ``kernel_mode`` is passed to `DenseLM.step_paged` (auto | ref).  With
+    ``mesh`` (see the module docstring) the mesh's devices replace
+    ``device``: shard 0's is where the backend assembles its inputs.
     """
 
     def __init__(self, cfg, model, params, *, n_pages: int = 64,
@@ -365,11 +380,8 @@ class RealBackend(Backend):
                  trace_logits: bool = True, mesh=None,
                  hbm_pages: Optional[int] = None, split_skew: float = 4.0,
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "RealBackend(mesh=...) is not ported yet: ROADMAP A.8 "
-                "(tensor-parallel serving)")
-        self.device = resolve_device(device)
+        self.device = (mesh.model_devices()[0] if mesh is not None
+                       else resolve_device(device))
         self.cfg = cfg
         self.model = model
         self.params = params
@@ -391,8 +403,21 @@ class RealBackend(Backend):
         self.dtype = model.dtype
         L, Hkv, D = cfg.n_layers, cfg.n_kv_heads, cfg.d_head
         shape = (L, n_pages + 1, page_size, Hkv, D)
-        self.k_pool = torch.zeros(shape, dtype=self.dtype, device=self.device)
-        self.v_pool = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        # on a mesh the pools (and the int8 pools and scales) are lists of
+        # one tensor a shard, and every model call gets the layout
+        self.tp, self.plan, self._layout = 1, None, None
+        if mesh is not None:
+            self.plan = ShardingPlan(cfg, mesh)
+            self.tp = self.plan.tp
+            self._layout = PoolLayout(self.plan, shape)
+            self.params = self.plan.shard_params(params)
+            self.k_pool = self._layout.zeros(self.dtype)
+            self.v_pool = self._layout.zeros(self.dtype)
+        else:
+            self.k_pool = torch.zeros(shape, dtype=self.dtype,
+                                      device=self.device)
+            self.v_pool = torch.zeros(shape, dtype=self.dtype,
+                                      device=self.device)
         # int8 tier: shadow pools + per-(layer, page) float32 scales,
         # allocated at the first compress; the precision FLAGS are rebuilt
         # from the allocators' bits at every dispatch, never kept on the
@@ -428,7 +453,9 @@ class RealBackend(Backend):
     def compile_counts(self) -> Dict[str, int]:
         """Distinct shape buckets of the fused serving step ("step"), the
         CoW fork ("fork"), the tier scatter ("scatter") and the compress
-        ("compress"); shared across backends serving the same model."""
+        ("compress"); shared across backends serving the same model.  A
+        meshed backend's keys carry the mesh signature (axis sizes and the
+        pool spec), so tp placements of one bucket count apart."""
         return self.model.paged_compile_counts()
 
     def attach(self, mgr) -> None:
@@ -480,8 +507,12 @@ class RealBackend(Backend):
         return self.hbm_pages * self.page_size * self._token_bytes
 
     def pool_device_bytes(self) -> int:
-        """Physical bytes of the stacked fp pools (both sides)."""
-        return 2 * self.k_pool.numel() * self.k_pool.element_size()
+        """Physical bytes of the stacked fp pools (both sides) on one
+        device: one shard's on a mesh (1/tp of the pool, except on the
+        replicated rung).  Observational only: admission and the store
+        account the logical bytes above."""
+        k = self.k_pool[0] if self._layout is not None else self.k_pool
+        return 2 * k.numel() * k.element_size()
 
     def kv_in_use(self, running) -> float:
         # used_pages includes leased pages: an in-flight swap-out still
@@ -521,6 +552,17 @@ class RealBackend(Backend):
         """Allocate the int8 shadow pools and the per-page float32 scales
         at the first compress (a node that never quantizes never pays)."""
         if self._quant_active:
+            return
+        lay = self._layout
+        if lay is not None:            # int8 pools cut like the fp pools,
+            def scales(dev):           # the scales replicated
+                return torch.zeros(lay.shape[:2], dtype=torch.float32,
+                                   device=dev)
+            self.kq_pool = lay.zeros(torch.int8)
+            self.vq_pool = lay.zeros(torch.int8)
+            self.k_scale = lay.replicated(scales)
+            self.v_scale = lay.replicated(scales)
+            self._quant_active = True
             return
         shape = tuple(self.k_pool.shape)
         dev = self.device
@@ -578,7 +620,8 @@ class RealBackend(Backend):
         r_li[:len(rows)], r_pg[:len(rows)] = np.asarray(rows, np.int32).T
         self.model.compress_paged(self.k_pool, self.v_pool, self.kq_pool,
                                   self.vq_pool, self.k_scale, self.v_scale,
-                                  self._i32(r_li), self._i32(r_pg))
+                                  self._i32(r_li), self._i32(r_pg),
+                                  layout=self._layout)
         for l, p in rows:
             self.alloc[l].set_quantized(p)
         self.stats["quantized_pages"] += len(rows)
@@ -610,7 +653,8 @@ class RealBackend(Backend):
         pg = self._i32(f_pg)
         self.model.fork_paged_quant(self.k_pool, self.v_pool, self.kq_pool,
                                     self.vq_pool, self.k_scale, self.v_scale,
-                                    self._i32(f_li), pg, pg, self._i32(f_q))
+                                    self._i32(f_li), pg, pg, self._i32(f_q),
+                                    layout=self._layout)
 
     def _session_bpl(self, sid: str) -> Tuple[int, int]:
         """Store-entry price of this session's PRIVATE pages: (bytes per
@@ -740,27 +784,50 @@ class RealBackend(Backend):
                     empties[l] = dict(k=em, v=em, n_tokens=n)
                 continue
             pg = np.stack([self._slots(l, sid, 0, n)[0] for l in ls])
-            li = self._i32(ls)[:, None]
-            pg_t = self._i32(pg)
-            off_t = self._i32(self._slots(ls[0], sid, 0, n)[1])[None, :]
-            idx = (li.long(), pg_t.long(), off_t.long())
-            k = self.k_pool[idx]                     # (G, n, Hkv, D)
-            v = self.v_pool[idx]
+            off = self._slots(ls[0], sid, 0, n)[1]
+            qf = None
             if self._quant_active:
                 qf = np.stack([np.isin(pg[i], list(self.alloc[l].quantized))
                                for i, l in enumerate(ls)])
-                if qf.any():
-                    isq = torch.from_numpy(qf).to(self.device)[..., None,
-                                                               None]
-                    ks = self.k_scale[idx[:2]][..., None, None]
-                    vs = self.v_scale[idx[:2]][..., None, None]
-                    k = torch.where(isq, (self.kq_pool[idx].float() * ks)
-                                    .to(self.dtype), k)
-                    v = torch.where(isq, (self.vq_pool[idx].float() * vs)
-                                    .to(self.dtype), v)
+                if not qf.any():
+                    qf = None
+            pools = (self.k_pool, self.v_pool, self.kq_pool, self.vq_pool,
+                     self.k_scale, self.v_scale)
+            if self._layout is None:
+                k, v = self._gather_rows(pools, ls, pg, off, qf)
+            else:                    # each shard's part, then full heads
+                k, v = self._layout.gather(
+                    lambda r, o: self._gather_rows(
+                        tuple(None if t is None else t[r] for t in pools),
+                        ls, pg, o, qf), self._i32(off))
             (hk, hv), buf = self._copy_to_host((k, v))
             groups.append(dict(layers=ls, n=n, k=hk, v=hv, buf=buf))
         return groups, empties
+
+    def _gather_rows(self, pools, ls, pg, off, qf):
+        """(k, v) rows (G, n, Hkv, D) of layers ``ls`` at pages ``pg`` (G, n)
+        and in-page offsets ``off`` (n,) of one set of pools (k, v, and the
+        int8 kq, vq, k_scale, v_scale, or Nones), on their device; rows of
+        pages flagged in ``qf`` (or None) read ``int8 * scale``."""
+        kp, vp, kq, vq, ks, vs = pools
+        dev = kp.device
+
+        def on_dev(a):                 # an index array or tensor, as long
+            t = a if torch.is_tensor(a) else torch.from_numpy(
+                np.asarray(a, np.int64))
+            return t.to(dev).long()
+        idx = (on_dev(ls)[:, None], on_dev(pg), on_dev(off)[None, :])
+        k = kp[idx]
+        v = vp[idx]
+        if qf is not None:
+            isq = torch.from_numpy(qf).to(dev)[..., None, None]
+            k = torch.where(isq, (kq[idx].float()
+                                  * ks[idx[:2]][..., None, None])
+                            .to(self.dtype), k)
+            v = torch.where(isq, (vq[idx].float()
+                                  * vs[idx[:2]][..., None, None])
+                            .to(self.dtype), v)
+        return k, v
 
     @staticmethod
     def _realize_groups(groups) -> Dict[int, dict]:
@@ -870,7 +937,8 @@ class RealBackend(Backend):
                 keep += hk + hv
             self.model.scatter_paged(self.k_pool, self.v_pool,
                                      self._i32(ls)[:, None], self._i32(pg),
-                                     self._i32(off), ks, vs)
+                                     self._i32(off), ks, vs,
+                                     layout=self._layout)
             nbytes += float(2 * ks.numel() * ks.element_size())
         buf = (DONE if self._copy_stream is None else
                EventBuffer(torch.cuda.current_stream(self.device), keep))
@@ -1115,7 +1183,7 @@ class RealBackend(Backend):
             self.params, self._i32(ids_p), self.k_pool, self.v_pool,
             self._i32(tables), self._i32(qoff), self._i32(ctx),
             self._i32(last), self._i32(pg), self._i32(off), quant=quant,
-            kernel_mode=self.kernel_mode)
+            kernel_mode=self.kernel_mode, layout=self._layout)
         # the one host sync of a dispatch: the token ids (and the logits
         # only when tracing)
         tok_np = toks[:B].cpu().numpy()
@@ -1219,10 +1287,11 @@ class RealBackend(Backend):
             if f[3].any():
                 self.model.fork_paged_quant(
                     self.k_pool, self.v_pool, self.kq_pool, self.vq_pool,
-                    self.k_scale, self.v_scale, fd[0], fd[1], fd[2], fd[3])
+                    self.k_scale, self.v_scale, fd[0], fd[1], fd[2], fd[3],
+                    layout=self._layout)
             else:
                 self.model.fork_paged(self.k_pool, self.v_pool, fd[0], fd[1],
-                                      fd[2])
+                                      fd[2], layout=self._layout)
         for sid, ids in zip(sids, ids_by_lane):
             self._extend_all(sid, len(ids))
 

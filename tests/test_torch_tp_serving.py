@@ -1,0 +1,255 @@
+"""Tensor-parallel serving in the port: `RealBackend(mesh=...)` on a mesh
+of CPU shards, against the JAX package (tests/test_sharded_serving.py and
+the mesh case of tests/test_hetero_skew.py).
+
+The mesh must be invisible to results and formats, as in the reference:
+
+* one pool a shard, `pool_device_bytes` 1/tp of the pool;
+* token ids equal JAX's single-device serve at tp in {1, 2, 4}, MHA and
+  GQA, with a preemption (GQA at tp = 4 is the split-K rung: 2 kv heads
+  over 4 shards, each shard holding 2 rows of every 8-row page);
+* prefix adoption and a CoW fork at tp = 2;
+* a session exported at tp = 2 equals JAX's tp = 2 export and resumes at
+  tp = 4; payloads are full-head numpy;
+* the census keys on the mesh signature;
+* a skewed batch at tp = 2 splits and stays token-exact;
+* the int8 tier at tp = 2 and at the split-K tp = 4: scales and codes
+  bit-equal to tp = None's, and the same tokens.
+
+Same weights in both packages (JAX-initialised, `_torch_twin`), llama3-8b
+reduced to float32 with 4 (MHA) or 2 (GQA) kv heads, page 8, 32 pages.
+"""
+import numpy as np
+import pytest
+import torch
+
+from _torch_twin import GEN, check_invariants, recompute, serve_to_end, twins
+from repro.launch.mesh import make_serving_mesh as jax_mesh
+from repro_torch.distributed.sharding import unshard
+from repro_torch.launch.mesh import make_serving_mesh
+
+
+def _mesh(tp):
+    return None if tp is None else make_serving_mesh(tp, devices=["cpu"] * tp)
+
+
+def _node(pkg, tp=None, **kw):
+    """(mgr, backend, engine) of a node of ``pkg`` at tp (None: one
+    device), page 8, 32 pages."""
+    mesh = (jax_mesh(tp) if pkg.name == "jax" else _mesh(tp)) \
+        if tp is not None else None
+    _, mgr, be, eng = pkg.node(mesh=mesh, **kw)
+    return mgr, be, eng
+
+
+def _turns(cfg, lens, seed):
+    rng = np.random.default_rng(seed)
+    return [list(map(int, rng.integers(0, cfg.vocab, n))) for n in lens]
+
+
+def _serve(pkg, eng, be, turns, preempt_turn=None, sid="s0", cached=0):
+    outs, now = [], 0.0
+    for i, t in enumerate(turns):
+        req = pkg.Request(session_id=sid, prompt_tokens=len(t),
+                          max_new_tokens=GEN, prompt_ids=list(t),
+                          cached_tokens=cached)
+        eng.submit(req)
+        preempted = False
+        while eng.waiting or eng.running:
+            now += eng.step(now)
+            if (i == preempt_turn and not preempted and eng.running
+                    and req.generated >= GEN // 2):
+                eng.preempt_one(now)
+                preempted = True
+        outs.append(list(req.output_ids))
+        cached = be.session_tokens(sid)
+    return outs
+
+
+def test_pool_sharding_places_one_shard_per_device():
+    _, tpkg = twins("mha")
+    _, be, _ = _node(tpkg, tp=2)
+    assert be.tp == 2 and be._layout.rung == "heads"
+    assert isinstance(be.k_pool, list) and len(be.k_pool) == 2
+    assert be.k_pool[0] is not be.k_pool[1]
+    full = 2 * sum(p.numel() * p.element_size() for p in be.k_pool)
+    assert be.pool_device_bytes() == full // 2
+    _, be1, _ = _node(tpkg)
+    assert be.pool_device_bytes() == be1.pool_device_bytes() // 2
+
+
+@pytest.mark.parametrize("kind", ["mha", "gqa"])
+def test_parity_across_tp_with_preemption(kind):
+    """A two-turn serve with a mid-decode preemption (swap-out and swap-in
+    through the shards' gather and scatter) emits JAX's single-device
+    tokens at every tp."""
+    jpkg, tpkg = twins(kind)
+    turns = _turns(tpkg.cfg, (11, 7), seed=3)
+    _, jbe, jeng = _node(jpkg)
+    want = _serve(jpkg, jeng, jbe, turns, preempt_turn=1)
+    for tp in (1, 2, 4):
+        _, be, eng = _node(tpkg, tp=tp)
+        if kind == "gqa" and tp == 4:
+            assert be._layout.spec == (None, None, "model", None, None)
+            assert be._layout.rung == "rows" and be._layout.pl == 2
+        got = _serve(tpkg, eng, be, turns, preempt_turn=1)
+        assert got == want, f"token divergence ({kind}, tp={tp})"
+        assert be.stats["swaps_out"] >= 1 and be.stats["swaps_in"] >= 1
+
+
+def test_prefix_adoption_and_cow_fork_tp2():
+    shared = list(range(16))                  # two full pages
+    pa, pb = shared + [100, 101, 102], shared + [100, 201, 202]
+    jpkg, tpkg = twins("gqa")
+
+    def run(pkg, tp):
+        mgr, be, eng = _node(pkg, tp=tp)
+        reqs = [pkg.Request(session_id=sid, prompt_tokens=len(p),
+                            max_new_tokens=GEN, prompt_ids=list(p))
+                for sid, p in (("A", pa), ("B", pb))]
+        now = serve_to_end(eng, reqs[:1], mgr, be)
+        serve_to_end(eng, reqs[1:], mgr, be, now)   # adopts A's prefix
+        return [list(r.output_ids) for r in reqs], be
+
+    want, _ = run(jpkg, None)
+    got, be = run(tpkg, 2)
+    assert got == want
+    assert be.stats["prefix_hits"] == 1
+    assert be.stats["cow_forks"] == tpkg.cfg.n_layers   # mid-page divergence
+
+
+def test_export_at_tp2_import_at_tp4():
+    """Served and exported at tp = 2 (the payload full-head numpy, equal to
+    JAX's tp = 2 export of the same session), resumed at tp = 4 with JAX's
+    single-device tokens."""
+    jpkg, tpkg = twins("mha")
+    cfg = tpkg.cfg
+    turns = _turns(cfg, (9, 6), seed=5)
+    _, jbe, jeng = _node(jpkg)
+    want = _serve(jpkg, jeng, jbe, turns)
+
+    _, jbe2, jeng2 = _node(jpkg, tp=2)
+    _serve(jpkg, jeng2, jbe2, turns[:1])
+    jpay = jbe2.export_session("s0")
+
+    _, be2, eng2 = _node(tpkg, tp=2)
+    got = _serve(tpkg, eng2, be2, turns[:1])
+    tokens = be2.session_tokens("s0")
+    payload = be2.export_session("s0")
+    assert payload is not None and set(payload["layers"]) == \
+        set(jpay["layers"])
+    for key in ("n_kv", "last_token", "ids"):
+        assert payload[key] == jpay[key], key
+    for l, p in payload["layers"].items():
+        for side in ("k", "v"):
+            assert isinstance(p[side], np.ndarray)
+            assert p[side].shape == (tokens - 1, cfg.n_kv_heads, cfg.d_head)
+            np.testing.assert_allclose(p[side], np.asarray(
+                jpay["layers"][l][side], np.float32), atol=1e-5)
+        assert p["n_tokens"] == jpay["layers"][l]["n_tokens"]
+
+    mgr4, be4, eng4 = _node(tpkg, tp=4)
+    be4.import_session("s0", payload)
+    mgr4.mark_resident("s0", tokens, be4.session_kv_bytes(tokens),
+                       priority=0)
+    got += _serve(tpkg, eng4, be4, turns[1:], cached=tokens)
+    assert got == want
+    assert be4.stats["migrations_in"] == 1
+
+
+def test_census_keys_on_mesh_signature():
+    """Identical buckets at tp = None and tp = 2 count apart; serving the
+    same shapes again at tp = 2 adds nothing."""
+    _, tpkg = twins("mha", seed=13)
+    turns = _turns(tpkg.cfg, (9,), seed=11)
+    _, be_a, eng_a = _node(tpkg)
+    _serve(tpkg, eng_a, be_a, turns)
+    base = be_a.compile_counts()["step"]
+    assert base >= 1
+    _, be_b, eng_b = _node(tpkg, tp=2)
+    _serve(tpkg, eng_b, be_b, turns)
+    assert be_b.compile_counts()["step"] == 2 * base
+    _, be_c, eng_c = _node(tpkg, tp=2)
+    _serve(tpkg, eng_c, be_c, turns)
+    assert be_c.compile_counts()["step"] == 2 * base
+
+
+def test_hetero_skew_tp2_token_exact():
+    """Twin of test_hetero_skew_tp2_token_exact: the skewed batch on a
+    tp = 2 mesh splits into two sub-dispatches and stays token-exact
+    against the dense reference."""
+    _, tpkg = twins("gqa")
+    rng = np.random.default_rng(19)
+    lens = [64] + [6, 7, 8, 9, 10, 11, 12]
+    prompts = {f"s{i}": list(map(int, rng.integers(0, tpkg.cfg.vocab, n)))
+               for i, n in enumerate(lens)}
+    mgr, be, eng = _node(tpkg, tp=2, n_pages=96, max_batch=16,
+                         engine_kw=dict(token_budget=512))
+    reqs = [tpkg.Request(session_id=sid, prompt_tokens=len(ids),
+                         max_new_tokens=GEN, prompt_ids=list(ids))
+            for sid, ids in prompts.items()]
+    serve_to_end(eng, reqs, mgr, be)
+    for r in reqs:
+        assert list(r.output_ids) == recompute(
+            tpkg, [prompts[r.session_id]], GEN)[0], r.session_id
+    assert be.stats["split_steps"] > 0
+
+
+PROMPT = list(range(16)) + [100, 101, 102, 103, 104]   # 21 tokens, 3 pages
+TURN2 = [31, 32, 33, 34]
+
+
+@pytest.mark.parametrize("tp", [2, 4], ids=["heads_tp2", "splitk_tp4"])
+def test_int8_tier_scales_bit_equal_and_tokens_equal(tp):
+    """The same session (one payload, imported) on a single-device node and
+    on a tp node: quantized, its next turn decoded through the int8 pages,
+    swapped out and resumed.  The per-page scales (a maximum over every
+    shard's part of the page) and codes equal the single-device ones bit
+    for bit, and the tokens are equal."""
+    _, tpkg = twins("gqa")
+    _, be0, eng0 = _node(tpkg)
+    r1 = tpkg.Request(session_id="A", prompt_tokens=len(PROMPT),
+                      max_new_tokens=GEN, prompt_ids=list(PROMPT))
+    now = serve_to_end(eng0, [r1], be0.mgr, be0)
+    tokens = be0.session_tokens("A")
+    payload = be0.export_session("A")
+
+    def run(tp):
+        mgr, be, eng = _node(tpkg, tp=tp)
+        be.import_session("A", payload)
+        mgr.mark_resident("A", tokens, be.session_kv_bytes(tokens),
+                          priority=0)
+        be._ensure_resident("A")
+        be.drain_transfers()
+        assert be.quantize_session("A") > 0
+        pages = be.alloc[0].seqs["A"].pages[:3]
+        lay = be._layout
+        if lay is None:
+            codes = (be.kq_pool, be.vq_pool)
+            scales = (be.k_scale, be.v_scale)
+        else:
+            codes = (unshard(be.kq_pool, lay.spec),
+                     unshard(be.vq_pool, lay.spec))
+            scales = (be.k_scale[0], be.v_scale[0])
+            assert all(s is be.k_scale[0] for s in be.k_scale)
+        snap = [t[:, pages].clone() for t in codes + scales]
+        outs, t = [], now
+        for turn in (TURN2, TURN2):
+            r = tpkg.Request(session_id="A", prompt_tokens=len(turn),
+                             max_new_tokens=GEN, prompt_ids=list(turn),
+                             cached_tokens=be.session_tokens("A"))
+            t = serve_to_end(eng, [r], mgr, be, t)
+            outs.append(list(r.output_ids))
+            be.swap_out("A", be.session_tokens("A"))
+            be.drain_transfers()
+        check_invariants(mgr, be)
+        assert be.stats["quant_dispatches"] == 1
+        return snap, outs, be
+
+    want_snap, want, _ = run(None)
+    snap, got, be = run(tp)
+    assert be._layout.rung == ("heads" if tp == 2 else "rows")
+    for a, b in zip(snap, want_snap):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert got == want
+    assert got == recompute(tpkg, [PROMPT, TURN2, TURN2])[1:]
