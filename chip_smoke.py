@@ -162,22 +162,28 @@ Phases:
      random weights from --seed: phase 4's traffic on llama3-8b at tp 2
      and 4 (the kv-head rung: kernel 1 on each shard's 16 or 8 q heads
      over its 4 or 2 kv heads) and on yi-6b (Hkv = 4) at tp 8 (the
-     split-K rung: each shard holds 2 rows of every 16-row page and runs
-     kernel 1's partial mode for all 32 heads; the shards' outputs merged
-     by their log-sum-exp), each against the single device: where the
-     tokens first diverge, and the first traced logits within 2e-2 x
-     max|logits|; launches one a layer, shard and sub-dispatch; the
-     memory each run reckons, holds and gives back.  A pressure pass
+     split-K rung: each shard holds 2 rows of every 16-row page, and in a
+     second pass 1 row of every 8-row page, and runs kernel 1's partial
+     mode for all 32 heads, its keys cut into splits; every shard's and
+     split's float32 partials merged by their log-sum-exp in one merge
+     launch a call), each against the single device: where the tokens
+     first diverge, and the first traced logits within 2e-2 x
+     max|logits|; launches one a layer, shard and sub-dispatch, merges
+     one a layer and sub-dispatch on the split-K rung; the memory each
+     run reckons, holds and gives back.  A pressure pass
      (phase 6's rounds, 4 sessions x 3 turns, and a turn of a session
      compressed just before it; full width, 16 of the 32 layers) at tp 2
      on llama3-8b and at tp 8 on yi-6b: B.2 and B.2's partial mode on
-     lanes that read int8 pages.  Every partial call shape held against its plain version
-     shard by shard, timed per shard and summed with the merge, beside
-     the unsplit kernel on the same call and SDPA on the gathered K/V;
+     lanes that read int8 pages.  Every partial call shape held against
+     its plain version shard by shard (its splits combined), the merge
+     kernel against the plain merge, timed per shard (the slowest shard
+     too) and summed with the merge, beside the unsplit kernel on the
+     same call and SDPA on the gathered K/V;
      kernel 1's per-shard shapes at tp 4 and B.2's at tp 2 re-timed;
  22. exact fp32 tokens at full width and 2 layers on the mesh: llama3-8b
-     at tp 1, 2 and 4, yi-6b at tp 8, with a mid-decode preemption (a
-     swap-out and back), equal to the single device's and to
+     at tp 1, 2 and 4, yi-6b at tp 8 (and at tp 8 with page 8: 1-row
+     shard pages), with a mid-decode preemption (a swap-out and back),
+     equal to the single device's and to
      kernel_mode="ref"; a session exported at
      tp 2 resumes at tp 4; one payload imported and quantized on one
      device and on each mesh: int8 scales and codes bit-equal, and its
@@ -212,9 +218,8 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.core.advisory import (AdvisoryRequest,  # noqa: E402
                                        InferenceRequest)
 from repro_torch.core.node_manager import NodeManager  # noqa: E402
-from repro_torch.distributed.collectives import merge_partials  # noqa: E402
 from repro_torch.distributed.sharding import unshard  # noqa: E402
-from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_prefill as fp  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
@@ -654,16 +659,23 @@ def paged_resources(built):
     """Kernel 1's and B.2's bodies as ptxas built them (when phase 2
     compiled them in this run), as the runtime reports them, and their
     machine code: every bfloat16 instantiation runs wgmma (HGMMA), no
-    float32 one runs a tensor-core product (HGMMA or HMMA)."""
+    float32 one (nor the split-K merge) runs a tensor-core product (HGMMA
+    or HMMA)."""
     text = built.get(pa.NAME, (None, ""))[1] if built else ""
     lines = text.splitlines()
 
     def body(name):
+        if "split_kv_merge" in name:    # the split-K merge, CUDA cores
+            out = "bf16" if "nv_bfloat16" in name else "fp32"
+            return f"the split-K merge ({out} output)", False
         tc = "paged_chunk_attention_tc" in name
-        dim = next(d for d in pa.HEAD_DIMS if f"Li{d}E" in name)
-        quant = "Lb1E" in name
+        # template arguments <D, kQuant> or, for the bf16 body, <D,
+        # kQuant, kOneRow>
+        dim, quant, one_row = re.search(r"Li(\d+)ELb([01])E(?:Lb([01])E)?",
+                                        name).groups()
         return (f"{'bf16 tensor-core' if tc else 'fp32 CUDA-core'} "
-                f"{'B.2' if quant else 'kernel 1'} at D = {dim}"), tc
+                f"{'B.2' if quant == '1' else 'kernel 1'} at D = {dim}"
+                f"{' (1-row pages)' if one_row == '1' else ''}"), tc
     for i, line in enumerate(lines):
         if "Compiling entry function" in line:
             info = [x.strip() for x in lines[i + 1:i + 4]
@@ -682,9 +694,11 @@ def paged_resources(built):
         check(counts["HGMMA"] > 0 if tc
               else counts["HGMMA"] == 0 and counts["HMMA"] == 0,
               f"{label} runs {counts}")
-    check(len(kernels) == 4 * len(pa.HEAD_DIMS),
+    # per head dim: fp32 and bf16 kernel 1 and B.2, and the bf16 bodies
+    # of 1-row pages; then the merge's two
+    check(len(kernels) == 6 * len(pa.HEAD_DIMS) + 2,
           f"cuobjdump shows {len(kernels)} kernels of {pa.NAME}, not "
-          f"{4 * len(pa.HEAD_DIMS)}")
+          f"{6 * len(pa.HEAD_DIMS) + 2} (the merge's two among them)")
 
 
 def log_rates(recs, tag, what):
@@ -1228,10 +1242,13 @@ class Capture:
             key = self.key(args, kw)
             sc = 0.0 if self.score is None else self.score(args)
             if key not in self.calls or sc > self.scores[key]:
+                # inputs only: a partial call's ``out`` (its slots of the
+                # step's workspace) is not kept
                 self.calls[key] = (tuple(t.clone() if isinstance(
                     t, torch.Tensor) else t for t in args),
-                                   {k: None if t is None else t.clone()
-                                    for k, t in kw.items()})
+                                   {k: t.clone() if isinstance(
+                                       t, torch.Tensor) else t
+                                    for k, t in kw.items() if k != "out"})
                 self.scores[key] = sc
             return orig(*args, **kw)
 
@@ -3780,9 +3797,11 @@ def tp_mesh(tp):
 def zero_counts():
     pa.launches = pa.quant_launches = 0
     pa.partial_launches = pa.quant_partial_launches = 0
+    pa.merge_launches = 0
 
 
 def counts():
+    """The attention kernels' launch counts (the merge's apart)."""
     return dict(k1=pa.launches, b2=pa.quant_launches,
                 k1_partial=pa.partial_launches,
                 b2_partial=pa.quant_partial_launches)
@@ -3799,13 +3818,25 @@ def expected_counts(be, kind="k1"):
     return key, n
 
 
+def check_merges(be, what, mode="auto"):
+    """The split-K merge's launches of a run on ``be``: one an attention
+    call (a layer and a sub-dispatch) on the rows rung on the kernel path,
+    none otherwise.  Returns the count."""
+    lay = be._layout
+    rows = lay is not None and lay.rung == "rows" and mode == "auto"
+    want = be.cfg.n_layers * be.stats["sub_dispatches"] if rows else 0
+    check(pa.merge_launches == want, f"{what}: {pa.merge_launches} merge "
+          f"launches, want {want} (one an attention call on the rows rung)")
+    return pa.merge_launches
+
+
 def _partial_key(args, kw):
     q, kp, tables = args[0], args[1], args[-5]
     return (tuple(q.shape), tuple(kp.shape), tuple(tables.shape), q.dtype,
             args[-2])
 
 
-def reckon(cfg, params, n_pages, page=PAGE):
+def reckon(cfg, params, n_pages, page):
     """The device bytes a tp run should take: the weights (shards are views
     of them on the one card) and its pools."""
     w = sum(t.numel() * t.element_size() for t in tensors(params))
@@ -3815,19 +3846,24 @@ def reckon(cfg, params, n_pages, page=PAGE):
     return w, pools
 
 
-def tp_serve(cfg, model, params, prompts, gen, tp, tag, captures=()):
+def tp_serve(cfg, model, params, prompts, gen, tp, tag, captures=(),
+             page=PAGE):
     """Phase 4's traffic (``rounds(prompts)``) on a node of ``tp`` shards
-    (None: one device) with its logits traced; its kernel launches, checked
-    against one a layer, shard and sub-dispatch; the memory it held, which
+    (None: one device) with its logits traced, at ``page`` rows a page
+    (the pool holding 16384 tokens); its kernel launches, checked against
+    one a layer, shard and sub-dispatch, and its merges against one a
+    layer and sub-dispatch on the split-K rung; the memory it held, which
     must return to its base once the node is freed."""
     free_device_memory()
     base = torch.cuda.memory_allocated()
-    w, pools = reckon(cfg, params, 1024)
-    log(f"[{tag}] tp={tp}: reckoned {w / 1e9:.2f} GB of weights (the shards "
-        f"are views of them) + {pools / 1e9:.2f} GB of pools; allocated "
-        f"before {base / 1e9:.2f} GB")
-    eng, be, mgr = make_node(cfg, model, params, n_pages=1024,
-                             trace_logits=True, mesh=tp_mesh(tp))
+    n_pages = 1024 * PAGE // page
+    w, pools = reckon(cfg, params, n_pages, page)
+    log(f"[{tag}] tp={tp} page {page}: reckoned {w / 1e9:.2f} GB of weights "
+        f"(the shards are views of them) + {pools / 1e9:.2f} GB of pools; "
+        f"allocated before {base / 1e9:.2f} GB")
+    eng, be, mgr = make_node(cfg, model, params, n_pages=n_pages,
+                             page_size=page, trace_logits=True,
+                             mesh=tp_mesh(tp))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()                       # counts of this main path only
@@ -3847,22 +3883,30 @@ def tp_serve(cfg, model, params, prompts, gen, tp, tag, captures=()):
     got = counts()
     peak = torch.cuda.max_memory_allocated()
     key, want = expected_counts(be)
-    rung = "single device" if be._layout is None else be._layout.rung
+    rung = "single device" if be._layout is None else \
+        f"{be._layout.rung}, {be._layout.pl} rows a shard page"
     log(f"[{tag}] tp={tp} ({rung}): {len(reqs)} requests, {len(steps)} "
         f"steps, mean step {1e3 * sum(steps) / len(steps):.2f} ms, "
-        f"{be.stats['sub_dispatches']} sub-dispatches; launches {got}; "
+        f"{be.stats['sub_dispatches']} sub-dispatches; launches {got}, "
+        f"merges {pa.merge_launches}; "
         f"pool bytes a shard {be.pool_device_bytes() / 1e9:.3f} GB; "
         f"max_memory_allocated {peak / 1e9:.2f} GB")
     check(got[key] == want and sum(got.values()) == want,
           f"tp={tp}: launches {got}, want {key} = {want}")
+    merges = check_merges(be, f"tp={tp} page {page}")
     check(all(len(r.output_ids) == gen for r in reqs),
           f"tp={tp}: a request did not generate all its tokens")
-    check(be.stats["prefix_hits"] >= 1 and be.stats["cow_forks"] >= 1,
+    # an adopted prefix that ends inside a page forks it (the 200-token
+    # system prompt at page 16); at page 8 it ends on a page's edge
+    fork = be.stats["shared_tokens"] % page != 0
+    check(be.stats["prefix_hits"] >= 1
+          and (be.stats["cow_forks"] >= 1 or not fork),
           f"tp={tp}: no prefix adoption / CoW fork: {be.stats}")
     for a in be.alloc:
         a.check()
     out = dict(tokens=[list(r.output_ids) for r in reqs],
                first=be.logit_trace[0], launches=got[key], key=key,
+               merges=merges,
                step_ms=1e3 * sum(steps) / len(steps), steps=len(steps),
                subs=be.stats["sub_dispatches"],
                shard_bytes=be.pool_device_bytes(), peak=peak)
@@ -3964,13 +4008,26 @@ def partial_work(q, tables, q_offsets, ctx_lens, page_g, pl, shard, hkv, d,
     return nbytes, flops
 
 
+def merge_work(o, lse, itemsize):
+    """Bytes the merge of one call must move for THESE partials: every lse
+    read, the o rows of partials that saw a key (the others are not read),
+    the output written; its operations are negligible."""
+    N, B, Sq, H, D = o.shape
+    seen = int(torch.isfinite(lse).sum())
+    return 4 * lse.numel() + 4 * D * seen + B * Sq * H * D * itemsize
+
+
 def compare_partial(group, label):
     """One split-K call, captured shard by shard (one layer of one
-    dispatch): each shard's kernel against its plain version (real rows
+    dispatch), run as the main path runs it: every shard's partials
+    written into one workspace, then merged in place.  Each shard's
+    kernel, its splits combined, against its plain version (real rows
     within TOL x max|plain|, padding rows zeros, -inf lse where the plain
-    one is), the merge against the unsplit kernel and its plain version on
-    the whole pool; times per shard, summed with the merge, of the unsplit
-    kernel on the same call and of SDPA on the gathered K/V."""
+    one is, lse within 1e-2), the merge kernel against the plain merge on
+    the same partials, and the merged output against the unsplit kernel
+    and its plain version on the whole pool; times per shard (wall and
+    device), the slowest shard's, the merge's, the unsplit kernel's on the
+    same call and SDPA's on the gathered K/V."""
     quant = len(group[0]) == 13
     kern = QKPART if quant else KPART
     q = group[0][0]
@@ -3979,40 +4036,48 @@ def compare_partial(group, label):
     n = group[0][-1]
     q_lens = (ctx - qoff).clamp(min=0).cpu().tolist()
     cx = ctx.cpu().tolist()
+    ws, slots_of = ops.partial_workspace(q, group[0][1], tab, [q.device] * n)
+    n_split = ws[0].shape[0] // n
     outs, lses = [], []
     err, scale, lerr = 0.0, 0.0, 0.0
-    ms = dev = plain = 0.0
+    ms = dev = plain = host = 0.0
+    devs = []
     nbytes = flops = 0
     dev_ok = True
-    for args in group:
-        o, lse = kern(*args)
+    for r, args in enumerate(group):
+        slots = slots_of[r]
+        o, lse = kern(*args, out=slots)
         torch.cuda.synchronize()
         qt = tuple(args[3:8]) if quant else None
         wo, wl = ref.paged_chunk_attention_partial_ref(
             args[0], args[1], args[2], tab, qoff, ctx, args[-2], n, quant=qt)
-        check(bool(torch.isfinite(o.float()).all()),
-              f"{label} shard {args[-2]}: output not finite")
-        check(torch.equal(torch.isfinite(lse), torch.isfinite(wl)),
+        wo, wl = wo[0], wl[0]
+        check(bool(torch.isfinite(o).all()),
+              f"{label} shard {args[-2]}: partials not finite")
+        co, cl = ref.combine_partials(o, lse)   # the shard's splits merged
+        check(torch.equal(torch.isfinite(cl), torch.isfinite(wl)),
               f"{label} shard {args[-2]}: rows with no key differ from the "
               f"plain version's")
         for b in range(q.shape[0]):
             m = int(q_lens[b]) if cx[b] else 0
-            check(bool((o[b, m:] == 0).all()),
+            check(bool((o[:, b, m:] == 0).all())
+                  and bool(torch.isneginf(lse[:, b, m:]).all()),
                   f"{label} shard {args[-2]}: lane {b}'s padding rows are "
-                  f"not zeros")
+                  f"not zeros with lse -inf")
             if m:
-                err = max(err, (o[b, :m].float() - wo[b, :m].float())
-                          .abs().max().item())
-                scale = max(scale, wo[b, :m].float().abs().max().item())
+                err = max(err, (co[b, :m] - wo[b, :m]).abs().max().item())
+                scale = max(scale, wo[b, :m].abs().max().item())
         fin = torch.isfinite(wl)
         if bool(fin.any()):
-            lerr = max(lerr, (lse[fin] - wl[fin]).abs().max().item())
+            lerr = max(lerr, (cl[fin] - wl[fin]).abs().max().item())
         outs.append(o)
         lses.append(lse)
-        ms += cuda_ms(lambda a=args: kern(*a), 5)
-        d_ms = device_ms(lambda a=args: kern(*a), 5)
+        ms += cuda_ms(lambda a=args, sl=slots: kern(*a, out=sl), 5)
+        host += host_ms(lambda a=args, sl=slots: kern(*a, out=sl), 5)
+        d_ms = device_ms(lambda a=args, sl=slots: kern(*a, out=sl), 5)
         dev_ok = dev_ok and d_ms is not None
         dev += d_ms or 0.0
+        devs.append(d_ms or 0.0)
         plain += cuda_ms(lambda a=args: ref.paged_chunk_attention_partial_ref(
             a[0], a[1], a[2], tab, qoff, ctx, a[-2], n, quant=qt), 1,
             warmup=0)
@@ -4027,8 +4092,26 @@ def compare_partial(group, label):
     check(err <= lim, f"{label}: max abs err {err:.3g} > {TOL[dtype]} x "
           f"max|plain| {scale:.3g} = {lim:.3g}")
     check(lerr <= 1e-2, f"{label}: lse off the plain version's by {lerr:.3g}")
-    merged = merge_partials(outs, lses)
-    merge_ms = cuda_ms(lambda: merge_partials(outs, lses), 10)
+
+    def merge():
+        return ops.merge_partials(*ws, dtype)
+    before = pa.merge_launches
+    merged = merge()
+    torch.cuda.synchronize()
+    merge_launches = pa.merge_launches - before
+    check(merge_launches == 1, f"{label}: the merge made {merge_launches} "
+          f"launches, not one")
+    plain_merged = ref.merge_partials_ref(*ws, dtype).float()
+    mg_err = (merged.float() - plain_merged).abs().max().item()
+    mg_scale = max(plain_merged.abs().max().item(), 1e-30)
+    mg_tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    check(mg_err <= mg_tol * mg_scale, f"{label}: the merge kernel off the "
+          f"plain merge by {mg_err:.3g} > {mg_tol:.3g} x {mg_scale:.3g}")
+    merge_ms = cuda_ms(merge, 10)
+    merge_host = host_ms(merge, 10)
+    merge_dev = device_ms(merge, 10)
+    merge_plain = cuda_ms(lambda: ref.merge_partials_ref(*ws, dtype), 5)
+    mb_ms, _, mt_b, _ = bound(merge_work(*ws, q.element_size()), 0, dtype)
     kp = torch.cat([a[1] for a in group], dim=1)
     vp = torch.cat([a[2] for a in group], dim=1)
     full = None
@@ -4052,15 +4135,23 @@ def compare_partial(group, label):
                        .item(), (whole[b, :m].float() - want).abs().max()
                        .item())
             mscale = max(mscale, want.abs().max().item())
+        check(bool((merged[b, m:] == 0).all()),
+              f"{label}: lane {b}'s merged padding rows are not zeros")
     check(merr <= TOL[dtype] * mscale,
           f"{label}: merged shards or the unsplit kernel off the plain "
           f"version by {merr:.3g} > {TOL[dtype]} x {mscale:.3g}")
     b_ms, b_by, t_b, t_f = bound(nbytes, flops, dtype)
     rec = dict(
-        label=label, max_abs_err=err, err_rel=err / max(scale, 1e-30),
-        lse_err=lerr, merged_err_rel=merr / max(mscale, 1e-30),
-        ms=ms, device_ms=dev if dev_ok else None, plain_ms=plain,
-        merge_ms=merge_ms, split_ms=ms + merge_ms,
+        label=label, splits=n_split, max_abs_err=err,
+        err_rel=err / max(scale, 1e-30), lse_err=lerr,
+        merged_err_rel=merr / max(mscale, 1e-30),
+        ms=ms, device_ms=dev if dev_ok else None, host_ms=host,
+        plain_ms=plain, slowest_device_ms=(max(devs) + merge_dev
+                           if dev_ok and merge_dev is not None else None),
+        merge_ms=merge_ms, merge_device_ms=merge_dev, merge_host_ms=merge_host,
+        merge_launches=merge_launches,
+        merge_err=mg_err, merge_plain_ms=merge_plain, merge_bound_ms=mb_ms,
+        merge_bytes_ms=mt_b, split_ms=ms + merge_ms,
         unsplit_ms=cuda_ms(unsplit, 20), unsplit_device_ms=device_ms(unsplit),
         library_ms=cuda_ms(sdpa_yardstick(q, kp, vp, tab, qoff, ctx, full),
                            20),
@@ -4071,11 +4162,22 @@ def compare_partial(group, label):
 
 def fmt_partial(rec) -> str:
     keys = ("max_abs_err", "err_rel", "lse_err", "merged_err_rel", "ms",
-            "device_ms", "merge_ms", "split_ms", "unsplit_ms",
-            "unsplit_device_ms", "plain_ms", "library_ms", "bound_ms")
+            "device_ms", "host_ms", "slowest_device_ms", "merge_ms",
+            "merge_device_ms", "merge_host_ms", "merge_err",
+            "merge_bound_ms", "split_ms", "unsplit_ms", "unsplit_device_ms",
+            "plain_ms", "library_ms", "bound_ms")
     parts = [f"{k}={rec[k]:.4g}" for k in keys if rec.get(k) is not None]
-    return f"  {rec['label']}: " + " ".join(parts) + \
-        f" bound_by={rec['bound_by']}"
+    return (f"  {rec['label']}: splits={rec['splits']} merge_launches="
+            f"{rec['merge_launches']} " + " ".join(parts)
+            + f" bound_by={rec['bound_by']}")
+
+
+def merge_record(rec):
+    """The merge's part of a partial record, as a kernel record."""
+    return dict(max_abs_err=rec["merge_err"], ms=rec["merge_ms"],
+                device_ms=rec["merge_device_ms"],
+                plain_ms=rec["merge_plain_ms"], bound_ms=rec["merge_bound_ms"],
+                bytes_ms=rec["merge_bytes_ms"], ops_ms=0.0, library_ms=None)
 
 
 def retime_partial(cap, what, tag):
@@ -4105,16 +4207,23 @@ def retime_partial(cap, what, tag):
     if recs:
         tot = {k: sum(r[k] for r in recs) for k in (
             "ms", "merge_ms", "split_ms", "unsplit_ms", "library_ms",
-            "bound_ms", "plain_ms")}
-        devs = [r["device_ms"] for r in recs]
-        udevs = [r["unsplit_device_ms"] for r in recs]
+            "bound_ms", "plain_ms", "merge_bound_ms", "host_ms",
+            "merge_host_ms")}
+
+        def dsum(k):
+            v = [r[k] for r in recs]
+            return sum(v) if None not in v else "n/a"
         log(f"[{tag}] {what}, {len(recs)} shapes: shards {tot['ms']:.4g} ms"
-            f" (device {sum(devs) if None not in devs else 'n/a'}) + merge "
-            f"{tot['merge_ms']:.4g} = {tot['split_ms']:.4g} ms; unsplit "
-            f"kernel {tot['unsplit_ms']:.4g} ms (device "
-            f"{sum(udevs) if None not in udevs else 'n/a'}); SDPA "
-            f"{tot['library_ms']:.4g} ms; bound {tot['bound_ms']:.4g} ms; "
-            f"plain {tot['plain_ms']:.4g} ms")
+            f" (device {dsum('device_ms')}, host {tot['host_ms']:.4g}) + "
+            f"merge {tot['merge_ms']:.4g} (device {dsum('merge_device_ms')}, "
+            f"host {tot['merge_host_ms']:.4g}, bound "
+            f"{tot['merge_bound_ms']:.4g}) = {tot['split_ms']:.4g} ms; the "
+            f"slowest shard + merge, device {dsum('slowest_device_ms')}; "
+            f"splits {[r['splits'] for r in recs]}; unsplit kernel "
+            f"{tot['unsplit_ms']:.4g} ms (device "
+            f"{dsum('unsplit_device_ms')}); SDPA {tot['library_ms']:.4g} ms;"
+            f" bound {tot['bound_ms']:.4g} ms; plain {tot['plain_ms']:.4g} "
+            f"ms")
     return recs
 
 
@@ -4169,6 +4278,7 @@ def tp_pressure(cfg, model, params, seed, tp, tag):
         f"{1e3 * float(np.mean(d.steps)):.2f} ms; launches {got}; "
         f"backend stats {be.stats}")
     key = "b2_partial" if rows else "b2"
+    got["merges"] = check_merges(be, f"tp={tp} pressure")
     check(be.stats["quantized_pages"] > 0 and got[key] > 0,
           f"tp={tp}: the pressure pass put no int8 page on the path")
     check(cap.n == got[key] and max(cap.scores.values()) > 0,
@@ -4198,30 +4308,36 @@ def phase_tp(seed, tag=21):
     rng = np.random.default_rng(seed)
     gen = 16
     out = dict(k1=0, k1_recs=[], b2=0, b2_recs=[], k1p=0, k1p_recs=[],
-               b2p=0, b2p_recs=[], table=[])
-    for name, tps in (("llama3-8b", (2, 4)), ("yi-6b", (8,))):
+               b2p=0, b2p_recs=[], merges=0, table=[])
+    for name, tps in (("llama3-8b", (2, 4)), ("yi-6b", (8, "8p8"))):
         cfg, model, params = published(name, seed, tag)
         prompts = _turns(rng, cfg.vocab)
         single = tp_serve(cfg, model, params, prompts, gen, None, tag)
         floor = first_logits_floor(cfg, model, params, prompts, gen, single,
                                    tag)
-        out["table"].append((name, None, single["step_ms"],
+        out["table"].append((name, None, PAGE, single["step_ms"],
                              single["launches"] / single["steps"],
                              single["shard_bytes"]))
         for tp in tps:
+            # "8p8": tp 8 at page 8, 1-row shard pages (RealBackend's
+            # default page size)
+            page = 8 if tp == "8p8" else PAGE
+            tp = 8 if tp == "8p8" else tp
             rows = cfg.n_kv_heads % tp != 0
             cap = (Capture("paged_chunk_attention_partial", key=_partial_key)
                    if rows else Capture("paged_chunk_attention"))
             run = tp_serve(cfg, model, params, prompts, gen, tp, tag,
-                           captures=(cap,) if rows or tp == 4 else ())
+                           captures=(cap,) if rows or tp == 4 else (),
+                           page=page)
             held_to_single(single, run, tp, tag, floor)
-            out["table"].append((name, tp, run["step_ms"],
+            out["table"].append((name, tp, page, run["step_ms"],
                                  run["launches"] / run["steps"],
                                  run["shard_bytes"]))
+            out["merges"] += run["merges"]
             if rows:
                 out["k1p"] += run["launches"]
-                out["k1p_recs"] += retime_partial(cap, f"{name} tp={tp}",
-                                                  tag)
+                out["k1p_recs"] += retime_partial(
+                    cap, f"{name} tp={tp} page {page}", tag)
             else:
                 out["k1"] += run["launches"]
                 if tp == 4:
@@ -4235,8 +4351,9 @@ def phase_tp(seed, tag=21):
         # operations, and the full depth would take phases 21-22 well
         # past 120 s
         cfg, model, params = published(name, seed, tag, n_layers=16)
-        ptp = tps[-1] if name == "yi-6b" else 2
+        ptp = 8 if name == "yi-6b" else 2
         got, cap = tp_pressure(cfg, model, params, seed, ptp, tag)
+        out["merges"] += got["merges"]
         if cfg.n_kv_heads % ptp:
             out["b2p"] += got["b2_partial"]
             out["k1p"] += got["k1_partial"]
@@ -4249,18 +4366,18 @@ def phase_tp(seed, tag=21):
                                      tag)
         del cfg, model, params
         free_device_memory()
-    log(f"[{tag}] step ms and launches a step (model, tp, mean step ms, "
-        f"kernel launches a step, pool bytes a shard): {out['table']}")
+    log(f"[{tag}] step ms and launches a step (model, tp, page, mean step "
+        f"ms, kernel launches a step, pool bytes a shard): {out['table']}")
     return out
 
 
-def exact_serve(cfg, model, params, turns, gen, tp, mode):
-    """The session's turns on a node of ``tp`` shards, the second one
-    preempted halfway through its decode (swapped out and back in); its
-    tokens, launch rule checked."""
-    eng, be, mgr = make_node(cfg, model, params, n_pages=128, max_batch=4,
-                             token_budget=128, kernel_mode=mode,
-                             mesh=tp_mesh(tp))
+def exact_serve(cfg, model, params, turns, gen, tp, mode, page=PAGE):
+    """The session's turns on a node of ``tp`` shards at ``page`` rows a
+    page, the second one preempted halfway through its decode (swapped out
+    and back in); its tokens, launch rule (and merge rule) checked."""
+    eng, be, mgr = make_node(cfg, model, params, n_pages=128 * PAGE // page,
+                             page_size=page, max_batch=4, token_budget=128,
+                             kernel_mode=mode, mesh=tp_mesh(tp))
     zero_counts()
     got, now = [], 0.0
     for i, turn in enumerate(turns):
@@ -4280,6 +4397,7 @@ def exact_serve(cfg, model, params, turns, gen, tp, mode):
         want = 0
     check(ran.get(key, 0) == want and sum(ran.values()) == want,
           f"{cfg.name} tp={tp} {mode}: launches {ran}, want {key} = {want}")
+    check_merges(be, f"{cfg.name} tp={tp} page {page} {mode}", mode)
     check(be.stats["swaps_out"] > 0 and be.stats["swaps_in"] > 0,
           f"{cfg.name} tp={tp}: the preemption swapped nothing out and in")
     del eng, be, mgr
@@ -4326,6 +4444,14 @@ def phase_exact_tp(seed, tag=22):
                       f"{got} differ from one device's {want}")
             log(f"[{tag}] {cfg.name} tp={tp}: auto and ref equal one "
                 f"device's tokens")
+            if tp == 8:
+                # 1-row shard pages: page 8 at tp 8
+                got = exact_serve(cfg, model, params, turns, gen, tp, "auto",
+                                  page=8)
+                check(got == want, f"{cfg.name} tp=8 page 8: tokens {got} "
+                      f"differ from one device's {want}")
+                log(f"[{tag}] {cfg.name} tp=8 page 8 (1-row shard pages): "
+                    f"equal to one device's tokens")
         if 2 in tps and 4 in tps:
             eng2, be2, mgr2 = make_node(cfg, model, params, n_pages=128,
                                      max_batch=4, token_budget=128,
@@ -4538,12 +4664,13 @@ def main(argv=None):
         # phase 21 drives each tp main path with the counts set to 0 just
         # before it and reads them just after, inside the phase
         tp = dict(k1=0, k1_recs=[], b2=0, b2_recs=[], k1p=0, k1p_recs=[],
-                  b2p=0, b2p_recs=[])
+                  b2p=0, b2p_recs=[], merges=0)
         if 21 in phases:
             tp = phase_tp(args.seed)
-            check(tp["k1p"] > 0 and tp["b2p"] > 0,
+            check(tp["k1p"] > 0 and tp["b2p"] > 0 and tp["merges"] > 0,
                   f"the partial modes ran {tp['k1p']} and {tp['b2p']} "
-                  f"times on phase 21's split-K paths")
+                  f"times, their merge {tp['merges']}, on phase 21's "
+                  f"split-K paths")
             lap("phase 21")
         if 22 in phases:
             phase_exact_tp(args.seed)
@@ -4587,6 +4714,14 @@ def main(argv=None):
         kernel_entry(pa.QUANT_NAME + "_partial", src,
                      "src/repro/kernels/paged_attention.py:239", tp["b2p"],
                      tp["b2p_recs"]),
+        # the merge of both partial modes' calls (one launch a call): the
+        # softmax combine that GSPMD inserts around the TPU kernel on the
+        # split-K rung, so no pallas_call stands behind it (replaces null);
+        # no single PyTorch call computes it
+        kernel_entry(pa.MERGE_NAME, "src/repro_torch/csrc/split_kv.cuh",
+                     None, tp["merges"],
+                     [merge_record(r) for r in tp["k1p_recs"]
+                      + tp["b2p_recs"]]),
         kernel_entry(ssd.NAME, "src/repro_torch/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan.py:62", slaunches,
                      hybrid_srecs if 9 in phases else scan_recs),
@@ -4604,7 +4739,8 @@ def main(argv=None):
         f"zamba2-2.7b path, {vk1} on the phi-3-vision paths; int8 kernel: "
         f"{qlaunches} on llama3-8b's pressure path, {vq} on phi-3-vision's; "
         f"phase 21's shards: kernel 1 {tp['k1']}, int8 kernel {tp['b2']}, "
-        f"their partial modes {tp['k1p']} and {tp['b2p']}; "
+        f"their partial modes {tp['k1p']} and {tp['b2p']}, merged by "
+        f"{tp['merges']} merge launches; "
         f"flash_prefill: {flaunches} on the dense reference's prefills, "
         f"{af} on the prefills of phases 17-19; paged_attention (B.3): "
         f"{dlaunches} on the "

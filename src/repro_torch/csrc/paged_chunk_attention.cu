@@ -21,15 +21,21 @@
 //     divide over the shards: the pools passed are shard r's slice of every
 //     page, rows [r * page, (r + 1) * page) of pages of page * n_shards rows,
 //     so local row j of table entry t is the key at position t * page *
-//     n_shards + r * page + j.  The causal mask and ctx use those positions,
-//     the output is normalised over the shard's keys, and lse (B, Sq, H)
-//     float32 gets each row's natural log-sum-exp of its scaled scores (-inf
-//     where the shard holds no key the row sees, whose output is zeros).
-//     The shards' pairs are merged outside the kernel
-//     (repro_torch/distributed/collectives.py, merge_partials), as GSPMD's
-//     softmax combine does for the TPU kernel.  A shard page may hold 2 to 32
-//     rows; without a split the mode is the kernel itself (page_g = page,
-//     r_off = 0 below), so both bodies gained integer arithmetic only.
+//     n_shards + r * page + j.  The causal mask and ctx use those positions.
+//     A shard page may hold 1 to 32 rows; without a split the mode is the
+//     kernel itself (page_g = page, r_off = 0 below), so both bodies gained
+//     integer arithmetic only.  The shard's local keys are cut into n_split
+//     splits of `split` keys (whole 64-key stages), planned by the wrapper
+//     as B.3 plans its decode splits, so that at decode and in short chunks
+//     one shard's grid fills the card by itself (a shard at decode is B x
+//     Hkv CTAs otherwise: 4 at yi-6b's); a long chunk keeps one split.
+//     Every split CTA writes float32 partials: o normalised over its keys
+//     and lse, the natural log-sum-exp of their scaled scores, o = 0 and
+//     lse = -inf where a row sees no key of the split (csrc/split_kv.cuh's
+//     (o, lse) layout).  paged_chunk_attention_merge_launch merges every
+//     shard's and split's partials of one call in one launch
+//     (split_kv_merge), reading the workspace the shards wrote side by
+//     side, as GSPMD's softmax combine does for the TPU kernel.
 //
 // What both compute: lane b's query i sits at position q_offsets[b] + i and
 // attends, with a float32 online softmax (m, l, acc) scaled by 1/sqrt(D), to
@@ -62,10 +68,13 @@
 // table: each pool is one tensor map over (P * page, Hkv, D), a box is one
 // page's rows of one kv head, 64 columns wide, so a stage is 64 / page pages,
 // each loaded at row table[b][p] * page into the stage's rows p * page, a
-// multiple of 1024 bytes, as the 128-byte swizzle needs.  The producer warp
-// reads the lane's table row once, 32 entries (with their flags and scales) at
-// a time, one a lane, never issues a load for a page at or past ceil(kv_end /
-// page), and expects only the bytes it issues.  One consumer warpgroup runs S =
+// multiple of 1024 bytes at pages of 8 rows or more (TMA swizzles by the
+// shared-memory address, so smaller shard pages land as well).  The producer warp
+// reads each stage's table entries (with their flags and scales), one or two
+// a lane, and each lane issues its own pages' boxes (at split-K shard pages
+// of 1 or 2 rows the lanes gather the rows by cp.async instead, into the
+// same swizzle); it never loads a page at or past ceil(kv_end / page), and
+// expects only the bytes it issues.  One consumer warpgroup runs S =
 // Q.K^T as wgmma m64n64k16 (Q and K K-major in 128-byte-swizzled shared
 // memory), the online softmax on S's accumulator fragments (exp2 of pre-scaled
 // scores, row max by quad shuffles), converts P to bf16 A fragments in
@@ -116,8 +125,8 @@
 // row's int8 vectors split unevenly over the four loaders (5 and 6 over 4);
 // at D = 80 the P.V accumulators cover 96 columns, of which the 16 pad
 // columns read zeros and are never written (96 needs no pad).  It sits far
-// from its operations bound, and it has no split-KV: a decode batch gives
-// B x Hkv CTAs on 132 SMs.
+// from its operations bound, and split-KV only in the partial mode: a
+// decode batch of the kernel itself gives B x Hkv CTAs on 132 SMs.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -125,7 +134,10 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "sm90.cuh"
+#include "split_kv.cuh"
 
 namespace {
 
@@ -200,7 +212,8 @@ paged_chunk_attention_kernel(const T* __restrict__ q,
                              const int* __restrict__ ctx_lens,
                              T* __restrict__ out, float* __restrict__ lse,
                              int Sq, int H, int Hkv, int page, int page_g,
-                             int r_off, int T_width, int bq) {
+                             int r_off, int T_width, int bq, int split,
+                             int n_split) {
   constexpr int kTpr = kThreads / kRows;  // threads per row in P.V (8)
   // P.V columns padded to a multiple of 4 * kTpr (D = 80 -> 96); the pad
   // columns of v_s are zeros and are never written out
@@ -225,10 +238,14 @@ paged_chunk_attention_kernel(const T* __restrict__ q,
   const int rows = bq * G;
   const int b = blockIdx.z;
   const int h = blockIdx.y;
-  const int q0 = blockIdx.x * bq;
+  const int sp = blockIdx.x % n_split;     // the split of the shard's keys
+  const int q0 = blockIdx.x / n_split * bq;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  // split sp's slot of the partials (the output itself without a split)
+  out += (size_t)sp * gridDim.z * Sq * H * D;
+  if (lse != nullptr) lse += (size_t)sp * gridDim.z * Sq * H;
 
   const int ctx = ctx_lens[b];
   const int qoff = q_offsets[b];
@@ -257,6 +274,10 @@ paged_chunk_attention_kernel(const T* __restrict__ q,
   const int n_local = kv_end / page_g * page +
                       min(max(kv_end % page_g - r_off, 0), page);
   auto gpos = [&](int kl) { return kl / page * page_g + r_off + kl % page; };
+  // split sp walks the local keys [kl0, kl1) (a split is whole steps of
+  // kKeys); a split past the tile's keys writes o = 0 and lse = -inf
+  const int kl0 = sp * split;
+  const int kl1 = n_split == 1 ? n_local : min(n_local, kl0 + split);
 
   for (int i = tid; i < kRows * D; i += kThreads) {
     const int r = i / D, d = i % D;
@@ -288,7 +309,7 @@ paged_chunk_attention_kernel(const T* __restrict__ q,
   auto fetch = [&](int k0) {
     const int kl = k0 + ld_j;
     row_q = false;
-    if (kl < n_local) {
+    if (kl < kl1) {
       const size_t pid = (size_t)table[kl / page];
       const size_t off = ((pid * page + kl % page) * Hkv + h) * D;
       if constexpr (kQuant) {
@@ -335,8 +356,8 @@ paged_chunk_attention_kernel(const T* __restrict__ q,
   for (int i = 0; i < kCol4; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   const float scale = 1.f / sqrtf((float)D);
 
-  if (n_local > 0) fetch(0);
-  for (int k0 = 0; k0 < n_local; k0 += kKeys) {
+  if (kl0 < kl1) fetch(kl0);
+  for (int k0 = kl0; k0 < kl1; k0 += kKeys) {
     __syncthreads();  // the previous step is done with k_s, v_s and p_s
     bool staged = false;
     if constexpr (kQuant) {
@@ -363,14 +384,14 @@ paged_chunk_attention_kernel(const T* __restrict__ q,
       }
     }
     __syncthreads();
-    if (k0 + kKeys < n_local) fetch(k0 + kKeys);  // in flight during the math
+    if (k0 + kKeys < kl1) fetch(k0 + kKeys);  // in flight during the math
     // scores: a warp takes one row (kKeys == 32), a lane one key
     for (int i = tid; i < kRows * kKeys; i += kThreads) {
       const int r = i / kKeys, j = i % kKeys;
       const int qi = q0 + r / G;
       const int kl = k0 + j;
       float s = kMaskValue;
-      if (r < rows && qi < q_end && kl < n_local && gpos(kl) <= qoff + qi) {
+      if (r < rows && qi < q_end && kl < kl1 && gpos(kl) <= qoff + qi) {
         const float4* qa = reinterpret_cast<const float4*>(q_s[r]);
         const float4* ka = reinterpret_cast<const float4*>(k_s[j]);
         float dot = 0.f;
@@ -385,7 +406,7 @@ paged_chunk_attention_kernel(const T* __restrict__ q,
     for (int r = warp; r < rows; r += kWarps) {
       const int qi = q0 + r / G;
       const int kl = k0 + lane;
-      const bool valid = qi < q_end && kl < n_local && gpos(kl) <= qoff + qi;
+      const bool valid = qi < q_end && kl < kl1 && gpos(kl) <= qoff + qi;
       const float s = p_s[r][lane];
       const float m_old = m_s[r];
       const float m_new = fmaxf(m_old, warp_max(s));
@@ -451,23 +472,28 @@ struct QuantArgs {
   const int* page_quant;
 };
 
+// out: the output (B, Sq, H, D), or in the partial mode the float32
+// partials (n_split, B, Sq, H, D) with lse (n_split, B, Sq, H)
 template <int D, bool kQuant>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                    const QuantArgs& qa, const int* tables,
                    const int* q_offsets, const int* ctx_lens, void* out,
                    float* lse, int B, int Sq, int H, int Hkv, int page,
-                   int page_g, int r_off, int T_width, cudaStream_t stream) {
+                   int page_g, int r_off, int T_width, int split, int n_split,
+                   cudaStream_t stream) {
   const int G = H / Hkv;
   int bq = kRows / G;
   if (bq > Sq) bq = Sq;
-  const dim3 grid((Sq + bq - 1) / bq, Hkv, B);
+  const long long nx = (long long)((Sq + bq - 1) / bq) * n_split;
+  if (nx > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)nx, Hkv, B);
   paged_chunk_attention_kernel<float, D, kQuant><<<grid, kThreads, 0,
                                                    stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k_pages),
       static_cast<const float*>(v_pages), qa.kq_pages, qa.vq_pages,
       qa.k_scales, qa.v_scales, qa.page_quant, tables, q_offsets, ctx_lens,
       static_cast<float*>(out), lse, Sq, H, Hkv, page, page_g, r_off, T_width,
-      bq);
+      bq, split, n_split);
   return cudaGetLastError();
 }
 
@@ -485,14 +511,16 @@ constexpr int kTcStages = 2;                   // ring stages
 constexpr int kTcCtasPerSm = 2;                // __launch_bounds__ minimum
 constexpr int kTcThreads = 128 + 32;           // a consumer warpgroup and a
                                                // producer warp
-constexpr int kMaxPages = kTcKeys / 2;         // pages a stage, at 2 rows
+constexpr int kMaxPages = kTcKeys;             // pages a stage, at 1 row
 
 // what the producer tells the consumers about a stage of the int8 kernel:
-// which of its pages come from the int8 pools, and their scales
+// which of its pages come from the int8 pools (bit i: page i of the
+// stage), and their scales.  Only 1-row pages fill more than 32 entries
+// and the mask's high word
 struct StageMeta {
   float ks[kMaxPages];
   float vs[kMaxPages];
-  unsigned mask;
+  unsigned long long mask;
 };
 
 // Byte offsets in the 1024-byte-aligned dynamic shared memory.  Each bf16
@@ -522,24 +550,37 @@ struct PcSmem {
 // D) through kmap / vmap (bf16) and, with kQuant, their int8 shadows
 // through kqmap / vqmap, with the scales (P,) float32 and flags (P,) int32;
 // tables (B, T_width), q_offsets and ctx_lens (B,) int32.  Grid: one CTA
-// per (query tile, kv head, lane), the highest query tiles first.
-template <int D, bool kQuant>
+// per (query tile, split, kv head, lane), the highest query tiles first.
+// kOneRow: pages of 1 row (split-K shard pages only), where each of a
+// quad thread's two keys of a fragment has a page, a position and an int8
+// flag of its own, and a stage spans 64 pages.  With pages of 2 rows or
+// more the two keys share a page, so the softmax looks up one position
+// and one flag a key pair, a stage's pages fit a 32-bit mask, and the
+// producer reads its table entries once a 32-page window: the unsplit
+// kernel runs that body (one body for every page size, with per-key
+// lookups and per-stage entry reads, made the unsplit B.2 ~18 % slower on
+// the same calls).
+template <int D, bool kQuant, bool kOneRow>
 __global__ void __launch_bounds__(kTcThreads, kTcCtasPerSm)
 paged_chunk_attention_tc(const __grid_constant__ CUtensorMap kmap,
                const __grid_constant__ CUtensorMap vmap,
                const __grid_constant__ CUtensorMap kqmap,
                const __grid_constant__ CUtensorMap vqmap,
                const __nv_bfloat16* __restrict__ q,
+               const __nv_bfloat16* __restrict__ k_pool,
+               const __nv_bfloat16* __restrict__ v_pool,
                const float* __restrict__ k_scales,
                const float* __restrict__ v_scales,
                const int* __restrict__ page_quant,
                const int* __restrict__ tables,
                const int* __restrict__ q_offsets,
                const int* __restrict__ ctx_lens,
-               __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-               int B, int Sq, int H, int Hkv, int page, int page_g, int r_off,
-               int T_width, int bq, int n_qblk) {
+               __nv_bfloat16* __restrict__ out, float* __restrict__ part,
+               float* __restrict__ lse, int B, int Sq, int H, int Hkv,
+               int page, int page_g, int r_off, int T_width, int bq,
+               int n_qblk, int split, int n_split) {
   using L = PcSmem<D, kQuant>;
+  using Mask = std::conditional_t<kOneRow, unsigned long long, unsigned>;
   constexpr int kCb = L::kCb;
   constexpr int kChunks = D / 8;              // 16-byte bf16 chunks a row
   constexpr int kUnits = D / 16;              // 16-code int8 units a row
@@ -555,47 +596,72 @@ paged_chunk_attention_tc(const __grid_constant__ CUtensorMap kmap,
   const int rows = bq * G;
   const int hb = blockIdx.x % (Hkv * B);
   const int h = hb % Hkv, b = hb / Hkv;
-  const int q0 = (n_qblk - 1 - blockIdx.x / (Hkv * B)) * bq;
+  const int sq = blockIdx.x / (Hkv * B);
+  const int sp = sq % n_split;                // the split of the shard's keys
+  const int q0 = (n_qblk - 1 - sq / n_split) * bq;
   const int ctx = ctx_lens[b];
   const int qoff = q_offsets[b];
+  // split sp's slot of the float32 partials (partial mode only)
+  if (part != nullptr) {
+    part += (size_t)sp * B * Sq * H * D;
+    lse += (size_t)sp * B * Sq * H;
+  }
   // the lane's real query rows: its chunk ends at the context's end, so a
   // row at qpos >= ctx is bucket padding (all rows of a ctx = 0 lane)
   const int q_end = ctx > 0 ? max(0, min(Sq, ctx - qoff)) : 0;
-  if (q0 >= q_end) {  // a tile of padding rows: zeros, no K/V read
-    for (int i = threadIdx.x; i < rows * kChunks; i += kTcThreads) {
-      const int r = i / kChunks, qi = q0 + r / G;
-      if (qi < Sq)
-        reinterpret_cast<uint4*>(out + (((size_t)b * Sq + qi) * H + h * G +
-                                        r % G) * D)[i % kChunks] =
-            make_uint4(0, 0, 0, 0);
-    }
-    if (lse != nullptr)
-      for (int r = threadIdx.x; r < rows; r += kTcThreads)
-        if (q0 + r / G < Sq)
-          lse[((size_t)b * Sq + q0 + r / G) * H + h * G + r % G] = neg_inf();
-    return;
-  }
   const int q_last = min(q0 + bq, q_end) - 1;
   // relevant keys of this tile: up to the causal horizon of its last real
   // query (which is before the context's end); never past the table
   const int kv_end = min(qoff + q_last + 1, T_width * page_g);
   const int n_pages = (kv_end + page_g - 1) / page_g;  // relevant entries
-  const int n_tiles = (n_pages * page + kTcKeys - 1) / kTcKeys;
-  const int lp = __ffs(page) - 1;             // log2(page)
+  // split sp takes the tile's local keys [kl0, kl1) of the n_pages * page
+  // its entries hold: whole 64-key stages t0 .. t1 - 1
+  const int kl0 = sp * split;
+  const int kl1 = n_split == 1 ? n_pages * page
+                               : min(n_pages * page, kl0 + split);
+  if (q0 >= q_end || kl0 >= kl1) {
+    // a tile of padding rows, or a split past the tile's keys: zeros (and
+    // lse -inf), no K/V read
+    if (part == nullptr) {
+      for (int i = threadIdx.x; i < rows * kChunks; i += kTcThreads) {
+        const int r = i / kChunks, qi = q0 + r / G;
+        if (qi < Sq)
+          reinterpret_cast<uint4*>(out + (((size_t)b * Sq + qi) * H + h * G +
+                                          r % G) * D)[i % kChunks] =
+              make_uint4(0, 0, 0, 0);
+      }
+    } else {
+      for (int i = threadIdx.x; i < rows * (D / 4); i += kTcThreads) {
+        const int r = i / (D / 4), qi = q0 + r / G;
+        if (qi < Sq)
+          reinterpret_cast<float4*>(part + (((size_t)b * Sq + qi) * H +
+                                            h * G + r % G) * D)[i % (D / 4)] =
+              make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      for (int r = threadIdx.x; r < rows; r += kTcThreads)
+        if (q0 + r / G < Sq)
+          lse[((size_t)b * Sq + q0 + r / G) * H + h * G + r % G] = neg_inf();
+    }
+    return;
+  }
+  const int t0 = kl0 / kTcKeys;
+  const int t1 = (kl1 + kTcKeys - 1) / kTcKeys;
+  const int lp = kOneRow ? 0 : __ffs(page) - 1;  // log2(page)
   const int ppt = kTcKeys >> lp;              // pages a stage
   // position of the local key kl (row kl % page of table entry kl / page);
   // kl itself without a split
   auto gpos = [&](int kl) {
-    return (kl >> lp) * page_g + r_off + (kl & (page - 1));
+    if constexpr (kOneRow) return kl * page_g + r_off;
+    else return (kl >> lp) * page_g + r_off + (kl & (page - 1));
   };
 
   // zero the rows of the last tile's stage that no load fills (keys past
   // the lane's relevant pages), so that no garbage meets p = 0
   {
-    const int t = n_tiles - 1;
+    const int t = t1 - 1;
     const int filled = min(kTcKeys, n_pages * page - t * kTcKeys);
     const int n = (kTcKeys - filled) * 8;     // 16-byte chunks a block
-    const uint32_t st = (t % kTcStages) * L::kStage + filled * 128;
+    const uint32_t st = ((t - t0) % kTcStages) * L::kStage + filled * 128;
     for (int i = threadIdx.x; i < 2 * kCb * n; i += kTcThreads) {
       const int kv = i / (kCb * n), rem = i % (kCb * n);
       *reinterpret_cast<uint4*>(smem + (kv ? L::kV : L::kK) + st +
@@ -618,68 +684,129 @@ paged_chunk_attention_tc(const __grid_constant__ CUtensorMap kmap,
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (warp == 4) {
-    // the producer warp: lane i holds the table entry (and with kQuant the
-    // flag and scales) of page w0 + i of a 32-page window of the lane's
-    // table row, read once, 32 pages at a time; a stage's pages reach lane
-    // 0 by shuffles (64 / page divides 32 for page >= 2, so a stage never
-    // straddles two windows), and lane 0 issues every load.  A 2-row shard
-    // page lands 256 bytes into a 1024-byte swizzle atom: TMA swizzles by
-    // the shared-memory address, so its rows land as the tile's rows 2 and 3
-    // of that atom would
+    // the producer warp.  Lane i holds the table entries (with kQuant the
+    // int8 flags and scales) of pages w0 + i and, at 1-row pages, w0 + 32
+    // + i of a window of kWin pages of the lane's table row, read once a
+    // window and before the wait for the stage's slot, so that their
+    // latency overlaps the consumers' work.  A stage (64 / page pages)
+    // never straddles two windows: 64 / page divides 32 for page >= 2, and
+    // is the window at 1 row.  Each lane writes its own pages' scales into
+    // the stage's StageMeta and issues its own pages' loads.  Pages of 4
+    // rows or more go by TMA, one box a page, kv head and 64-column block.
+    // Shard pages of 1 or 2 rows (the split-K partial mode) are gathered
+    // by cp.async instead: a stage of them is 128 or 256 TMA boxes of one
+    // or two rows, and the TMA unit's issue of that many boxes set each
+    // stage's time (chip_smoke.py phase 21 on an H100 SXM: the shards'
+    // device time was 1.35x at 1-row pages what it was at 2-row pages on
+    // the same calls, and 1.0x with the gather).  The 32 lanes copy the
+    // stage's rows 16 bytes a lane, K and V, into the 128-byte swizzle
+    // that TMA writes (chunk c of row j at c ^ (j % 8)), zero-filling the
+    // columns past D, so the tile and the wgmma descriptors are the same
+    // either way.  Each lane waits for its own copies and fences them for
+    // the async proxy (wgmma) before the warp syncs and lane 0 arrives on
+    // the stage's full barrier.  int8 pages keep TMA (their codes,
+    // unswizzled).
     const int* row = tables + (size_t)b * T_width;
-    int pid_l = 0, quant_l = 0;
-    float ks_l = 0.f, vs_l = 0.f;
-    for (int t = 0; t < n_tiles; ++t) {
-      const int s = t % kTcStages;
+    const bool gather = page <= 2;
+    constexpr int kPer = kOneRow ? 2 : 1;     // table entries a lane holds
+    constexpr int kWin = 32 * kPer;           // pages a window
+    constexpr int kRowChunks = kCb * 8;       // 16-byte chunks a tile row
+    int pid[kPer] = {};
+    bool qf[kPer] = {};
+    float ksv[kPer] = {}, vsv[kPer] = {};
+    Mask win = 0;                             // the window's int8 flags
+    for (int t = t0; t < t1; ++t) {
+      const int i = t - t0, s = i % kTcStages;
       const int p0 = t * ppt;
       const int np = min(ppt, n_pages - p0);  // relevant pages of stage t
-      const int l0 = p0 & 31;
-      if (l0 == 0) {
-        const int p = p0 + lane;
-        pid_l = p < n_pages ? row[p] : 0;
-        if constexpr (kQuant) {
-          quant_l = p < n_pages && page_quant[pid_l];
-          if (quant_l) {
-            ks_l = k_scales[pid_l];
-            vs_l = v_scales[pid_l];
+      const int l0 = p0 % kWin;               // its first page's slot
+      if (l0 == 0 || t == t0) {
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          const int p = p0 - l0 + lane + 32 * j;
+          pid[j] = p < n_pages ? row[p] : 0;
+          if constexpr (kQuant) {
+            qf[j] = p < n_pages && page_quant[pid[j]] != 0;
+            if (qf[j]) {
+              ksv[j] = k_scales[pid[j]];
+              vsv[j] = v_scales[pid[j]];
+            }
           }
         }
+        if constexpr (kQuant) {
+          win = __ballot_sync(0xffffffffu, qf[0]);
+          if constexpr (kOneRow)
+            win |= (Mask)__ballot_sync(0xffffffffu, qf[kPer - 1]) << 32;
+        }
       }
-      unsigned mask = 0;
+      Mask mask = 0;
       if constexpr (kQuant)
-        mask = (__ballot_sync(0xffffffffu, quant_l) >> l0) &
-               (0xffffffffu >> (32 - np));
-      if (t >= kTcStages) mbar_wait(empty0 + 8 * s, (t / kTcStages - 1) & 1);
+        mask = win >> l0 & (~Mask(0) >> (8 * (int)sizeof(Mask) - np));
+      if (i >= kTcStages) mbar_wait(empty0 + 8 * s, (i / kTcStages - 1) & 1);
       if constexpr (kQuant) {
-        // lane 0 writes the stage's flags and scales before it arrives
-        for (int i = 0; i < np; ++i) {
-          const float ks = __shfl_sync(0xffffffffu, ks_l, (l0 + i) & 31);
-          const float vs = __shfl_sync(0xffffffffu, vs_l, (l0 + i) & 31);
-          if (lane == 0 && (mask >> i & 1)) {
-            meta[s].ks[i] = ks;
-            meta[s].vs[i] = vs;
+        // each lane writes its pages' scales; the warp syncs before lane 0
+        // arrives, so the consumers see them once the stage is full
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          const int pi = lane + 32 * j - l0;  // its page of the stage
+          if (qf[j] && pi >= 0 && pi < np) {
+            meta[s].ks[pi] = ksv[j];
+            meta[s].vs[pi] = vsv[j];
           }
         }
         if (lane == 0) meta[s].mask = mask;
       }
-      if (lane == 0) {
-        const int nq = __popc(mask);
-        mbar_expect_tx(full0 + 8 * s, nq * 2 * page * D +
-                                          (np - nq) * 2 * kCb * page * 128);
+      const int nq = __popcll((unsigned long long)mask);
+      if (gather) {
+        // the stage's np * page rows (keys), K then V, chunk idx % kRowChunks
+        // of row idx / kRowChunks for idx = lane, lane + 32, ...; at 1 or 2
+        // rows a stage is a whole window (l0 = 0), and the rows of one pass
+        // lie in pages of one half of it, so every lane reads the same pid
+        // register of the lane that holds its page
+        const int n_rows = np * page;
+        uint8_t* kt = smem + L::kK + s * L::kStage;
+        uint8_t* vt = smem + L::kV + s * L::kStage;
+#pragma unroll 4
+        for (int idx = lane; idx < kTcKeys * kRowChunks; idx += 32) {
+          const int j = idx / kRowChunks, c = idx % kRowChunks;
+          const int pi = j >> lp;
+          const int src = __shfl_sync(0xffffffffu,
+                                      (idx - lane) / kRowChunks >> lp >= 32
+                                          ? pid[kPer - 1] : pid[0],
+                                      pi & 31);
+          if (j >= n_rows || (kQuant && (mask >> pi & 1))) continue;
+          const size_t off =
+              (((size_t)src * page + (j & (page - 1))) * Hkv + h) * D;
+          const bool in = c < kChunks;        // zeros past column D
+          const uint32_t dst = (c / 8) * kTcKeys * 128 + j * 128 +
+                               (((c % 8) ^ (j % 8)) * 16);
+          cp_async16(kt + dst, k_pool + off + (in ? 8 * c : 0), in);
+          cp_async16(vt + dst, v_pool + off + (in ? 8 * c : 0), in);
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       }
-      for (int i = 0; i < np; ++i) {
-        const int pid = __shfl_sync(0xffffffffu, pid_l, (l0 + i) & 31);
-        if (lane != 0) continue;
-        const int krow = pid * page;
-        if (kQuant && (mask >> i & 1)) {
-          const uint32_t off = s * L::kStage + L::kCodes + i * page * 128;
+      __syncwarp();                           // scales and copies before
+      if (lane == 0)                          // the arrive
+        mbar_expect_tx(full0 + 8 * s,
+                       nq * 2 * page * D +
+                           (gather ? 0 : (np - nq) * 2 * kCb * page * 128));
+      __syncwarp();                           // the count before any bytes
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int pi = lane + 32 * j - l0;
+        if (pi < 0 || pi >= np) continue;
+        const int krow = pid[j] * page;
+        if (kQuant && qf[j]) {
+          const uint32_t off = s * L::kStage + L::kCodes + pi * page * 128;
           tma_load_3d(base + L::kK + off, &kqmap, full0 + 8 * s, 0, h, krow);
           tma_load_3d(base + L::kV + off, &vqmap, full0 + 8 * s, 0, h, krow);
-        } else {
+        } else if (!gather) {
 #pragma unroll
           for (int c = 0; c < kCb; ++c) {
             const uint32_t off =
-                s * L::kStage + c * kTcKeys * 128 + i * page * 128;
+                s * L::kStage + c * kTcKeys * 128 + pi * page * 128;
             tma_load_3d(base + L::kK + off, &kmap, full0 + 8 * s, 64 * c, h,
                         krow);
             tma_load_3d(base + L::kV + off, &vmap, full0 + 8 * s, 64 * c, h,
@@ -725,13 +852,13 @@ paged_chunk_attention_tc(const __grid_constant__ CUtensorMap kmap,
   float m[2] = {kMaskValue, kMaskValue}, l[2] = {0.f, 0.f};
   const float sl2 = 1.4426950408889634f / sqrtf((float)D);  // log2(e)/sqrt(D)
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int s = t % kTcStages;
+  for (int t = t0; t < t1; ++t) {
+    const int s = (t - t0) % kTcStages;
     const int k0 = t * kTcKeys;
-    mbar_wait(full0 + 8 * s, (t / kTcStages) & 1);
-    unsigned mask = 0;
+    mbar_wait(full0 + 8 * s, ((t - t0) / kTcStages) & 1);
+    Mask mask = 0;
     if constexpr (kQuant) {
-      mask = meta[s].mask;
+      mask = (Mask)meta[s].mask;
       if (mask) {
         // the flagged pages' codes to bf16 in place, K then V, 32 keys (whole
         // pages, whose codes lie in their own rows) a pass: every thread
@@ -801,27 +928,39 @@ paged_chunk_attention_tc(const __grid_constant__ CUtensorMap kmap,
 
     // online softmax on the fragments: sc[4 i + e] is row r0 + 8 (e / 2),
     // local key k0 + 8 i + 2 tq + e % 2; a row's keys span the 4 threads of
-    // a quad, and keys 2 tq and 2 tq + 1 lie in one page (page >= 2)
+    // a quad.  Keys 2 tq and 2 tq + 1 lie in one page for page >= 2 (the
+    // second's position is the first's plus 1, its slot the same); at
+    // 1-row pages (kOneRow) each has its own page, so both are looked up
+    constexpr int kLook = kOneRow ? 2 : 1;     // lookups a key pair
     const bool masked = gpos(k0 + kTcKeys - 1) > first;
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int i = 0; i < kTcKeys / 8; ++i) {
-      bool qk = false;                         // an int8 page's keys
-      float ks = 0.f;
+      bool qk[2] = {false, false};             // an int8 page's keys
+      float ks[2] = {0.f, 0.f};
       if constexpr (kQuant) {
-        const int slot = (8 * i + 2 * tq) >> lp;
-        qk = mask >> slot & 1;
-        if (qk) ks = meta[s].ks[slot];
+#pragma unroll
+        for (int u = 0; u < kLook; ++u) {
+          const int slot = (8 * i + 2 * tq + u) >> lp;
+          qk[u] = mask >> slot & 1;
+          if (qk[u]) ks[u] = meta[s].ks[slot];
+        }
+        if constexpr (!kOneRow) {
+          qk[1] = qk[0];
+          ks[1] = ks[0];
+        }
       }
       const int g0 = masked ? gpos(k0 + 8 * i + 2 * tq) : 0;
+      const int g1 = kOneRow ? (masked ? gpos(k0 + 8 * i + 2 * tq + 1) : 0)
+                             : g0 + 1;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         // __fmul_rn: never contracted, so with every flag clear the int8
         // kernel rounds exactly as the fp kernel does
         float x = sc[4 * i + e];
-        if (qk) x = __fmul_rn(x, ks);          // s_j = (q . kq_j) ks_j
+        if (qk[e & 1]) x = __fmul_rn(x, ks[e & 1]);  // s_j = (q . kq_j) ks_j
         x = __fmul_rn(x, sl2);
-        if (masked && g0 + (e & 1) > hz[e / 2])
+        if (masked && ((e & 1) ? g1 : g0) > hz[e / 2])
           x = neg_inf();                       // p = 0
         sc[4 * i + e] = x;
         mx[e / 2] = fmaxf(mx[e / 2], x);
@@ -838,18 +977,26 @@ paged_chunk_attention_tc(const __grid_constant__ CUtensorMap kmap,
     }
 #pragma unroll
     for (int i = 0; i < kTcKeys / 8; ++i) {
-      bool qv = false;
-      float vs = 0.f;
+      bool qv[2] = {false, false};
+      float vs[2] = {0.f, 0.f};
       if constexpr (kQuant) {
-        const int slot = (8 * i + 2 * tq) >> lp;
-        qv = mask >> slot & 1;
-        if (qv) vs = meta[s].vs[slot];
+#pragma unroll
+        for (int u = 0; u < kLook; ++u) {
+          const int slot = (8 * i + 2 * tq + u) >> lp;
+          qv[u] = mask >> slot & 1;
+          if (qv[u]) vs[u] = meta[s].vs[slot];
+        }
+        if constexpr (!kOneRow) {
+          qv[1] = qv[0];
+          vs[1] = vs[0];
+        }
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float p = exp2f(sc[4 * i + e] - m[e / 2]);  // masked: 0
         l[e / 2] += p;  // this thread's keys; the quad sums at the end
-        sc[4 * i + e] = qv ? __fmul_rn(p, vs) : p;  // (p_j vs_j) . vq_j
+        sc[4 * i + e] =
+            qv[e & 1] ? __fmul_rn(p, vs[e & 1]) : p;  // (p_j vs_j) . vq_j
       }
     }
 #pragma unroll
@@ -896,20 +1043,32 @@ paged_chunk_attention_tc(const __grid_constant__ CUtensorMap kmap,
   for (int j = 0; j < 2; ++j) {
     const int r = r0 + 8 * j, qi = q0 + r / G;
     if (r >= rows || qi >= Sq) continue;
-    __nv_bfloat16* dst = out + (((size_t)b * Sq + qi) * H + h * G + r % G) * D;
+    const size_t at = ((size_t)b * Sq + qi) * H + h * G + r % G;
     const float denom = fmaxf(l[j], 1e-30f);
+    if (part == nullptr) {
+      __nv_bfloat16* dst = out + at * D;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i)   // a padding row (hz < 0): zeros
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * i + 2 * tq) =
-          hz[j] < 0 ? __floats2bfloat162_rn(0.f, 0.f)
-                    : __floats2bfloat162_rn(o[4 * i + 2 * j] / denom,
-                                            o[4 * i + 2 * j + 1] / denom);
-    // the natural-log lse: m is in log2 units of the scaled scores
-    if (lse != nullptr && tq == 0)
-      lse[((size_t)b * Sq + qi) * H + h * G + r % G] =
-          hz[j] < 0 || !(l[j] > 0.f)
-              ? neg_inf()
-              : (m[j] + log2f(l[j])) * 0.6931471805599453f;
+      for (int i = 0; i < D / 8; ++i)   // a padding row (hz < 0): zeros
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * i + 2 * tq) =
+            hz[j] < 0 ? __floats2bfloat162_rn(0.f, 0.f)
+                      : __floats2bfloat162_rn(o[4 * i + 2 * j] / denom,
+                                              o[4 * i + 2 * j + 1] / denom);
+      continue;
+    }
+    // the partial mode: o normalised over the split's keys in float32 (a
+    // row that saw none has o = 0), and the natural-log lse (m is in log2
+    // units of the scaled scores)
+    float* dst = part + at * D;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<float2*>(dst + 8 * i + 2 * tq) =
+          hz[j] < 0 ? make_float2(0.f, 0.f)
+                    : make_float2(o[4 * i + 2 * j] / denom,
+                                  o[4 * i + 2 * j + 1] / denom);
+    if (tq == 0)
+      lse[at] = hz[j] < 0 || !(l[j] > 0.f)
+                    ? neg_inf()
+                    : (m[j] + log2f(l[j])) * 0.6931471805599453f;
   }
 }
 
@@ -938,16 +1097,22 @@ bool pool_map(CUtensorMap* map, const void* base, bool codes, int P,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, bool kQuant>
+// out: the bf16 output (B, Sq, H, D); in the partial mode (lse not null)
+// the float32 partials (n_split, B, Sq, H, D) with lse (n_split, B, Sq, H).
+// kOneRow: page == 1
+template <int D, bool kQuant, bool kOneRow>
 cudaError_t launch_tc(const void* q, const void* k_pages, const void* v_pages,
                       const QuantArgs& qa, const int* tables,
                       const int* q_offsets, const int* ctx_lens, void* out,
                       float* lse, int B, int Sq, int H, int Hkv, int P,
-                      int page, int page_g, int r_off, int T_width,
-                      cudaStream_t stream) {
-  CUtensorMap kmap, vmap, kqmap, vqmap;
-  if (!pool_map(&kmap, k_pages, false, P, page, Hkv, D) ||
-      !pool_map(&vmap, v_pages, false, P, page, Hkv, D))
+                      int page, int page_g, int r_off, int T_width, int split,
+                      int n_split, int device, cudaStream_t stream) {
+  // shard pages of 1 or 2 rows are gathered by cp.async: the fp pools'
+  // maps are not read, so they are not encoded (a host cost on every
+  // launch of the partial mode, once a shard and layer)
+  CUtensorMap kmap{}, vmap{}, kqmap, vqmap;
+  if (page > 2 && (!pool_map(&kmap, k_pages, false, P, page, Hkv, D) ||
+                   !pool_map(&vmap, v_pages, false, P, page, Hkv, D)))
     return cudaErrorInvalidValue;
   if (kQuant) {
     if (!pool_map(&kqmap, qa.kq_pages, true, P, page, Hkv, D) ||
@@ -960,38 +1125,58 @@ cudaError_t launch_tc(const void* q, const void* k_pages, const void* v_pages,
   const int G = H / Hkv;
   const int bq = kTcRows / G;
   const int n_qblk = (Sq + bq - 1) / bq;
-  const long long n_ctas = (long long)n_qblk * Hkv * B;
+  const long long n_ctas = (long long)n_qblk * n_split * Hkv * B;
   if (n_ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
   constexpr int smem = PcSmem<D, kQuant>::kAlloc;
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_chunk_attention_tc<D, kQuant>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  paged_chunk_attention_tc<D, kQuant>
+  // the shared-memory attribute once a card (bit `device` of `set`), not
+  // on every launch: the partial mode launches once a shard and layer
+  static unsigned long long set = 0;
+  if (device >= 64 || !(set >> device & 1)) {
+    cudaError_t err = cudaFuncSetAttribute(
+        paged_chunk_attention_tc<D, kQuant, kOneRow>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    if (device < 64) set |= 1ull << device;
+  }
+  paged_chunk_attention_tc<D, kQuant, kOneRow>
       <<<(unsigned)n_ctas, kTcThreads, smem, stream>>>(
       kmap, vmap, kqmap, vqmap, static_cast<const __nv_bfloat16*>(q),
-      qa.k_scales, qa.v_scales, qa.page_quant, tables, q_offsets, ctx_lens,
-      static_cast<__nv_bfloat16*>(out), lse, B, Sq, H, Hkv, page, page_g,
-      r_off, T_width, bq, n_qblk);
+      static_cast<const __nv_bfloat16*>(k_pages),
+      static_cast<const __nv_bfloat16*>(v_pages), qa.k_scales, qa.v_scales,
+      qa.page_quant, tables, q_offsets, ctx_lens,
+      lse == nullptr ? static_cast<__nv_bfloat16*>(out) : nullptr,
+      lse == nullptr ? nullptr : static_cast<float*>(out), lse, B, Sq, H, Hkv,
+      page, page_g, r_off, T_width, bq, n_qblk, split, n_split);
   return cudaGetLastError();
 }
 
-// page: the rows a pool page holds; with n_shards > 1 (the split-K
-// partial mode) the pool is shard `shard`'s slice of pages of page *
-// n_shards rows, and lse (B, Sq, H) float32 receives each row's
-// log-sum-exp; otherwise lse is null.
+// page: the rows a pool page holds.  With lse null, the kernel itself:
+// out (B, Sq, H, D) in q's dtype.  With lse (the split-K partial mode) the
+// pool is shard `shard`'s slice of pages of page * n_shards rows (1 to 32
+// rows a shard page), and the shard's local keys are cut into n_split
+// splits of `split` keys (a multiple of kTcKeys; n_split * split covers
+// T_width * page): out receives the float32 partials (n_split, B, Sq, H,
+// D), each normalised over its split's keys, and lse (n_split, B, Sq, H)
+// their natural log-sum-exp (o = 0, lse = -inf where a row sees no key of
+// the split).
 template <bool kQuant>
 int dispatch(const void* q, const void* k_pages, const void* v_pages,
              const QuantArgs& qa, const int* tables, const int* q_offsets,
              const int* ctx_lens, void* out, float* lse, int B, int Sq, int H,
              int Hkv, int D, int P, int page, int T_width, int n_shards,
-             int shard, int dtype, int device, void* stream) {
-  if (n_shards == 1) {
+             int shard, int split, int n_split, int dtype, int device,
+             void* stream) {
+  if (lse == nullptr) {
+    if (n_shards != 1 || n_split != 1) return cudaErrorInvalidValue;
     if (page != 8 && page != 16 && page != 32) return cudaErrorInvalidValue;
   } else {
-    if (n_shards < 1 || shard < 0 || shard >= n_shards || lse == nullptr)
+    if (n_shards < 1 || shard < 0 || shard >= n_shards)
       return cudaErrorInvalidValue;
-    if (page != 2 && page != 4 && page != 8 && page != 16 && page != 32)
+    if (page != 1 && page != 2 && page != 4 && page != 8 && page != 16 &&
+        page != 32)
+      return cudaErrorInvalidValue;
+    if (n_split < 1 || split < kTcKeys || split % kTcKeys != 0 ||
+        (long long)split * n_split < (long long)T_width * page)
       return cudaErrorInvalidValue;
   }
   if ((long long)T_width * page * n_shards > 0x7fffffffLL)
@@ -1007,12 +1192,14 @@ int dispatch(const void* q, const void* k_pages, const void* v_pages,
   if (dtype == 0 && D == DIM)                                               \
     return launch<DIM, kQuant>(q, k_pages, v_pages, qa, tables, q_offsets,  \
                                ctx_lens, out, lse, B, Sq, H, Hkv, page,     \
-                               page_g, r_off, T_width, s);
+                               page_g, r_off, T_width, split, n_split, s);
 #define PCA_BF16(DIM)                                                       \
   if (dtype == 1 && D == DIM)                                               \
-    return launch_tc<DIM, kQuant>(q, k_pages, v_pages, qa, tables,          \
-                                  q_offsets, ctx_lens, out, lse, B, Sq, H,  \
-                                  Hkv, P, page, page_g, r_off, T_width, s);
+    return (page == 1 ? launch_tc<DIM, kQuant, true>                        \
+                      : launch_tc<DIM, kQuant, false>)(                     \
+        q, k_pages, v_pages, qa, tables, q_offsets, ctx_lens, out, lse, B,  \
+        Sq, H, Hkv, P, page, page_g, r_off, T_width, split, n_split,        \
+        device, s);
   PCA_FP32(64) PCA_FP32(80) PCA_FP32(96) PCA_FP32(128)
   PCA_BF16(64) PCA_BF16(80) PCA_BF16(96) PCA_BF16(128)
 #undef PCA_FP32
@@ -1020,6 +1207,7 @@ int dispatch(const void* q, const void* k_pages, const void* v_pages,
   return cudaErrorInvalidValue;
 }
 
+// the bf16 body at pages of 2 rows or more: the unsplit kernel's
 template <bool kQuant>
 cudaError_t body_resources(int D, int dtype, int* out) {
   if (dtype == 0 && D == 64)
@@ -1035,17 +1223,17 @@ cudaError_t body_resources(int D, int dtype, int* out) {
     return resources(paged_chunk_attention_kernel<float, 128, kQuant>,
                      kThreads, 0, out);
   if (dtype == 1 && D == 64)
-    return resources(paged_chunk_attention_tc<64, kQuant>, kTcThreads,
-                     PcSmem<64, kQuant>::kAlloc, out);
+    return resources(paged_chunk_attention_tc<64, kQuant, false>,
+                     kTcThreads, PcSmem<64, kQuant>::kAlloc, out);
   if (dtype == 1 && D == 80)
-    return resources(paged_chunk_attention_tc<80, kQuant>, kTcThreads,
-                     PcSmem<80, kQuant>::kAlloc, out);
+    return resources(paged_chunk_attention_tc<80, kQuant, false>,
+                     kTcThreads, PcSmem<80, kQuant>::kAlloc, out);
   if (dtype == 1 && D == 96)
-    return resources(paged_chunk_attention_tc<96, kQuant>, kTcThreads,
-                     PcSmem<96, kQuant>::kAlloc, out);
+    return resources(paged_chunk_attention_tc<96, kQuant, false>,
+                     kTcThreads, PcSmem<96, kQuant>::kAlloc, out);
   if (dtype == 1 && D == 128)
-    return resources(paged_chunk_attention_tc<128, kQuant>, kTcThreads,
-                     PcSmem<128, kQuant>::kAlloc, out);
+    return resources(paged_chunk_attention_tc<128, kQuant, false>,
+                     kTcThreads, PcSmem<128, kQuant>::kAlloc, out);
   return cudaErrorInvalidValue;
 }
 
@@ -1061,7 +1249,7 @@ extern "C" int paged_chunk_attention_launch(
   const QuantArgs none = {nullptr, nullptr, nullptr, nullptr, nullptr};
   return dispatch<false>(q, k_pages, v_pages, none, tables, q_offsets,
                          ctx_lens, out, nullptr, B, Sq, H, Hkv, D, P, page,
-                         T_width, 1, 0, dtype, device, stream);
+                         T_width, 1, 0, 0, 1, dtype, device, stream);
 }
 
 // The int8 kernel: kq/vq_pages (P, page, Hkv, D) int8, k/v_scales (P,)
@@ -1078,29 +1266,59 @@ extern "C" int paged_chunk_attention_quant_launch(
                         v_scales, page_quant};
   return dispatch<true>(q, k_pages, v_pages, qa, tables, q_offsets, ctx_lens,
                         out, nullptr, B, Sq, H, Hkv, D, P, page, T_width, 1,
-                        0, dtype, device, stream);
+                        0, 0, 1, dtype, device, stream);
 }
 
 // The split-K partial mode of either kernel: the pools (P, page, Hkv, D)
 // are shard `shard`'s rows of pages of page * n_shards rows (and the quant
-// pointers are null for kernel 1); lse (B, Sq, H) float32.
+// pointers are null for kernel 1); part (n_split, B, Sq, H, D) and lse
+// (n_split, B, Sq, H) float32, as `dispatch` says.
 extern "C" int paged_chunk_attention_partial_launch(
     const void* q, const void* k_pages, const void* v_pages,
     const void* kq_pages, const void* vq_pages, const float* k_scales,
     const float* v_scales, const int* page_quant, const int* tables,
-    const int* q_offsets, const int* ctx_lens, void* out, float* lse, int B,
-    int Sq, int H, int Hkv, int D, int P, int page, int T_width, int n_shards,
-    int shard, int dtype, int device, void* stream) {
+    const int* q_offsets, const int* ctx_lens, float* part, float* lse,
+    int B, int Sq, int H, int Hkv, int D, int P, int page, int T_width,
+    int n_shards, int shard, int split, int n_split, int dtype, int device,
+    void* stream) {
+  if (part == nullptr || lse == nullptr) return cudaErrorInvalidValue;
   const QuantArgs qa = {static_cast<const int8_t*>(kq_pages),
                         static_cast<const int8_t*>(vq_pages), k_scales,
                         v_scales, page_quant};
   if (page_quant != nullptr)
     return dispatch<true>(q, k_pages, v_pages, qa, tables, q_offsets,
-                          ctx_lens, out, lse, B, Sq, H, Hkv, D, P, page,
-                          T_width, n_shards, shard, dtype, device, stream);
+                          ctx_lens, part, lse, B, Sq, H, Hkv, D, P, page,
+                          T_width, n_shards, shard, split, n_split, dtype,
+                          device, stream);
   return dispatch<false>(q, k_pages, v_pages, qa, tables, q_offsets,
-                         ctx_lens, out, lse, B, Sq, H, Hkv, D, P, page,
-                         T_width, n_shards, shard, dtype, device, stream);
+                         ctx_lens, part, lse, B, Sq, H, Hkv, D, P, page,
+                         T_width, n_shards, shard, split, n_split, dtype,
+                         device, stream);
+}
+
+// The merge of one split-K call (csrc/split_kv.cuh, split_kv_merge): part
+// (N, B, Sq, H, D) and lse (N, B, Sq, H) float32, the N = shards x splits
+// partials side by side; out (B, Sq, H, D) in dtype (0 float32, 1
+// bfloat16).  Returns a cudaError_t (0 = launched).
+extern "C" int paged_chunk_attention_merge_launch(
+    const float* part, const float* lse, void* out, int N, int B, int Sq,
+    int H, int D, int dtype, int device, void* stream) {
+  if (N < 1 || D % 4 != 0 || D > 128 || (dtype != 0 && dtype != 1))
+    return cudaErrorInvalidValue;
+  const long long R = (long long)B * Sq * H;
+  if (R == 0) return cudaSuccess;
+  const long long n_ctas = (R + kMergeRows - 1) / kMergeRows;
+  if (n_ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    split_kv_merge<float><<<(unsigned)n_ctas, kMergeThreads, 0, s>>>(
+        part, lse, static_cast<float*>(out), N, R, D);
+  else
+    split_kv_merge<__nv_bfloat16><<<(unsigned)n_ctas, kMergeThreads, 0, s>>>(
+        part, lse, static_cast<__nv_bfloat16*>(out), N, R, D);
+  return cudaGetLastError();
 }
 
 // out[5]: the `resources` of the body that the launch runs for (dtype, D,

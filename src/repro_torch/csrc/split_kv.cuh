@@ -1,7 +1,17 @@
 // Split-KV attention: the float32 partials of a lane's context splits and
-// their merge.  csrc/paged_attention.cu (B.3) writes and merges them; the
-// layout and the merge take nothing of B.3's own, so a chunk kernel that
-// splits its keys the same way (kernel 1 at decode) can reuse them.
+// their merge, in two layouts.
+//
+// (1) (m, l, acc), below: csrc/paged_attention.cu (B.3) writes and merges
+// them; the layout and the merge take nothing of B.3's own.
+//
+// (2) (o, lse), split_kv_merge at the end: kernel 1's and B.2's split-K
+// partial mode (csrc/paged_chunk_attention.cu) for tensor-parallel serving.
+// Each of N partials (shard x split) holds, for every query row, o
+// normalised over its keys in float32 and lse, the natural log-sum-exp of
+// its scaled scores: the equivalent of (m, l, acc) with acc / l and m +
+// log(l) taken by the partial's own kernel, so that one split's partial is
+// exactly what a plain version that splits nothing returns, and a row no
+// key of the partial reaches is (0, -inf) whatever else the partial held.
 //
 // A lane's relevant keys [0, kv_end), kv_end = min(ctx, limit), are cut into
 // splits of `split` keys; split s covers [s * split, (s + 1) * split).  The
@@ -147,6 +157,73 @@ __global__ void split_kv_combine(const float* __restrict__ ws,
     o[2] = split_kv_out<T>(a.z);
     o[3] = split_kv_out<T>(a.w);
   }
+}
+
+// -inf: the lse of a partial that saw no key for the row
+__device__ __forceinline__ float split_kv_neg_inf() {
+  return __int_as_float(0xff800000);
+}
+
+constexpr int kMergeThreads = 128;
+constexpr int kMergeRows = kMergeThreads / 32;       // a warp a row
+
+// The (o, lse) merge: part[N][R][D] and lse[N][R] float32 for R query rows
+// (b, position, head) and N partials; out[R][D] in T.  With M = max_i
+// lse_i, out = sum_i exp(lse_i - M) o_i / sum_i exp(lse_i - M), in
+// float32, the terms added in the order i = 0, 1, ..., N - 1, so the result
+// does not depend on timing; a partial whose lse is -inf has no weight and
+// its o is not read, and a row whose lse are all -inf is written as zeros.
+// One warp a row: lane c holds columns 4 c .. 4 c + 3 (D <= 128, a multiple
+// of 4); the loads of four partials are issued before their sums.
+template <typename T>
+__global__ void __launch_bounds__(kMergeThreads)
+split_kv_merge(const float* __restrict__ part, const float* __restrict__ lse,
+               T* __restrict__ out, int N, long long R, int D) {
+  const long long row =
+      (long long)blockIdx.x * kMergeRows + threadIdx.x / 32;
+  const int c = threadIdx.x % 32;
+  if (row >= R) return;
+  float M = split_kv_neg_inf();
+  for (int i = c; i < N; i += 32) M = fmaxf(M, lse[(size_t)i * R + row]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, o));
+  const bool col = 4 * c < D;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+  float den = 0.f;
+  if (M != split_kv_neg_inf()) {
+    for (int i0 = 0; i0 < N; i0 += 4) {
+      float w[4];
+      float4 v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int i = i0 + k;
+        const float x = i < N ? lse[(size_t)i * R + row] : split_kv_neg_inf();
+        w[k] = x == split_kv_neg_inf() ? 0.f : expf(x - M);
+        v[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (col && w[k] != 0.f)
+          v[k] = *reinterpret_cast<const float4*>(
+              part + ((size_t)i * R + row) * D + 4 * c);
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        den += w[k];
+        a.x = fmaf(w[k], v[k].x, a.x);
+        a.y = fmaf(w[k], v[k].y, a.y);
+        a.z = fmaf(w[k], v[k].z, a.z);
+        a.w = fmaf(w[k], v[k].w, a.w);
+      }
+    }
+  }
+  if (!col) return;
+  if (den > 0.f) {
+    a.x /= den; a.y /= den; a.z /= den; a.w /= den;
+  }
+  T* o = out + row * D + 4 * c;
+  o[0] = split_kv_out<T>(a.x);
+  o[1] = split_kv_out<T>(a.y);
+  o[2] = split_kv_out<T>(a.z);
+  o[3] = split_kv_out<T>(a.w);
 }
 
 }  // namespace

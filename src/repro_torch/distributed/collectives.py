@@ -9,10 +9,14 @@ moved to each shard's device (``.to`` returns the same tensor where a
 shard lives on shard 0's device, so shards that share a card share the
 result).  With distinct cards the moves are peer copies.
 
-``merge_partials`` is the split-K softmax merge: each shard attended over
-its own slice of every page's rows and returned its output normalised over
-those keys and their log-sum-exp; the merge weighs each shard by
-``exp(lse_r - max lse)`` in float32.
+``gather_partials`` serves the split-K softmax merge of shards on distinct
+devices: each shard attended over its own slice of every page's rows, in
+splits of its keys, and returned float32 partials (each split's output
+normalised over its keys, and their log-sum-exp); they are copied to shard
+0's device, where ``kernels.ops.merge_partials`` weighs every shard's and
+split's partial by ``exp(lse_i - max lse)``.  Shards that share one device
+write their partials into one workspace (``ops.partial_workspace``)
+instead, which the merge reads in place.
 """
 from __future__ import annotations
 
@@ -50,21 +54,11 @@ def all_gather(parts: List[torch.Tensor], dim: int) -> List[torch.Tensor]:
     return _to_each(full, parts)
 
 
-def merge_partials(outs: List[torch.Tensor], lses: List[torch.Tensor]
-                   ) -> torch.Tensor:
-    """Split-K merge on shard 0's device.  outs: per shard (B, Sq, H, D),
-    normalised over that shard's keys (zeros where it saw none); lses: per
-    shard (B, Sq, H) float32, ``-inf`` where it saw none.  Returns the
-    attention over all shards' keys, (B, Sq, H, D) in outs' dtype; a row
-    no shard saw a key for is zeros.  The shards are stacked and weighed
-    in one pass (a few launches whatever the shard count)."""
+def gather_partials(outs: List[torch.Tensor], lses: List[torch.Tensor]):
+    """The split-K partials of shards on distinct devices, concatenated on
+    shard 0's device in shard order for ``ops.merge_partials``: outs per
+    shard (S, B, Sq, H, D) and lses per shard (S, B, Sq, H), float32 ->
+    (o (tp·S, B, Sq, H, D), lse (tp·S, B, Sq, H))."""
     dev = outs[0].device
-    lse = torch.stack([x.to(dev) for x in lses]).float()     # (n, B, Sq, H)
-    m = lse.amax(dim=0)
-    m = torch.where(torch.isfinite(m), m, torch.zeros((), device=dev))
-    w = torch.exp(lse - m)                                   # 0 where -inf
-    o = torch.stack([x.to(dev) for x in outs]).float()
-    num = (w[..., None] * o).sum(dim=0)
-    den = w.sum(dim=0)
-    den = torch.where(den > 0, den, torch.ones((), device=dev))
-    return (num / den[..., None]).to(outs[0].dtype)
+    return (torch.cat([x.to(dev) for x in outs]),
+            torch.cat([x.to(dev) for x in lses]))

@@ -18,6 +18,8 @@ the ragged edge of any Sq, so there is no tile for a caller to choose; nor has `
 it too masks any Sq and Skv."""
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import ref
 from repro_torch.kernels import flash_prefill as _fp
 from repro_torch.kernels import paged_attention as _pa
@@ -61,25 +63,77 @@ def paged_chunk_attention(q, k_pages, v_pages, block_tables, q_offsets,
                                            block_tables, q_offsets, ctx_lens)
 
 
+def partial_workspace(q, k_pages, block_tables, devices,
+                      mode: str = "auto"):
+    """The float32 partials of one split-K call of ``len(devices)`` shards
+    (shard r's pools on ``devices[r]``), side by side on shard 0's device:
+    (ws, slots), ws = (o (tp·S, B, Sq, H, D), lse (tp·S, B, Sq, H)) for
+    `merge_partials`, slots[r] shard r's (o, lse) views of it for
+    `paged_chunk_attention_partial`'s ``out``.  S splits a shard: 1 for
+    the plain version, the kernel's plan
+    (``paged_attention.partial_split_plan``) on the card.  (None, [None]
+    * tp) when the shards do not all live on one device: each then
+    returns its own partials.  mode: auto | ref."""
+    if mode not in MODES:
+        raise ValueError(f"kernel mode {mode!r} not in {MODES}")
+    tp = len(devices)
+    dev = torch.device(devices[0])
+    if any(torch.device(d) != dev for d in devices):
+        return None, [None] * tp
+    B, Sq, H, D = q.shape
+    n_split = 1
+    if mode != "ref" and q.device.type != "cpu":
+        _, pl, Hkv, _ = k_pages.shape
+        n_split = _pa.partial_split_plan(
+            B, Sq, H, Hkv, block_tables.shape[1], pl, q.dtype,
+            _pa._sm_count(_pa._device(q)))[0]
+    ws = (torch.empty((tp * n_split, B, Sq, H, D), dtype=torch.float32,
+                      device=dev),
+          torch.empty((tp * n_split, B, Sq, H), dtype=torch.float32,
+                      device=dev))
+    return ws, [tuple(t[r * n_split:(r + 1) * n_split] for t in ws)
+                for r in range(tp)]
+
+
 def paged_chunk_attention_partial(q, k_pages, v_pages, block_tables,
                                   q_offsets, ctx_lens, shard: int,
                                   n_shards: int, mode: str = "auto",
-                                  quant=None):
+                                  quant=None, out=None):
     """One shard's part of `paged_chunk_attention` on the split-K rung of
     tensor-parallel serving: the pools (and int8 shadows) are shard
-    ``shard``'s slice of every page's rows.  Returns (o, lse) for
-    ``distributed.collectives.merge_partials``.  mode: auto | ref."""
+    ``shard``'s slice of every page's rows.  Returns its float32 partials
+    (o (S, B, Sq, H, D), lse (S, B, Sq, H)), S splits as
+    `partial_workspace` plans them, for `merge_partials`; into ``out`` =
+    (o, lse) when given (the shard's slots of a workspace).  mode: auto |
+    ref."""
     if mode not in MODES:
         raise ValueError(f"kernel mode {mode!r} not in {MODES}")
     args = (q, k_pages, v_pages, block_tables, q_offsets, ctx_lens)
     if mode == "ref" or q.device.type == "cpu":
-        return ref.paged_chunk_attention_partial_ref(
+        o, lse = ref.paged_chunk_attention_partial_ref(
             *args, shard, n_shards, quant=quant)
+        if out is None:
+            return o, lse
+        out[0].copy_(o)
+        out[1].copy_(lse)
+        return out
     if quant is None:
-        return _pa.paged_chunk_attention_partial(*args, shard, n_shards)
+        return _pa.paged_chunk_attention_partial(*args, shard, n_shards,
+                                                 out=out)
     return _pa.paged_chunk_attention_quant_partial(
         q, k_pages, v_pages, *quant, block_tables, q_offsets, ctx_lens,
-        shard, n_shards)
+        shard, n_shards, out=out)
+
+
+def merge_partials(o, lse, dtype, mode: str = "auto"):
+    """The split-K merge of one call: o (N, B, Sq, H, D) and lse (N, B,
+    Sq, H) float32, every shard's and split's partials on one device ->
+    (B, Sq, H, D) in ``dtype``.  mode: auto | ref."""
+    if mode not in MODES:
+        raise ValueError(f"kernel mode {mode!r} not in {MODES}")
+    if mode == "ref" or o.device.type == "cpu":
+        return ref.merge_partials_ref(o, lse, dtype)
+    return _pa.merge_partials(o, lse, dtype)
 
 
 def flash_prefill(q, k, v, q_offset: int = 0, mode: str = "auto"):

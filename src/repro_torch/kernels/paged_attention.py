@@ -18,10 +18,13 @@ replaces the TPU kernel ``paged_chunk_attention_quant``.
 ``paged_chunk_attention_partial`` and ``paged_chunk_attention_quant_partial``
 are the two kernels' split-K partial mode for tensor-parallel serving
 (`DenseLM.step_paged_tp` on a pool whose kv heads do not divide over the
-shards): the pools are one shard's slice of every page's rows, and each
-launch returns the output normalised over that shard's keys with their
-log-sum-exp, which ``distributed.collectives.merge_partials`` combines
-across the shards.
+shards): the pools are one shard's slice of every page's rows (1 to 32 rows
+of a page), and each launch cuts the shard's keys into splits
+(``partial_split_plan``) and returns float32 partials, each split's output
+normalised over its keys with their log-sum-exp.  ``merge_partials``
+merges every shard's and split's partials of one call in one device kernel
+(``csrc/split_kv.cuh``, ``split_kv_merge``), reading them in place when the
+shards wrote into one workspace.
 ``paged_attention`` is the single-token decode kernel, q (B, H, D): its own
 source and library, so kernel 1's and B.2's build is untouched by it.  It
 splits each lane's context over CTAs (``decode_split_plan``) and merges the
@@ -34,8 +37,8 @@ The wrapper only takes CUDA tensors.  It checks device, dtype, shape and
 contiguity, allocates the output, launches on the current stream, raises if
 the launch is refused, and counts its launches in the module's
 ``launches`` (the fp kernel), ``quant_launches`` (the int8 kernel),
-``partial_launches`` / ``quant_partial_launches`` (their partial mode) or
-``decode_launches`` (the decode kernel, one per call whether or not the
+``partial_launches`` / ``quant_partial_launches`` (their partial mode),
+``merge_launches`` (the partials' merge) or ``decode_launches`` (the decode kernel, one per call whether or not the
 merge ran).  There is no fallback: the plain
 version (``kernels/ref.py``) is chosen by ``kernels/ops.py`` only for
 tensors that lie on the CPU, or when a caller asks for it by name.
@@ -49,6 +52,7 @@ valid rows of the pools; they are not checked on the device.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -57,10 +61,11 @@ from repro_torch.kernels import build
 NAME = "paged_chunk_attention"
 HEAD_DIMS = (64, 80, 96, 128)
 PAGE_SIZES = (8, 16, 32)
-SHARD_ROWS = (2, 4, 8, 16, 32)      # rows of a split-K shard's page
+SHARD_ROWS = (1, 2, 4, 8, 16, 32)   # rows of a split-K shard's page
 MAX_GROUP = 16                      # query heads per kv head (fp32 kRows)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 QUANT_NAME = "paged_chunk_attention_quant"
+MERGE_NAME = "paged_chunk_attention_merge"
 DECODE_NAME = "paged_attention"
 DECODE_HEAD_DIMS = (32, 64, 80, 128)
 _fns = {}
@@ -69,6 +74,7 @@ quant_launches = 0                  # int8 kernel launches
 decode_launches = 0                 # decode kernel launches
 partial_launches = 0                # fp kernel launches in partial mode
 quant_partial_launches = 0          # int8 kernel launches in partial mode
+merge_launches = 0                  # merges of a split-K call's partials
 
 
 def _entry(symbol: str, n_ptrs: int, n_ints: int = 10, lib: str = NAME):
@@ -111,10 +117,13 @@ def _check(q, k_pages, v_pages, block_tables, q_offsets, ctx_lens,
            kernel=NAME, head_dims=HEAD_DIMS, page_sizes=PAGE_SIZES):
     """Raise on what the kernel ``kernel`` does not take.  q is (B, Sq, H, D)
     for the chunk kernels and (B, H, D) for the decode kernel, which has
-    no q_offsets (None)."""
-    if q.device.type != "cuda":
+    no q_offsets (None).  Devices are compared by index (``get_device``,
+    -1 off the card): the partial mode calls this once a shard and layer,
+    and a torch.device object a tensor would cost more than the rest."""
+    if not q.is_cuda:
         raise ValueError(f"{kernel}: the kernel takes CUDA tensors, q is on "
                          f"{q.device}")
+    dev = q.get_device()
     if q.dtype not in _DTYPES:
         raise TypeError(f"{kernel}: dtype {q.dtype} not supported "
                         f"(float32, bfloat16)")
@@ -150,7 +159,7 @@ def _check(q, k_pages, v_pages, block_tables, q_offsets, ctx_lens,
             raise TypeError(f"{kernel}: {name} must be int32, is {t.dtype}")
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
                     ("block_tables", block_tables)) + lens:
-        if t.device != q.device:
+        if t.get_device() != dev:
             raise ValueError(f"{kernel}: {name} is on {t.device}, q on "
                              f"{q.device}")
         if not t.is_contiguous():
@@ -236,34 +245,33 @@ def paged_chunk_attention_quant(q, k_pages, v_pages, kq_pages, vq_pages,
     return out
 
 
+def _device(q) -> int:
+    return q.get_device()             # a CUDA tensor's index
+
+
+def _stream(dev: int) -> int:
+    """PyTorch's current stream on card ``dev``, as a handle (what
+    ``torch.cuda.current_stream(dev).cuda_stream`` gives, without building
+    a Stream object on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(dev)
+
+
 def _launch(symbol, name, q, k_pages, v_pages, quant, block_tables,
-            q_offsets, ctx_lens, split=None):
-    """Launch ``symbol``; with ``split = (shard, n_shards)`` the partial
-    entry point, which also writes and returns the (B, Sq, H) float32
-    log-sum-exp (its quant pointers null for the fp kernel)."""
+            q_offsets, ctx_lens):
+    """Launch ``symbol``, the fp or the int8 kernel, into a new output."""
     B, Sq, H, D = q.shape
     _, page, Hkv, _ = k_pages.shape
     out = torch.empty_like(q)
     tensors = [q, k_pages, v_pages, *quant, block_tables, q_offsets,
                ctx_lens, out]
     ints = [B, Sq, H, Hkv, D, k_pages.shape[0], page, block_tables.shape[1]]
-    lse = None
-    if split is not None:
-        lse = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
-        tensors.append(lse)
-        ints += [split[1], split[0]]
-    ptrs = [t.data_ptr() for t in tensors]
-    if split is not None and not quant:
-        ptrs[3:3] = [None] * 5                 # no int8 state
-    fn = _entry(symbol, len(ptrs), n_ints=len(ints) + 2)
-    dev = q.device.index
-    if dev is None:
-        dev = torch.cuda.current_device()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(*ptrs, *ints, _DTYPES[q.dtype], dev, stream)
+    fn = _entry(symbol, len(tensors), n_ints=len(ints) + 2)
+    dev = _device(q)
+    err = fn(*[t.data_ptr() for t in tensors], *ints, _DTYPES[q.dtype], dev,
+             _stream(dev))
     if err != 0:
         raise RuntimeError(f"{name}: launch failed with cudaError_t {err}")
-    return out if split is None else (out, lse)
+    return out
 
 
 def _check_split(k_pages, shard: int, n_shards: int, kernel: str):
@@ -274,44 +282,121 @@ def _check_split(k_pages, shard: int, n_shards: int, kernel: str):
                          f"{n_shards} rows")
 
 
+def _launch_partial(name, q, k_pages, v_pages, quant, block_tables,
+                    q_offsets, ctx_lens, shard, n_shards, out):
+    """The partial entry point (its quant pointers null for the fp kernel)
+    into ``out`` = (o, lse) or new partials; returns them."""
+    B, Sq, H, D = q.shape
+    P, pl, Hkv, _ = k_pages.shape
+    T = block_tables.shape[1]
+    dev = _device(q)
+    n_split, split = partial_split_plan(B, Sq, H, Hkv, T, pl, q.dtype,
+                                        _sm_count(dev))
+    shapes = ((n_split, B, Sq, H, D), (n_split, B, Sq, H))
+    if out is None:
+        out = tuple(torch.empty(s, dtype=torch.float32, device=q.device)
+                    for s in shapes)
+    for t, shape, what in zip(out, shapes, ("o", "lse")):
+        if (t.shape != shape or t.dtype != torch.float32
+                or t.get_device() != dev or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(f"{name}: out's {what} must be {shape} float32 "
+                             f"on {q.device}, contiguous and 16-byte "
+                             f"aligned (the plan's {n_split} splits)")
+    ptrs = [t.data_ptr() for t in (q, k_pages, v_pages)]
+    ptrs += [t.data_ptr() for t in quant] if quant else [None] * 5
+    ptrs += [t.data_ptr() for t in (block_tables, q_offsets, ctx_lens, *out)]
+    ints = [B, Sq, H, Hkv, D, P, pl, T, n_shards, shard, split, n_split]
+    fn = _entry("paged_chunk_attention_partial_launch", len(ptrs),
+                n_ints=len(ints) + 2)
+    err = fn(*ptrs, *ints, _DTYPES[q.dtype], dev, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed with cudaError_t {err}")
+    return out
+
+
 def paged_chunk_attention_partial(q, k_pages, v_pages, block_tables,
                                   q_offsets, ctx_lens, shard: int,
-                                  n_shards: int):
+                                  n_shards: int, out=None):
     """Kernel 1's split-K partial mode on the card: `paged_chunk_attention`
     over shard ``shard``'s slice (P, pl, Hkv, D) of pages of pl x
     ``n_shards`` rows, pl in SHARD_ROWS (see ``ref.
-    paged_chunk_attention_partial_ref``).  Returns (o (B, Sq, H, D) in q's
-    dtype, normalised over the shard's keys; lse (B, Sq, H) float32, -inf
-    where the row sees no key of the shard, whose o is zeros)."""
+    paged_chunk_attention_partial_ref``), its local keys cut into the
+    splits of ``partial_split_plan``.  Returns the float32 partials (o (S, B, Sq, H, D), each split's
+    attention normalised over its keys; lse (S, B, Sq, H), -inf where the
+    row sees no key of the split, whose o is zeros), written into ``out``
+    = (o, lse) when given (a shard's slots of a workspace)."""
     _check(q, k_pages, v_pages, block_tables, q_offsets, ctx_lens,
            page_sizes=SHARD_ROWS)
     _check_split(k_pages, shard, n_shards, NAME)
-    out = _launch("paged_chunk_attention_partial_launch", NAME, q, k_pages,
-                  v_pages, (), block_tables, q_offsets, ctx_lens,
-                  split=(shard, n_shards))
+    res = _launch_partial(NAME, q, k_pages, v_pages, (), block_tables,
+                          q_offsets, ctx_lens, shard, n_shards, out)
     global partial_launches
     partial_launches += 1
-    return out
+    return res
 
 
 def paged_chunk_attention_quant_partial(q, k_pages, v_pages, kq_pages,
                                         vq_pages, k_scales, v_scales,
                                         page_quant, block_tables, q_offsets,
-                                        ctx_lens, shard: int, n_shards: int):
+                                        ctx_lens, shard: int, n_shards: int,
+                                        out=None):
     """B.2's split-K partial mode on the card: the int8 shadows are the same
     shard's slices, the scales and flags (P,) are per page, as in
-    `paged_chunk_attention_quant`; returns (o, lse) as
+    `paged_chunk_attention_quant`; returns the partials as
     `paged_chunk_attention_partial`."""
     _check(q, k_pages, v_pages, block_tables, q_offsets, ctx_lens,
            page_sizes=SHARD_ROWS)
     _check_quant(k_pages, kq_pages, vq_pages, k_scales, v_scales, page_quant)
     _check_split(k_pages, shard, n_shards, QUANT_NAME)
-    out = _launch("paged_chunk_attention_partial_launch", QUANT_NAME, q,
-                  k_pages, v_pages,
-                  (kq_pages, vq_pages, k_scales, v_scales, page_quant),
-                  block_tables, q_offsets, ctx_lens, split=(shard, n_shards))
+    res = _launch_partial(QUANT_NAME, q, k_pages, v_pages,
+                          (kq_pages, vq_pages, k_scales, v_scales,
+                           page_quant), block_tables, q_offsets, ctx_lens,
+                          shard, n_shards, out)
     global quant_partial_launches
     quant_partial_launches += 1
+    return res
+
+
+def merge_partials(o, lse, dtype):
+    """The merge of one split-K call on the card (``csrc/split_kv.cuh``,
+    ``split_kv_merge``): o (N, B, Sq, H, D) and lse (N, B, Sq, H) float32,
+    the partials of every shard and split side by side on one device.
+    Returns (B, Sq, H, D) in ``dtype``: each row's partials weighed by
+    exp(lse_i - max lse) in float32, zeros where every lse is -inf.  One
+    launch, counted in ``merge_launches``; ``ref.merge_partials_ref`` is
+    its plain version."""
+    if not o.is_cuda:
+        raise ValueError(f"{MERGE_NAME}: the kernel takes CUDA tensors, o "
+                         f"is on {o.device}")
+    dev = o.get_device()
+    if dtype not in _DTYPES:
+        raise TypeError(f"{MERGE_NAME}: dtype {dtype} not supported "
+                        f"(float32, bfloat16)")
+    if o.dim() != 5 or tuple(lse.shape) != tuple(o.shape[:4]):
+        raise ValueError(f"{MERGE_NAME}: o must be (N, B, Sq, H, D) and lse "
+                         f"(N, B, Sq, H), are {tuple(o.shape)} and "
+                         f"{tuple(lse.shape)}")
+    N, B, Sq, H, D = o.shape
+    if D % 4 or D > 128:
+        raise ValueError(f"{MERGE_NAME}: head dim {D} (a multiple of 4, at "
+                         f"most 128)")
+    for name, t in (("o", o), ("lse", lse)):
+        if t.dtype != torch.float32 or t.get_device() != dev \
+                or not t.is_contiguous():
+            raise ValueError(f"{MERGE_NAME}: {name} must be contiguous "
+                             f"float32 on {o.device}")
+    if o.data_ptr() % 16:
+        raise ValueError(f"{MERGE_NAME}: o must be 16-byte aligned")
+    out = torch.empty((B, Sq, H, D), dtype=dtype, device=o.device)
+    fn = _entry("paged_chunk_attention_merge_launch", 3, n_ints=7)
+    err = fn(o.data_ptr(), lse.data_ptr(), out.data_ptr(), N, B, Sq, H, D,
+             _DTYPES[dtype], dev, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"{MERGE_NAME}: launch failed with cudaError_t "
+                           f"{err}")
+    global merge_launches
+    merge_launches += 1
     return out
 
 
@@ -326,10 +411,10 @@ _n_sm = {}
 
 
 def decode_split_plan(B: int, Hkv: int, T_width: int, page: int,
-                      n_sm: int):
+                      n_sm: int, align: int = SPLIT_ALIGN):
     """(n_split, split): how B.3 cuts a lane's context, from what the host
     knows without reading ctx_lens — the table's width T_width x page is the
-    most keys a lane can have.  split is a multiple of SPLIT_ALIGN keys,
+    most keys a lane can have.  split is a multiple of ``align`` keys,
     n_split x split covers the table, and B x Hkv x n_split is about
     SPLIT_CTAS_PER_SM x n_sm, with no split shorter than MIN_SPLIT keys
     (one split when the table is that short), and at most MAX_SPLITS
@@ -338,8 +423,32 @@ def decode_split_plan(B: int, Hkv: int, T_width: int, page: int,
     keys = T_width * page
     want = -(-SPLIT_CTAS_PER_SM * n_sm // max(B * Hkv, 1))
     n = max(1, min(want, -(-keys // MIN_SPLIT), MAX_SPLITS))
-    split = -(-max(-(-keys // n), 1) // SPLIT_ALIGN) * SPLIT_ALIGN
+    split = -(-max(-(-keys // n), 1) // align) * align
     return max(1, -(-keys // split)), split
+
+
+# the partial mode's splits are whole 64-key stages of the tensor-core body
+# (two 32-key steps of the float32 one); its query tiles hold 64 rows
+# (bfloat16) or 16 (float32) of G heads each
+PARTIAL_SPLIT_ALIGN = 64
+_TILE_ROWS = {torch.bfloat16: 64, torch.float32: 16}
+
+
+@functools.lru_cache(maxsize=256)
+def partial_split_plan(B: int, Sq: int, H: int, Hkv: int, T_width: int,
+                       pl: int, dtype, n_sm: int):
+    """(n_split, split) of one shard's partial call: how its local keys
+    (T_width x pl at most, pl rows of each table entry) are cut, as B.3
+    cuts a lane's context (``decode_split_plan`` on the shard's own key
+    count), so that the shard's grid fills the card by itself.  A grid of
+    at least ``n_sm`` CTAs without a split (a long chunk) keeps one
+    split."""
+    n_qblk = -(-Sq // max(1, min(_TILE_ROWS[dtype] // (H // Hkv), Sq)))
+    if n_qblk * Hkv * B >= n_sm:
+        keys = max(T_width * pl, 1)
+        return 1, -(-keys // PARTIAL_SPLIT_ALIGN) * PARTIAL_SPLIT_ALIGN
+    return decode_split_plan(n_qblk * B, Hkv, T_width, pl, n_sm,
+                             align=PARTIAL_SPLIT_ALIGN)
 
 
 def _sm_count(dev: int) -> int:

@@ -161,13 +161,13 @@ def paged_chunk_attention_partial_ref(q, k_pages, v_pages, block_tables,
     shard's slice of every page — rows [shard·pl, (shard+1)·pl) of pages
     of ``pl · n_shards`` rows, so local row j of table entry t holds the
     key at position t·pl·n_shards + shard·pl + j.  The causal mask and
-    ``ctx_lens`` use those global positions.  Returns (o, lse): o (B, Sq,
-    H, D) in q's dtype, the attention normalised over this shard's
-    visible keys; lse (B, Sq, H) float32, the log-sum-exp of their scaled
-    scores.  A row with no visible key in this shard (every row of a ctx =
-    0 lane, bucket padding) has o = 0 and lse = -inf.  Merging every
-    shard's pair (``distributed.collectives.merge_partials``) gives the
-    unsharded attention."""
+    ``ctx_lens`` use those global positions.  Returns the shard's float32
+    partials in the kernel's form with one split: o (1, B, Sq, H, D), the
+    attention normalised over this shard's visible keys; lse (1, B, Sq,
+    H), the log-sum-exp of their scaled scores.  A row with no visible key
+    in this shard (every row of a ctx = 0 lane, bucket padding) has o = 0
+    and lse = -inf.  Merging every shard's partials (``merge_partials_ref``)
+    gives the unsharded attention."""
     B, Sq, H, D = q.shape
     _, pl, Hkv, _ = k_pages.shape
     G = H // Hkv
@@ -203,8 +203,35 @@ def paged_chunk_attention_partial_ref(q, k_pages, v_pages, block_tables,
     seen = torch.isfinite(lse)
     p = torch.exp(s - torch.where(seen, lse, 0.0)[..., None])
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v)
-    lse = lse.permute(0, 3, 1, 2).reshape(B, Sq, H)
-    return o.reshape(B, Sq, H, D).to(q.dtype), lse
+    lse = lse.permute(0, 3, 1, 2).reshape(1, B, Sq, H)
+    return o.reshape(1, B, Sq, H, D), lse
+
+
+def combine_partials(o, lse):
+    """N float32 partials of the same rows, o (N, ..., D) each normalised
+    over its own keys and lse (N, ...) their log-sum-exp (-inf where a
+    partial saw no key, whose o is zeros), combined: (o over all their keys
+    (..., D) float32, zeros where none saw a key; its lse (...), -inf
+    there).  Each partial is weighed by exp(lse_i - max lse) in float32."""
+    m = lse.amax(dim=0)
+    m = torch.where(torch.isfinite(m), m, torch.zeros((), device=m.device))
+    w = torch.exp(lse - m)                                   # 0 where -inf
+    num = (w[..., None] * o).sum(dim=0)
+    den = w.sum(dim=0)
+    seen = den > 0
+    out = num / torch.where(seen, den, torch.ones((), device=m.device))[
+        ..., None]
+    return out, torch.where(seen, m + torch.log(den),
+                            torch.full((), -torch.inf, device=m.device))
+
+
+def merge_partials_ref(o, lse, dtype):
+    """The plain version of the split-K merge (``paged_attention.
+    merge_partials``): o (N, B, Sq, H, D) and lse (N, B, Sq, H) float32,
+    every shard's and split's partials of one call; returns the attention
+    over all their keys, (B, Sq, H, D) in ``dtype``, a row no partial saw
+    a key for as zeros."""
+    return combine_partials(o.float(), lse.float())[0].to(dtype)
 
 
 def flash_prefill_ref(q, k, v, q_offset=0):

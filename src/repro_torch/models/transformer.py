@@ -401,7 +401,7 @@ class DenseLM:
     # takes.  On "rows" (split-K) q, k and v are gathered to full heads,
     # shard r writes only the rows of its slice of each page and runs the
     # kernel's partial mode over them for all H heads, and
-    # `collectives.merge_partials` combines the shards; each shard keeps its
+    # `ops.merge_partials` combines the shards; each shard keeps its
     # column slice of the merged output for wo.  On "replicated" every shard
     # holds the whole pool and runs the kernel on it.
 
@@ -527,6 +527,14 @@ class DenseLM:
                 qkv = _once(self._heads, col(h, w, "wq"), col(h, w, "wk"),
                             col(h, w, "wv"), qn, kn, positions)
                 outs, lses = [], []
+                if layout.rung == "rows" and l == 0:
+                    # every layer's partials have one shape: one workspace
+                    # (on shard 0's device when every shard lives there)
+                    # serves them all, each layer's merge reading it before
+                    # the next layer's shards write it, in stream order
+                    ws, slots = ops.partial_workspace(
+                        qkv[0][0], k_pools[0][0], tab[0][0],
+                        [p.device for p in k_pools], mode=kernel_mode)
                 for r in range(tp):
                     q, k, v = qkv[r]
                     kp, vp = k_pools[r][l], v_pools[r][l]
@@ -538,7 +546,7 @@ class DenseLM:
                     if layout.rung == "rows":
                         o, lse = ops.paged_chunk_attention_partial(
                             q, kp, vp, tab[r][l], qoff[r], ctx[r], r, tp,
-                            mode=kernel_mode, quant=qt)
+                            mode=kernel_mode, quant=qt, out=slots[r])
                         lses.append(lse)
                     else:
                         o = ops.paged_chunk_attention(
@@ -546,7 +554,9 @@ class DenseLM:
                             mode=kernel_mode, quant=qt)
                     outs.append(o)
                 if layout.rung == "rows":
-                    outs = put(C.merge_partials(outs, lses))
+                    outs = put(ops.merge_partials(
+                        *(ws or C.gather_partials(outs, lses)), q.dtype,
+                        mode=kernel_mode))
                 o_in = [o.reshape(B, Sq, -1) for o in outs]
                 if blocks["wo"].dim_of() is not None:
                     n = c.q_dim // tp

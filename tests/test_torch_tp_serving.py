@@ -6,8 +6,9 @@ The mesh must be invisible to results and formats, as in the reference:
 
 * one pool a shard, `pool_device_bytes` 1/tp of the pool;
 * token ids equal JAX's single-device serve at tp in {1, 2, 4}, MHA and
-  GQA, with a preemption (GQA at tp = 4 is the split-K rung: 2 kv heads
-  over 4 shards, each shard holding 2 rows of every 8-row page);
+  GQA, and at tp = 8 for GQA, with a preemption (GQA at tp = 4 and 8 is
+  the split-K rung: 2 kv heads over 4 or 8 shards, each shard holding 2
+  rows or 1 row of every 8-row page);
 * prefix adoption and a CoW fork at tp = 2;
 * a session exported at tp = 2 equals JAX's tp = 2 export and resumes at
   tp = 4; payloads are full-head numpy;
@@ -82,16 +83,16 @@ def test_pool_sharding_places_one_shard_per_device():
 def test_parity_across_tp_with_preemption(kind):
     """A two-turn serve with a mid-decode preemption (swap-out and swap-in
     through the shards' gather and scatter) emits JAX's single-device
-    tokens at every tp."""
+    tokens at every tp, 1-row shard pages (GQA at tp = 8) included."""
     jpkg, tpkg = twins(kind)
     turns = _turns(tpkg.cfg, (11, 7), seed=3)
     _, jbe, jeng = _node(jpkg)
     want = _serve(jpkg, jeng, jbe, turns, preempt_turn=1)
-    for tp in (1, 2, 4):
+    for tp in (1, 2, 4) + ((8,) if kind == "gqa" else ()):
         _, be, eng = _node(tpkg, tp=tp)
-        if kind == "gqa" and tp == 4:
+        if kind == "gqa" and tp >= 4:
             assert be._layout.spec == (None, None, "model", None, None)
-            assert be._layout.rung == "rows" and be._layout.pl == 2
+            assert be._layout.rung == "rows" and be._layout.pl == 8 // tp
         got = _serve(tpkg, eng, be, turns, preempt_turn=1)
         assert got == want, f"token divergence ({kind}, tp={tp})"
         assert be.stats["swaps_out"] >= 1 and be.stats["swaps_in"] >= 1
