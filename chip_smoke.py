@@ -4,7 +4,10 @@ pressure, on a three-node cluster with migration and failure, and
 tensor-parallel on shards of the card, as yi-6b is),
 zamba2-2.7b, xlstm-1.3b and phi-3-vision-4.2b at full width and depth
 through the port's entry points; granite-moe-3b, qwen3-moe-30b (12 of 48
-layers) and seamless-m4t-medium prefill and decode at full width.
+layers) and seamless-m4t-medium prefill and decode at full width; trains
+llama3-8b at full width (4 of 32 layers), holds zamba2-2.7b's gradient at
+full width (12 of 54 layers) through the scan kernel to the plain path,
+and holds training on the card to the CPU.
 
 Run from the repository root on a machine with an NVIDIA card:
 
@@ -15,6 +18,7 @@ Run from the repository root on a machine with an NVIDIA card:
     python3 chip_smoke.py --phases 15,16     # xlstm-1.3b
     python3 chip_smoke.py --phases 17,18,19,20   # vlm, moe, encdec
     python3 chip_smoke.py --phases 1,2,21,22     # tensor-parallel serving
+    python3 chip_smoke.py --phases 23,24         # training
 
 Phases:
   1. environment: the card's name and power limit;
@@ -187,7 +191,33 @@ Phases:
      kernel_mode="ref"; a session exported at
      tp 2 resumes at tp 4; one payload imported and quantized on one
      device and on each mesh: int8 scales and codes bit-equal, and its
-     next turn read from the int8 pages gives the same tokens.
+     next turn read from the int8 pages gives the same tokens;
+ 23. training at full width: llama3-8b at its published widths, bf16,
+     random weights from --seed, its depth cut to 4 of 32 layers (its
+     training state, ~20 bytes a parameter, would not fit one card at 32),
+     6 `make_train_step` steps (2 microbatches, AdamW's default lr) on one
+     repeated batch of 8 x 1024 tokens and a 7th under torch.profiler:
+     every loss finite, the last below the first, every parameter leaf
+     given a gradient; step ms, tokens/s, the model-FLOPs share, peak
+     memory, the profiled step's device time by kernel family, its largest
+     kernels and idle share, and one AdamW update timed alone; then
+     zamba2-2.7b at its published widths, 12 of 54 Mamba layers: loss and
+     gradient on 2 x 1024 tokens in bf16 and float32 with the CUDA scan
+     forward (2 launches a Mamba layer, counted from 0), each held per
+     leaf to kernel_mode="ref" (float32: 2e-4 of max |g| or twice plain's
+     own distance at half the chunk; bf16: plain bf16's distance from
+     float32);
+ 24. training held at reduced size, float32: llama3-8b and zamba2-2.7b
+     take 3 `make_train_step` steps (2 microbatches) on the card and on the
+     CPU from the same weights and batches, losses within 1e-4 relative;
+     the hybrid's gradients with the CUDA scan forward (ssd_scan launched
+     on every Mamba layer of every forward and recompute) within 2e-4 of
+     max |g| per leaf of the all-plain path's; a checkpoint written on the
+     card restores on the CPU bit for bit; `train()` run to step 6 and
+     rerun to step 8 takes exactly 2 steps; the scan under autograd at
+     zamba2-2.7b's SSD shapes, y and the gradients of sum(y²) with the
+     kernel's forward held to the plain's (2e-4 of max |plain|), both
+     timed.
 
 It prints progress lines, then one line with the kernels' JSON record, the
 card's name and power limit, and as the last line
@@ -237,6 +267,14 @@ from repro_torch.serving.scenario import (MixedTrace,  # noqa: E402
 from repro_torch.serving.simulator import ClusterRuntime  # noqa: E402
 from repro_torch.serving.state_backend import StateBackend  # noqa: E402
 from repro_torch.serving.transfer import IN, OUT  # noqa: E402
+from repro_torch.training.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.training.data import DataConfig, TokenPipeline  # noqa: E402
+from repro_torch.training.optimizer import (AdamWConfig,  # noqa: E402
+                                            adamw_init, adamw_update,
+                                            make_train_step, value_and_grad)
+from repro_torch.training.train_loop import TrainConfig, train  # noqa: E402
+from repro_torch.training.tree import (flatten, leaves,  # noqa: E402
+                                       tree_map)
 
 # H100 SXM data sheet, dense, at 700 W
 HBM_BYTES_PER_S = 3.35e12
@@ -2217,7 +2255,6 @@ def profile_turn(cfg, model, params, rng, gen):
     a warm-up turn of the same shapes: device time by kernel family and
     the device's idle share of the window's wall time (1 - device time /
     wall; copies on the side stream could overlap, none run here)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     eng, be, _ = make_state_node(cfg, model, params)
     ids = [int(x) for x in rng.integers(0, cfg.vocab, 512)]
@@ -2234,7 +2271,28 @@ def profile_turn(cfg, model, params, rng, gen):
         t0 = time.perf_counter()
         turn("profiled")
         wall = time.perf_counter() - t0
-    fam, total, other = {}, 0.0, []
+    fam, total, kernels = device_families(prof, KERNEL_FAMILIES)
+    other = [(ms, n, name[:60]) for ms, n, name, g in kernels
+             if g == "other"]
+    if total == 0.0:
+        log("[9] profile: the trace holds no device time")
+        return None
+    log(f"[9] profile of one turn (512-token chunk + {gen - 1} decode "
+        f"steps): wall {1e3 * wall:.2f} ms, device {total:.2f} ms, idle "
+        f"share {1 - total / (1e3 * wall):.3f}; device time by family: "
+        f"{fmt_families(fam, total)}")
+    log("[9] profile: largest 'other' kernels (ms, launches, name): "
+        f"{sorted(other, reverse=True)[:6]}")
+    return dict(wall_ms=1e3 * wall, device_ms=total, families=fam)
+
+
+def device_families(prof, families):
+    """A torch.profiler trace's device time (ms) by kernel family (the
+    first family one of whose words the kernel's name holds, else
+    "other"), the total, and every kernel as (ms, launches, name,
+    family)."""
+    from torch.autograd import DeviceType
+    fam, total, kernels = {}, 0.0, []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -2242,24 +2300,17 @@ def profile_turn(cfg, model, params, rng, gen):
         if t is None:
             t = e.cuda_time_total
         name = e.key.lower()
-        g = next((f for f, words in KERNEL_FAMILIES
+        g = next((f for f, words in families
                   if any(w in name for w in words)), "other")
         fam[g] = fam.get(g, 0.0) + t / 1e3              # us -> ms
         total += t / 1e3
-        if g == "other":
-            other.append((t / 1e3, e.count, e.key[:60]))
-    if total == 0.0:
-        log("[9] profile: the trace holds no device time")
-        return None
-    parts = ", ".join(f"{g} {ms:.2f} ms ({100 * ms / total:.1f} %)" for g, ms
-                      in sorted(fam.items(), key=lambda kv: -kv[1]))
-    log(f"[9] profile of one turn (512-token chunk + {gen - 1} decode "
-        f"steps): wall {1e3 * wall:.2f} ms, device {total:.2f} ms, idle "
-        f"share {1 - total / (1e3 * wall):.3f}; device time by family: "
-        f"{parts}")
-    log("[9] profile: largest 'other' kernels (ms, launches, name): "
-        f"{sorted(other, reverse=True)[:6]}")
-    return dict(wall_ms=1e3 * wall, device_ms=total, families=fam)
+        kernels.append((t / 1e3, e.count, e.key, g))
+    return fam, total, kernels
+
+
+def fmt_families(fam, total):
+    return ", ".join(f"{g} {ms:.2f} ms ({100 * ms / total:.1f} %)"
+                     for g, ms in sorted(fam.items(), key=lambda kv: -kv[1]))
 
 
 def retime_scan(cap, chunk):
@@ -4522,6 +4573,330 @@ def phase_exact_tp(seed, tag=22):
         free_device_memory()
 
 
+# ---------------------------------------------------------------------------
+# phases 23-24: training
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS = 4        # phase 23's depth: llama3-8b keeps 4 of its 32
+# and zamba2-2.7b 12 of its 54 Mamba layers: two groups of shared_every 6,
+# so both shared parameter sets are applied and trained
+TRAIN_HYBRID_LAYERS = 12
+TRAIN_FAMILIES = (("matmul", ("gemm", "cutlass", "cublas", "xmma", "sm90",
+                              "nvjet")),
+                  ("softmax", ("softmax",)),
+                  ("reduce", ("reduce",)),
+                  ("elementwise", ("elementwise", "vectorized")),
+                  ("copy", ("memcpy", "memset")))
+
+
+def phase_train_full(seed, card, tag=23):
+    """llama3-8b at its published widths, 4 of its 32 layers, bf16:
+    `make_train_step` (2 microbatches, AdamW at its default lr 3e-4) for 6
+    steps on one repeated batch of 8 x 1024 tokens; returns the losses.
+    `train()` fixes the reference's lr of 3e-3, under which this model's
+    loss rose over 6 steps of fresh batches (PERF.md §6); phase 24 runs
+    `train()`."""
+    base = configs.get_config("llama3-8b")
+    cfg = dataclasses.replace(base, n_layers=TRAIN_LAYERS)
+    model = get_model(cfg, device="cuda")
+    n = model.param_count()
+    log(f"[{tag}] llama3-8b at its published widths: d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.d_head}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}; depth cut to "
+        f"{cfg.n_layers} of {base.n_layers} layers ({n / 1e9:.3f} B "
+        f"parameters; training state ~20 bytes a parameter, ~"
+        f"{20 * get_model(base, device='meta').param_count() / 1e9:.0f} GB "
+        f"at 32 layers, more than one card holds)")
+    dc = DataConfig(vocab=cfg.vocab, seq_len=1024, global_batch=8, seed=seed)
+    batch = TokenPipeline(dc).batch(0)
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    params = model.init(torch.Generator(model.device).manual_seed(seed))
+    opt = adamw_init(params)
+    step = make_train_step(model, AdamWConfig(), n_microbatches=2)
+    losses, stamps = [], [time.perf_counter()]
+    for _ in range(6):
+        params, opt, loss = step(params, opt, batch)
+        losses.append(float(loss))              # the host waits for the step
+        stamps.append(time.perf_counter())
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    state = sum(t.numel() * t.element_size() for t in leaves((params, opt)))
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, batch)
+        losses.append(float(loss))
+        wall = time.perf_counter() - t0
+    check(all(np.isfinite(losses)), f"[{tag}] a loss is not finite: {losses}")
+    check(losses[-1] < losses[0], f"[{tag}] the loss did not fall: {losses}")
+    silent = [k for k, m in flatten(opt["mu"]).items()
+              if not bool(m.abs().amax() > 0)]
+    check(not silent, f"[{tag}] leaves that never got a gradient: {silent}")
+    steps_s = np.diff(stamps)[1:]             # steps 1-5; step 0 warms up
+    step_s = float(np.median(steps_s))
+    tokens = dc.global_batch * dc.seq_len
+    # the untied input embedding is a gather: no matmul FLOPs (lm_head's
+    # table stays counted)
+    n_mm = n - (0 if cfg.tie_embeddings else cfg.vocab * cfg.d_model)
+    share = 6 * n_mm * tokens / (step_s * PEAK_FLOPS[torch.bfloat16])
+    log(f"[{tag}] losses {[round(x, 4) for x in losses]}; every leaf got a "
+        f"gradient (AdamW's first moment nonzero)")
+    log(f"[{tag}] step ms (median of steps 1-5; step 0 "
+        f"{1e3 * (stamps[1] - stamps[0]):.1f}) {1e3 * step_s:.1f} "
+        f"({', '.join(f'{1e3 * t:.1f}' for t in steps_s)}); "
+        f"{tokens / step_s:.0f} tokens/s; model-FLOPs share "
+        f"6·N·tokens / (step s · 989 TFLOP/s) = {share:.4f} "
+        f"(N = {n_mm}, the parameters that do matmuls: the layers and "
+        f"lm_head, not the {n - n_mm}-parameter input embedding of the "
+        f"{n} in all; recompute and attention not counted); peak memory "
+        f"allocated {peak / 1e9:.2f} GB (params and optimizer state "
+        f"{state / 1e9:.2f} GB); card: {card}")
+    fam, total, kernels = device_families(prof, TRAIN_FAMILIES)
+    check(total > 0, f"[{tag}] the profiled step holds no device time")
+    log(f"[{tag}] profile of step 6 (under torch.profiler): wall "
+        f"{1e3 * wall:.1f} ms, device {total:.1f} ms, idle share "
+        f"{1 - total / (1e3 * wall):.3f}; device time by family: "
+        f"{fmt_families(fam, total)}")
+    for ms, count, name, g in sorted(kernels, reverse=True)[:12]:
+        log(f"[{tag}]   {ms:8.2f} ms {count:5d} launches  {g:11s} "
+            f"{name[:160]}")
+    # the optimizer's share: one AdamW update on float32 gradients (what a
+    # step with microbatches hands it), timed alone
+    grads = tree_map(lambda p: torch.full(p.shape, 1e-3, device=p.device),
+                     params)
+    opt_ms = cuda_ms(lambda: adamw_update(params, grads, opt, AdamWConfig()),
+                     iters=3, warmup=1)
+    log(f"[{tag}] one AdamW update alone (float32 gradients of "
+        f"{n / 1e9:.3f} B parameters): {opt_ms:.1f} ms, "
+        f"{opt_ms / (1e3 * step_s):.3f} of the step")
+    del params, opt, grads
+    free_device_memory()
+    return losses
+
+
+def phase_train_hybrid(seed, card, tag=23):
+    """zamba2-2.7b at its published widths, 12 of its 54 Mamba layers: the
+    loss and its gradient (`value_and_grad`, the training step's own) on
+    one batch of 2 x 1024 tokens, the scan's forward on the kernel, in the
+    published bfloat16 and in float32 on the same weights, each held to
+    kernel_mode='ref' per leaf.  Float32: within 2e-4 of max |g|, or twice
+    the distance of the plain scan at half the chunk length from the
+    plain scan (two exact forms of one function: a_log's and dt_bias's
+    gradients sum long chains of decays and differ by more than 1e-4
+    between them).  Bfloat16: no farther from ref than the plain bfloat16
+    gradient is from the float32 one (a forward that differs in its last
+    float32 bits flips bfloat16 roundings downstream).  Returns the scan's
+    launches."""
+    base = configs.get_config("zamba2-2.7b")
+    cfg = dataclasses.replace(base, n_layers=TRAIN_HYBRID_LAYERS)
+    model = get_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    half = dataclasses.replace(cfg32, ssm=dataclasses.replace(
+        cfg.ssm, chunk=cfg.ssm.chunk // 2))
+    params32 = tree_map(lambda t: t.float(), params)
+    batch = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=1024,
+                                     global_batch=2, seed=seed)).batch(0)
+    log(f"[{tag}] zamba2-2.7b at its published widths (d_model "
+        f"{cfg.d_model}, {model.nh} SSD heads of {cfg.ssm.head_dim}, "
+        f"d_state {cfg.ssm.d_state}, chunk {cfg.ssm.chunk}, shared blocks "
+        f"{cfg.n_heads} heads of {cfg.d_head}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}); depth cut to {cfg.n_layers} of {base.n_layers} "
+        f"Mamba layers ({model.n_groups_outer} shared applications, "
+        f"{model.param_count() / 1e9:.3f} B parameters); batch 2 x 1024")
+    res, launches = {}, 0
+    for key, c, p, mode in (
+            (("bfloat16", "auto"), cfg, params, "auto"),
+            (("bfloat16", "ref"), cfg, params, "ref"),
+            (("float32", "auto"), cfg32, params32, "auto"),
+            (("float32", "ref"), cfg32, params32, "ref"),
+            (("float32", "ref, half chunk"), half, params32, "ref")):
+        m = model if c is cfg else get_model(c, device="cuda")
+        ssd.launches = 0
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad(m, p, batch, kernel_mode=mode)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n, want = ssd.launches, 2 * cfg.n_layers if mode == "auto" else 0
+        check(n == want, f"[{tag}] {key}: ssd_scan launched {n} times, "
+              f"{want} expected (the forward and the recompute of each "
+              f"Mamba layer)")
+        launches += n
+        check(bool(torch.isfinite(loss)) and all(
+            bool(torch.isfinite(g).all()) for g in grads),
+            f"[{tag}] {key}: loss {loss.item()} or a gradient not finite")
+        res[key] = (loss.item(), grads)
+        log(f"[{tag}] {key[0]} kernel_mode={key[1]}: loss {loss.item():.6f}, "
+            f"loss and gradient {1e3 * wall:.1f} ms (wall, first call of "
+            f"its kind)")
+    keys = list(flatten(params))
+    silent = [k for k, g in zip(keys, res["bfloat16", "auto"][1])
+              if not bool(g.abs().amax() > 0)]
+    check(not silent, f"[{tag}] leaves with a zero gradient: {silent}")
+    (l16, g16), (l16r, r16), (l32, g32), (l32r, r32), (_, h32) = (
+        res[k] for k in (("bfloat16", "auto"), ("bfloat16", "ref"),
+                         ("float32", "auto"), ("float32", "ref"),
+                         ("float32", "ref, half chunk")))
+    check(abs(l32 - l32r) <= 1e-5 * abs(l32r), f"[{tag}] float32 loss "
+          f"{l32} with the kernel, {l32r} plain")
+    check(abs(l16 - l16r) <= max(abs(l16r - l32r), 1e-5 * abs(l32r)),
+          f"[{tag}] bfloat16 loss {l16} with the kernel, {l16r} plain, "
+          f"{l32r} in float32")
+    w32, w16, worst = 0.0, 0.0, ""
+    for k, a32, b32, c32, a16, b16 in zip(keys, g32, r32, h32, g16, r16):
+        scale = b32.abs().max().item()
+        err32 = (a32 - b32).abs().max().item()
+        chunks = (c32 - b32).abs().max().item()
+        tol32 = max(2e-4 * scale, 2 * chunks)
+        check(err32 <= tol32, f"[{tag}] float32 gradient of {k} "
+              f"{err32:.3e} from plain (max |g| {scale:.3e}; plain at half "
+              f"the chunk {chunks:.3e} from plain)")
+        floor = (b16.float() - b32).abs().max().item()
+        err16 = (a16.float() - b16.float()).abs().max().item()
+        check(err16 <= max(floor, 2e-4 * scale), f"[{tag}] bfloat16 "
+              f"gradient of {k} {err16:.3e} from plain, farther than plain "
+              f"bfloat16 from float32 ({floor:.3e})")
+        if err32 / scale > w32:
+            w32, worst = err32 / scale, (f"{k}, where plain at half the "
+                                         f"chunk is {chunks / scale:.2e}")
+        w16 = max(w16, err16 / max(floor, 2e-4 * scale))
+    log(f"[{tag}] zamba2-2.7b: {launches} ssd_scan launches; every leaf got "
+        f"a nonzero gradient; float32 gradients with the kernel within "
+        f"{w32:.2e} of max |g| of plain ({worst}); bfloat16 within "
+        f"{w16:.3f} of plain bfloat16's distance from float32 (at most 1); "
+        f"losses {l16:.6f} / {l16r:.6f} (bf16 kernel / plain), {l32:.6f} / "
+        f"{l32r:.6f} (float32); card: {card}")
+    del model, params, params32, res
+    free_device_memory()
+    return launches
+
+
+def scan_train_times(seed, tag=24):
+    """The scan under autograd at zamba2-2.7b's SSD shapes (one lane of
+    1024 steps, H = 80, P = 64, N = 64), with the kernel's forward and with
+    the plain one: y and the gradients of sum(y²) (which carry the
+    forward's y into the backward) held within SSD_TOL of max |plain|
+    each, then forward, and forward + backward, timed."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x, dA, Bm, Cm, _ = scan_inputs(g, 1, 1024, 80, 64, 1, 64,
+                                   torch.float32, False)
+    ins = [t.requires_grad_(True) for t in (x, dA, Bm, Cm)]
+    out, got = {}, {}
+    for mode in ("auto", "ref"):
+        def fwd():
+            return ops.ssd_scan_grad(*ins, 256, mode=mode)
+
+        def fwd_bwd():
+            y, _ = fwd()
+            return y.detach(), torch.autograd.grad(y.square().sum(), ins)
+        got[mode] = fwd_bwd()
+        out[mode] = (cuda_ms(fwd, 5), cuda_ms(fwd_bwd, 3))
+    tol, worst = SSD_TOL[torch.float32], 0.0
+    for what, a, b in zip(("y", "dx", "ddA", "dB", "dC"),
+                          (got["auto"][0], *got["auto"][1]),
+                          (got["ref"][0], *got["ref"][1])):
+        scale = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        check(bool(torch.isfinite(a).all()) and err <= tol * scale,
+              f"[{tag}] scan under autograd: {what} with the kernel forward "
+              f"{err:.3g} from plain (max |plain| {scale:.3g}, tolerance "
+              f"{tol})")
+        worst = max(worst, err / scale)
+    log(f"[{tag}] scan under autograd at zamba2-2.7b's SSD shapes (1 x 1024 "
+        f"steps, H 80, P 64, N 64, float32): y and the gradients of sum(y²) "
+        f"with the kernel forward within {worst:.3g} of max |plain| "
+        f"(tolerance {tol}); forward {out['auto'][0]:.3f} ms with the "
+        f"kernel, {out['ref'][0]:.3f} plain; forward + backward (the "
+        f"backward recomputes the plain scan) {out['auto'][1]:.3f} and "
+        f"{out['ref'][1]:.3f}")
+    return out
+
+
+def phase_train_held(seed, card, tag=24):
+    """Training on the card held to the CPU and to the plain path at
+    reduced size, float32; returns the scan's launches on the hybrid's
+    training path."""
+    t0 = time.perf_counter()
+    launches = 0
+    for arch in ("llama3-8b", "zamba2-2.7b"):
+        cfg = configs.get_config(arch).reduced(dtype="float32")
+        cmodel, model = get_model(cfg, device="cpu"), get_model(cfg)
+        cparams = cmodel.init(torch.Generator().manual_seed(seed))
+        params = tree_map(lambda t: t.to(model.device), cparams)
+        pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=128,
+                                        global_batch=4, seed=seed))
+        hybrid = cfg.family == "hybrid"
+        if hybrid:
+            # the kernel's training use: gradients with the CUDA scan
+            # forward against the all-plain path, on the same inputs
+            b = pipe.batch(0)
+            got, want = (dict(zip(flatten(params), value_and_grad(
+                model, params, b, kernel_mode=m)[1])) for m in ("auto", "ref"))
+            worst = 0.0
+            for k, a in got.items():
+                scale = want[k].abs().max().item()
+                err = (a - want[k]).abs().max().item()
+                check(err <= 2e-4 * scale, f"[{tag}] {arch}: gradient of "
+                      f"{k} {err:.3e} from the plain path's (max |g| "
+                      f"{scale:.3e})")
+                worst = max(worst, err / scale if scale else 0.0)
+            log(f"[{tag}] {arch}: every gradient with the CUDA scan forward "
+                f"within {worst:.2e} of max |g| of the plain path's "
+                f"(tolerance 2e-4)")
+        opt_cfg = AdamWConfig(lr=3e-3)
+        cstep = make_train_step(cmodel, opt_cfg, n_microbatches=2)
+        step = make_train_step(model, opt_cfg, n_microbatches=2)
+        copt, opt = adamw_init(cparams), adamw_init(params)
+        ssd.launches = 0
+        for s in range(3):
+            b = pipe.batch(s)
+            cparams, copt, closs = cstep(cparams, copt, b)
+            params, opt, loss = step(params, opt, b)
+            rel = abs(loss.item() - closs.item()) / abs(closs.item())
+            check(rel <= 1e-4, f"[{tag}] {arch} step {s}: loss {loss.item()} "
+                  f"on the card, {closs.item()} on the CPU")
+            log(f"[{tag}] {arch} step {s}: loss {loss.item():.6f} on the "
+                f"card, {closs.item():.6f} on the CPU (rel {rel:.2e})")
+        if hybrid:
+            # each microbatch's forward and its recompute run the scan on
+            # every Mamba layer
+            want_n = 3 * 2 * 2 * cfg.n_layers
+            check(ssd.launches == want_n, f"[{tag}] ssd_scan launched "
+                  f"{ssd.launches} times in 3 steps, {want_n} expected")
+            launches += ssd.launches
+        with tempfile.TemporaryDirectory() as tmp:
+            mgr = CheckpointManager(tmp)
+            mgr.save(3, dict(params=params, opt=opt), blocking=True)
+            like = tree_map(torch.zeros_like, dict(params=cparams, opt=copt))
+            back = mgr.restore(3, like)
+            for (k, a), b in zip(flatten(back).items(),
+                                 leaves(dict(params=params, opt=opt))):
+                check(a.device.type == "cpu" and a.dtype == b.dtype
+                      and torch.equal(a, b.cpu()), f"[{tag}] {arch}: "
+                      f"checkpoint leaf {k} not restored bit for bit")
+        log(f"[{tag}] {arch}: a checkpoint written on the card restores on "
+            f"the CPU bit for bit")
+    cfg = configs.get_config("llama3-8b").reduced(dtype="float32")
+    model = get_model(cfg)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4, seed=seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        train(model, cfg, TrainConfig(steps=6, checkpoint_every=3,
+                                      log_every=100, ckpt_dir=tmp), dc)
+        _, opt, losses = train(model, cfg, TrainConfig(
+            steps=8, checkpoint_every=3, log_every=100, ckpt_dir=tmp), dc)
+    check(len(losses) == 2 and int(opt["step"]) == 8,
+          f"[{tag}] the resumed run took {len(losses)} steps to step "
+          f"{int(opt['step'])}, not 2 to step 8")
+    log(f"[{tag}] crash and resume: train() to step 6, rerun to step 8, "
+        f"ran exactly 2 steps")
+    scan_train_times(seed, tag)
+    log(f"[{tag}] in {time.perf_counter() - t0:.1f} s; card: {card}")
+    free_device_memory()
+    return launches
+
+
 def free_device_memory():
     """Release what a finished phase held: its nodes form reference cycles
     (backend <-> node manager) that only the cyclic collector frees."""
@@ -4552,7 +4927,7 @@ def kernel_entry(name, source, replaces, launches, recs):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default=",".join(map(str, range(1, 23))))
+    ap.add_argument("--phases", default=",".join(map(str, range(1, 25))))
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     t_start = time.perf_counter()
@@ -4676,6 +5051,16 @@ def main(argv=None):
             phase_exact_tp(args.seed)
             free_device_memory()
             lap("phase 22")
+        # phases 23-24 drive the hybrid's training paths with the scan's
+        # count set to 0 just before each and read just after, inside them
+        tlaunches = 0
+        if 23 in phases:
+            phase_train_full(args.seed, card)
+            tlaunches += phase_train_hybrid(args.seed, card)
+            lap("phase 23")
+        if 24 in phases:
+            tlaunches += phase_train_held(args.seed, card)
+            lap("phase 24")
         dlaunches += pa.decode_launches
         check(dlaunches == 0, f"B.3 launched {dlaunches} times on the "
               f"serving paths, which decode through kernel 1")
@@ -4723,7 +5108,8 @@ def main(argv=None):
                      [merge_record(r) for r in tp["k1p_recs"]
                       + tp["b2p_recs"]]),
         kernel_entry(ssd.NAME, "src/repro_torch/csrc/ssd_scan.cu",
-                     "src/repro/kernels/ssd_scan.py:62", slaunches,
+                     "src/repro/kernels/ssd_scan.py:62",
+                     slaunches + tlaunches,
                      hybrid_srecs if 9 in phases else scan_recs),
         kernel_entry(fp.NAME, "src/repro_torch/csrc/flash_prefill.cu",
                      "src/repro/kernels/flash_prefill.py:81",
@@ -4742,7 +5128,9 @@ def main(argv=None):
         f"their partial modes {tp['k1p']} and {tp['b2p']}, merged by "
         f"{tp['merges']} merge launches; "
         f"flash_prefill: {flaunches} on the dense reference's prefills, "
-        f"{af} on the prefills of phases 17-19; paged_attention (B.3): "
+        f"{af} on the prefills of phases 17-19; ssd_scan: {slaunches} on "
+        f"zamba2-2.7b's serving path, {tlaunches} on the hybrid's training "
+        f"paths (phases 23-24); paged_attention (B.3): "
         f"{dlaunches} on the "
         f"serving paths, {len(replay_recs)} replayed decode calls of phase "
         f"4)")

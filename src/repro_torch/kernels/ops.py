@@ -15,7 +15,17 @@ The TPU package's ``_auto_tile`` (largest divisor of the bucketed length
 GQA group (64 / G query positions in bf16, 16 / G in float32) and it masks
 the ragged edge of any Sq, so there is no tile for a caller to choose; nor has ``flash_prefill``
 (``bq``/``bk`` in the TPU package): its query block is 64 / G positions and
-it too masks any Sq and Skv."""
+it too masks any Sq and Skv.
+
+No CUDA kernel here has a backward pass (nor has any Pallas kernel in the
+JAX package), and a kernel writes its output through raw pointers that
+autograd never sees.  So every kernel entry raises (`needs_grad`) when it
+would launch its kernel on tensors that autograd records, rather than cut
+the graph quietly; the plain versions are differentiable and run as they
+are.  Training reaches a kernel through one door: `ssd_scan_grad`, the
+scan under autograd (the kernel forward, the plain version's gradient).
+Serving is unaffected: its parameters never require grad and its entry
+points run under ``no_grad``."""
 from __future__ import annotations
 
 import torch
@@ -26,6 +36,22 @@ from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ssd_scan as _ssd
 
 MODES = ("auto", "ref")
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would record an operation on ``tensors``: grad
+    mode is on and one of them requires grad (None entries are skipped)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _no_grad_kernel(name, *tensors):
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"ops.{name}: the CUDA kernel has no backward pass, and autograd "
+            f"records these inputs; run it under torch.no_grad(), take "
+            f"mode='ref' (the plain version, differentiable), or, for the "
+            f"scan, ops.ssd_scan_grad")
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens,
@@ -40,6 +66,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens,
     if mode == "ref" or q.device.type == "cpu":
         return ref.paged_attention_ref(q, k_pages, v_pages, block_tables,
                                        ctx_lens)
+    _no_grad_kernel("paged_attention", q, k_pages, v_pages)
     return _pa.paged_attention(q, k_pages, v_pages, block_tables, ctx_lens)
 
 
@@ -57,6 +84,8 @@ def paged_chunk_attention(q, k_pages, v_pages, block_tables, q_offsets,
         if quant is None:
             return ref.paged_chunk_attention_ref(*args)
         return ref.paged_chunk_attention_ref(*args, quant=quant)
+    _no_grad_kernel("paged_chunk_attention", q, k_pages, v_pages,
+                    *(quant or ()))
     if quant is None:
         return _pa.paged_chunk_attention(*args)
     return _pa.paged_chunk_attention_quant(q, k_pages, v_pages, *quant,
@@ -117,6 +146,8 @@ def paged_chunk_attention_partial(q, k_pages, v_pages, block_tables,
         out[0].copy_(o)
         out[1].copy_(lse)
         return out
+    _no_grad_kernel("paged_chunk_attention_partial", q, k_pages, v_pages,
+                    *(quant or ()))
     if quant is None:
         return _pa.paged_chunk_attention_partial(*args, shard, n_shards,
                                                  out=out)
@@ -133,6 +164,7 @@ def merge_partials(o, lse, dtype, mode: str = "auto"):
         raise ValueError(f"kernel mode {mode!r} not in {MODES}")
     if mode == "ref" or o.device.type == "cpu":
         return ref.merge_partials_ref(o, lse, dtype)
+    _no_grad_kernel("merge_partials", o, lse)
     return _pa.merge_partials(o, lse, dtype)
 
 
@@ -144,6 +176,7 @@ def flash_prefill(q, k, v, q_offset: int = 0, mode: str = "auto"):
         raise ValueError(f"kernel mode {mode!r} not in {MODES}")
     if mode == "ref" or q.device.type == "cpu":
         return ref.flash_prefill_ref(q, k, v, q_offset)
+    _no_grad_kernel("flash_prefill", q, k, v)
     return _fp.flash_prefill(q, k, v, q_offset)
 
 
@@ -156,4 +189,46 @@ def ssd_scan(x, dA, Bm, Cm, chunk: int, init_state=None, mode: str = "auto"):
     if mode == "ref" or x.device.type == "cpu":
         return ref.ssd_scan_chunked_ref(x, dA, Bm, Cm, chunk,
                                         init_state=init_state)
+    _no_grad_kernel("ssd_scan", x, dA, Bm, Cm, init_state)
     return _ssd.ssd_scan(x, dA, Bm, Cm, init_state=init_state)
+
+
+class _SSDScan(torch.autograd.Function):
+    """The scan with a gradient: the forward is `ssd_scan` (the kernel on
+    the card), the backward recomputes the plain chunked scan from the
+    saved inputs and differentiates it.  The JAX package has no backward
+    kernel for the scan either: its loss differentiates the jnp scan."""
+
+    @staticmethod
+    def forward(ctx, x, dA, Bm, Cm, init_state, chunk, mode):
+        ctx.set_materialize_grads(False)
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dA, Bm, Cm, init_state)
+        return ssd_scan(x, dA, Bm, Cm, chunk, init_state=init_state,
+                        mode=mode)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        saved = ctx.saved_tensors
+        ins = [None if t is None else t.detach().requires_grad_(need)
+               for t, need in zip(saved, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            y, h = ref.ssd_scan_chunked_ref(*ins[:4], ctx.chunk,
+                                            init_state=ins[4])
+        outs = [(o, g) for o, g in ((y, gy), (h, gh)) if g is not None]
+        wrt = [t for t in ins if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad(
+            [o for o, _ in outs], wrt, [g for _, g in outs],
+            allow_unused=True) if outs and wrt else ())
+        return (*(next(grads) if t is not None and t.requires_grad
+                  else None for t in ins), None, None)
+
+
+def ssd_scan_grad(x, dA, Bm, Cm, chunk: int, init_state=None,
+                  mode: str = "auto"):
+    """`ssd_scan` for tensors that autograd records (the hybrid and mamba2
+    loss): the same forward, the hand-written kernel on the card, and the
+    plain chunked scan's gradient."""
+    if mode not in MODES:
+        raise ValueError(f"kernel mode {mode!r} not in {MODES}")
+    return _SSDScan.apply(x, dA, Bm, Cm, init_state, chunk, mode)

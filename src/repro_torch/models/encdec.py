@@ -12,14 +12,18 @@ kernel (``ops.flash_prefill``, B.4), as in `DenseLM.prefill`; the encoder's
 and the cross attention are non-causal and plain (``layers.flash_attention``
 at causal=False), as the JAX package computes them outside any Pallas
 kernel; decode steps attend through ``layers.decode_attention``.  The
-reference has no paged serving step for this family, so no backend serves
-it (``serving.backend.make_backend`` raises).
+training ``loss`` attends with the plain causal softmax throughout, as
+the JAX package's does (B.4 has no backward pass), and rematerialises
+each encoder and decoder block.  The reference has no paged serving step
+for this family, so no backend serves it (``serving.backend.make_backend``
+raises).
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -91,8 +95,26 @@ class EncDecLM:
         return self.param_count()
 
     def loss(self, params, batch):
-        raise NotImplementedError(
-            "EncDecLM.loss is not ported yet: ROADMAP A.10 (training)")
+        """Mean cross-entropy of the decoder's predictions of
+        batch["targets"] (B, S), fed the targets shifted right by one (a
+        zero BOS), given the encoded batch["frames"] (B, Se, d_frontend),
+        and batch["loss_mask"] if given; as the JAX package's."""
+        c, dev = self.cfg, self.device
+        targets = torch.as_tensor(batch["targets"], device=dev).long()
+        enc_out = self.encode(params, batch["frames"])
+        cross = self._cross_layers(params, enc_out)
+        dec_in = F.pad(targets[:, :-1], (1, 0))            # BOS shift
+        x = params["emb"][dec_in]
+        positions = torch.arange(x.shape[1], device=dev)[None, :]
+
+        def block(x, w, ek, ev):
+            return self._dec_block(x, w, (ek, ev), positions=positions,
+                                   kernel_mode="ref")[0]
+        for w, (ek, ev) in zip(L.unbind_layers(params["dec"]), cross):
+            x = L.remat(block, x, w, ek, ev)
+        x = L.rms_norm(x, params["ln_f"], c.norm_eps)
+        return L.softmax_xent(self._unembed(params, x), targets,
+                              batch.get("loss_mask"))
 
     def input_specs(self, cell):
         raise NotImplementedError(
@@ -113,34 +135,38 @@ class EncDecLM:
 
     # -- encoder ------------------------------------------------------------
 
-    @torch.no_grad()
     def encode(self, params, frames):
         """frames (B, Se, d_frontend) -> the normed encoder output (B, Se,
-        d_model); non-causal self-attention with RoPE."""
+        d_model); non-causal self-attention with RoPE, each block
+        rematerialised when autograd records."""
         c = self.cfg
         frames = torch.as_tensor(frames, device=self.device)
         x = frames.to(self.dtype) @ params["frame_proj"]
-        B, S, _ = x.shape
-        positions = torch.arange(S, device=self.device)[None, :]
-        for l in range(c.n_enc_layers):
-            w = self._layer(params["enc"], l)
-            xn = L.rms_norm(x, w["ln1"], c.norm_eps)
-            q = L.apply_rope(self._heads(xn, w["wq"], c.n_heads), positions,
-                             c.rope_theta)
-            k = L.apply_rope(self._heads(xn, w["wk"], c.n_kv_heads),
-                             positions, c.rope_theta)
-            v = self._heads(xn, w["wv"], c.n_kv_heads)
-            o = L.flash_attention(q, k, v, causal=False)
-            x = x + o.reshape(B, S, -1) @ w["wo"]
-            x = self._ffn_residual(x, w)
+        positions = torch.arange(x.shape[1], device=self.device)[None, :]
+        for w in L.unbind_layers(params["enc"]):
+            x = L.remat(self._enc_block, x, w, positions)
         return L.rms_norm(x, params["ln_enc"], c.norm_eps)
+
+    def _enc_block(self, x, w, positions):
+        c = self.cfg
+        B, S, _ = x.shape
+        xn = L.rms_norm(x, w["ln1"], c.norm_eps)
+        q = L.apply_rope(self._heads(xn, w["wq"], c.n_heads), positions,
+                         c.rope_theta)
+        k = L.apply_rope(self._heads(xn, w["wk"], c.n_kv_heads), positions,
+                         c.rope_theta)
+        v = self._heads(xn, w["wv"], c.n_kv_heads)
+        o = L.flash_attention(q, k, v, causal=False)
+        x = x + o.reshape(B, S, -1) @ w["wo"]
+        return self._ffn_residual(x, w)
 
     # -- decoder ------------------------------------------------------------
 
     def _dec_block(self, x, w, enc_kv, *, positions, cache_kv=None,
                    cache_len=None, kernel_mode: str = "auto"):
         """One decoder layer.  Without ``cache_kv`` a prefill (causal
-        self-attention through the prefill kernel); with it one token a
+        self-attention through the prefill kernel; kernel_mode="ref" is the
+        plain causal softmax, which ``loss`` takes); with it one token a
         lane, its K/V written in place into the (B, S, Hkv, D) caches at
         ``cache_len``.  Returns (x, (k, v))."""
         c = self.cfg
@@ -174,16 +200,17 @@ class EncDecLM:
         x = x + ox.reshape(B, S, -1) @ w["xo"]
         return self._ffn_residual(x, w), new_kv
 
+    def _cross_layers(self, params, enc_out):
+        """Each decoder layer's cross (K, V) of the encoder output, (B, Se,
+        Hkv, D) each."""
+        h = self.cfg.n_kv_heads
+        return [(self._heads(enc_out, wk, h), self._heads(enc_out, wv, h))
+                for wk, wv in zip(params["dec"]["xk"].unbind(0),
+                                  params["dec"]["xv"].unbind(0))]
+
     def _cross_kv(self, params, enc_out):
-        """Each decoder layer's cross K/V of the encoder output: two
-        (L, B, Se, Hkv, D) stacks."""
-        c = self.cfg
-        ks, vs = [], []
-        for l in range(c.n_dec_layers):
-            ks.append(self._heads(enc_out, params["dec"]["xk"][l],
-                                  c.n_kv_heads))
-            vs.append(self._heads(enc_out, params["dec"]["xv"][l],
-                                  c.n_kv_heads))
+        """`_cross_layers` as two (L, B, Se, Hkv, D) stacks."""
+        ks, vs = zip(*self._cross_layers(params, enc_out))
         return torch.stack(ks), torch.stack(vs)
 
     def _unembed(self, params, x):

@@ -7,7 +7,9 @@ pairs).  The dense attention here serves the reference ``prefill`` /
 ``decode_step`` and the attention the JAX package computes outside any
 Pallas kernel (the encoder's and the cross attention of ``EncDecLM``);
 the serving path's paged attention is a kernel (``repro_torch.kernels``)
-held against these semantics.
+held against these semantics.  The training loss (``softmax_xent``) and
+the per-block rematerialisation (``remat``, the JAX package's
+``jax.checkpoint``) live here too.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30
 
@@ -126,6 +129,44 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
 
 def swiglu(x, w1, w3, w2):
     return (F.silu(x @ w1) * (x @ w3)) @ w2
+
+
+# ---------------------------------------------------------------------------
+# Losses and training helpers
+# ---------------------------------------------------------------------------
+
+def softmax_xent(logits, labels, mask=None):
+    """logits (..., V), labels int (tensors or arrays, moved to the logits'
+    device, as is ``mask``); the mean negative log-likelihood over the
+    masked tokens (every token without a mask), in float32."""
+    logits = logits.float()
+    labels = torch.as_tensor(labels, device=logits.device).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = lse - ll
+    if mask is None:
+        return nll.mean()
+    mask = torch.as_tensor(mask, device=logits.device).float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass
+    (``jax.checkpoint``) whenever autograd records; a plain call under
+    ``no_grad``."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def unbind_layers(stack):
+    """A stacked (L, ...) parameter dictionary as L per-layer dictionaries.
+    Under autograd each ``v[l]`` would backpropagate a zero-filled gradient
+    of the whole stack, L times over; one ``unbind`` a leaf stacks the
+    layers' gradients once."""
+    per_leaf = {k: v.unbind(0) for k, v in stack.items()}
+    n = len(next(iter(per_leaf.values())))
+    return [{k: v[l] for k, v in per_leaf.items()} for l in range(n)]
 
 
 # ---------------------------------------------------------------------------

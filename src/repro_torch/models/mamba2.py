@@ -29,10 +29,11 @@ Two paths, the same math:
   their contents are never read).
 
 The chunked scan is ``kernels.ops.ssd_scan``: the hand-written CUDA kernel
-for tensors on the card, its plain version on the CPU.  The depthwise
-causal conv is the JAX package's window einsum, not ``F.conv1d`` (cuDNN
-would run a float32 convolution in TF32).  ``loss`` (training) and
-``input_specs`` (the dry-run cells) are not ported yet.
+for tensors on the card, its plain version on the CPU; under autograd
+(``loss``) it is ``ops.ssd_scan_grad``, the same forward with the plain
+scan's gradient.  The depthwise causal conv is the JAX package's window
+einsum, not ``F.conv1d`` (cuDNN would run a float32 convolution in TF32).
+``input_specs`` (the dry-run cells) is not ported yet.
 """
 from __future__ import annotations
 
@@ -137,9 +138,33 @@ class Zamba2LM:
     def active_param_count(self) -> int:
         return self.param_count()
 
-    def loss(self, params, batch):
-        raise NotImplementedError(
-            "Zamba2LM.loss is not ported yet: ROADMAP A.10 (training)")
+    def loss(self, params, batch, kernel_mode: str = "auto"):
+        """Mean next-token cross-entropy of batch["tokens"] against
+        batch["targets"] (B, S) (and batch["loss_mask"] if given), as the
+        JAX package's: the shared block before each group of
+        ``shared_every`` Mamba layers (parameter set g % n_shared_blocks),
+        each Mamba layer rematerialised in the backward pass.
+        ``kernel_mode`` picks the scan's forward: auto (the kernel on the
+        card) or ref (the plain version)."""
+        c = self.cfg
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        x = params["emb"][tokens]
+        S = x.shape[1]
+        positions = torch.arange(S, device=self.device)[None, :]
+        mamba = L.unbind_layers(params["mamba"])
+        shared = L.unbind_layers(params["shared"]) if self.has_attn else []
+
+        def layer(x, w):
+            return self._mamba_layer(x, w, kernel_mode=kernel_mode)[0]
+        for g in range(self.n_groups_outer):
+            if self.has_attn:
+                x, _ = self._shared_block(
+                    x, shared[g % c.n_shared_blocks], positions=positions)
+            for w in mamba[g * c.shared_every:(g + 1) * c.shared_every]:
+                x = L.remat(layer, x, w)
+        x = L.rms_norm(x, params["ln_f"], c.norm_eps)
+        return L.softmax_xent(x @ params["lm_head"].T, batch["targets"],
+                              batch.get("loss_mask"))
 
     def input_specs(self, cell):
         raise NotImplementedError(
@@ -159,11 +184,12 @@ class Zamba2LM:
         A = -torch.exp(a_log.float())                       # (H,) negative
         dA = (dt * A).contiguous()                          # (B,S,H)
         xdt = (xh.float() * dt[..., None]).contiguous()
-        return ops.ssd_scan(xdt, dA, Bm.float().contiguous(),
-                            Cm.float().contiguous(), self.cfg.ssm.chunk,
-                            init_state=None if init_state is None
-                            else init_state.float().contiguous(),
-                            mode=kernel_mode)
+        args = (xdt, dA, Bm.float().contiguous(), Cm.float().contiguous())
+        h0 = None if init_state is None else init_state.float().contiguous()
+        scan = ops.ssd_scan_grad if ops.needs_grad(*args, h0) \
+            else ops.ssd_scan
+        return scan(*args, self.cfg.ssm.chunk, init_state=h0,
+                    mode=kernel_mode)
 
     def _mamba_layer(self, x, w, conv_state=None, ssm_state=None,
                      seq_mask=None, n_valid=None, kernel_mode: str = "auto"):

@@ -21,6 +21,10 @@ Two paths, the same math:
   kernel on every layer — the int8 kernel once the serving tier has
   quantized pages.
 
+``loss`` (training) runs the prefill's blocks at kernel_mode="ref" (the
+plain causal softmax: no kernel has a backward pass), each block
+rematerialised in the backward pass, the FFN's aux loss added.
+
 The tier-movement and int8-tier helpers (``scatter_paged``,
 ``fork_paged``, ``fork_paged_quant``, ``compress_paged``) also write the
 pools in place.  Serving is text-only, as in the JAX package: only
@@ -167,9 +171,33 @@ class DenseLM:
         return self.param_count()
 
     def loss(self, params, batch):
-        raise NotImplementedError(
-            f"{type(self).__name__}.loss is not ported yet: ROADMAP A.10 "
-            f"(training)")
+        """Mean next-token cross-entropy of batch["tokens"] against
+        batch["targets"] (B, S) (and batch["loss_mask"] if given), plus the
+        blocks' aux losses (MoE load balance), as the JAX package's: the
+        vlm family puts batch["patches"] in front and scores the text
+        positions only; each block is rematerialised in the backward pass.
+        Attention is the plain causal softmax (no kernel here has a
+        backward pass)."""
+        c, dev = self.cfg, self.device
+        tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+        patches = batch.get("patches")
+        if patches is not None:
+            patches = torch.as_tensor(patches, device=dev)
+        x = self._embed(params, tokens, patches)
+        S = x.shape[1]
+        positions = torch.arange(S, device=dev)[None, :]
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
+
+        def block(x, w):
+            return self._block(x, w, positions, kernel_mode="ref")[:2]
+        for w in L.unbind_layers(params["blocks"]):
+            x, a = L.remat(block, x, w)
+            aux = aux + a
+        x = L.rms_norm(x, params["ln_f"], c.norm_eps)
+        if patches is not None:          # loss over text positions only
+            x = x[:, patches.shape[1]:]
+        return L.softmax_xent(self._unembed(params, x), batch["targets"],
+                              batch.get("loss_mask")) + aux
 
     def input_specs(self, cell):
         raise NotImplementedError(
@@ -207,6 +235,25 @@ class DenseLM:
     def _ffn_residual(self, x, w):
         h, _ = self._ffn(L.rms_norm(x, w["ln2"], self.cfg.norm_eps), w)
         return x + h
+
+    def _block(self, x, w, positions, kernel_mode: str = "auto"):
+        """One block over a whole sequence from position 0: causal
+        attention through the prefill kernel (``ops.flash_prefill``;
+        kernel_mode auto | ref, ref being the plain causal softmax that
+        ``loss`` takes, as no kernel has a backward pass), or the plain
+        softmax under a sliding window, which the kernel does not compute.
+        Returns (x, the FFN's aux loss, (k, v))."""
+        c = self.cfg
+        B, S, _ = x.shape
+        q, k, v = self._qkv(L.rms_norm(x, w["ln1"], c.norm_eps), w,
+                            positions)
+        if c.sliding_window is None:
+            o = ops.flash_prefill(q, k, v, 0, mode=kernel_mode)
+        else:
+            o = L.flash_attention(q, k, v, window=c.sliding_window)
+        x = x + o.reshape(B, S, -1) @ w["wo"]
+        h, aux = self._ffn(L.rms_norm(x, w["ln2"], c.norm_eps), w)
+        return x + h, aux, (k, v)
 
     # -- embedding / unembedding --------------------------------------------
 
@@ -262,15 +309,8 @@ class DenseLM:
         positions = torch.arange(S, device=self.device)[None, :]
         ks, vs = [], []
         for l in range(c.n_layers):
-            w = self._layer(params, l)
-            h = L.rms_norm(x, w["ln1"], c.norm_eps)
-            q, k, v = self._qkv(h, w, positions)
-            if c.sliding_window is None:
-                o = ops.flash_prefill(q, k, v, 0, mode=kernel_mode)
-            else:
-                o = L.flash_attention(q, k, v, window=c.sliding_window)
-            x = x + o.reshape(B, S, -1) @ w["wo"]
-            x = self._ffn_residual(x, w)
+            x, _, (k, v) = self._block(x, self._layer(params, l), positions,
+                                       kernel_mode)
             ks.append(k.transpose(1, 2))
             vs.append(v.transpose(1, 2))
         x = L.rms_norm(x, params["ln_f"], c.norm_eps)

@@ -37,9 +37,10 @@ Two paths, the same math:
   layer's gathered state; slot ``n_slots`` is the trash slot padded lanes
   read and write.
 
-``loss`` (training, ROADMAP A.10) and ``input_specs`` (the dry-run cells,
-A.11) are not ported yet; neither are the JAX package's sharding hints and
-rematerialisation, which belong to training.
+``loss`` (training) runs the fresh stack, each block rematerialised in
+the backward pass as the JAX package's ``jax.checkpoint`` does.
+``input_specs`` (the dry-run cells, A.11) is not ported yet; nor are the
+JAX package's sharding hints.
 """
 from __future__ import annotations
 
@@ -167,8 +168,29 @@ class XLSTMLM:
         return self.param_count()
 
     def loss(self, params, batch):
-        raise NotImplementedError(
-            "XLSTMLM.loss is not ported yet: ROADMAP A.10 (training)")
+        """Mean next-token cross-entropy of batch["tokens"] against
+        batch["targets"] (B, S) (and batch["loss_mask"] if given), as the
+        JAX package's: the fresh (no-state) stack, each block
+        rematerialised in the backward pass."""
+        c, xc = self.cfg, self.cfg.xlstm
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        x = params["emb"][tokens]
+        mlstm = L.unbind_layers(params["mlstm"])
+        slstm = L.unbind_layers(params["slstm"])
+
+        def m_block(x, w):
+            return self._mlstm_block(x, w)[0]
+
+        def s_block(x, w):
+            return self._slstm_block(x, w)[0]
+        for g in range(self.n_groups):
+            for w in mlstm[g * xc.m_per_group:(g + 1) * xc.m_per_group]:
+                x = L.remat(m_block, x, w)
+            for w in slstm[g * xc.s_per_group:(g + 1) * xc.s_per_group]:
+                x = L.remat(s_block, x, w)
+        x = L.rms_norm(x, params["ln_f"], c.norm_eps)
+        return L.softmax_xent(x @ params["lm_head"].T, batch["targets"],
+                              batch.get("loss_mask"))
 
     def input_specs(self, cell):
         raise NotImplementedError(

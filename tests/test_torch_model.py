@@ -186,6 +186,25 @@ def test_default_device_is_the_card():
     assert DenseLM(cfg, device="cpu").device.type == "cpu"
 
 
+def _finite_loss(model, params):
+    """`loss` on a small seeded batch of the model's family: a finite 0-d
+    float32 tensor."""
+    cfg = model.cfg
+    rng = np.random.default_rng(0)
+    batch = dict(targets=rng.integers(0, cfg.vocab, (2, 16)))
+    if cfg.family == "encdec":
+        batch["frames"] = rng.normal(size=(2, 16, cfg.d_frontend)).astype(
+            np.float32)
+    else:
+        batch["tokens"] = rng.integers(0, cfg.vocab, (2, 16))
+    if cfg.family == "vlm":
+        batch["patches"] = rng.normal(
+            size=(2, cfg.n_patches, cfg.d_frontend)).astype(np.float32)
+    loss = model.loss(params, batch)
+    return loss.shape == () and loss.dtype == torch.float32 \
+        and bool(torch.isfinite(loss))
+
+
 @pytest.mark.parametrize("arch,cls", [
     ("phi-3-vision-4.2b", "DenseLM"), ("qwen3-moe-30b-a3b", "MoELM"),
     ("seamless-m4t-medium", "EncDecLM")])
@@ -193,7 +212,8 @@ def test_vlm_moe_encdec_resolve_to_their_models(arch, cls):
     """The vlm family resolves to `DenseLM` (with ``patch_proj``), moe to
     `MoELM` (its router float32 in every dtype), encdec to `EncDecLM`; at
     full size on the meta device for their counts, as the JAX package's.
-    Their training and dry-run entry points name their ROADMAP items."""
+    Their training loss is a finite scalar; the dry-run entry point names
+    its ROADMAP item."""
     assert type(get_model(get_config(arch), device="meta")).__name__ == cls
     cfg = get_config(arch).reduced(dtype="bfloat16")
     model = get_model(cfg, device="cpu")
@@ -207,22 +227,20 @@ def test_vlm_moe_encdec_resolve_to_their_models(arch, cls):
         assert "w1" not in params["blocks"]
     if cfg.family == "encdec":
         assert {"enc", "dec", "frame_proj"} <= set(params)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        model.loss(params, {})
+    assert _finite_loss(model, params)
     with pytest.raises(NotImplementedError, match="A.11"):
         model.input_specs(None)
 
 
 def test_xlstm_resolves_to_xlstmlm():
     """The xlstm family is ported: it resolves to `XLSTMLM`, which has no
-    paged KV, and its training and dry-run entry points name their
-    ROADMAP items."""
+    paged KV; its training loss is a finite scalar, and its dry-run entry
+    point names its ROADMAP item."""
     from repro_torch.models.xlstm import XLSTMLM
     model = get_model(get_config("xlstm-1.3b").reduced(dtype="float32"),
                       device="cpu")
     assert isinstance(model, XLSTMLM) and not model.has_attn
-    with pytest.raises(NotImplementedError, match="A.10"):
-        model.loss({}, {})
+    assert _finite_loss(model, model.init(torch.Generator().manual_seed(0)))
     with pytest.raises(NotImplementedError, match="A.11"):
         model.input_specs(None)
 
@@ -230,15 +248,15 @@ def test_xlstm_resolves_to_xlstmlm():
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "mamba2-2.7b"])
 def test_recurrent_families_resolve_to_zamba2lm(arch):
     """The hybrid and mamba2 families are ported: both resolve to
-    `Zamba2LM` (the shared attention blocks only for the hybrid), and its
-    training and dry-run entry points name their ROADMAP items."""
+    `Zamba2LM` (the shared attention blocks only for the hybrid); its
+    training loss is a finite scalar, and its dry-run entry point names
+    its ROADMAP item."""
     from repro_torch.models.mamba2 import Zamba2LM
     cfg = get_config(arch).reduced(dtype="float32")
     model = get_model(cfg, device="cpu")
     assert isinstance(model, Zamba2LM)
     assert model.has_attn == (cfg.family == "hybrid")
-    with pytest.raises(NotImplementedError, match="A.10"):
-        model.loss({}, {})
+    assert _finite_loss(model, model.init(torch.Generator().manual_seed(0)))
     with pytest.raises(NotImplementedError, match="A.11"):
         model.input_specs(None)
 

@@ -183,7 +183,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "          'distributed.collectives', 'launch.mesh',\n"
         "          'kernels.flash_prefill', 'serving.simulator',\n"
         "          'serving.scenario', 'core.scheduler',\n"
-        "          'traces.agents'):\n"
+        "          'traces.agents', 'training.train_loop',\n"
+        "          'training.checkpoint', 'training.compression',\n"
+        "          'launch.train'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
