@@ -19,6 +19,7 @@ Run from the repository root on a machine with an NVIDIA card:
     python3 chip_smoke.py --phases 17,18,19,20   # vlm, moe, encdec
     python3 chip_smoke.py --phases 1,2,21,22     # tensor-parallel serving
     python3 chip_smoke.py --phases 23,24         # training
+    python3 chip_smoke.py --phases 25            # the launcher, the roofline
 
 Phases:
   1. environment: the card's name and power limit;
@@ -217,7 +218,20 @@ Phases:
      rerun to step 8 takes exactly 2 steps; the scan under autograd at
      zamba2-2.7b's SSD shapes, y and the gradients of sum(y²) with the
      kernel's forward held to the plain's (2e-4 of max |plain|), both
-     timed.
+     timed;
+ 25. the launchers and the roofline counter: (a) `launch.serve`'s
+     simulation at paper scale (llama3-8b, 8 nodes, 256 users) for
+     symphony and stateless, host only; (b) `launch.serve --real` on the
+     card (llama3-8b at full width, 2 layers, fp32, on 3 nodes with a
+     migration and a failure): its own checks, kernel 1 on every layer of
+     every dispatch, B.4 on every layer of the dense reference's prefills,
+     no plain call; (c) run with phases 4, 6 and 12 on their llama3-8b (32
+     layers, bf16): phase 4's first two rounds served, their largest
+     chunked-prefill step and largest decode step replayed under
+     `roofline.cost.count` through the kernels and through the plain
+     versions, which must be charged identical work; each step's counted
+     FLOPs and bytes, bound, device time (torch.profiler), host wall time
+     and share of the bound.
 
 It prints progress lines, then one line with the kernels' JSON record, the
 card's name and power limit, and as the last line
@@ -231,7 +245,9 @@ import contextlib
 import dataclasses
 import gc
 import hashlib
+import io
 import json
+import os
 import re
 import subprocess
 import sys
@@ -258,6 +274,13 @@ from repro_torch.launch.mesh import make_serving_mesh  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.serving.backend import (RealBackend,  # noqa: E402
                                          make_backend)
+from repro_torch.roofline import cost as roofline  # noqa: E402
+# the H100 SXM data sheet's peaks (dense, at 700 W) and each kernel's
+# analytic work, as the roofline counter charges the kernel entries
+from repro_torch.roofline.cost import (HBM_BYTES_PER_S,  # noqa: E402
+                                       PEAK_FLOPS, attention_work, bound,
+                                       flash_work, merge_work, partial_work,
+                                       scan_work)
 from repro_torch.serving.cost_model import CostModel  # noqa: E402
 from repro_torch.serving.engine import NodeEngine  # noqa: E402
 from repro_torch.serving.scenario import (MixedTrace,  # noqa: E402
@@ -276,9 +299,6 @@ from repro_torch.training.train_loop import TrainConfig, train  # noqa: E402
 from repro_torch.training.tree import (flatten, leaves,  # noqa: E402
                                        tree_map)
 
-# H100 SXM data sheet, dense, at 700 W
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # tests/test_kernels.py's tolerances, scaled by max |plain| on real rows
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
 # its ssd_scan sweep's tolerances (test_ssd_scan_sweep), scaled by max
@@ -392,50 +412,8 @@ def device_ms(fn, iters: int = 20):
     return start.elapsed_time(end) / iters
 
 
-def attention_work(q, tables, q_offsets, ctx_lens, page, hkv, d, itemsize,
-                   q_lens, flags=None):
-    """Bytes a paged attention call must move and the operations it must do
-    for THESE inputs: each real query row read and its output written once
-    (nothing for bucket padding or ctx=0 lanes), each lane's relevant K/V
-    rows once (per kv head), the tables' relevant columns; QK and PV over
-    the keys each real query row sees (4 D operations per head and key).
-    With ``flags`` (the int8 kernel): a flagged page's rows at one byte an
-    element plus its two float32 scales, and each relevant page's flag."""
-    B, Sq, H, D = q.shape
-    qo = q_offsets.cpu().numpy().astype(np.int64)
-    cx = ctx_lens.cpu().numpy().astype(np.int64)
-    tab = tables.cpu().numpy()
-    fl = None if flags is None else flags.cpu().numpy()
-    nbytes = 2 * B * 4
-    flops = 0
-    for b in range(B):
-        if cx[b] == 0:
-            continue
-        n = int(q_lens[b])
-        c = int(cx[b])
-        npg = -(-c // page)
-        nbytes += 2 * n * H * D * itemsize
-        nbytes += 4 * npg
-        if fl is None:
-            nbytes += 2 * c * hkv * d * itemsize
-        else:
-            nbytes += 4 * npg
-            for i in range(npg):
-                rows = min(page, c - i * page)
-                if fl[tab[b, i]]:
-                    nbytes += 2 * rows * hkv * d + 2 * 4
-                else:
-                    nbytes += 2 * rows * hkv * d * itemsize
-        seen = np.minimum(cx[b], qo[b] + np.arange(n) + 1)
-        flops += 4 * D * H * int(seen.sum())
-    return nbytes, flops
 
 
-def bound(nbytes: int, flops: int, dtype):
-    """(bound ms, what bounds it, bytes ms, operations ms)."""
-    t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_f = flops / PEAK_FLOPS[dtype] * 1e3
-    return (max(t_b, t_f), "bytes" if t_b >= t_f else "operations", t_b, t_f)
 
 
 def sdpa_yardstick(q, k_pages, v_pages, tables, q_offsets, ctx_lens,
@@ -1837,22 +1815,6 @@ def scan_inputs(gen, B, S, H, P, G, N, dtype, init):
     return x, dA, Bm, Cm, h0
 
 
-def scan_work(x, Bm, init):
-    """Bytes the scan must move and the float32 operations it must do on
-    THESE inputs: x, dA, B, C and the initial state read once, y and the
-    final state written once; per step and head, the recurrence's state
-    update (B x^T into h, 2 N P operations) and C h (2 N P, none on the
-    first step of a zero state).  Any chunk length computes the same
-    function, and the chunked forms do more (the scores' causal tiles), so
-    this is the least; the decays' O(H) a step are left out."""
-    B, S, H, P = x.shape
-    G, N = Bm.shape[2], Bm.shape[3]
-    it = x.element_size()
-    nbytes = (2 * B * S * H * P * it + B * S * H * 4 + 2 * B * S * G * N * it
-              + B * H * N * P * 4 * (2 if init else 1))
-    steps_ch = S if init else max(S - 1, 0)
-    flops = 2 * B * H * N * P * (S + steps_ch)
-    return nbytes, flops
 
 
 def compare_scan(x, dA, Bm, Cm, h0, label, chunk=256, timed=False):
@@ -2422,18 +2384,6 @@ def flash_fp32_digests():
     return out
 
 
-def flash_work(q, k, q_offset):
-    """Bytes causal prefill attention must move and the operations it must
-    do on THESE inputs: q read and the output written once, each kv head's
-    K/V rows up to the last query's horizon (q_offset + Sq; keys past it
-    are padding no row sees) read once; QK and PV over the keys each query
-    row sees (4 D operations per head and key)."""
-    B, Sq, H, D = q.shape
-    Hkv = k.shape[2]
-    it = q.element_size()
-    nbytes = 2 * B * Sq * H * D * it + 2 * B * (q_offset + Sq) * Hkv * D * it
-    seen = Sq * q_offset + Sq * (Sq + 1) // 2
-    return nbytes, 4 * D * H * B * seen
 
 
 def sdpa_prefill(q, k, v, q_offset):
@@ -4026,46 +3976,8 @@ def held_to_single(ref, run, tp, tag, floor):
     return dict(diverged=len(div), first_units=units)
 
 
-def partial_work(q, tables, q_offsets, ctx_lens, page_g, pl, shard, hkv, d,
-                 itemsize, q_lens, flags=None):
-    """`attention_work` of one shard's partial call: its real query rows
-    read and outputs (and lse) written, the shard's rows of each lane's
-    relevant pages (int8 where flagged), and QK and PV over the keys of
-    the shard each real row sees."""
-    B, Sq, H, D = q.shape
-    qo = q_offsets.cpu().numpy().astype(np.int64)
-    cx = ctx_lens.cpu().numpy().astype(np.int64)
-    tab = tables.cpu().numpy()
-    fl = None if flags is None else flags.cpu().numpy()
-    nbytes, flops = 2 * B * 4, 0
-    for b in range(B):
-        if cx[b] == 0:
-            continue
-        n, c = int(q_lens[b]), int(cx[b])
-        npg = -(-c // page_g)
-        nbytes += 2 * n * H * D * itemsize + 4 * n * H + 4 * npg
-        pos = (np.arange(npg)[:, None] * page_g + shard * pl
-               + np.arange(pl)[None, :])
-        rows = (pos < c).sum(axis=1)
-        for i in range(npg):
-            if fl is not None and fl[tab[b, i]]:
-                nbytes += 2 * rows[i] * hkv * d + 8 + 4
-            else:
-                nbytes += 2 * rows[i] * hkv * d * itemsize + (
-                    0 if fl is None else 4)
-        keys = np.sort(pos[pos < c])
-        seen = np.searchsorted(keys, qo[b] + np.arange(n), side="right")
-        flops += 4 * D * H * int(seen.sum())
-    return nbytes, flops
 
 
-def merge_work(o, lse, itemsize):
-    """Bytes the merge of one call must move for THESE partials: every lse
-    read, the o rows of partials that saw a key (the others are not read),
-    the output written; its operations are negligible."""
-    N, B, Sq, H, D = o.shape
-    seen = int(torch.isfinite(lse).sum())
-    return 4 * lse.numel() + 4 * D * seen + B * Sq * H * D * itemsize
 
 
 def compare_partial(group, label):
@@ -4897,6 +4809,189 @@ def phase_train_held(seed, card, tag=24):
     return launches
 
 
+class StepCapture:
+    """Records the arguments of one model's `step_paged` calls while
+    active: the first step with the most tokens that carries a prompt
+    chunk (Sq > 1) and the decode-only step (Sq = 1) with the most lanes.
+    Small tensors are cloned; the pools are kept by reference."""
+
+    def __init__(self, model):
+        self.model = model
+        self.steps = {}
+
+    @contextlib.contextmanager
+    def __call__(self):
+        orig = self.model.step_paged
+
+        def recording(params, token_ids, k_pool, v_pool, *rest, **kw):
+            B, Sq = token_ids.shape
+            kind = "chunk" if Sq > 1 else "decode"
+            have = self.steps.get(kind)
+            if have is None or B * Sq > have[0]:
+                self.steps[kind] = (B * Sq, (params, token_ids.clone(),
+                                             k_pool, v_pool,
+                                             *(t.clone() if isinstance(
+                                                 t, torch.Tensor) else t
+                                               for t in rest)), dict(kw))
+            return orig(params, token_ids, k_pool, v_pool, *rest, **kw)
+
+        self.model.step_paged = recording
+        try:
+            yield
+        finally:
+            del self.model.step_paged
+
+
+def step_device_ms(fn):
+    """One call of ``fn`` after a warm-up, under torch.profiler: the
+    device time of its kernels (ms), or None when the trace holds none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    _, total, _ = device_families(prof, ())
+    return total or None
+
+
+def step_host_ms(fn, reps=5):
+    """Median host wall time (ms) of ``fn`` ending in a synchronise."""
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(ts))
+
+
+def phase_roofline(cfg, model, params, seed, card, tag=25):
+    """Phase 25(c): phase 4's first two rounds of traffic on llama3-8b
+    (32 layers, bf16); its largest chunked-prefill step and its largest
+    decode step replayed under the roofline counter through the kernels
+    and through the plain versions (kernel_mode="ref", the lockstep twin's
+    route), which must be charged identical work; each step's counted
+    FLOPs and bytes, its bound, its device time (torch.profiler) and host
+    wall time, and its share of the bound."""
+    rng = np.random.default_rng(seed)
+    prompts = _turns(rng, cfg.vocab)
+    eng, be, _ = make_node(cfg, model, params, n_pages=1024)
+    cap = StepCapture(model)
+    now = 0.0
+    with cap():
+        for rnd in rounds(prompts)[:2]:
+            for s, t in rnd:
+                eng.submit(request(be, f"s{s}", prompts[s][t], 16))
+            while eng.waiting or eng.running:
+                now += eng.step(now)
+    torch.cuda.synchronize()
+    check(set(cap.steps) == {"chunk", "decode"},
+          f"captured the step kinds {sorted(cap.steps)}")
+    out = {}
+    for kind in ("chunk", "decode"):
+        _, args, kw = cap.steps[kind]
+        B, Sq = args[1].shape
+
+        def step(mode="auto"):
+            return model.step_paged(*args, **{**kw, "kernel_mode": mode})
+        kc = roofline.count(step)
+        rc = roofline.count(step, "ref")
+        kj, rj = kc.to_json(), rc.to_json()
+        same = ({k: v for k, v in kj.items() if k != "peak_live_bytes"}
+                == {k: v for k, v in rj.items() if k != "peak_live_bytes"})
+        check(same, f"[{tag}] the {kind} step is charged different work "
+              f"through the kernels ({kj}) and the plain versions ({rj})")
+        check(kj["kernels"].get("paged_chunk_attention", {}).get("calls")
+              == cfg.n_layers, f"[{tag}] the {kind} step charged "
+              f"{kj['kernels']} kernel calls, not {cfg.n_layers}")
+        b_ms, by, t_b, t_f = kc.bound()
+        dev = step_device_ms(step)
+        host = step_host_ms(step)
+        share = None if not dev else b_ms / dev
+        log(f"[{tag}] {kind} step B={B} Sq={Sq} (tokens {int(B * Sq)}, "
+            f"real {int((args[6] - args[5]).clamp(min=0).sum())}): counted "
+            f"{kc.flops / 1e12:.4f} TFLOP, {kc.hbm_bytes / 1e9:.4f} GB "
+            f"(the same through the plain versions: {same}); kernel 1's "
+            f"share {kj['kernels']['paged_chunk_attention']}; bound "
+            f"{b_ms:.4f} ms by {by} (bytes {t_b:.4f} ms, operations "
+            f"{t_f:.4f} ms); device {dev if dev is None else f'{dev:.4f}'} "
+            f"ms (torch.profiler), host wall {host:.4f} ms; share of the "
+            f"bound {share if share is None else f'{share:.4f}'} of the "
+            f"device time, {b_ms / host:.4f} of the wall; card {card}")
+        out[kind] = dict(flops=kc.flops, bytes=kc.hbm_bytes, bound_ms=b_ms,
+                         bound_by=by, device_ms=dev, host_ms=host)
+    del eng, be, cap
+    free_device_memory()
+    return out
+
+
+def phase_launchers(seed, card, tag=25):
+    """Phase 25(a) and (b): ``repro_torch.launch.serve`` as a user runs
+    it.  (a) The simulation at paper scale (llama3-8b, 8 nodes, 256 users)
+    for symphony and stateless: host only, no device.  (b) ``--real`` on the
+    card: the 3-node cluster with a migration and a failure, its own checks
+    (tokens equal the dense recompute's); kernel 1 on every layer of every
+    dispatch, B.4 on every layer of the reference's prefills, no plain
+    call.  Returns (kernel-1 launches, B.4 launches) of (b)."""
+    from repro_torch.launch import serve
+    # the two simulations run side by side, one process each, as a user
+    # would start them
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    procs = {policy: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "llama3-8b", "--policy", policy, "--nodes", "8", "--users", "256"],
+        cwd=root, env={**os.environ, "PYTHONPATH": str(root / "src")},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for policy in ("symphony", "stateless")}
+    done = {}
+    for policy, proc in procs.items():
+        try:
+            done[policy] = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            done[policy] = proc.communicate()
+    for policy, (so, se) in done.items():
+        rc = procs[policy].returncode
+        check(rc == 0, f"launch.serve --policy {policy} exited {rc}: "
+              f"{se[-800:]}")
+        rec = json.loads(so)
+        log(f"[{tag}a] host only, no device: launch.serve --policy {policy}"
+            f" (llama3-8b, 8 nodes, 256 users), both in "
+            f"{time.perf_counter() - t0:.1f} s: {json.dumps(rec)}")
+        check(rec["completed"] > 0, f"{policy}: no request completed")
+    plain = PlainCalls()
+    pa.launches = fp.launches = 0          # counts of the main path only
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with plain(), contextlib.redirect_stdout(buf):
+        rec = serve.main(["--real"])
+    torch.cuda.synchronize()
+    k1, b4 = pa.launches, fp.launches
+    for line in buf.getvalue().splitlines()[:3]:
+        log(f"[{tag}b] {line}")
+    log(f"[{tag}b] launch.serve --real in {time.perf_counter() - t0:.1f} s:"
+        f" kernel 1 launched {k1} = {rec['n_layers']} layers x "
+        f"{rec['sub_dispatches']} dispatches; B.4 {b4} = {rec['n_layers']} "
+        f"layers x {rec['reference_prefills']} reference prefills; plain "
+        f"calls {plain.n}; card {card}")
+    check(rec["tokens_match"] and rec["migrations"] >= 1 and rec["dead"],
+          f"launch.serve --real: {rec}")
+    check(k1 == rec["n_layers"] * rec["sub_dispatches"] and k1 > 0,
+          f"kernel 1 launched {k1} times, not {rec['n_layers']} x "
+          f"{rec['sub_dispatches']}")
+    check(b4 == rec["n_layers"] * rec["reference_prefills"],
+          f"B.4 launched {b4} times, not {rec['n_layers']} x "
+          f"{rec['reference_prefills']}")
+    check(plain.n == 0, f"the plain versions ran {plain.n} times on the "
+          f"launcher's path")
+    free_device_memory()
+    return k1, b4
+
+
 def free_device_memory():
     """Release what a finished phase held: its nodes form reference cycles
     (backend <-> node manager) that only the cyclic collector frees."""
@@ -4927,7 +5022,7 @@ def kernel_entry(name, source, replaces, launches, recs):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default=",".join(map(str, range(1, 25))))
+    ap.add_argument("--phases", default=",".join(map(str, range(1, 26))))
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     t_start = time.perf_counter()
@@ -4952,8 +5047,9 @@ def main(argv=None):
         # B.3 lies on no serving path: its count over every serving phase
         # (all but 14, which compares it) is read and must stay 0
         pa.decode_launches = 0
-        if phases & {4, 6, 12}:
-            cfg, model, params = llama3_8b(args.seed, min(phases & {4, 6, 12}))
+        if phases & {4, 6, 12, 25}:
+            cfg, model, params = llama3_8b(args.seed,
+                                           min(phases & {4, 6, 12, 25}))
             if 4 in phases:
                 launches, main_recs, decode = phase_serve(cfg, model, params,
                                                           args.seed)
@@ -4963,9 +5059,11 @@ def main(argv=None):
             if 12 in phases:
                 flaunches, flash_recs = phase_cluster(cfg, model, params,
                                                       args.seed, card)
+            if 25 in phases:            # phase 25(c), on phase 4's model
+                phase_roofline(cfg, model, params, args.seed, card)
             del cfg, model, params
             free_device_memory()
-        lap("phases 4, 6, 12")
+        lap("phases 4, 6, 12, 25(c)")
         dlaunches = pa.decode_launches
         decode_recs, replay_recs = (
             phase_decode_vs_plain(np.random.default_rng(args.seed + 14),
@@ -5061,6 +5159,12 @@ def main(argv=None):
         if 24 in phases:
             tlaunches += phase_train_held(args.seed, card)
             lap("phase 24")
+        # phase 25(b) drives the launcher's real cluster with the counts
+        # set to 0 just before it and reads them just after, inside it
+        lk1 = lb4 = 0
+        if 25 in phases:
+            lk1, lb4 = phase_launchers(args.seed, card)
+            lap("phase 25(a, b)")
         dlaunches += pa.decode_launches
         check(dlaunches == 0, f"B.3 launched {dlaunches} times on the "
               f"serving paths, which decode through kernel 1")
@@ -5083,7 +5187,7 @@ def main(argv=None):
                   else [r for r in d80_recs if "int8" not in r["label"]]))
     entries = [
         kernel_entry(pa.NAME, src, "src/repro/kernels/paged_attention.py:291",
-                     launches + hlaunches + vk1 + tp["k1"],
+                     launches + hlaunches + vk1 + tp["k1"] + lk1,
                      k1_recs + vk1_recs + tp["k1_recs"]),
         kernel_entry(pa.QUANT_NAME, src,
                      "src/repro/kernels/paged_attention.py:239",
@@ -5113,7 +5217,7 @@ def main(argv=None):
                      hybrid_srecs if 9 in phases else scan_recs),
         kernel_entry(fp.NAME, "src/repro_torch/csrc/flash_prefill.cu",
                      "src/repro/kernels/flash_prefill.py:81",
-                     flaunches + af,
+                     flaunches + af + lb4,
                      (flash_recs if 12 in phases else flash_shape_recs)
                      + af_recs),
         kernel_entry(pa.DECODE_NAME, "src/repro_torch/csrc/paged_attention.cu",
@@ -5126,7 +5230,8 @@ def main(argv=None):
         f"{qlaunches} on llama3-8b's pressure path, {vq} on phi-3-vision's; "
         f"phase 21's shards: kernel 1 {tp['k1']}, int8 kernel {tp['b2']}, "
         f"their partial modes {tp['k1p']} and {tp['b2p']}, merged by "
-        f"{tp['merges']} merge launches; "
+        f"{tp['merges']} merge launches; phase 25's launcher: kernel 1 "
+        f"{lk1}, flash_prefill {lb4}; "
         f"flash_prefill: {flaunches} on the dense reference's prefills, "
         f"{af} on the prefills of phases 17-19; ssd_scan: {slaunches} on "
         f"zamba2-2.7b's serving path, {tlaunches} on the hybrid's training "

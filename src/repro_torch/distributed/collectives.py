@@ -17,12 +17,18 @@ normalised over its keys, and their log-sum-exp); they are copied to shard
 split's partial by ``exp(lse_i - max lse)``.  Shards that share one device
 write their partials into one workspace (``ops.partial_workspace``)
 instead, which the merge reads in place.
+
+A running ``roofline.cost.Counter`` charges each call its ring link bytes
+per device, by type (all-reduce 2·B·(g−1)/g, all-gather out·(g−1)/g); the
+additions and copies that compute it are counted as operations.
 """
 from __future__ import annotations
 
 from typing import List, Sequence
 
 import torch
+
+from repro_torch.roofline.cost import charge_collective
 
 
 def _to_each(t: torch.Tensor, like: Sequence[torch.Tensor]):
@@ -31,6 +37,7 @@ def _to_each(t: torch.Tensor, like: Sequence[torch.Tensor]):
 
 def all_reduce_sum(parts: List[torch.Tensor]) -> List[torch.Tensor]:
     """Sum of the shards' tensors, added in shard order."""
+    charge_collective("all-reduce", parts)
     dev = parts[0].device
     acc = parts[0]
     for p in parts[1:]:
@@ -40,6 +47,7 @@ def all_reduce_sum(parts: List[torch.Tensor]) -> List[torch.Tensor]:
 
 def all_reduce_max(parts: List[torch.Tensor]) -> List[torch.Tensor]:
     """Elementwise maximum of the shards' tensors."""
+    charge_collective("all-reduce", parts)
     dev = parts[0].device
     acc = parts[0]
     for p in parts[1:]:
@@ -51,6 +59,7 @@ def all_gather(parts: List[torch.Tensor], dim: int) -> List[torch.Tensor]:
     """The shards' tensors concatenated along ``dim`` in shard order."""
     dev = parts[0].device
     full = torch.cat([p.to(dev) for p in parts], dim=dim)
+    charge_collective("all-gather", parts, full)
     return _to_each(full, parts)
 
 
@@ -60,5 +69,8 @@ def gather_partials(outs: List[torch.Tensor], lses: List[torch.Tensor]):
     shard (S, B, Sq, H, D) and lses per shard (S, B, Sq, H), float32 ->
     (o (tp·S, B, Sq, H, D), lse (tp·S, B, Sq, H))."""
     dev = outs[0].device
-    return (torch.cat([x.to(dev) for x in outs]),
-            torch.cat([x.to(dev) for x in lses]))
+    o = torch.cat([x.to(dev) for x in outs])
+    lse = torch.cat([x.to(dev) for x in lses])
+    charge_collective("all-gather", outs, o)
+    charge_collective("all-gather", lses, lse)
+    return o, lse

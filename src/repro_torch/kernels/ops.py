@@ -25,8 +25,20 @@ the graph quietly; the plain versions are differentiable and run as they
 are.  Training reaches a kernel through one door: `ssd_scan_grad`, the
 scan under autograd (the kernel forward, the plain version's gradient).
 Serving is unaffected: its parameters never require grad and its entry
-points run under ``no_grad``."""
+points run under ``no_grad``.
+
+The meta route: on ``meta`` tensors (shapes only, the dry run's) every
+entry returns empty outputs of the right shapes and dtypes, whatever the
+mode; neither the CUDA wrapper nor the plain version runs.  Under
+autograd the outputs are recorded, and their backward gives empty
+gradients of the inputs' shapes.
+
+Each entry is charged its analytic work once by a running
+`roofline.cost.Counter`, whichever route implements the call
+(``roofline/cost.py``)."""
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -34,8 +46,49 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import flash_prefill as _fp
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.roofline import cost
 
 MODES = ("auto", "ref")
+
+
+def _charged(work):
+    """The entry, charged ``work`` (its ``roofline.cost`` function, same
+    arguments) by a running counter."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def entry(*args, **kwargs):
+            return cost.kernel_entry(fn.__name__, work, fn, args, kwargs)
+        return entry
+    return wrap
+
+
+class _MetaEntry(torch.autograd.Function):
+    """An entry's meta route under autograd: ``make()``'s empty outputs,
+    whose backward gives empty gradients of the inputs' shapes and charges
+    the entry's backward to a running counter."""
+
+    @staticmethod
+    def forward(ctx, name, work, make, *inputs):
+        ctx.name, ctx.work = name, work
+        ctx.specs = [None if t is None else (t.shape, t.dtype)
+                     for t in inputs]
+        return make()
+
+    @staticmethod
+    def backward(ctx, *grads):
+        cost.charge_backward(ctx.name, *ctx.work())
+        return (None, None, None) + tuple(
+            None if s is None else torch.empty(s[0], dtype=s[1],
+                                               device="meta")
+            for s in ctx.specs)
+
+
+def _meta(name, work, make, *inputs):
+    """The meta route of entry ``name``: ``make()``, recorded by autograd
+    when it records ``inputs``; ``work()`` is the entry's charge."""
+    if needs_grad(*inputs):
+        return _MetaEntry.apply(name, work, make, *inputs)
+    return make()
 
 
 def needs_grad(*tensors) -> bool:
@@ -54,6 +107,7 @@ def _no_grad_kernel(name, *tensors):
             f"scan, ops.ssd_scan_grad")
 
 
+@_charged(cost.paged_attention_work)
 def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens,
                     mode: str = "auto"):
     """Single-token decode attention over paged KV: q (B, H, D), pools
@@ -63,6 +117,8 @@ def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens,
     ref."""
     if mode not in MODES:
         raise ValueError(f"kernel mode {mode!r} not in {MODES}")
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     if mode == "ref" or q.device.type == "cpu":
         return ref.paged_attention_ref(q, k_pages, v_pages, block_tables,
                                        ctx_lens)
@@ -70,6 +126,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, ctx_lens,
     return _pa.paged_attention(q, k_pages, v_pages, block_tables, ctx_lens)
 
 
+@_charged(cost.paged_chunk_attention_work)
 def paged_chunk_attention(q, k_pages, v_pages, block_tables, q_offsets,
                           ctx_lens, mode: str = "auto", quant=None):
     """Unified mixed-batch serving attention (decode = 1-token chunk).
@@ -80,6 +137,8 @@ def paged_chunk_attention(q, k_pages, v_pages, block_tables, q_offsets,
     if mode not in MODES:
         raise ValueError(f"kernel mode {mode!r} not in {MODES}")
     args = (q, k_pages, v_pages, block_tables, q_offsets, ctx_lens)
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     if mode == "ref" or q.device.type == "cpu":
         if quant is None:
             return ref.paged_chunk_attention_ref(*args)
@@ -111,7 +170,7 @@ def partial_workspace(q, k_pages, block_tables, devices,
         return None, [None] * tp
     B, Sq, H, D = q.shape
     n_split = 1
-    if mode != "ref" and q.device.type != "cpu":
+    if mode != "ref" and q.device.type not in ("cpu", "meta"):
         _, pl, Hkv, _ = k_pages.shape
         n_split = _pa.partial_split_plan(
             B, Sq, H, Hkv, block_tables.shape[1], pl, q.dtype,
@@ -124,6 +183,7 @@ def partial_workspace(q, k_pages, block_tables, devices,
                 for r in range(tp)]
 
 
+@_charged(cost.paged_chunk_attention_partial_work)
 def paged_chunk_attention_partial(q, k_pages, v_pages, block_tables,
                                   q_offsets, ctx_lens, shard: int,
                                   n_shards: int, mode: str = "auto",
@@ -138,6 +198,12 @@ def paged_chunk_attention_partial(q, k_pages, v_pages, block_tables,
     if mode not in MODES:
         raise ValueError(f"kernel mode {mode!r} not in {MODES}")
     args = (q, k_pages, v_pages, block_tables, q_offsets, ctx_lens)
+    if q.device.type == "meta":
+        if out is not None:
+            return out
+        B, Sq, H, D = q.shape
+        return (q.new_empty((1, B, Sq, H, D), dtype=torch.float32),
+                q.new_empty((1, B, Sq, H), dtype=torch.float32))
     if mode == "ref" or q.device.type == "cpu":
         o, lse = ref.paged_chunk_attention_partial_ref(
             *args, shard, n_shards, quant=quant)
@@ -156,36 +222,53 @@ def paged_chunk_attention_partial(q, k_pages, v_pages, block_tables,
         shard, n_shards, out=out)
 
 
+@_charged(cost.merge_partials_work)
 def merge_partials(o, lse, dtype, mode: str = "auto"):
     """The split-K merge of one call: o (N, B, Sq, H, D) and lse (N, B,
     Sq, H) float32, every shard's and split's partials on one device ->
     (B, Sq, H, D) in ``dtype``.  mode: auto | ref."""
     if mode not in MODES:
         raise ValueError(f"kernel mode {mode!r} not in {MODES}")
+    if o.device.type == "meta":
+        return o.new_empty(o.shape[1:], dtype=dtype)
     if mode == "ref" or o.device.type == "cpu":
         return ref.merge_partials_ref(o, lse, dtype)
     _no_grad_kernel("merge_partials", o, lse)
     return _pa.merge_partials(o, lse, dtype)
 
 
+@_charged(cost.flash_prefill_work)
 def flash_prefill(q, k, v, q_offset: int = 0, mode: str = "auto"):
     """Causal prefill attention over dense K/V with a cached prefix: query
     i of q (B, Sq, H, D) sits at position q_offset + i of k/v (B, Skv, Hkv,
     D).  Returns (B, Sq, H, D) in q's dtype.  mode: auto | ref."""
     if mode not in MODES:
         raise ValueError(f"kernel mode {mode!r} not in {MODES}")
+    if q.device.type == "meta":
+        return _meta("flash_prefill",
+                     lambda: cost.flash_prefill_work(q, k, v, q_offset),
+                     lambda: torch.empty_like(q), q, k, v)
     if mode == "ref" or q.device.type == "cpu":
         return ref.flash_prefill_ref(q, k, v, q_offset)
     _no_grad_kernel("flash_prefill", q, k, v)
     return _fp.flash_prefill(q, k, v, q_offset)
 
 
+@_charged(cost.ssd_scan_work)
 def ssd_scan(x, dA, Bm, Cm, chunk: int, init_state=None, mode: str = "auto"):
     """Chunked SSD scan with an initial and a final state (see
     ``ref.ssd_scan_chunked_ref`` for the shapes).  Returns (y in x's
     dtype, final state float32).  mode: auto | ref."""
     if mode not in MODES:
         raise ValueError(f"kernel mode {mode!r} not in {MODES}")
+    if x.device.type == "meta":
+        B, _, H, P = x.shape
+        return _meta("ssd_scan",
+                     lambda: cost.ssd_scan_work(x, dA, Bm, Cm, chunk,
+                                                init_state),
+                     lambda: (torch.empty_like(x), x.new_empty(
+                         (B, H, Bm.shape[3], P), dtype=torch.float32)),
+                     x, dA, Bm, Cm, init_state)
     if mode == "ref" or x.device.type == "cpu":
         return ref.ssd_scan_chunked_ref(x, dA, Bm, Cm, chunk,
                                         init_state=init_state)

@@ -10,9 +10,13 @@ concatenations in shard order.  Several shards may name the same device:
 ``devices=["cuda:0"] * 4`` serves four shards on one card and
 ``["cpu"] * 4`` runs them on the CPU, as the tests do.
 
-``make_production_mesh`` and ``force_host_device_count`` exist only for
-XLA (256 virtual devices, ``XLA_FLAGS``) and wait for the dry run
-(ROADMAP A.11).
+``make_production_mesh`` is the dry run's: the JAX package's production
+shapes (16 x 16, and 2 x 16 x 16 across pods) over ``meta`` devices,
+which hold shapes and no data, so that a plan's specs can be read at
+production size with no card.  ``force_host_device_count`` has no
+counterpart: it sets an XLA flag (``--xla_force_host_platform_device_count``)
+that makes virtual host devices for JAX, and the port names its devices
+itself.
 """
 from __future__ import annotations
 
@@ -103,6 +107,19 @@ def make_debug_mesh(data: int = 1, model: int = 1,
     n = data * model
     devs = _cards(n, what) if devices is None else _resolve(devices, n, what)
     return ServingMesh(("data", "model"), (data, model), devs)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ServingMesh:
+    """The production mesh of the dry run, over ``meta`` devices:
+    ``("data", "model")`` (16, 16) for one pod, ``("pod", "data",
+    "model")`` (2, 16, 16) across two: ``model`` is a replica's 16-way
+    tensor parallelism, ``data`` the replicas of a pod."""
+    sizes = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = 1
+    for s in sizes:
+        n *= s
+    return ServingMesh(axes, sizes, (torch.device("meta"),) * n)
 
 
 def dp_axes(mesh) -> tuple:

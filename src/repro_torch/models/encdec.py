@@ -28,8 +28,10 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _dtype, resolve_device
+from repro_torch.models.transformer import (_dtype, meta_spec, meta_twin,
+                                             resolve_device)
 
+DEC_PREFILL = 256     # decoder prompt length of the prefill cell
 CROSS_CTX = 4096      # encoder context length of a decode cache by default
 
 
@@ -116,10 +118,20 @@ class EncDecLM:
         return L.softmax_xent(self._unembed(params, x), targets,
                               batch.get("loss_mask"))
 
-    def input_specs(self, cell):
-        raise NotImplementedError(
-            "EncDecLM.input_specs is not ported yet: ROADMAP A.11 (the "
-            "dry-run cells)")
+    def input_specs(self, cell) -> Dict:
+        """Meta tensors for every model input of this dry-run cell, the
+        JAX package's: train {frames (B, S, d_frontend) bf16, targets (B,
+        S)}, prefill {frames, tokens (B, DEC_PREFILL)}, decode {cache
+        (self K/V of S positions, cross K/V of CROSS_CTX), tokens (B,)}."""
+        c = self.cfg
+        B, S = cell.global_batch, cell.seq_len
+        frames = meta_spec((B, S, c.d_frontend), torch.bfloat16)
+        if cell.kind == "train":
+            return dict(frames=frames, targets=meta_spec((B, S)))
+        if cell.kind == "prefill":
+            return dict(frames=frames, tokens=meta_spec((B, DEC_PREFILL)))
+        return dict(cache=meta_twin(self).init_cache(B, S),
+                    tokens=meta_spec((B,)))
 
     @staticmethod
     def _layer(stack, l: int) -> Dict:

@@ -33,7 +33,6 @@ for tensors on the card, its plain version on the CPU; under autograd
 (``loss``) it is ``ops.ssd_scan_grad``, the same forward with the plain
 scan's gradient.  The depthwise causal conv is the JAX package's window
 einsum, not ``F.conv1d`` (cuDNN would run a float32 convolution in TF32).
-``input_specs`` (the dry-run cells) is not ported yet.
 """
 from __future__ import annotations
 
@@ -45,7 +44,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _dtype, resolve_device
+from repro_torch.models.transformer import (_dtype, lm_input_specs,
+                                             resolve_device)
 
 # Mamba parameters that stay float32 whatever the model dtype
 FLOAT32_LEAVES = ("a_log", "dt_bias", "d_skip")
@@ -166,10 +166,9 @@ class Zamba2LM:
         return L.softmax_xent(x @ params["lm_head"].T, batch["targets"],
                               batch.get("loss_mask"))
 
-    def input_specs(self, cell):
-        raise NotImplementedError(
-            "Zamba2LM.input_specs is not ported yet: ROADMAP A.11 (the "
-            "benchmark's cells)")
+    def input_specs(self, cell) -> Dict:
+        """Meta tensors for every model input of this dry-run cell."""
+        return lm_input_specs(self, cell)
 
     # -- SSD core -----------------------------------------------------------
 

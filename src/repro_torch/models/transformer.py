@@ -101,6 +101,33 @@ def _row_reduce(parts, dtype):
     return _once(lambda t: t.to(dtype), C.all_reduce_sum(parts))
 
 
+def meta_spec(shape, dtype=torch.int32) -> torch.Tensor:
+    """A shape-and-dtype stand-in (the JAX package's ShapeDtypeStruct): an
+    empty tensor on the meta device."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def lm_input_specs(model, cell) -> Dict:
+    """Meta tensors for every input of a token model's cell, with the JAX
+    package's keys, shapes and dtypes: train {tokens, targets} (B, S)
+    int32, prefill {tokens}, decode {cache: the model's ``init_cache(B,
+    S)`` on meta, tokens (B,)}."""
+    B, S = cell.global_batch, cell.seq_len
+    if cell.kind == "train":
+        return dict(tokens=meta_spec((B, S)), targets=meta_spec((B, S)))
+    if cell.kind == "prefill":
+        return dict(tokens=meta_spec((B, S)))
+    return dict(cache=meta_twin(model).init_cache(B, S),
+                tokens=meta_spec((B,)))
+
+
+def meta_twin(model):
+    """``model`` itself on the meta device, else its meta-device twin."""
+    if model.device.type == "meta":
+        return model
+    return type(model)(model.cfg, device="meta")
+
+
 def _dtype(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32,
             "float16": torch.float16}[name]
@@ -199,10 +226,20 @@ class DenseLM:
         return L.softmax_xent(self._unembed(params, x), batch["targets"],
                               batch.get("loss_mask")) + aux
 
-    def input_specs(self, cell):
-        raise NotImplementedError(
-            f"{type(self).__name__}.input_specs is not ported yet: ROADMAP "
-            f"A.11 (the dry-run cells)")
+    def input_specs(self, cell) -> Dict:
+        """Meta tensors for every model input of this dry-run cell
+        (`lm_input_specs`); the vlm family's train and prefill cells hold
+        S - n_patches text tokens and the bf16 patch embeddings."""
+        c = self.cfg
+        if c.family == "vlm" and cell.kind in ("train", "prefill"):
+            B, P = cell.global_batch, c.n_patches
+            text = (B, cell.seq_len - P)
+            out = dict(tokens=meta_spec(text))
+            if cell.kind == "train":
+                out["targets"] = meta_spec(text)
+            out["patches"] = meta_spec((B, P, c.d_frontend), torch.bfloat16)
+            return out
+        return lm_input_specs(self, cell)
 
     # -- blocks -------------------------------------------------------------
 

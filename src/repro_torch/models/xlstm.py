@@ -39,8 +39,10 @@ Two paths, the same math:
 
 ``loss`` (training) runs the fresh stack, each block rematerialised in
 the backward pass as the JAX package's ``jax.checkpoint`` does.
-``input_specs`` (the dry-run cells, A.11) is not ported yet; nor are the
-JAX package's sharding hints.
+The JAX package's sharding hints have no counterpart.  The time loop of
+the sLSTM and the chunk loop of the mLSTM run through
+``roofline.cost.trips``, which a dry run on meta tensors folds to one
+iteration.
 """
 from __future__ import annotations
 
@@ -53,7 +55,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _dtype, resolve_device
+from repro_torch.models.transformer import (_dtype, lm_input_specs,
+                                             resolve_device)
+from repro_torch.roofline.cost import trips
 
 CHUNK = 256
 NEG = -1e30               # the JAX package's stabilizer start and pad gate
@@ -192,10 +196,9 @@ class XLSTMLM:
         return L.softmax_xent(x @ params["lm_head"].T, batch["targets"],
                               batch.get("loss_mask"))
 
-    def input_specs(self, cell):
-        raise NotImplementedError(
-            "XLSTMLM.input_specs is not ported yet: ROADMAP A.11 (the "
-            "benchmark's cells)")
+    def input_specs(self, cell) -> Dict:
+        """Meta tensors for every model input of this dry-run cell."""
+        return lm_input_specs(self, cell)
 
     # -- mLSTM ----------------------------------------------------------------
 
@@ -264,7 +267,8 @@ class XLSTMLM:
         causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=dev))
         ninf = torch.tensor(-float("inf"), dtype=torch.float32, device=dev)
         hs = []
-        for c0 in range(0, S + pad, Q):
+        chunks = trips(0, S + pad, Q)
+        for c0 in chunks:
             sl = slice(c0, c0 + Q)
             qq, kk, vv, li, lf = qf[:, sl], kf[:, sl], vf[:, sl], \
                 log_i[:, sl], log_f[:, sl]
@@ -296,7 +300,7 @@ class XLSTMLM:
                 + torch.einsum("bjhq,bjhv->bhqv", kw, vv)
             n = n * scale_old[..., None] + kw.sum(1)
             m = m_new
-        h = torch.cat(hs, dim=1)[:, :S]
+        h = chunks.cat(hs, dim=1)[:, :S]
         return h, (C, n, m)
 
     def _mlstm_step(self, q, k, v, log_i, log_f, state):
@@ -360,7 +364,8 @@ class XLSTMLM:
         cst, nst, hst, mst = state
         r = w["r_ifzo"].float()
         hs = []
-        for t in range(S):
+        steps = trips(S)
+        for t in steps:
             rec = torch.einsum("bhp,hpq->bhq", hst, r)
             rec = rec.reshape(B, self.nh, 4, ph).transpose(1, 2)
             g = gates_x[:, t] + rec                        # (B,4,NH,ph)
@@ -381,7 +386,7 @@ class XLSTMLM:
                 nst = torch.where(keep, nst_n, nst)
                 hst = torch.where(keep, hst_n, hst)
                 mst = torch.where(keep, m_new, mst)
-        return torch.stack(hs, dim=1), (cst, nst, hst, mst)
+        return steps.stack(hs, dim=1), (cst, nst, hst, mst)
 
     def _slstm_block(self, x, w, state=None, seq_mask=None):
         c = self.cfg
@@ -436,8 +441,9 @@ class XLSTMLM:
     # -- dense reference path -----------------------------------------------
 
     def init_cache(self, batch: int, seq_len: int) -> Dict:
-        cache = {k: v[:, None].repeat_interleave(batch, 1).to(self.device)
-                 for k, v in self.blank_state().items()}
+        cache = {k: v[:, None].expand(v.shape[0], batch, *v.shape[1:])
+                 .contiguous()
+                 for k, v in self.blank_state(self.device).items()}
         cache["len"] = torch.zeros((batch,), dtype=torch.int32,
                                    device=self.device)
         return cache

@@ -5,8 +5,9 @@ the H100 SXM data-sheet figures at the full 700 W power limit (989 TFLOP/s
 dense bf16, 3.35 TB/s and 80 GB of HBM3), and the host-link, NVLink,
 network and disk figures are data-sheet or assumed values too: none of
 them is measured.  Efficiency factors are conservative fractions of peak.
-The dry-run's roofline terms (results/dryrun/*.json) can be loaded to
-calibrate them.
+The port's dry run (``launch/dryrun.py``) writes each cell's counted
+FLOPs, bytes and collective bytes to results/dryrun_torch/*.json;
+`load_roofline_calibration` reads them.
 """
 from __future__ import annotations
 
@@ -288,8 +289,16 @@ class CostModel:
         return stall
 
 
-def load_roofline_calibration(results_dir: Path, arch: str) -> Optional[dict]:
-    """Pull the dry-run decode/prefill roofline terms for calibration."""
+DRYRUN_RESULTS = Path(__file__).resolve().parents[3] / "results" / \
+    "dryrun_torch"
+
+
+def load_roofline_calibration(arch: str,
+                              results_dir: Path = DRYRUN_RESULTS
+                              ) -> Optional[dict]:
+    """The port's dry-run artifacts of ``arch``'s decode_32k and
+    prefill_32k cells on the single-pod mesh (those that ran), by shape;
+    None when there are none."""
     out = {}
     for shape in ("decode_32k", "prefill_32k"):
         f = Path(results_dir) / f"{arch}__{shape}__single.json"

@@ -17,6 +17,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.roofline.cost import trips
 from repro_torch.training.tree import leaves, tree_map, unflatten
 
 
@@ -103,7 +104,8 @@ def make_train_step(model, cfg: AdamWConfig = AdamWConfig(),
             acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                    for p in leaves(params)]
             losses = []
-            for i in range(n):
+            micro = trips(n)
+            for i in micro:
                 mb = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
                 loss, g = value_and_grad(model, params, mb)
                 for a, x in zip(acc, g):
@@ -111,7 +113,7 @@ def make_train_step(model, cfg: AdamWConfig = AdamWConfig(),
                 losses.append(loss)
                 del g
             grads = [a.div_(n) for a in acc]
-            loss = torch.stack(losses).mean()
+            loss = micro.stack(losses).mean()
         params, opt_state = adamw_update(params, unflatten(params, grads),
                                          opt_state, cfg)
         return params, opt_state, loss

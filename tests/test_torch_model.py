@@ -18,7 +18,7 @@ import torch
 from repro.configs import get_config as jax_config
 from repro.models.registry import get_model as jax_model
 from repro_torch import convert
-from repro_torch.configs import get_config
+from repro_torch.configs import TRAIN_4K, get_config
 from repro_torch.models.registry import get_model
 from repro_torch.models.transformer import DenseLM
 
@@ -212,8 +212,8 @@ def test_vlm_moe_encdec_resolve_to_their_models(arch, cls):
     """The vlm family resolves to `DenseLM` (with ``patch_proj``), moe to
     `MoELM` (its router float32 in every dtype), encdec to `EncDecLM`; at
     full size on the meta device for their counts, as the JAX package's.
-    Their training loss is a finite scalar; the dry-run entry point names
-    its ROADMAP item."""
+    Their training loss is a finite scalar; the dry-run entry point gives
+    meta tensors."""
     assert type(get_model(get_config(arch), device="meta")).__name__ == cls
     cfg = get_config(arch).reduced(dtype="bfloat16")
     model = get_model(cfg, device="cpu")
@@ -228,37 +228,43 @@ def test_vlm_moe_encdec_resolve_to_their_models(arch, cls):
     if cfg.family == "encdec":
         assert {"enc", "dec", "frame_proj"} <= set(params)
     assert _finite_loss(model, params)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        model.input_specs(None)
+    _meta_specs(model)
 
 
 def test_xlstm_resolves_to_xlstmlm():
     """The xlstm family is ported: it resolves to `XLSTMLM`, which has no
     paged KV; its training loss is a finite scalar, and its dry-run entry
-    point names its ROADMAP item."""
+    point gives meta tensors."""
     from repro_torch.models.xlstm import XLSTMLM
     model = get_model(get_config("xlstm-1.3b").reduced(dtype="float32"),
                       device="cpu")
     assert isinstance(model, XLSTMLM) and not model.has_attn
     assert _finite_loss(model, model.init(torch.Generator().manual_seed(0)))
-    with pytest.raises(NotImplementedError, match="A.11"):
-        model.input_specs(None)
+    _meta_specs(model)
 
 
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "mamba2-2.7b"])
 def test_recurrent_families_resolve_to_zamba2lm(arch):
     """The hybrid and mamba2 families are ported: both resolve to
     `Zamba2LM` (the shared attention blocks only for the hybrid); its
-    training loss is a finite scalar, and its dry-run entry point names
-    its ROADMAP item."""
+    training loss is a finite scalar, and its dry-run entry point gives
+    meta tensors."""
     from repro_torch.models.mamba2 import Zamba2LM
     cfg = get_config(arch).reduced(dtype="float32")
     model = get_model(cfg, device="cpu")
     assert isinstance(model, Zamba2LM)
     assert model.has_attn == (cfg.family == "hybrid")
     assert _finite_loss(model, model.init(torch.Generator().manual_seed(0)))
-    with pytest.raises(NotImplementedError, match="A.11"):
-        model.input_specs(None)
+    _meta_specs(model)
+
+
+def _meta_specs(model):
+    """The train cell's inputs: meta tensors of the global batch, the
+    targets int32 (tests/test_torch_dryrun.py holds every cell to JAX's)."""
+    specs = model.input_specs(TRAIN_4K)
+    assert specs["targets"].dtype == torch.int32
+    assert specs["targets"].shape[0] == TRAIN_4K.global_batch
+    assert all(t.device.type == "meta" for t in specs.values())
 
 
 def test_init_draws_the_jax_scales():
