@@ -1,7 +1,7 @@
 """Card check of the PyTorch/CUDA port: builds the CUDA kernels, holds each
 against its plain PyTorch version, and serves llama3-8b (under memory
 pressure, on a three-node cluster with migration and failure, and
-tensor-parallel on shards of the card, as yi-6b is),
+tensor-parallel on shards of the card, as yi-6b is, up to 16 shards),
 zamba2-2.7b, xlstm-1.3b and phi-3-vision-4.2b at full width and depth
 through the port's entry points; granite-moe-3b, qwen3-moe-30b (12 of 48
 layers) and seamless-m4t-medium prefill and decode at full width; trains
@@ -171,28 +171,37 @@ Phases:
      second pass 1 row of every 8-row page, and runs kernel 1's partial
      mode for all 32 heads, its keys cut into splits; every shard's and
      split's float32 partials merged by their log-sum-exp in one merge
-     launch a call), each against the single device: where the tokens
-     first diverge, and the first traced logits within 2e-2 x
-     max|logits|; launches one a layer, shard and sub-dispatch, merges
-     one a layer and sub-dispatch on the split-K rung; the memory each
-     run reckons, holds and gives back.  A pressure pass
-     (phase 6's rounds, 4 sessions x 3 turns, and a turn of a session
-     compressed just before it; full width, 16 of the 32 layers) at tp 2
-     on llama3-8b and at tp 8 on yi-6b: B.2 and B.2's partial mode on
+     launch a call), and at tp 16, page 8 (the head-feature rung: each
+     shard holds 8 of the 128 features of every row; F1 sums the shards'
+     partial scores into one float32 buffer, F2 takes each shard's
+     softmax times its V features, an all-gather joins them), each
+     against the single device: where the tokens first diverge, and the
+     first traced logits within 2e-2 x max|logits| (or twice the
+     kernel-vs-plain floor); launches one a layer, shard and sub-dispatch
+     (F1 and F2 each on the head-feature rung), merges one a layer and
+     sub-dispatch on the split-K rung; the memory each run reckons, holds
+     and gives back.  A pressure pass (phase 6's rounds, 4 sessions x 3
+     turns, and a turn of a session compressed just before it; full
+     width, 8 of the 32 layers) at tp 2 on llama3-8b and at tp 8 and
+     tp 16, page 8 on yi-6b: B.2, its partial mode and its feature mode on
      lanes that read int8 pages.  Every partial call shape held against
      its plain version shard by shard (its splits combined), the merge
      kernel against the plain merge, timed per shard (the slowest shard
      too) and summed with the merge, beside the unsplit kernel on the
-     same call and SDPA on the gathered K/V;
+     same call and SDPA on the gathered K/V; every feature call shape the
+     same way (F1's summed scores and each shard's F2 against their plain
+     versions, the joined output against the plain attention and kernel
+     1, F1 and F2 timed per shard);
      kernel 1's per-shard shapes at tp 4 and B.2's at tp 2 re-timed;
  22. exact fp32 tokens at full width and 2 layers on the mesh: llama3-8b
      at tp 1, 2 and 4, yi-6b at tp 8 (and at tp 8 with page 8: 1-row
-     shard pages), with a mid-decode preemption (a swap-out and back),
-     equal to the single device's and to
-     kernel_mode="ref"; a session exported at
-     tp 2 resumes at tp 4; one payload imported and quantized on one
-     device and on each mesh: int8 scales and codes bit-equal, and its
-     next turn read from the int8 pages gives the same tokens;
+     shard pages) and at tp 16 with page 8 (the head-feature rung), with a
+     mid-decode preemption (a swap-out and back), equal to the single
+     device's and to kernel_mode="ref"; a session exported at tp 2
+     resumes at tp 4; one payload imported and quantized on one device
+     and on each mesh: int8 scales and codes bit-equal to one device's at
+     the same page size, and its next turn read from the int8 pages gives
+     the same tokens;
  23. training at full width: llama3-8b at its published widths, bf16,
      random weights from --seed, its depth cut to 4 of 32 layers (its
      training state, ~20 bytes a parameter, would not fit one card at 32),
@@ -264,7 +273,8 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.core.advisory import (AdvisoryRequest,  # noqa: E402
                                        InferenceRequest)
 from repro_torch.core.node_manager import NodeManager  # noqa: E402
-from repro_torch.distributed.sharding import unshard  # noqa: E402
+from repro_torch.distributed.sharding import (ShardingPlan,  # noqa: E402
+                                              unshard)
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_prefill as fp  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
@@ -279,6 +289,7 @@ from repro_torch.roofline import cost as roofline  # noqa: E402
 # analytic work, as the roofline counter charges the kernel entries
 from repro_torch.roofline.cost import (HBM_BYTES_PER_S,  # noqa: E402
                                        PEAK_FLOPS, attention_work, bound,
+                                       feature_pv_work, feature_scores_work,
                                        flash_work, merge_work, partial_work,
                                        scan_work)
 from repro_torch.serving.cost_model import CostModel  # noqa: E402
@@ -546,7 +557,8 @@ def phase_build():
     """Every kernel source, one nvcc each, started together; returns
     {name: (library, nvcc and ptxas output)}."""
     t0 = time.perf_counter()
-    built = build.build_all([pa.NAME, pa.DECODE_NAME, ssd.NAME, fp.NAME])
+    built = build.build_all([pa.NAME, pa.DECODE_NAME, ssd.NAME, fp.NAME,
+                             pa.FEATURES_NAME])
     log(f"[2] {len(built)} kernel libraries in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, (path, text) in built.items():
@@ -1479,10 +1491,14 @@ class Single:
 
     def step(self):
         be = self.be
-        # a meshed node launches once a shard, kernel 1 / B.2 or (on the
-        # split-K rung) their partial mode
-        f0 = pa.launches + pa.partial_launches
-        q0 = pa.quant_launches + pa.quant_partial_launches
+        # a meshed node launches once a shard, kernel 1 / B.2 or their
+        # partial mode (the split-K rung) or their F1, each F1 with its F2
+        # (the head-feature rung)
+        f0 = pa.launches + pa.partial_launches + pa.scores_launches
+        q0 = (pa.quant_launches + pa.quant_partial_launches
+              + pa.quant_scores_launches)
+        pv0 = (pa.pv_launches - pa.scores_launches,
+               pa.quant_pv_launches - pa.quant_scores_launches)
         s0 = be.stats["sub_dispatches"]
         active = be._quant_active
         t0 = time.perf_counter()
@@ -1495,9 +1511,13 @@ class Single:
         drained(be, self.mgr)
         if be.device.type != "cuda":
             return                  # CPU tensors take the plain versions
-        df = pa.launches + pa.partial_launches - f0
-        dq = pa.quant_launches + pa.quant_partial_launches - q0
+        df = pa.launches + pa.partial_launches + pa.scores_launches - f0
+        dq = (pa.quant_launches + pa.quant_partial_launches
+              + pa.quant_scores_launches - q0)
         ds = be.stats["sub_dispatches"] - s0
+        check((pa.pv_launches - pa.scores_launches,
+               pa.quant_pv_launches - pa.quant_scores_launches) == pv0,
+              "the head-feature rung's F2 did not follow each F1")
         check(df + dq == self.L * ds * be.tp,
               f"{df} fp + {dq} int8 kernel launches for {ds} sub-dispatches "
               f"of {self.L} layers on {be.tp} shards")
@@ -3799,24 +3819,42 @@ def zero_counts():
     pa.launches = pa.quant_launches = 0
     pa.partial_launches = pa.quant_partial_launches = 0
     pa.merge_launches = 0
+    pa.scores_launches = pa.pv_launches = 0
+    pa.quant_scores_launches = pa.quant_pv_launches = 0
 
 
 def counts():
     """The attention kernels' launch counts (the merge's apart)."""
     return dict(k1=pa.launches, b2=pa.quant_launches,
                 k1_partial=pa.partial_launches,
-                b2_partial=pa.quant_partial_launches)
+                b2_partial=pa.quant_partial_launches,
+                k1_scores=pa.scores_launches, k1_pv=pa.pv_launches,
+                b2_scores=pa.quant_scores_launches,
+                b2_pv=pa.quant_pv_launches)
 
 
 def expected_counts(be, kind="k1"):
-    """Launches a run on ``be`` must have made: one a layer, a shard and a
-    sub-dispatch, of kernel 1 / B.2 or, on the split-K rung, their partial
-    mode (``kind`` k1 or b2; None: a mix of both kinds, checked summed)."""
+    """Launches a run on ``be`` must have made: (keys, n), each key of
+    `counts` launched n times, one a layer, a shard and a sub-dispatch, and
+    no other: kernel 1 / B.2 (``kind`` k1 or b2), on the split-K rung their
+    partial mode, on the head-feature rung their F1 and F2 (the scores
+    buffer of a call on these paths stays within ops.SCORES_CAP, so that
+    no call is cut into tiles of lanes)."""
     lay = be._layout
     n = be.cfg.n_layers * be.stats["sub_dispatches"] * be.tp
-    key = kind + ("_partial" if lay is not None and lay.rung == "rows"
-                  else "")
-    return key, n
+    rung = None if lay is None else lay.rung
+    if rung == "rows":
+        return (kind + "_partial",), n
+    if rung == "features":
+        return (kind + "_scores", kind + "_pv"), n
+    return (kind,), n
+
+
+def launched(got, keys, n):
+    """Whether the counts ``got`` are n launches of each of ``keys`` and
+    nothing else."""
+    return all(got[k] == n for k in keys) and sum(got.values()) == n * len(
+        keys)
 
 
 def check_merges(be, what, mode="auto"):
@@ -3835,6 +3873,18 @@ def _partial_key(args, kw):
     q, kp, tables = args[0], args[1], args[-5]
     return (tuple(q.shape), tuple(kp.shape), tuple(tables.shape), q.dtype,
             args[-2])
+
+
+def held_bytes(obj) -> int:
+    """Bytes of the tensors in a nest of dicts, lists and tuples (a
+    capture's inputs)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, dict):
+        obj = obj.values()
+    if isinstance(obj, (list, tuple, type({}.values()))):
+        return sum(held_bytes(x) for x in obj)
+    return 0
 
 
 def reckon(cfg, params, n_pages, page):
@@ -3883,17 +3933,18 @@ def tp_serve(cfg, model, params, prompts, gen, tp, tag, captures=(),
     torch.cuda.synchronize()
     got = counts()
     peak = torch.cuda.max_memory_allocated()
-    key, want = expected_counts(be)
-    rung = "single device" if be._layout is None else \
-        f"{be._layout.rung}, {be._layout.pl} rows a shard page"
+    keys, want = expected_counts(be)
+    lay = be._layout
+    rung = "single device" if lay is None else \
+        f"{lay.rung}, {lay.pl} rows and {lay.dr} features a shard page"
     log(f"[{tag}] tp={tp} ({rung}): {len(reqs)} requests, {len(steps)} "
         f"steps, mean step {1e3 * sum(steps) / len(steps):.2f} ms, "
         f"{be.stats['sub_dispatches']} sub-dispatches; launches {got}, "
         f"merges {pa.merge_launches}; "
         f"pool bytes a shard {be.pool_device_bytes() / 1e9:.3f} GB; "
         f"max_memory_allocated {peak / 1e9:.2f} GB")
-    check(got[key] == want and sum(got.values()) == want,
-          f"tp={tp}: launches {got}, want {key} = {want}")
+    check(launched(got, keys, want),
+          f"tp={tp}: launches {got}, want {keys} = {want}")
     merges = check_merges(be, f"tp={tp} page {page}")
     check(all(len(r.output_ids) == gen for r in reqs),
           f"tp={tp}: a request did not generate all its tokens")
@@ -3906,16 +3957,14 @@ def tp_serve(cfg, model, params, prompts, gen, tp, tag, captures=(),
     for a in be.alloc:
         a.check()
     out = dict(tokens=[list(r.output_ids) for r in reqs],
-               first=be.logit_trace[0], launches=got[key], key=key,
+               first=be.logit_trace[0], launches=want, keys=keys,
                merges=merges,
                step_ms=1e3 * sum(steps) / len(steps), steps=len(steps),
                subs=be.stats["sub_dispatches"],
                shard_bytes=be.pool_device_bytes(), peak=peak)
     del eng, be, mgr, reqs
     free_device_memory()
-    held = sum(t.numel() * t.element_size() for c in captures
-               for args, _ in c.calls.values() for t in args
-               if isinstance(t, torch.Tensor))
+    held = sum(held_bytes(c.calls) for c in captures)
     after = torch.cuda.memory_allocated()
     log(f"[{tag}] tp={tp}: allocated after {after / 1e9:.2f} GB (captured "
         f"inputs {held / 1e6:.1f} MB)")
@@ -4190,34 +4239,294 @@ def retime_partial(cap, what, tag):
     return recs
 
 
-def tp_pressure(cfg, model, params, seed, tp, tag):
+class FeatureCapture:
+    """Records one head-feature call whole for each distinct shape: every
+    shard's F1 inputs (its q features, K pool and int8 shadows, the
+    tables and lanes) and F2's V pools, cloned when a call of a new shape
+    ends (or, with ``score``, one whose lanes read more int8 pages); the
+    scores buffer is not kept, `compare_features` rebuilds it.  ``quant``
+    picks B.2's calls (int8 shadows given) or kernel 1's.  A call's F1
+    launches come shard after shard (shard 0 writes, the others add), then
+    its F2 launches."""
+
+    def __init__(self, quant: bool, score=None):
+        self.quant = quant
+        self.score = score
+        self.calls = {}
+        self.scores = {}
+        self.n = 0
+        self._cur = None
+
+    def _end(self):
+        cur, self._cur = self._cur, None
+        f1, f2 = cur["f1"], cur["f2"]
+        q, kp, tab = f1[0][0], f1[0][1], f1[0][2]
+        key = (tuple(q.shape), tuple(kp.shape), tuple(tab.shape), q.dtype,
+               len(f1))
+        sc = 0.0 if self.score is None else self.score(f1[0])
+        if key in self.calls and sc <= self.scores[key]:
+            return
+
+        def keep(args):
+            return tuple(tuple(u.clone() for u in t) if isinstance(t, tuple)
+                         else t.clone() if isinstance(t, torch.Tensor) else t
+                         for t in args)
+        self.calls[key] = ([keep(a) for a in f1], [keep(a) for a in f2])
+        self.scores[key] = sc
+
+    @contextlib.contextmanager
+    def __call__(self):
+        o1, o2 = pa.paged_chunk_scores, pa.paged_chunk_softmax_pv
+
+        def rec1(q, k_pages, tables, q_offsets, ctx_lens, quant=None,
+                 out=None, accumulate=False):
+            if (quant is not None) == self.quant:
+                self.n += 1
+                if not accumulate:
+                    self._cur = dict(f1=[], f2=[])
+                self._cur["f1"].append((q, k_pages, tables, q_offsets,
+                                        ctx_lens, quant))
+            return o1(q, k_pages, tables, q_offsets, ctx_lens, quant=quant,
+                      out=out, accumulate=accumulate)
+
+        def rec2(scores, v_pages, tables, q_offsets, ctx_lens, head_dim,
+                 dtype, quant=None):
+            if (quant is not None) == self.quant and self._cur is not None:
+                self._cur["f2"].append((v_pages, head_dim))
+                if len(self._cur["f2"]) == len(self._cur["f1"]):
+                    self._end()
+            return o2(scores, v_pages, tables, q_offsets, ctx_lens,
+                      head_dim, dtype, quant=quant)
+
+        pa.paged_chunk_scores, pa.paged_chunk_softmax_pv = rec1, rec2
+        try:
+            yield
+        finally:
+            pa.paged_chunk_scores, pa.paged_chunk_softmax_pv = o1, o2
+
+
+def compare_features(f1, f2, label):
+    """One head-feature call, captured shard by shard, run as the main path
+    runs it: every shard's F1 into one scores buffer (shard 0 writes, the
+    others add), then every shard's F2 on it.  The summed scores against
+    the shards' plain partial scores summed, on every entry a row sees;
+    each shard's F2 against its plain version on the same scores (real
+    rows; padding rows and ctx = 0 lanes zeros); the concatenated output
+    against the unsharded plain attention and kernel 1 on the full pool;
+    each within TOL x max|plain|.  Times of each shard's F1 and F2 (wall,
+    device, host), the plain versions', the unsharded kernel 1's and
+    SDPA's on the gathered K/V; the bound from ``roofline.cost``."""
+    n = len(f1)
+    q0, kp0, tab, qoff, ctx, qt0 = f1[0]
+    quant = qt0 is not None
+    dtype = q0.dtype
+    B, Sq, H, dr = q0.shape
+    D = dr * n
+    page = kp0.shape[1]
+    T = tab.shape[1] * page
+    q_lens = (ctx - qoff).clamp(min=0).cpu().tolist()
+    cx = ctx.cpu().tolist()
+    qpos = qoff.long()[:, None] + torch.arange(Sq, device=q0.device)
+    vis = (ref._visible(qoff, ctx, Sq, T, q0.device)
+           & (qpos < ctx.long()[:, None])[:, :, None])[:, None]
+    vis = vis.expand(B, H, Sq, T)
+    ws = torch.empty((B, H, Sq, T), dtype=torch.float32, device=q0.device)
+
+    def kf1(r):
+        q, kp, t, o, c, qt = f1[r]
+        return pa.paged_chunk_scores(q, kp, t, o, c, quant=qt, out=ws,
+                                     accumulate=r > 0)
+
+    def kf2(r):
+        return pa.paged_chunk_softmax_pv(ws, f2[r][0], tab, qoff, ctx, D,
+                                         dtype, quant=f1[r][5])
+    for r in range(n):
+        kf1(r)
+    torch.cuda.synchronize()
+    want_s = torch.zeros_like(ws)
+    for r in range(n):
+        q, kp, t, o, c, qt = f1[r]
+        want_s += ref.paged_chunk_scores_partial_ref(q, kp, t, o, c,
+                                                     quant=qt)
+    s_scale = want_s[vis].abs().max().item() if bool(vis.any()) else 0.0
+    s_err = (ws[vis] - want_s[vis]).abs().max().item() \
+        if bool(vis.any()) else 0.0
+    check(bool(torch.isfinite(ws[vis]).all()), f"{label}: F1's scores are "
+          f"not finite")
+    check(s_err <= TOL[dtype] * s_scale, f"{label}: F1's summed scores off "
+          f"the plain ones by {s_err:.3g} > {TOL[dtype]} x {s_scale:.3g}")
+    del want_s
+    outs, err, scale = [], 0.0, 0.0
+    for r in range(n):
+        o = kf2(r)
+        torch.cuda.synchronize()
+        w = ref.paged_chunk_softmax_pv_ref(ws, f2[r][0], tab, qoff, ctx, D,
+                                           dtype, quant=f1[r][5])
+        check(bool(torch.isfinite(o.float()).all()),
+              f"{label} shard {r}: F2's output not finite")
+        for b in range(B):
+            m = int(q_lens[b]) if cx[b] else 0
+            check(bool((o[b, m:] == 0).all()), f"{label} shard {r}: lane "
+                  f"{b}'s padding rows are not zeros")
+            if m:
+                err = max(err, (o[b, :m].float() - w[b, :m].float()).abs()
+                          .max().item())
+                scale = max(scale, w[b, :m].float().abs().max().item())
+        outs.append(o)
+    check(err <= TOL[dtype] * scale, f"{label}: F2 off its plain version by "
+          f"{err:.3g} > {TOL[dtype]} x {scale:.3g}")
+    got = torch.cat(outs, dim=-1)
+    q = torch.cat([a[0] for a in f1], dim=-1)
+    kp = torch.cat([a[1] for a in f1], dim=-1)
+    vp = torch.cat([a[0] for a in f2], dim=-1)
+    full = None if not quant else (
+        torch.cat([a[5][0] for a in f1], dim=-1),
+        torch.cat([a[5][1] for a in f1], dim=-1), *qt0[2:])
+
+    def unsplit():
+        if full is None:
+            return KERNEL(q, kp, vp, tab, qoff, ctx)
+        return QKERNEL(q, kp, vp, *full, tab, qoff, ctx)
+    whole = unsplit()
+    plain_whole = ref.paged_chunk_attention_ref(q, kp, vp, tab, qoff, ctx,
+                                                quant=full)
+    merr, mscale = 0.0, 0.0
+    for b in range(B):
+        m = int(q_lens[b]) if cx[b] else 0
+        if m:
+            want = plain_whole[b, :m].float()
+            merr = max(merr, (got[b, :m].float() - want).abs().max().item(),
+                       (whole[b, :m].float() - want).abs().max().item())
+            mscale = max(mscale, want.abs().max().item())
+    check(merr <= TOL[dtype] * mscale, f"{label}: the shards' output or the "
+          f"unsharded kernel off the plain attention by {merr:.3g} > "
+          f"{TOL[dtype]} x {mscale:.3g}")
+    del plain_whole, whole, got
+    ms = dict(f1=0.0, f2=0.0)
+    dev = dict(f1=0.0, f2=0.0)
+    host = dict(f1=0.0, f2=0.0)
+    plain = dict(f1=0.0, f2=0.0)
+    dev_ok = True
+    nbytes = flops = 0
+    for r in range(n):
+        for what, fn in (("f1", lambda r=r: kf1(r)), ("f2",
+                                                      lambda r=r: kf2(r))):
+            ms[what] += cuda_ms(fn, 5)
+            host[what] += host_ms(fn, 5)
+            d_ms = device_ms(fn, 5)
+            dev_ok = dev_ok and d_ms is not None
+            dev[what] += d_ms or 0.0
+        qr, kpr, t, o, c, qt = f1[r]
+        plain["f1"] += cuda_ms(lambda: ref.paged_chunk_scores_partial_ref(
+            qr, kpr, t, o, c, quant=qt), 1, warmup=0)
+        plain["f2"] += cuda_ms(lambda: ref.paged_chunk_softmax_pv_ref(
+            ws, f2[r][0], tab, qoff, ctx, D, dtype, quant=qt), 1, warmup=0)
+        flags = None if qt is None else qt[4]
+        b1, o1 = feature_scores_work(qr, tab, qoff, ctx, page, kpr.shape[2],
+                                     dr, q0.element_size(), q_lens, flags,
+                                     accumulate=r > 0)
+        b2, o2 = feature_pv_work(ws, tab, qoff, ctx, page, kpr.shape[2], dr,
+                                 q0.element_size(), q_lens, flags)
+        nbytes += b1 + b2
+        flops += o1 + o2
+    b_ms, b_by, t_b, t_f = bound(nbytes, flops, dtype)
+    return dict(
+        label=label, shards=n, max_abs_err=max(s_err, err),
+        scores_err_rel=s_err / max(s_scale, 1e-30),
+        err_rel=err / max(scale, 1e-30),
+        whole_err_rel=merr / max(mscale, 1e-30),
+        ms=ms["f1"] + ms["f2"], f1_ms=ms["f1"], f2_ms=ms["f2"],
+        device_ms=dev["f1"] + dev["f2"] if dev_ok else None,
+        f1_device_ms=dev["f1"] if dev_ok else None,
+        f2_device_ms=dev["f2"] if dev_ok else None,
+        host_ms=host["f1"] + host["f2"],
+        plain_ms=plain["f1"] + plain["f2"],
+        scores_gb=ws.numel() * 4 / 1e9,
+        unsplit_ms=cuda_ms(unsplit, 20), unsplit_device_ms=device_ms(unsplit),
+        library_ms=cuda_ms(sdpa_yardstick(q, kp, vp, tab, qoff, ctx, full),
+                           20),
+        bound_ms=b_ms, bound_by=b_by, bytes_ms=t_b, ops_ms=t_f, flops=flops,
+        decode=Sq == 1)
+
+
+def fmt_features(rec) -> str:
+    keys = ("max_abs_err", "scores_err_rel", "err_rel", "whole_err_rel",
+            "scores_gb", "ms", "f1_ms", "f2_ms", "device_ms", "f1_device_ms",
+            "f2_device_ms", "host_ms", "unsplit_ms", "unsplit_device_ms",
+            "plain_ms", "library_ms", "bound_ms")
+    parts = [f"{k}={rec[k]:.4g}" for k in keys if rec.get(k) is not None]
+    return f"  {rec['label']}: " + " ".join(parts) + \
+        f" bound_by={rec['bound_by']}"
+
+
+def retime_features(cap, what, tag):
+    """The captured head-feature calls, one a distinct shape, held and
+    timed by `compare_features`; their sums logged."""
+    recs = []
+    for key in sorted(cap.calls, key=str):
+        f1, f2 = cap.calls[key]
+        q, kp, tab = f1[0][0], f1[0][1], f1[0][2]
+        label = (f"{what} B={q.shape[0]} Sq={q.shape[1]} T={tab.shape[1]} "
+                 f"x {len(f1)} shards of {q.shape[-1]} features")
+        if f1[0][5] is not None:
+            label += (f" int8 pages {flag_share(tab, f1[0][4], f1[0][5][4], kp.shape[1]):.2f}")
+        rec = compare_features(f1, f2, label)
+        log(f"[{tag}]" + fmt_features(rec))
+        recs.append(rec)
+        free_device_memory()
+    cap.calls.clear()
+    if recs:
+        tot = {k: sum(r[k] for r in recs) for k in (
+            "ms", "f1_ms", "f2_ms", "host_ms", "unsplit_ms", "library_ms",
+            "bound_ms", "plain_ms")}
+
+        def dsum(k):
+            v = [r[k] for r in recs]
+            return sum(v) if None not in v else "n/a"
+        log(f"[{tag}] {what}, {len(recs)} shapes: F1 + F2 over the shards "
+            f"{tot['ms']:.4g} ms (F1 {tot['f1_ms']:.4g}, F2 "
+            f"{tot['f2_ms']:.4g}; device {dsum('device_ms')}, F1 "
+            f"{dsum('f1_device_ms')}, F2 {dsum('f2_device_ms')}; host "
+            f"{tot['host_ms']:.4g}); unsharded kernel 1 {tot['unsplit_ms']:.4g}"
+            f" ms (device {dsum('unsplit_device_ms')}); SDPA "
+            f"{tot['library_ms']:.4g} ms; bound {tot['bound_ms']:.4g} ms; "
+            f"plain {tot['plain_ms']:.4g} ms; largest scores buffer "
+            f"{max(r['scores_gb'] for r in recs):.3g} GB")
+    return recs
+
+
+def tp_pressure(cfg, model, params, seed, tp, tag, page=PAGE):
     """One pressure pass of phase 6's rounds (4 sessions x 3 turns, the fp
-    budget at 40 % of the sessions' pages) on a node of ``tp`` shards, and
-    one more turn of a session compressed just before it: B.2 (or its
-    partial mode) on every layer and shard once the int8 tier is active;
-    checks that its lanes read int8 pages, and returns the launches and
-    the captured calls."""
+    budget at 40 % of the sessions' pages) on a node of ``tp`` shards at
+    ``page`` rows a page, and one more turn of a session compressed just
+    before it: B.2 (or its partial or feature mode) on every layer and
+    shard once the int8 tier is active; checks that its lanes read int8
+    pages, and returns the launches and the captured calls."""
     rng = np.random.default_rng(seed + 21)
     gen = 16
     prompts = pressure_prompts(rng, cfg.vocab, n_sessions=4, n_turns=3)
-    total = sum(-(-(sum(map(len, turns)) + len(turns) * gen) // PAGE)
+    total = sum(-(-(sum(map(len, turns)) + len(turns) * gen) // page)
                 for turns in prompts)
     hbm_pages = int(0.4 * total)
     n_pages = 2 * hbm_pages
     free_device_memory()
     base = torch.cuda.memory_allocated()
-    rows = tp_mesh(tp) is not None and cfg.n_kv_heads % tp != 0
-    if rows:
+    rung = ShardingPlan(cfg, tp_mesh(tp)).pool_rung(
+        (cfg.n_layers, n_pages + 1, page, cfg.n_kv_heads, cfg.d_head))
+    if rung == "rows":
         cap = Capture("paged_chunk_attention_quant_partial",
                       score=lambda a: flag_share(a[-5], a[-3], a[7],
                                                  a[1].shape[1] * a[-1]),
                       key=_partial_key)
+    elif rung == "features":
+        cap = FeatureCapture(True, score=lambda a: flag_share(
+            a[2], a[4], a[5][4], a[1].shape[1]))
     else:
         cap = Capture("paged_chunk_attention_quant", score=lambda a:
                       flag_share(a[-3], a[-1], a[7], a[1].shape[1]))
     zero_counts()
     node = make_node(cfg, model, params, n_pages=n_pages,
-                     hbm_pages=hbm_pages, mesh=tp_mesh(tp))
+                     hbm_pages=hbm_pages, page_size=page, mesh=tp_mesh(tp))
     d = Single(node, cfg, max_steps=1000)     # phase 6's rounds: ~160
     be = node[1]
     with cap():
@@ -4240,7 +4549,15 @@ def tp_pressure(cfg, model, params, seed, tp, tag):
         f"{hbm_pages} of {total}, {len(d.steps)} steps, mean step "
         f"{1e3 * float(np.mean(d.steps)):.2f} ms; launches {got}; "
         f"backend stats {be.stats}")
-    key = "b2_partial" if rows else "b2"
+    key = dict(rows="b2_partial", features="b2_scores").get(rung, "b2")
+    _, n = expected_counts(be)
+    mixed = {x: got["k1" + x] + got["b2" + x] for x in {
+        "rows": ("_partial",), "features": ("_scores", "_pv")}.get(
+            rung, ("",))}
+    check(all(v == n for v in mixed.values())
+          and sum(got.values()) == n * len(mixed),
+          f"tp={tp} pressure: launches {got}, want {n} of kernel 1's and "
+          f"B.2's {sorted(mixed)} together")
     got["merges"] = check_merges(be, f"tp={tp} pressure")
     check(be.stats["quantized_pages"] > 0 and got[key] > 0,
           f"tp={tp}: the pressure pass put no int8 page on the path")
@@ -4252,8 +4569,7 @@ def tp_pressure(cfg, model, params, seed, tp, tag):
         f"pages")
     del d, node, be
     free_device_memory()
-    held = sum(t.numel() * t.element_size() for args, _ in cap.calls.values()
-               for t in args if isinstance(t, torch.Tensor))
+    held = held_bytes(cap.calls)
     after = torch.cuda.memory_allocated()
     check(after - base <= held + TP_SLACK,
           f"tp={tp} pressure: {(after - base - held) / 1e6:.1f} MB still "
@@ -4263,16 +4579,29 @@ def tp_pressure(cfg, model, params, seed, tp, tag):
 
 def phase_tp(seed, tag=21):
     """Phase 21: llama3-8b (kv-head rung at tp 2 and 4) and yi-6b (split-K
-    rung at tp 8) served at full width and depth in bf16 on shards of the
-    one card; pressure passes at tp 2 and 8 (full width, 16 of the 32
-    layers); every kernel call of the tp paths held against its plain
-    version and timed.  Returns (kernel-1 launches and
-    records on the kv-head rung, B.2's, the partial modes')."""
+    rung at tp 8, page 16 and 8; head-feature rung at tp 16, page 8)
+    served at full width and depth in bf16 on shards of the one card;
+    pressure passes at tp 2, 8 and 16 (full width, fewer layers); every
+    kernel call of the tp paths held against its plain version and timed.
+    Returns the launches and records of kernel 1 and B.2 on the kv-head
+    rung, of their partial modes and of their feature modes."""
     rng = np.random.default_rng(seed)
     gen = 16
     out = dict(k1=0, k1_recs=[], b2=0, b2_recs=[], k1p=0, k1p_recs=[],
-               b2p=0, b2p_recs=[], merges=0, table=[])
-    for name, tps in (("llama3-8b", (2, 4)), ("yi-6b", (8, "8p8"))):
+               b2p=0, b2p_recs=[], merges=0, k1f=0, k1f_recs=[], b2f=0,
+               b2f_recs=[], table=[])
+    # (tp, page): RealBackend's default page 8 gives yi-6b 1-row shard
+    # pages at tp 8 and the head-feature rung (8 % 16 and 4 kv heads % 16
+    # are not 0: 8 of 128 features a shard) at tp 16
+    runs = {"llama3-8b": ((2, PAGE), (4, PAGE)),
+            "yi-6b": ((8, PAGE), (8, 8), (16, 8))}
+    # the pressure passes' (tp, page, layers): widths as published; a tp
+    # step is host-bound, one process issuing every shard's operations, so
+    # the passes keep 8 of the 32 layers (16 until the tp-16 pass came,
+    # whose time they give back)
+    passes = {"llama3-8b": ((2, PAGE, 8),),
+              "yi-6b": ((8, PAGE, 8), (16, 8, 8))}
+    for name in runs:
         cfg, model, params = published(name, seed, tag)
         prompts = _turns(rng, cfg.vocab)
         single = tp_serve(cfg, model, params, prompts, gen, None, tag)
@@ -4281,56 +4610,59 @@ def phase_tp(seed, tag=21):
         out["table"].append((name, None, PAGE, single["step_ms"],
                              single["launches"] / single["steps"],
                              single["shard_bytes"]))
-        for tp in tps:
-            # "8p8": tp 8 at page 8, 1-row shard pages (RealBackend's
-            # default page size)
-            page = 8 if tp == "8p8" else PAGE
-            tp = 8 if tp == "8p8" else tp
-            rows = cfg.n_kv_heads % tp != 0
-            cap = (Capture("paged_chunk_attention_partial", key=_partial_key)
-                   if rows else Capture("paged_chunk_attention"))
+        for tp, page in runs[name]:
+            rung = ShardingPlan(cfg, tp_mesh(tp)).pool_rung(
+                (cfg.n_layers, 2, page, cfg.n_kv_heads, cfg.d_head))
+            cap = {"rows": lambda: Capture("paged_chunk_attention_partial",
+                                           key=_partial_key),
+                   "features": lambda: FeatureCapture(False),
+                   "heads": lambda: Capture("paged_chunk_attention")}[rung]()
+            timed = rung != "heads" or tp == 4
             run = tp_serve(cfg, model, params, prompts, gen, tp, tag,
-                           captures=(cap,) if rows or tp == 4 else (),
-                           page=page)
+                           captures=(cap,) if timed else (), page=page)
             held_to_single(single, run, tp, tag, floor)
             out["table"].append((name, tp, page, run["step_ms"],
-                                 run["launches"] / run["steps"],
-                                 run["shard_bytes"]))
+                                 run["launches"] * len(run["keys"])
+                                 / run["steps"], run["shard_bytes"]))
             out["merges"] += run["merges"]
-            if rows:
+            what = f"{name} tp={tp} page {page}"
+            if rung == "rows":
                 out["k1p"] += run["launches"]
-                out["k1p_recs"] += retime_partial(
-                    cap, f"{name} tp={tp} page {page}", tag)
+                out["k1p_recs"] += retime_partial(cap, what, tag)
+            elif rung == "features":
+                out["k1f"] += 2 * run["launches"]
+                out["k1f_recs"] += retime_features(cap, what, tag)
             else:
                 out["k1"] += run["launches"]
-                if tp == 4:
+                if timed:
                     out["k1_recs"] += retime(cap, f"{name} tp={tp} shard",
                                              tag)
             free_device_memory()
         del cfg, model, params
         free_device_memory()
-        # the pressure pass at 16 of the 32 layers (widths as published):
-        # a tp step is host-bound, one process issuing every shard's
-        # operations, and the full depth would take phases 21-22 well
-        # past 120 s
-        cfg, model, params = published(name, seed, tag, n_layers=16)
-        ptp = 8 if name == "yi-6b" else 2
-        got, cap = tp_pressure(cfg, model, params, seed, ptp, tag)
-        out["merges"] += got["merges"]
-        if cfg.n_kv_heads % ptp:
-            out["b2p"] += got["b2_partial"]
-            out["k1p"] += got["k1_partial"]
-            out["b2p_recs"] += retime_partial(cap, f"{name} pressure "
-                                              f"tp={ptp}", tag)
-        else:
-            out["b2"] += got["b2"]
-            out["k1"] += got["k1"]
-            out["b2_recs"] += retime(cap, f"{name} pressure tp={ptp} shard",
-                                     tag)
-        del cfg, model, params
-        free_device_memory()
+        for ptp, page, layers in passes[name]:
+            cfg, model, params = published(name, seed, tag, n_layers=layers)
+            got, cap = tp_pressure(cfg, model, params, seed, ptp, tag,
+                                   page=page)
+            out["merges"] += got["merges"]
+            what = f"{name} pressure tp={ptp} page {page}"
+            if isinstance(cap, FeatureCapture):
+                out["b2f"] += got["b2_scores"] + got["b2_pv"]
+                out["k1f"] += got["k1_scores"] + got["k1_pv"]
+                out["b2f_recs"] += retime_features(cap, what, tag)
+            elif cfg.n_kv_heads % ptp:
+                out["b2p"] += got["b2_partial"]
+                out["k1p"] += got["k1_partial"]
+                out["b2p_recs"] += retime_partial(cap, what, tag)
+            else:
+                out["b2"] += got["b2"]
+                out["k1"] += got["k1"]
+                out["b2_recs"] += retime(cap, f"{what} shard", tag)
+            del cfg, model, params
+            free_device_memory()
     log(f"[{tag}] step ms and launches a step (model, tp, page, mean step "
-        f"ms, kernel launches a step, pool bytes a shard): {out['table']}")
+        f"ms, attention kernel launches a step, pool bytes a shard): "
+        f"{out['table']}")
     return out
 
 
@@ -4355,11 +4687,11 @@ def exact_serve(cfg, model, params, turns, gen, tp, mode, page=PAGE):
                 preempted = True
         got.append(list(req.output_ids))
     ran = counts()
-    key, want = expected_counts(be)
+    keys, want = expected_counts(be)
     if mode == "ref":
         want = 0
-    check(ran.get(key, 0) == want and sum(ran.values()) == want,
-          f"{cfg.name} tp={tp} {mode}: launches {ran}, want {key} = {want}")
+    check(launched(ran, keys, want),
+          f"{cfg.name} tp={tp} {mode}: launches {ran}, want {keys} = {want}")
     check_merges(be, f"{cfg.name} tp={tp} page {page} {mode}", mode)
     check(be.stats["swaps_out"] > 0 and be.stats["swaps_in"] > 0,
           f"{cfg.name} tp={tp}: the preemption swapped nothing out and in")
@@ -4382,15 +4714,18 @@ def int8_snapshot(be, pages):
 
 def phase_exact_tp(seed, tag=22):
     """Phase 22: exact fp32 tokens at full width and 2 layers through the
-    mesh — llama3-8b at tp 1, 2, 4 (the kv-head rung) and yi-6b at tp 8
-    (split-K): served with a mid-decode preemption (a swap-out and back),
-    equal to the single device and to ``kernel_mode="ref"``; a session exported at tp 2 resumes at tp
-    4; one payload imported on one device and on the mesh, quantized: the
-    int8 scales and codes bit-equal, and its next turn served from its
-    int8 pages gives the same tokens."""
+    mesh — llama3-8b at tp 1, 2, 4 (the kv-head rung) and yi-6b at tp 8,
+    page 16 and 8 (split-K) and at tp 16, page 8 (the head-feature rung):
+    served with a mid-decode preemption (a swap-out and back), equal to
+    the single device and to ``kernel_mode="ref"``; a session exported at
+    tp 2 resumes at tp 4; one payload imported on one device and on the
+    mesh, quantized: the int8 scales and codes bit-equal to one device's
+    at the same page size, and its next turn served from its int8 pages
+    gives the same tokens."""
     rng = np.random.default_rng(seed + 22)
     gen = 16
-    for name, tps in (("llama3-8b", (1, 2, 4)), ("yi-6b", (8,))):
+    for name, runs in (("llama3-8b", ((1, PAGE), (2, PAGE), (4, PAGE))),
+                       ("yi-6b", ((8, PAGE), (8, 8), (16, 8)))):
         cfg, model, params = published(name, seed + 22, tag, n_layers=2,
                                        dtype="float32")
         turns = [[int(x) for x in rng.integers(0, cfg.vocab, int(n))]
@@ -4400,25 +4735,21 @@ def phase_exact_tp(seed, tag=22):
         log(f"[{tag}] {cfg.name} one device: {want}")
         check(got_ref == want, f"{cfg.name}: the kernels' tokens differ "
               f"from kernel_mode='ref'")
-        for tp in tps:
+        for tp, page in runs:
             for mode in ("auto", "ref"):
-                got = exact_serve(cfg, model, params, turns, gen, tp, mode)
-                check(got == want, f"{cfg.name} tp={tp} {mode}: tokens "
-                      f"{got} differ from one device's {want}")
-            log(f"[{tag}] {cfg.name} tp={tp}: auto and ref equal one "
-                f"device's tokens")
-            if tp == 8:
-                # 1-row shard pages: page 8 at tp 8
-                got = exact_serve(cfg, model, params, turns, gen, tp, "auto",
-                                  page=8)
-                check(got == want, f"{cfg.name} tp=8 page 8: tokens {got} "
-                      f"differ from one device's {want}")
-                log(f"[{tag}] {cfg.name} tp=8 page 8 (1-row shard pages): "
-                    f"equal to one device's tokens")
+                got = exact_serve(cfg, model, params, turns, gen, tp, mode,
+                                  page=page)
+                check(got == want, f"{cfg.name} tp={tp} page {page} {mode}:"
+                      f" tokens {got} differ from one device's {want}")
+            rung = ShardingPlan(cfg, tp_mesh(tp)).pool_rung(
+                (2, 2, page, cfg.n_kv_heads, cfg.d_head))
+            log(f"[{tag}] {cfg.name} tp={tp} page {page} ({rung}): auto and "
+                f"ref equal one device's tokens")
+        tps = [tp for tp, _ in runs]
         if 2 in tps and 4 in tps:
             eng2, be2, mgr2 = make_node(cfg, model, params, n_pages=128,
-                                     max_batch=4, token_budget=128,
-                                     mesh=tp_mesh(2))
+                                        max_batch=4, token_budget=128,
+                                        mesh=tp_mesh(2))
             now, got = 0.0, []
             for turn in turns[:2]:
                 toks, now = serve_turn(eng2, be2, "chat", turn, gen, now)
@@ -4441,7 +4772,8 @@ def phase_exact_tp(seed, tag=22):
             log(f"[{tag}] {cfg.name}: exported at tp=2, resumed at tp=4: "
                 f"equal")
             del eng2, be2, mgr2, eng4, be4, mgr4
-        # one payload on one device and on each mesh, quantized
+        # one payload on one device and on each mesh, quantized; a mesh is
+        # held to one device at its own page size
         eng, be, mgr = make_node(cfg, model, params, n_pages=128,
                                  max_batch=4, token_budget=128)
         toks, now = serve_turn(eng, be, "chat", turns[0], gen, 0.0)
@@ -4449,10 +4781,12 @@ def phase_exact_tp(seed, tag=22):
         payload = be.export_session("chat")
         del eng, be, mgr
         res = {}
-        for tp in (None,) + tps:
-            eng, be, mgr = make_node(cfg, model, params, n_pages=128,
-                                     max_batch=4, token_budget=128,
-                                     mesh=tp_mesh(tp))
+        pages = sorted({p for _, p in runs})
+        for tp, page in [(None, p) for p in pages] + list(runs):
+            eng, be, mgr = make_node(cfg, model, params,
+                                     n_pages=128 * PAGE // page,
+                                     page_size=page, max_batch=4,
+                                     token_budget=128, mesh=tp_mesh(tp))
             be.import_session("chat", payload)
             mgr.mark_resident("chat", tokens, be.session_kv_bytes(tokens),
                               priority=0)
@@ -4461,26 +4795,28 @@ def phase_exact_tp(seed, tag=22):
             check(be.quantize_session("chat") > 0,
                   f"{cfg.name} tp={tp}: nothing quantized")
             snap = int8_snapshot(be, be.alloc[0].seqs["chat"].pages[
-                :payload["n_kv"] // PAGE])
+                :payload["n_kv"] // page])
             zero_counts()
             t2, _ = serve_turn(eng, be, "chat", turns[1], gen, now)
-            key, n = expected_counts(be, "b2")
-            check(counts()[key] == n, f"{cfg.name} tp={tp}: B.2 ran "
-                  f"{counts()} for {n} {key}")
-            res[tp] = (snap, t2)
+            keys, n = expected_counts(be, "b2")
+            check(all(counts()[k] == n for k in keys),
+                  f"{cfg.name} tp={tp}: B.2 ran {counts()} for {n} {keys}")
+            res[tp, page] = (snap, t2)
             del eng, be, mgr
-        for tp in tps:
-            for a, b, what in zip(res[tp][0], res[None][0],
+        for tp, page in runs:
+            for a, b, what in zip(res[tp, page][0], res[None, page][0],
                                   ("k codes", "v codes", "k scales",
                                    "v scales")):
                 check(a.dtype == b.dtype and torch.equal(a, b),
-                      f"{cfg.name} tp={tp}: int8 {what} differ from one "
-                      f"device's")
-            check(res[tp][1] == res[None][1], f"{cfg.name} tp={tp}: the "
-                  f"turn served from int8 pages differs from one device's")
-        log(f"[{tag}] {cfg.name}: int8 scales and codes at tp {tps} "
-            f"bit-equal to one device's; the turn read from int8 pages "
-            f"{res[None][1]} at every tp")
+                      f"{cfg.name} tp={tp} page {page}: int8 {what} differ "
+                      f"from one device's")
+            check(res[tp, page][1] == res[None, page][1],
+                  f"{cfg.name} tp={tp} page {page}: the turn served from "
+                  f"int8 pages differs from one device's")
+        log(f"[{tag}] {cfg.name}: int8 scales and codes at (tp, page) "
+            f"{list(runs)} bit-equal to one device's; the turn read from "
+            f"int8 pages at every tp equal to one device's at its page "
+            f"size: {[res[None, p][1] for p in pages]}")
         del cfg, model, params, res
         free_device_memory()
 
@@ -5137,13 +5473,17 @@ def main(argv=None):
         # phase 21 drives each tp main path with the counts set to 0 just
         # before it and reads them just after, inside the phase
         tp = dict(k1=0, k1_recs=[], b2=0, b2_recs=[], k1p=0, k1p_recs=[],
-                  b2p=0, b2p_recs=[], merges=0)
+                  b2p=0, b2p_recs=[], merges=0, k1f=0, k1f_recs=[], b2f=0,
+                  b2f_recs=[])
         if 21 in phases:
             tp = phase_tp(args.seed)
             check(tp["k1p"] > 0 and tp["b2p"] > 0 and tp["merges"] > 0,
                   f"the partial modes ran {tp['k1p']} and {tp['b2p']} "
                   f"times, their merge {tp['merges']}, on phase 21's "
                   f"split-K paths")
+            check(tp["k1f"] > 0 and tp["b2f"] > 0,
+                  f"the feature modes ran {tp['k1f']} and {tp['b2f']} "
+                  f"times on phase 21's head-feature paths")
             lap("phase 21")
         if 22 in phases:
             phase_exact_tp(args.seed)
@@ -5207,6 +5547,17 @@ def main(argv=None):
         # softmax combine that GSPMD inserts around the TPU kernel on the
         # split-K rung, so no pallas_call stands behind it (replaces null);
         # no single PyTorch call computes it
+        # the feature mode of both (phase 21's yi-6b at tp 16, page 8): F1
+        # and F2 of every shard, launches and times summed; library_ms is
+        # SDPA over the whole call's gathered K/V
+        kernel_entry(pa.NAME + "_features",
+                     "src/repro_torch/csrc/paged_chunk_features.cu",
+                     "src/repro/kernels/paged_attention.py:291", tp["k1f"],
+                     tp["k1f_recs"]),
+        kernel_entry(pa.QUANT_NAME + "_features",
+                     "src/repro_torch/csrc/paged_chunk_features.cu",
+                     "src/repro/kernels/paged_attention.py:239", tp["b2f"],
+                     tp["b2f_recs"]),
         kernel_entry(pa.MERGE_NAME, "src/repro_torch/csrc/split_kv.cuh",
                      None, tp["merges"],
                      [merge_record(r) for r in tp["k1p_recs"]
@@ -5230,7 +5581,8 @@ def main(argv=None):
         f"{qlaunches} on llama3-8b's pressure path, {vq} on phi-3-vision's; "
         f"phase 21's shards: kernel 1 {tp['k1']}, int8 kernel {tp['b2']}, "
         f"their partial modes {tp['k1p']} and {tp['b2p']}, merged by "
-        f"{tp['merges']} merge launches; phase 25's launcher: kernel 1 "
+        f"{tp['merges']} merge launches, their feature modes (F1 + F2) "
+        f"{tp['k1f']} and {tp['b2f']}; phase 25's launcher: kernel 1 "
         f"{lk1}, flash_prefill {lb4}; "
         f"flash_prefill: {flaunches} on the dense reference's prefills, "
         f"{af} on the prefills of phases 17-19; ssd_scan: {slaunches} on "

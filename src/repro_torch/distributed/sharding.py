@@ -297,9 +297,10 @@ class PoolLayout:
     * "heads": shard r holds kv heads [r·Hkv/tp, (r+1)·Hkv/tp);
     * "rows" (split-K): shard r holds rows [r·pl, (r+1)·pl) of every page,
       pl = page / tp, so its pool is a pool of pl-row pages;
-    * "replicated": every shard holds the whole pool.
-    The head-feature rung has no kernel that takes its D-sharded pool and
-    raises."""
+    * "features" (the head-feature rung): shard r holds features
+      [r·dr, (r+1)·dr) of every row of every page and kv head, dr = D /
+      tp;
+    * "replicated": every shard holds the whole pool."""
 
     def __init__(self, plan: ShardingPlan, shape: Tuple[int, ...]):
         self.plan = plan
@@ -308,21 +309,16 @@ class PoolLayout:
         self.devices = plan.mesh.model_devices()
         self.spec = plan.pool_spec(self.shape)
         self.rung = plan.pool_rung(self.shape)
-        if self.rung == "features":
-            raise NotImplementedError(
-                f"tensor-parallel serving at page {shape[2]} and tp "
-                f"{self.tp}: the pool lands on the head-feature rung (page "
-                f"% tp != 0 and kv heads % tp != 0), and no kernel of the "
-                f"port takes a D-sharded pool: ROADMAP A.8")
         self.sig = mesh_signature(plan.mesh, self.spec)
         L, P1, page, Hkv, D = self.shape
         self.pl = page // self.tp if self.rung == "rows" else page
         self.hkv = Hkv // self.tp if self.rung == "heads" else Hkv
+        self.dr = D // self.tp if self.rung == "features" else D
 
     @property
     def shard_shape(self) -> Tuple[int, ...]:
-        L, P1, _, _, D = self.shape
-        return (L, P1, self.pl, self.hkv, D)
+        L, P1, _, _, _ = self.shape
+        return (L, P1, self.pl, self.hkv, self.dr)
 
     def zeros(self, dtype) -> List[torch.Tensor]:
         """One zero pool a shard, each on its shard's device."""
@@ -345,7 +341,8 @@ class PoolLayout:
     def slots(self, pages, offs, r: int):
         """Shard r's destinations of tokens at (pages, offs): on the rows
         rung a token whose row lies in another shard's slice goes to the
-        trash page (row 0), never read; elsewhere unchanged."""
+        trash page (row 0), never read; elsewhere unchanged (every shard
+        holds every row)."""
         if self.rung != "rows":
             return pages, offs
         mine = (offs // self.pl) == r
@@ -354,22 +351,26 @@ class PoolLayout:
                 torch.where(mine, offs - r * self.pl, torch.zeros_like(offs)))
 
     def kv_part(self, t: torch.Tensor, r: int) -> torch.Tensor:
-        """Shard r's part of full-head K or V rows (..., Hkv, D)."""
-        if self.rung != "heads":
-            return t
-        return t[..., r * self.hkv:(r + 1) * self.hkv, :]
+        """Shard r's part of full-head K or V rows (..., Hkv, D): its kv
+        heads on the heads rung, its features on the features rung."""
+        if self.rung == "heads":
+            return t[..., r * self.hkv:(r + 1) * self.hkv, :]
+        if self.rung == "features":
+            return t[..., r * self.dr:(r + 1) * self.dr]
+        return t
 
     def gather(self, read, offs):
         """Full-head rows (G, n, Hkv, D) on shard 0's device from
         ``read(r, local_offs)``, which returns a tuple of shard r's rows
-        (G, n, hkv, D) of the same tokens at the given in-page offsets
+        (G, n, hkv, dr) of the same tokens at the given in-page offsets
         (n,); one full tensor per element of the tuple."""
         dev = self.devices[0]
         if self.rung == "replicated":
             return read(0, offs)
-        if self.rung == "heads":
+        if self.rung in ("heads", "features"):
+            dim = -2 if self.rung == "heads" else -1
             parts = [read(r, offs) for r in range(self.tp)]
-            return tuple(torch.cat([p[i].to(dev) for p in parts], dim=-2)
+            return tuple(torch.cat([p[i].to(dev) for p in parts], dim=dim)
                          for i in range(len(parts[0])))
         owner = (offs // self.pl).to(dev)[None, :, None, None]
         out = None

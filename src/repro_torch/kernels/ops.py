@@ -237,6 +237,88 @@ def merge_partials(o, lse, dtype, mode: str = "auto"):
     return _pa.merge_partials(o, lse, dtype)
 
 
+# bytes of one scores buffer of the head-feature rung (a call's F1 sums
+# into it, its F2 reads it): a call whose buffer would pass this is cut
+# into tiles of lanes, one buffer a tile (`scores_workspace`)
+SCORES_CAP = 4 << 30
+
+
+def scores_workspace(q, k_pages, block_tables, devices):
+    """The float32 scores buffer of one head-feature call of
+    ``len(devices)`` shards (shard r's pools on ``devices[r]``) and the
+    lanes it takes at once: (ws, lanes).  ``lanes`` is the most lanes of
+    q (B, Sq, H, ·) whose scores (lanes, H, Sq, T), T = table width x page,
+    stay within SCORES_CAP bytes (at least one); the caller cuts the call
+    into tiles of that many lanes.  ``ws`` is one (lanes, H, Sq, T) buffer
+    on shard 0's device, which every shard's `paged_chunk_scores_partial`
+    writes (shard 0) or adds into (the others) in stream order, when every
+    shard lives there; None otherwise: each shard then returns its own
+    scores and ``collectives.all_reduce_sum`` sums them."""
+    B, Sq, H, _ = q.shape
+    T = block_tables.shape[1] * k_pages.shape[1]
+    lanes = max(1, min(B, SCORES_CAP // max(4 * H * Sq * T, 1)))
+    dev = torch.device(devices[0])
+    if any(torch.device(d) != dev for d in devices):
+        return None, lanes
+    return torch.empty((lanes, H, Sq, T), dtype=torch.float32,
+                       device=dev), lanes
+
+
+@_charged(cost.paged_chunk_scores_partial_work)
+def paged_chunk_scores_partial(q, k_pages, block_tables, q_offsets, ctx_lens,
+                               mode: str = "auto", quant=None, out=None,
+                               accumulate: bool = False):
+    """F1 of the head-feature rung: one shard's unscaled partial scores
+    q_r · k_r (B, H, Sq, T) float32 over its features (q (B, Sq, H, dr),
+    the pools (P, page, Hkv, dr); ``quant`` its int8 shadows), written
+    into ``out`` when given, or added to it with ``accumulate``.  Entries
+    of keys a row cannot see are whatever the route leaves there (the
+    kernel does not write them, the plain version computes them): only
+    `paged_chunk_softmax_pv` reads them, by position.  mode: auto | ref."""
+    if mode not in MODES:
+        raise ValueError(f"kernel mode {mode!r} not in {MODES}")
+    if q.device.type == "meta":
+        if out is not None:
+            return out
+        B, Sq, H, _ = q.shape
+        return q.new_empty((B, H, Sq, block_tables.shape[1]
+                            * k_pages.shape[1]), dtype=torch.float32)
+    if mode == "ref" or q.device.type == "cpu":
+        s = ref.paged_chunk_scores_partial_ref(q, k_pages, block_tables,
+                                               q_offsets, ctx_lens,
+                                               quant=quant)
+        if out is None:
+            return s
+        return out.add_(s) if accumulate else out.copy_(s)
+    _no_grad_kernel("paged_chunk_scores_partial", q, k_pages, *(quant or ()))
+    return _pa.paged_chunk_scores(q, k_pages, block_tables, q_offsets,
+                                  ctx_lens, quant=quant, out=out,
+                                  accumulate=accumulate)
+
+
+@_charged(cost.paged_chunk_softmax_pv_work)
+def paged_chunk_softmax_pv(scores, v_pages, block_tables, q_offsets, ctx_lens,
+                           head_dim: int, dtype, mode: str = "auto",
+                           quant=None):
+    """F2 of the head-feature rung: the softmax of every shard's summed
+    scores (B, H, Sq, T) at 1 / sqrt(``head_dim``) of the full head, over
+    the keys each row sees, times one shard's V features (pools (P, page,
+    Hkv, dr)): (B, Sq, H, dr) in ``dtype``.  mode: auto | ref."""
+    if mode not in MODES:
+        raise ValueError(f"kernel mode {mode!r} not in {MODES}")
+    if scores.device.type == "meta":
+        B, H, Sq, _ = scores.shape
+        return scores.new_empty((B, Sq, H, v_pages.shape[-1]), dtype=dtype)
+    if mode == "ref" or scores.device.type == "cpu":
+        return ref.paged_chunk_softmax_pv_ref(scores, v_pages, block_tables,
+                                              q_offsets, ctx_lens, head_dim,
+                                              dtype, quant=quant)
+    _no_grad_kernel("paged_chunk_softmax_pv", scores, v_pages, *(quant or ()))
+    return _pa.paged_chunk_softmax_pv(scores, v_pages, block_tables,
+                                      q_offsets, ctx_lens, head_dim, dtype,
+                                      quant=quant)
+
+
 @_charged(cost.flash_prefill_work)
 def flash_prefill(q, k, v, q_offset: int = 0, mode: str = "auto"):
     """Causal prefill attention over dense K/V with a cached prefix: query

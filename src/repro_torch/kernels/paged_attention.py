@@ -25,6 +25,15 @@ normalised over its keys with their log-sum-exp.  ``merge_partials``
 merges every shard's and split's partials of one call in one device kernel
 (``csrc/split_kv.cuh``, ``split_kv_merge``), reading them in place when the
 shards wrote into one workspace.
+``paged_chunk_scores`` (F1) and ``paged_chunk_softmax_pv`` (F2) are the two
+kernels' feature-shard mode, for tensor-parallel serving on the head-feature
+rung (a pool cut along D, shard r holding features [r·dr, (r+1)·dr) of every
+row): F1 writes one shard's unscaled partial scores q_r · k_r of every
+visible (query row, key) into a float32 buffer (B, H, Sq, T), or adds them
+into it, and F2 takes the scores summed over the shards through a softmax
+at 1 / sqrt(D) of the full head and the shard's V features.  Their own
+source and library, ``csrc/paged_chunk_features.cu``; with the int8
+pointers set they read flagged pages from the shard's int8 shadows.
 ``paged_attention`` is the single-token decode kernel, q (B, H, D): its own
 source and library, so kernel 1's and B.2's build is untouched by it.  It
 splits each lane's context over CTAs (``decode_split_plan``) and merges the
@@ -38,7 +47,10 @@ contiguity, allocates the output, launches on the current stream, raises if
 the launch is refused, and counts its launches in the module's
 ``launches`` (the fp kernel), ``quant_launches`` (the int8 kernel),
 ``partial_launches`` / ``quant_partial_launches`` (their partial mode),
-``merge_launches`` (the partials' merge) or ``decode_launches`` (the decode kernel, one per call whether or not the
+``merge_launches`` (the partials' merge), ``scores_launches`` /
+``pv_launches`` (F1 and F2 of kernel 1's feature mode),
+``quant_scores_launches`` / ``quant_pv_launches`` (B.2's) or
+``decode_launches`` (the decode kernel, one per call whether or not the
 merge ran).  There is no fallback: the plain
 version (``kernels/ref.py``) is chosen by ``kernels/ops.py`` only for
 tensors that lie on the CPU, or when a caller asks for it by name.
@@ -53,6 +65,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -66,6 +79,9 @@ MAX_GROUP = 16                      # query heads per kv head (fp32 kRows)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 QUANT_NAME = "paged_chunk_attention_quant"
 MERGE_NAME = "paged_chunk_attention_merge"
+FEATURES_NAME = "paged_chunk_features"
+FEATURE_DIMS = (2, 4, 8, 16, 32, 64)  # features a shard holds of a head
+FEATURE_PAGES = (1, 2, 4, 8, 16, 32)
 DECODE_NAME = "paged_attention"
 DECODE_HEAD_DIMS = (32, 64, 80, 128)
 _fns = {}
@@ -75,6 +91,10 @@ decode_launches = 0                 # decode kernel launches
 partial_launches = 0                # fp kernel launches in partial mode
 quant_partial_launches = 0          # int8 kernel launches in partial mode
 merge_launches = 0                  # merges of a split-K call's partials
+scores_launches = 0                 # F1 launches, fp pools
+pv_launches = 0                     # F2 launches, fp pools
+quant_scores_launches = 0           # F1 launches over int8 shadows
+quant_pv_launches = 0               # F2 launches over int8 shadows
 
 
 def _entry(symbol: str, n_ptrs: int, n_ints: int = 10, lib: str = NAME):
@@ -397,6 +417,185 @@ def merge_partials(o, lse, dtype):
                            f"{err}")
     global merge_launches
     merge_launches += 1
+    return out
+
+
+def _features_entry(symbol: str, n_ptrs: int, n_ints: int,
+                    scale: bool = False):
+    f = _fns.get(symbol)
+    if f is None:
+        f = getattr(build.load(FEATURES_NAME), symbol)
+        ints = [ctypes.c_int] * n_ints
+        if scale:                       # F2's float before dtype and device
+            ints = ints[:-2] + [ctypes.c_float] + ints[-2:]
+        f.argtypes = [ctypes.c_void_p] * n_ptrs + ints + [ctypes.c_void_p]
+        f.restype = ctypes.c_int
+        _fns[symbol] = f
+    return f
+
+
+def _check_features(q, pages, block_tables, q_offsets, ctx_lens, quant,
+                    kernel):
+    """Raise on what F1 (``q`` the queries' features) or F2 (``q`` the
+    scores) does not take: CUDA tensors on one card, float32 or bfloat16
+    pools of dr in FEATURE_DIMS features and pages in FEATURE_PAGES rows,
+    int32 tables and lanes, contiguous pools 16-byte aligned (a key's
+    features are read in vector loads of up to 16 bytes), the int8
+    shadows and scales as `paged_chunk_attention_quant` takes them."""
+    if not q.is_cuda:
+        raise ValueError(f"{kernel}: the kernel takes CUDA tensors, q is on "
+                         f"{q.device}")
+    dev = q.get_device()
+    if pages.dtype not in _DTYPES:
+        raise TypeError(f"{kernel}: dtype {pages.dtype} not supported "
+                        f"(float32, bfloat16)")
+    if q.dim() != 4 or pages.dim() != 4:
+        raise ValueError(f"{kernel}: q must be 4-D and the pages (P, page, "
+                         f"Hkv, dr)")
+    B = q.shape[0]
+    _, page, Hkv, dr = pages.shape
+    if dr not in FEATURE_DIMS:
+        raise ValueError(f"{kernel}: {dr} features a shard, not in "
+                         f"{FEATURE_DIMS}")
+    if page not in FEATURE_PAGES:
+        raise ValueError(f"{kernel}: page size {page} not in "
+                         f"{FEATURE_PAGES}")
+    if block_tables.dim() != 2 or block_tables.shape[0] != B:
+        raise ValueError(f"{kernel}: block tables must be (B={B}, T)")
+    for name, t in (("q_offsets", q_offsets), ("ctx_lens", ctx_lens)):
+        if tuple(t.shape) != (B,):
+            raise ValueError(f"{kernel}: {name} must be (B={B},)")
+    for name, t in (("block_tables", block_tables), ("q_offsets", q_offsets),
+                    ("ctx_lens", ctx_lens)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{kernel}: {name} must be int32, is {t.dtype}")
+    for name, t in (("pages", pages), ("block_tables", block_tables),
+                    ("q_offsets", q_offsets), ("ctx_lens", ctx_lens)):
+        if t.get_device() != dev:
+            raise ValueError(f"{kernel}: {name} is on {t.device}, q on "
+                             f"{q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous")
+    if pages.data_ptr() % 16:
+        raise ValueError(f"{kernel}: the pages must be 16-byte aligned (the "
+                         f"kernel reads a key's features in vector loads)")
+    if quant is not None:
+        _check_quant(pages, *quant)
+    return B, page, Hkv, dr, dev
+
+
+def _quant_ptrs(quant, side: int):
+    """(int8 pool, scales, flags) pointers of the K (0) or V (1) side of a
+    quant tuple, or nulls."""
+    if quant is None:
+        return [None] * 3
+    return [quant[side].data_ptr(), quant[2 + side].data_ptr(),
+            quant[4].data_ptr()]
+
+
+def paged_chunk_scores(q, k_pages, block_tables, q_offsets, ctx_lens,
+                       quant=None, out=None, accumulate: bool = False):
+    """F1 on the card: one shard's unscaled partial scores on the
+    head-feature rung (``ref.paged_chunk_scores_partial_ref``).
+
+    q: (B, Sq, H, dr) — the shard's features of the queries; any strides
+    with the features contiguous (a slice of the full heads).  k_pages:
+    (P, page, Hkv, dr), the shard's pool, dr in FEATURE_DIMS.  ``quant``:
+    (kq_pages, vq_pages, k_scales, v_scales, page_quant), the shard's int8
+    shadows (the K side is read; launches B.2's mode).  Returns ``out`` or
+    a new (B, H, Sq, T) float32 buffer, T = table width x page, holding q_r
+    · k_r where the query row sees the key and untouched elsewhere; with
+    ``accumulate`` the products are added to ``out``'s entries instead."""
+    kernel = FEATURES_NAME + ".scores"
+    B, page, Hkv, dr, dev = _check_features(q, k_pages, block_tables,
+                                            q_offsets, ctx_lens, quant,
+                                            kernel)
+    _, Sq, H, dq = q.shape
+    if q.dtype != k_pages.dtype or dq != dr:
+        raise ValueError(f"{kernel}: q {tuple(q.shape)} {q.dtype} does not "
+                         f"match the pages' {dr} features {k_pages.dtype}")
+    if Hkv == 0 or H % Hkv or H // Hkv > MAX_GROUP:
+        raise ValueError(f"{kernel}: {H} heads over {Hkv} kv heads "
+                         f"(need H % Hkv == 0 and H / Hkv <= {MAX_GROUP})")
+    if q.stride(-1) != 1 or max(q.stride()[:3]) >= 2 ** 31:
+        raise ValueError(f"{kernel}: q's features must be contiguous "
+                         f"(strides {q.stride()})")
+    T = block_tables.shape[1] * page
+    shape = (B, H, Sq, T)
+    if out is None:
+        if accumulate:
+            raise ValueError(f"{kernel}: accumulate needs out")
+        out = torch.empty(shape, dtype=torch.float32, device=q.device)
+    elif (tuple(out.shape) != shape or out.dtype != torch.float32
+          or out.get_device() != dev or not out.is_contiguous()):
+        raise ValueError(f"{kernel}: out must be {shape} float32 on "
+                         f"{q.device}, contiguous")
+    ptrs = [q.data_ptr(), k_pages.data_ptr()]
+    kq, ks, flags = _quant_ptrs(quant, 0)
+    ptrs += [kq, ks, flags, block_tables.data_ptr(), q_offsets.data_ptr(),
+             ctx_lens.data_ptr(), out.data_ptr()]
+    ints = [*q.stride()[:3], B, Sq, H, Hkv, dr, page, block_tables.shape[1],
+            int(bool(accumulate)), _DTYPES[q.dtype], dev]
+    fn = _features_entry("paged_chunk_scores_launch", len(ptrs), len(ints))
+    err = fn(*ptrs, *ints, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"{kernel}: launch failed with cudaError_t {err}")
+    global scores_launches, quant_scores_launches
+    if quant is None:
+        scores_launches += 1
+    else:
+        quant_scores_launches += 1
+    return out
+
+
+def paged_chunk_softmax_pv(scores, v_pages, block_tables, q_offsets,
+                           ctx_lens, head_dim: int, dtype, quant=None):
+    """F2 on the card: one shard's output on the head-feature rung
+    (``ref.paged_chunk_softmax_pv_ref``).
+
+    scores: (B, H, Sq, T) float32, every shard's F1 summed; v_pages (P,
+    page, Hkv, dr), the shard's pool; head_dim the full head's D (a
+    multiple of dr: the softmax scale is 1 / sqrt(D)); dtype the output's,
+    the pool's; ``quant`` as `paged_chunk_scores` (the V side is read).
+    Returns (B, Sq, H, dr) in ``dtype``: bucket-padding rows and ctx = 0
+    lanes as zeros."""
+    kernel = FEATURES_NAME + ".softmax_pv"
+    B, page, Hkv, dr, dev = _check_features(scores, v_pages, block_tables,
+                                            q_offsets, ctx_lens, quant,
+                                            kernel)
+    _, H, Sq, T = scores.shape
+    if dtype != v_pages.dtype:
+        raise TypeError(f"{kernel}: output dtype {dtype}, the pages are "
+                        f"{v_pages.dtype}")
+    if (scores.dtype != torch.float32 or not scores.is_contiguous()
+            or T != block_tables.shape[1] * page):
+        raise ValueError(f"{kernel}: scores must be contiguous float32 (B, "
+                         f"H, Sq, T = {block_tables.shape[1] * page}), are "
+                         f"{tuple(scores.shape)} {scores.dtype}")
+    if Hkv == 0 or H % Hkv or H // Hkv > MAX_GROUP:
+        raise ValueError(f"{kernel}: {H} heads over {Hkv} kv heads "
+                         f"(need H % Hkv == 0 and H / Hkv <= {MAX_GROUP})")
+    if head_dim < dr or head_dim % dr:
+        raise ValueError(f"{kernel}: a shard's {dr} features do not divide "
+                         f"the head's {head_dim}")
+    out = torch.empty((B, Sq, H, dr), dtype=dtype, device=scores.device)
+    vq, vs, flags = _quant_ptrs(quant, 1)
+    ptrs = [scores.data_ptr(), v_pages.data_ptr(), vq, vs, flags,
+            block_tables.data_ptr(), q_offsets.data_ptr(),
+            ctx_lens.data_ptr(), out.data_ptr()]
+    ints = [B, Sq, H, Hkv, dr, page, block_tables.shape[1], _DTYPES[dtype],
+            dev]
+    fn = _features_entry("paged_chunk_softmax_pv_launch", len(ptrs),
+                         len(ints), scale=True)
+    err = fn(*ptrs, *ints[:-2], math.log2(math.e) / math.sqrt(head_dim),
+             *ints[-2:], _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"{kernel}: launch failed with cudaError_t {err}")
+    global pv_launches, quant_pv_launches
+    if quant is None:
+        pv_launches += 1
+    else:
+        quant_pv_launches += 1
     return out
 
 

@@ -207,6 +207,95 @@ def paged_chunk_attention_partial_ref(q, k_pages, v_pages, block_tables,
     return o.reshape(1, B, Sq, H, D), lse
 
 
+def _feature_pages(pages, quant_pages, scales, page_quant, tables):
+    """Rows of a feature shard's pool gathered through the tables, float32
+    (B, T, page, Hkv, dr): ``int8 * scale`` where the page is flagged."""
+    x = pages[tables].float()
+    if page_quant is None:
+        return x
+    isq = (page_quant[tables] > 0)[..., None, None, None]
+    xd = quant_pages[tables].float() \
+        * scales[tables].float()[..., None, None, None]
+    return torch.where(isq, xd, x)
+
+
+def _visible(q_offsets, ctx_lens, Sq, T, dev):
+    """(B, Sq, T) bool: key kpos is visible to lane b's query row i iff
+    kpos <= q_offsets[b] + i and kpos < ctx_lens[b] (a position mask,
+    whatever page the table names there)."""
+    qpos = q_offsets.long()[:, None] + torch.arange(Sq, device=dev)[None, :]
+    kpos = torch.arange(T, device=dev)
+    return (qpos[:, :, None] >= kpos[None, None, :]) \
+        & (kpos[None, None, :] < ctx_lens.long()[:, None, None])
+
+
+def paged_chunk_scores_partial_ref(q, k_pages, block_tables, q_offsets,
+                                   ctx_lens, quant=None):
+    """One shard's scores on the head-feature rung: F1's plain version.
+
+    q:            (B, Sq, H, dr) — the shard's features of every query head
+    k_pages:      (P, page, Hkv, dr) — the shard's features of every row
+    block_tables, q_offsets, ctx_lens: as `paged_chunk_attention_ref`
+    quant:        optional (kq_pages, vq_pages, k_scales, v_scales,
+                  page_quant), the shard's int8 shadows (P, page, Hkv, dr)
+                  and the per-page scales and flags; K reads kq, k_scales
+    returns:      (B, H, Sq, T) float32, T = table width x page: the
+                  unscaled partial products q_r . k_r of every (query row,
+                  key).  Summed over the shards they are the full heads'
+                  q . k; `paged_chunk_softmax_pv_ref` scales, masks and
+                  normalises them.  The kernel writes only the entries a
+                  row can see (kpos <= qpos, kpos < ctx, qpos < ctx); the
+                  rest are left as they were, and are never read."""
+    B, Sq, H, dr = q.shape
+    _, page, Hkv, _ = k_pages.shape
+    G = H // Hkv
+    T = block_tables.shape[1] * page
+    tables = block_tables.long()
+    k = (_feature_pages(k_pages, None, None, None, tables) if quant is None
+         else _feature_pages(k_pages, quant[0], quant[2], quant[4], tables))
+    k = k.reshape(B, T, Hkv, dr)
+    qg = q.reshape(B, Sq, Hkv, G, dr).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k)
+    return s.reshape(B, H, Sq, T)
+
+
+def paged_chunk_softmax_pv_ref(scores, v_pages, block_tables, q_offsets,
+                               ctx_lens, head_dim: int, dtype, quant=None):
+    """One shard's output on the head-feature rung: F2's plain version.
+
+    scores:       (B, H, Sq, T) float32, every shard's partial products
+                  summed (the full heads' q . k)
+    v_pages:      (P, page, Hkv, dr) — the shard's features of every row
+    head_dim:     the full head's D: the softmax scale is 1 / sqrt(D),
+                  whatever the shard's dr
+    dtype:        the output's dtype (q's)
+    quant:        as `paged_chunk_scores_partial_ref`; V reads vq, v_scales
+    returns:      (B, Sq, H, dr) in ``dtype``: softmax over the visible
+                  keys (the causal and ctx mask of
+                  `paged_chunk_attention_ref`, by position) of scores /
+                  sqrt(D), times the shard's V features, in float32; a
+                  ctx = 0 lane is zeros.  Concatenated over the shards
+                  along the last dim it is `paged_chunk_attention_ref` on
+                  the full pool."""
+    B, H, Sq, T = scores.shape
+    _, page, Hkv, dr = v_pages.shape
+    G = H // Hkv
+    dev = scores.device
+    tables = block_tables.long()
+    v = (_feature_pages(v_pages, None, None, None, tables) if quant is None
+         else _feature_pages(v_pages, quant[1], quant[3], quant[4], tables))
+    v = v.reshape(B, T, Hkv, dr)
+    s = scores.float().reshape(B, Hkv, G, Sq, T) / math.sqrt(head_dim)
+    mask = _visible(q_offsets, ctx_lens, Sq, T, dev)
+    s = torch.where(mask[:, None, None], s,
+                    torch.tensor(MASK_VALUE, dtype=s.dtype, device=dev))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v)
+    o = torch.where((ctx_lens > 0)[:, None, None, None, None], o,
+                    torch.zeros((), dtype=o.dtype, device=dev))
+    return o.reshape(B, Sq, H, dr).to(dtype)
+
+
 def combine_partials(o, lse):
     """N float32 partials of the same rows, o (N, ..., D) each normalised
     over its own keys and lse (N, ...) their log-sum-exp (-inf where a

@@ -479,8 +479,14 @@ class DenseLM:
     # shard r writes only the rows of its slice of each page and runs the
     # kernel's partial mode over them for all H heads, and
     # `ops.merge_partials` combines the shards; each shard keeps its
-    # column slice of the merged output for wo.  On "replicated" every shard
-    # holds the whole pool and runs the kernel on it.
+    # column slice of the merged output for wo.  On "features" q, k and v
+    # are gathered to full heads too, shard r writes features [r·dr,
+    # (r+1)·dr) of every row, the shards' partial scores over their
+    # features are summed (F1), each shard takes the softmax of the sum
+    # times its V features (F2), and an all-gather along D gives the full
+    # output, whose column slice each shard keeps for wo, as GSPMD
+    # partitions the reference's attention along D.  On "replicated" every
+    # shard holds the whole pool and runs the kernel on it.
 
     def _embed_tp(self, sp, ids):
         embs = [p["emb"] for p in sp.shards]
@@ -603,37 +609,51 @@ class DenseLM:
             else:
                 qkv = _once(self._heads, col(h, w, "wq"), col(h, w, "wk"),
                             col(h, w, "wv"), qn, kn, positions)
-                outs, lses = [], []
-                if layout.rung == "rows" and l == 0:
-                    # every layer's partials have one shape: one workspace
-                    # (on shard 0's device when every shard lives there)
-                    # serves them all, each layer's merge reading it before
-                    # the next layer's shards write it, in stream order
-                    ws, slots = ops.partial_workspace(
-                        qkv[0][0], k_pools[0][0], tab[0][0],
-                        [p.device for p in k_pools], mode=kernel_mode)
-                for r in range(tp):
-                    q, k, v = qkv[r]
-                    kp, vp = k_pools[r][l], v_pools[r][l]
-                    kp.index_put_((dest[r][0][l], dest[r][1][l]),
-                                  k.to(kp.dtype))
-                    vp.index_put_((dest[r][0][l], dest[r][1][l]),
-                                  v.to(vp.dtype))
-                    qt = self._quant_layer(quant, flags, r, l)
+                if layout.rung == "features":
+                    if l == 0:
+                        # one scores buffer (a tile of lanes) serves every
+                        # layer: each layer's F2 reads it before the next
+                        # layer's F1 writes it, in stream order
+                        ws, lanes = ops.scores_workspace(
+                            qkv[0][0], k_pools[0][0], tab[0][0],
+                            [p.device for p in k_pools])
+                    outs = self._feature_attention(
+                        qkv, k_pools, v_pools, l, dest, tab, qoff, ctx,
+                        layout, quant, flags, kernel_mode, ws, lanes)
+                else:
+                    outs, lses = [], []
+                    if layout.rung == "rows" and l == 0:
+                        # every layer's partials have one shape: one
+                        # workspace (on shard 0's device when every shard
+                        # lives there) serves them all, each layer's merge
+                        # reading it before the next layer's shards write
+                        # it, in stream order
+                        ws, slots = ops.partial_workspace(
+                            qkv[0][0], k_pools[0][0], tab[0][0],
+                            [p.device for p in k_pools], mode=kernel_mode)
+                    for r in range(tp):
+                        q, k, v = qkv[r]
+                        kp, vp = k_pools[r][l], v_pools[r][l]
+                        kp.index_put_((dest[r][0][l], dest[r][1][l]),
+                                      k.to(kp.dtype))
+                        vp.index_put_((dest[r][0][l], dest[r][1][l]),
+                                      v.to(vp.dtype))
+                        qt = self._quant_layer(quant, flags, r, l)
+                        if layout.rung == "rows":
+                            o, lse = ops.paged_chunk_attention_partial(
+                                q, kp, vp, tab[r][l], qoff[r], ctx[r], r,
+                                tp, mode=kernel_mode, quant=qt,
+                                out=slots[r])
+                            lses.append(lse)
+                        else:
+                            o = ops.paged_chunk_attention(
+                                q, kp, vp, tab[r][l], qoff[r], ctx[r],
+                                mode=kernel_mode, quant=qt)
+                        outs.append(o)
                     if layout.rung == "rows":
-                        o, lse = ops.paged_chunk_attention_partial(
-                            q, kp, vp, tab[r][l], qoff[r], ctx[r], r, tp,
-                            mode=kernel_mode, quant=qt, out=slots[r])
-                        lses.append(lse)
-                    else:
-                        o = ops.paged_chunk_attention(
-                            q, kp, vp, tab[r][l], qoff[r], ctx[r],
-                            mode=kernel_mode, quant=qt)
-                    outs.append(o)
-                if layout.rung == "rows":
-                    outs = put(ops.merge_partials(
-                        *(ws or C.gather_partials(outs, lses)), q.dtype,
-                        mode=kernel_mode))
+                        outs = put(ops.merge_partials(
+                            *(ws or C.gather_partials(outs, lses)), q.dtype,
+                            mode=kernel_mode))
                 o_in = [o.reshape(B, Sq, -1) for o in outs]
                 if blocks["wo"].dim_of() is not None:
                     n = c.q_dim // tp
@@ -663,6 +683,51 @@ class DenseLM:
         logits = self._unembed_tp(sp, rows)
         toks = torch.argmax(logits[:, :c.vocab], dim=-1).to(torch.int32)
         return toks, logits
+
+    def _feature_attention(self, qkv, k_pools, v_pools, l, dest, tab, qoff,
+                           ctx, layout, quant, flags, kernel_mode, ws,
+                           lanes):
+        """Layer ``l``'s attention on the head-feature rung: shard r writes
+        features [r·dr, (r+1)·dr) of this step's K and V into its pools;
+        F1 (`ops.paged_chunk_scores_partial`) forms every shard's partial
+        scores, summed into ``ws`` in stream order (or by an all-reduce
+        when the shards live on distinct devices); F2
+        (`ops.paged_chunk_softmax_pv`) gives each shard its features of
+        the output, which an all-gather puts together.  Lanes go in tiles
+        of ``lanes`` (`ops.scores_workspace`).  Returns each shard's full
+        output (B, Sq, H, D)."""
+        tp, dr = layout.tp, layout.dr
+        q0 = qkv[0][0]
+        B = q0.shape[0]
+        for r in range(tp):
+            _, k, v = qkv[r]
+            kp, vp = k_pools[r][l], v_pools[r][l]
+            kp.index_put_((dest[r][0][l], dest[r][1][l]),
+                          layout.kv_part(k, r).to(kp.dtype))
+            vp.index_put_((dest[r][0][l], dest[r][1][l]),
+                          layout.kv_part(v, r).to(vp.dtype))
+        qts = [self._quant_layer(quant, flags, r, l) for r in range(tp)]
+        tiles = []
+        for b0 in range(0, B, lanes):
+            lane = slice(b0, min(B, b0 + lanes))
+            nb = lane.stop - lane.start
+            out = None if ws is None else ws[:nb]
+            parts = []
+            for r in range(tp):
+                q = qkv[r][0][lane, ..., r * dr:(r + 1) * dr]
+                parts.append(ops.paged_chunk_scores_partial(
+                    q, k_pools[r][l], tab[r][l][lane], qoff[r][lane],
+                    ctx[r][lane], mode=kernel_mode, quant=qts[r], out=out,
+                    accumulate=out is not None and r > 0))
+            scores = [out] * tp if out is not None else C.all_reduce_sum(
+                parts)
+            tiles.append([ops.paged_chunk_softmax_pv(
+                scores[r], v_pools[r][l], tab[r][l][lane], qoff[r][lane],
+                ctx[r][lane], self.cfg.d_head, q0.dtype, mode=kernel_mode,
+                quant=qts[r]) for r in range(tp)])
+        outs = tiles[0] if len(tiles) == 1 else \
+            [torch.cat([t[r] for t in tiles]) for r in range(tp)]
+        return C.all_gather(outs, -1)
 
     @torch.no_grad()
     def fork_paged(self, k_pool, v_pool, layer_ids, src, dst, layout=None):

@@ -27,7 +27,8 @@ charges it.  It claims no HLO semantics.  What it counts:
 Kernel entries.  Each entry of ``kernels/ops.py`` is charged its analytic
 work once, whatever implements the call — the CUDA kernel, the plain
 version or the meta route — from the functions below (``attention_work``,
-``flash_work``, ``scan_work``, ``partial_work``, ``merge_work``), and the
+``flash_work``, ``scan_work``, ``partial_work``, ``merge_work``,
+``feature_scores_work``, ``feature_pv_work``), and the
 operations inside it are not counted.  So the same step through the
 kernels and through the plain versions is charged the same work.  Where
 the work depends on the data (the lanes' context lengths, int8 flags), a
@@ -172,6 +173,81 @@ def merge_work(o, lse, itemsize):
     return 4 * lse.numel() + 4 * D * seen + B * Sq * H * D * itemsize
 
 
+def _seen(q_offsets, ctx_lens, q_lens):
+    """Per lane: (real rows n, keys read kv_end, keys seen summed over the
+    real rows), the rows at q_offsets + i < ctx each seeing min(ctx,
+    qpos + 1) keys."""
+    qo = q_offsets.cpu().numpy().astype(np.int64)
+    cx = ctx_lens.cpu().numpy().astype(np.int64)
+    out = []
+    for b in range(len(cx)):
+        n = int(q_lens[b]) if cx[b] else 0
+        seen = np.minimum(cx[b], qo[b] + np.arange(n) + 1)
+        out.append((n, int(seen.max()) if n else 0, int(seen.sum())))
+    return out
+
+
+def _feature_rows(tables, page, hkv, dr, itemsize, kv_end, b, flags):
+    """Bytes of one lane's key (or value) features below ``kv_end`` of one
+    shard, with the table entries; int8 where flagged, plus its scale and
+    flag."""
+    npg = -(-kv_end // page)
+    nbytes = 4 * npg
+    for i in range(npg):
+        rows = min(page, kv_end - i * page)
+        if flags is not None and flags[tables[b, i]]:
+            nbytes += rows * hkv * dr + 4 + 4
+        else:
+            nbytes += rows * hkv * dr * itemsize + (0 if flags is None
+                                                    else 4)
+    return nbytes
+
+
+def feature_scores_work(q, tables, q_offsets, ctx_lens, page, hkv, dr,
+                        itemsize, q_lens, flags=None, accumulate=False):
+    """Bytes F1 (a shard's partial scores on the head-feature rung) must
+    move and the operations it must do for THESE inputs: each real query
+    row's dr features read once, each lane's key features up to its
+    horizon once (int8 where flagged), a float32 score written for each
+    (real row, head, key it sees) — and read, when the call adds into the
+    buffer; 2 dr operations a score."""
+    B, Sq, H, _ = q.shape
+    tab = tables.cpu().numpy()
+    fl = None if flags is None else flags.cpu().numpy()
+    nbytes, flops = 2 * B * 4, 0
+    for b, (n, kv_end, seen) in enumerate(_seen(q_offsets, ctx_lens,
+                                                q_lens)):
+        if not n:
+            continue
+        nbytes += n * H * dr * itemsize + _feature_rows(
+            tab, page, hkv, dr, itemsize, kv_end, b, fl)
+        nbytes += 4 * H * seen * (2 if accumulate else 1)
+        flops += 2 * dr * H * seen
+    return nbytes, flops
+
+
+def feature_pv_work(scores, tables, q_offsets, ctx_lens, page, hkv, dr,
+                    itemsize, q_lens, flags=None):
+    """Bytes F2 (a shard's softmax · V on the head-feature rung) must move
+    and the operations it must do for THESE inputs: the float32 score of
+    each (real row, head, key it sees) read once, each lane's value
+    features up to its horizon once (int8 where flagged), each real row's
+    dr outputs written once; per score the softmax (scale, maximum,
+    exponent, sum: 4) and 2 dr for P · V."""
+    B, H, Sq, _ = scores.shape
+    tab = tables.cpu().numpy()
+    fl = None if flags is None else flags.cpu().numpy()
+    nbytes, flops = 2 * B * 4, 0
+    for b, (n, kv_end, seen) in enumerate(_seen(q_offsets, ctx_lens,
+                                                q_lens)):
+        if not n:
+            continue
+        nbytes += 4 * H * seen + n * H * dr * itemsize + _feature_rows(
+            tab, page, hkv, dr, itemsize, kv_end, b, fl)
+        flops += (2 * dr + 4) * H * seen
+    return nbytes, flops
+
+
 def flash_work(q, k, q_offset):
     """Bytes causal prefill attention must move and the operations it must
     do on THESE inputs: q read and the output written once, each kv head's
@@ -247,6 +323,32 @@ def paged_chunk_attention_partial_work(q, k_pages, v_pages, block_tables,
     flags = None if quant is None or q.device.type == "meta" else quant[4]
     return partial_work(q, tab, qoff, ctx, page_g, pl, shard, hkv, d,
                         q.element_size(), q_lens, flags), q.dtype
+
+
+def paged_chunk_scores_partial_work(q, k_pages, block_tables, q_offsets,
+                                    ctx_lens, mode="auto", quant=None,
+                                    out=None, accumulate=False):
+    _, page, hkv, dr = k_pages.shape
+    tab, qoff, ctx = _lanes(q, block_tables, q_offsets, ctx_lens, page)
+    q_lens = (ctx.long() - qoff.long()).clamp(min=0).tolist()
+    flags = None if quant is None or q.device.type == "meta" else quant[4]
+    return feature_scores_work(q, tab, qoff, ctx, page, hkv, dr,
+                               q.element_size(), q_lens, flags,
+                               accumulate), q.dtype
+
+
+def paged_chunk_softmax_pv_work(scores, v_pages, block_tables, q_offsets,
+                                ctx_lens, head_dim, dtype, mode="auto",
+                                quant=None):
+    _, page, hkv, dr = v_pages.shape
+    # `_lanes` reads the rows Sq from dim 1
+    tab, qoff, ctx = _lanes(scores.transpose(1, 2), block_tables, q_offsets,
+                            ctx_lens, page)
+    q_lens = (ctx.long() - qoff.long()).clamp(min=0).tolist()
+    flags = None if quant is None or scores.device.type == "meta" \
+        else quant[4]
+    return feature_pv_work(scores, tab, qoff, ctx, page, hkv, dr,
+                           v_pages.element_size(), q_lens, flags), dtype
 
 
 def merge_partials_work(o, lse, dtype, mode="auto"):

@@ -69,9 +69,10 @@ TENSOR-PARALLEL NODE (``mesh=``, a 1-D ``("model",)`` mesh from
 `launch.mesh.make_serving_mesh`): one node is tp shards serving one
 replica, driven by this one process.  The pools are cut by
 `ShardingPlan.pool_spec` (kv heads over the shards when divisible, else
-the split-K rung: each shard holds a slice of every page's rows), the int8
-shadow pools like them, the per-page scales replicated; the weights by the
-plan's column/row specs.  Every dispatch passes ``layout=`` to the model,
+the split-K rung: each shard holds a slice of every page's rows, else the
+head-feature rung: each shard holds a slice of every row's features), the
+int8 shadow pools like them, the per-page scales replicated; the weights
+by the plan's column/row specs.  Every dispatch passes ``layout=`` to the model,
 which runs each shard's part and the collectives between them
 (`DenseLM.step_paged_tp`).  Tier movement gathers every shard's part of a
 session and concatenates it to full heads before the host copy, and a

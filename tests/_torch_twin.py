@@ -138,13 +138,14 @@ def vlm_twins(seed: int = 0, dtype: str = "float32"):
 
 
 @functools.lru_cache(maxsize=None)
-def twins(kind: str = "gqa", seed: int = 0, dtype: str = "float32"):
+def twins(kind: str = "gqa", seed: int = 0, dtype: str = "float32",
+          n_layers: int = 4):
     """(JAX Pkg, port Pkg) with the same weights; kind: mha | gqa."""
     n_kv = dict(mha=4, gqa=2)[kind]
-    jcfg = jconfigs.get_config("llama3-8b").reduced(dtype=dtype,
-                                                    n_kv_heads=n_kv)
-    cfg = tconfigs.get_config("llama3-8b").reduced(dtype=dtype,
-                                                   n_kv_heads=n_kv)
+    jcfg = jconfigs.get_config("llama3-8b").reduced(
+        dtype=dtype, n_kv_heads=n_kv, n_layers=n_layers)
+    cfg = tconfigs.get_config("llama3-8b").reduced(
+        dtype=dtype, n_kv_heads=n_kv, n_layers=n_layers)
     return _pkgs(jcfg, cfg, jbackend.RealBackend, tbackend.RealBackend, seed)
 
 

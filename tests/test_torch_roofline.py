@@ -146,6 +146,9 @@ def _entries(rng):
     Bm, Cm, h0 = _rand(rng, 2, 10, 1, 6), _rand(rng, 2, 10, 1, 6), \
         _rand(rng, 2, 4, 6, 8)
     kpp, vpp = kp[:, :2].contiguous(), vp[:, :2].contiguous()
+    qf, kpf, vpf = q[..., :8], kp[..., :8].contiguous(), \
+        vp[..., :8].contiguous()
+    scores = _rand(rng, 3, 4, 4, tab.shape[1] * kp.shape[1])
     return {
         "paged_attention": (ops.paged_attention, (q1, kp, vp, tab, ctx), {}),
         "paged_chunk_attention": (ops.paged_chunk_attention,
@@ -154,6 +157,11 @@ def _entries(rng):
             ops.paged_chunk_attention_partial,
             (q, kpp, vpp, tab, qoff, ctx, 1, 2), {}),
         "merge_partials": (ops.merge_partials, (o, lse, torch.float32), {}),
+        "paged_chunk_scores_partial": (
+            ops.paged_chunk_scores_partial, (qf, kpf, tab, qoff, ctx), {}),
+        "paged_chunk_softmax_pv": (
+            ops.paged_chunk_softmax_pv,
+            (scores, vpf, tab, qoff, ctx, 16, torch.float32), {}),
         "flash_prefill": (ops.flash_prefill, (fq, fk, fv, 3), {}),
         "ssd_scan": (ops.ssd_scan, (x, dA, Bm, Cm, 4), {}),
         "ssd_scan_init": (ops.ssd_scan, (x, dA, Bm, Cm, 4),
@@ -163,7 +171,8 @@ def _entries(rng):
 
 @pytest.mark.parametrize("name", [
     "paged_attention", "paged_chunk_attention",
-    "paged_chunk_attention_partial", "merge_partials", "flash_prefill",
+    "paged_chunk_attention_partial", "merge_partials",
+    "paged_chunk_scores_partial", "paged_chunk_softmax_pv", "flash_prefill",
     "ssd_scan", "ssd_scan_init"])
 def test_entry_charged_same_on_plain_and_meta_routes(name):
     fn, args, kw = _entries(np.random.default_rng(3))[name]
@@ -195,7 +204,8 @@ def test_meta_route_runs_no_plain_version(monkeypatch):
         raise AssertionError("the plain version ran on meta tensors")
     for n in ("flash_prefill_ref", "ssd_scan_chunked_ref",
               "paged_chunk_attention_ref", "paged_attention_ref",
-              "merge_partials_ref", "paged_chunk_attention_partial_ref"):
+              "merge_partials_ref", "paged_chunk_attention_partial_ref",
+              "paged_chunk_scores_partial_ref", "paged_chunk_softmax_pv_ref"):
         monkeypatch.setattr(ref, n, boom)
     for fn, args, kw in _entries(np.random.default_rng(4)).values():
         meta = [a.to("meta") if isinstance(a, torch.Tensor) else a
@@ -228,6 +238,25 @@ def test_flash_work_by_hand():
     assert cost.flash_work(q, k, 3) == (1152, 1152)
     assert cost.flash_work(q, k, 0) == (512 + 2 * 2 * 2 * 8 * 4,
                                         4 * 8 * 4 * 3)
+
+
+def test_feature_work_by_hand():
+    """F1 and F2 of one lane: 2 real rows at q_offset 3 of ctx 5 (they see
+    4 and 5 keys: 9), H 2, Hkv 1, dr 4, page 2 (3 relevant pages, the
+    last holding one key), float32."""
+    q = torch.empty(1, 2, 2, 4)
+    tab = torch.zeros(1, 4, dtype=torch.int32)
+    qoff, ctx = torch.tensor([3]), torch.tensor([5])
+    # lanes 8; q 2·2·4·4 = 64; K rows 5·1·4·4 = 80 + tables 3·4 = 12;
+    # scores 4·2·9 = 72 (144 accumulating); 2·dr·H·9 = 144 operations
+    assert cost.feature_scores_work(q, tab, qoff, ctx, 2, 1, 4, 4, [2]) \
+        == (8 + 64 + 92 + 72, 144)
+    assert cost.feature_scores_work(q, tab, qoff, ctx, 2, 1, 4, 4, [2],
+                                    accumulate=True)[0] == 8 + 64 + 92 + 144
+    # scores read 72, V 92, the output 64; (2·dr + 4)·H·9 = 216
+    s = torch.empty(1, 2, 2, 8)
+    assert cost.feature_pv_work(s, tab, qoff, ctx, 2, 1, 4, 4, [2]) == (
+        8 + 72 + 64 + 92, 216)
 
 
 def test_scan_work_by_hand():

@@ -9,9 +9,8 @@
   and forks a page mid-way (copy-on-write), with the JAX backend's tokens
   and counters;
 * guards: the port imports neither JAX nor the JAX package, runs on the
-  card by default, and raises for what it has not ported yet (the mesh's
-  head-feature rung) and for the families the reference serves with no paged step (moe,
-  encdec).
+  card by default, and raises for the families the reference serves with
+  no paged step (moe, encdec).
 
 Float32 configs (bf16 rounds differently in the two frameworks on the
 CPU), page 8, CPU tensors: the port's attention takes its plain version.
@@ -37,7 +36,6 @@ from repro_torch import convert
 from repro_torch.configs import get_config
 from repro_torch.core.advisory import InferenceRequest
 from repro_torch.core.node_manager import NodeManager
-from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models.registry import get_model
 from repro_torch.serving.backend import RealBackend, make_backend
 from repro_torch.serving.cost_model import CostModel, HardwareSpec
@@ -210,19 +208,14 @@ def test_backend_runs_on_the_card_by_default():
 
 
 def test_unported_paths_raise_naming_the_roadmap():
-    """What is still unported raises, naming its ROADMAP item: the mesh's
-    head-feature rung (A.8: page 6 and 2 kv heads do not divide over 4
-    shards, so the pool would be cut along D, which no kernel takes).  The
-    moe and encdec families raise from ``make_backend``, which says that
-    the reference has no paged step for them; tier movement and the int8
-    tier are ported and answer for an unknown session without raising."""
+    """What the reference does not serve raises: the moe and encdec
+    families raise from ``make_backend``, which says that the reference
+    has no paged step for them; tier movement and the int8 tier are ported
+    and answer for an unknown session without raising.  (The mesh's
+    head-feature rung serves: tests/test_torch_features.py.)"""
     cfg = get_config("llama3-8b").reduced(dtype="float32")
     model = get_model(cfg, device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
-    gqa = get_config("llama3-8b").reduced(dtype="float32", n_kv_heads=2)
-    with pytest.raises(NotImplementedError, match=r"page 6 and tp 4.*A\.8"):
-        RealBackend(gqa, get_model(gqa, device="cpu"), params, page_size=6,
-                    mesh=make_serving_mesh(4, devices=["cpu"] * 4))
     for arch in ("qwen3-moe-30b-a3b", "seamless-m4t-medium"):
         with pytest.raises(NotImplementedError,
                            match="no paged serving step"):
