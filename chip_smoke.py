@@ -172,36 +172,44 @@ Phases:
      mode for all 32 heads, its keys cut into splits; every shard's and
      split's float32 partials merged by their log-sum-exp in one merge
      launch a call), and at tp 16, page 8 (the head-feature rung: each
-     shard holds 8 of the 128 features of every row; F1 sums the shards'
-     partial scores into one float32 buffer, F2 takes each shard's
-     softmax times its V features, an all-gather joins them), each
+     shard holds 8 of the 128 features of every row; the shards share the
+     card, so one launch a layer computes the full heads from the 16
+     pools, kernel 1 gathering each key row's features from them), each
      against the single device: where the tokens first diverge, and the
      first traced logits within 2e-2 x max|logits| (or twice the
      kernel-vs-plain floor); launches one a layer, shard and sub-dispatch
-     (F1 and F2 each on the head-feature rung), merges one a layer and
-     sub-dispatch on the split-K rung; the memory each run reckons, holds
-     and gives back.  A pressure pass (phase 6's rounds, 4 sessions x 3
-     turns, and a turn of a session compressed just before it; full
-     width, 8 of the 32 layers) at tp 2 on llama3-8b and at tp 8 and
-     tp 16, page 8 on yi-6b: B.2, its partial mode and its feature mode on
-     lanes that read int8 pages.  Every partial call shape held against
-     its plain version shard by shard (its splits combined), the merge
-     kernel against the plain merge, timed per shard (the slowest shard
-     too) and summed with the merge, beside the unsplit kernel on the
-     same call and SDPA on the gathered K/V; every feature call shape the
-     same way (F1's summed scores and each shard's F2 against their plain
-     versions, the joined output against the plain attention and kernel
-     1, F1 and F2 timed per shard);
+     (one a layer and sub-dispatch on the head-feature rung), merges one
+     a layer and sub-dispatch on the split-K rung; the memory each run
+     reckons, holds and gives back.  A pressure pass (phase 6's rounds, 4
+     sessions x 3 turns, and a turn of a session compressed just before
+     it; full width, 8 of the 32 layers) at tp 2 on llama3-8b and at tp 8
+     and tp 16, page 8 on yi-6b: B.2, its partial mode and its feature
+     route on lanes that read int8 pages.  Every partial call shape held
+     against its plain version shard by shard (its splits combined), the
+     merge kernel against the plain merge, timed per shard (the slowest
+     shard too) and summed with the merge, beside the unsplit kernel on
+     the same call and SDPA on the gathered K/V; every feature call shape
+     held through both routes: the one-launch route against its plain
+     version and bit-equal to kernel 1 / B.2 on the concatenated pools,
+     replayed with the shards' pools in one allocation as the main path
+     holds them (so by the producer the main path took, TMA or the
+     cp.async gather, checked), and where TMA is open by both producers,
+     each bit-equal and timed; and the per-shard route of shards on distinct cards (F1 summing the
+     shards' partial scores into one float32 buffer, F2 each shard's
+     softmax times its V features) with F1's summed scores and each
+     shard's F2 against their plain versions, both timed (wall, device,
+     host) beside the unsplit kernel, SDPA and each route's bound;
      kernel 1's per-shard shapes at tp 4 and B.2's at tp 2 re-timed;
  22. exact fp32 tokens at full width and 2 layers on the mesh: llama3-8b
      at tp 1, 2 and 4, yi-6b at tp 8 (and at tp 8 with page 8: 1-row
-     shard pages) and at tp 16 with page 8 (the head-feature rung), with a
-     mid-decode preemption (a swap-out and back), equal to the single
-     device's and to kernel_mode="ref"; a session exported at tp 2
-     resumes at tp 4; one payload imported and quantized on one device
-     and on each mesh: int8 scales and codes bit-equal to one device's at
-     the same page size, and its next turn read from the int8 pages gives
-     the same tokens;
+     shard pages) and at tp 16 with page 8 (the head-feature rung: its
+     one-launch route, and its per-shard route with the shards taken as on
+     distinct cards), with a mid-decode preemption (a swap-out and back),
+     equal to the single device's and to kernel_mode="ref"; a session
+     exported at tp 2 resumes at tp 4; one payload imported and quantized
+     on one device and on each mesh: int8 scales and codes bit-equal to
+     one device's at the same page size, and its next turn read from the
+     int8 pages gives the same tokens;
  23. training at full width: llama3-8b at its published widths, bf16,
      random weights from --seed, its depth cut to 4 of 32 layers (its
      training state, ~20 bytes a parameter, would not fit one card at 32),
@@ -250,6 +258,7 @@ no result.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -318,6 +327,9 @@ SSD_TOL = {torch.bfloat16: 3e-2, torch.float32: 2e-4}
 KERNEL = pa.paged_chunk_attention          # the wrapper; it counts pa.launches
 QKERNEL = pa.paged_chunk_attention_quant   # counts pa.quant_launches
 KPART = pa.paged_chunk_attention_partial   # counts pa.partial_launches
+# the head-feature rung's one-launch route: pa.features_launches (kernel 1)
+# or pa.quant_features_launches (B.2, with the int8 state)
+FKERNEL = pa.paged_chunk_attention_features
 QKPART = pa.paged_chunk_attention_quant_partial  # pa.quant_partial_launches
 # sha256 (first 16 hex digits) of kernel 1's and B.2's outputs at head dims
 # 64 and 128 on the fixed inputs of kernel1_digests(): the float32 entries
@@ -697,13 +709,17 @@ def paged_resources(built):
             out = "bf16" if "nv_bfloat16" in name else "fp32"
             return f"the split-K merge ({out} output)", False
         tc = "paged_chunk_attention_tc" in name
-        # template arguments <D, kQuant> or, for the bf16 body, <D,
-        # kQuant, kOneRow>
-        dim, quant, one_row = re.search(r"Li(\d+)ELb([01])E(?:Lb([01])E)?",
-                                        name).groups()
+        # template arguments <D, kQuant, kFeat> or, for the bf16 body, <D,
+        # kQuant, kOneRow, kFeat>
+        dim, quant, rest = re.search(r"Li(\d+)ELb([01])E((?:Lb[01]E)*)",
+                                     name).groups()
+        flags = re.findall(r"Lb([01])E", rest)
+        one_row = tc and flags[0] == "1"
+        feat = flags[-1] == "1"
         return (f"{'bf16 tensor-core' if tc else 'fp32 CUDA-core'} "
                 f"{'B.2' if quant == '1' else 'kernel 1'} at D = {dim}"
-                f"{' (1-row pages)' if one_row == '1' else ''}"), tc
+                f"{' (1-row pages)' if one_row else ''}"
+                f"{' (head-feature gather)' if feat else ''}"), tc
     for i, line in enumerate(lines):
         if "Compiling entry function" in line:
             info = [x.strip() for x in lines[i + 1:i + 4]
@@ -714,7 +730,8 @@ def paged_resources(built):
             for d in pa.HEAD_DIMS:
                 log(f"[3] runtime, {'B.2' if quant else 'kernel 1'} "
                     f"{str(dtype).split('.')[-1]} at D = {d}: "
-                    f"{pa.resources(dtype, d, quant)}")
+                    f"{pa.resources(dtype, d, quant)}; head-feature gather "
+                    f"{pa.features_resources(dtype, d, quant)}")
     kernels = sass_counts(pa.NAME)
     for name, counts in kernels:
         label, tc = body(name)
@@ -723,10 +740,11 @@ def paged_resources(built):
               else counts["HGMMA"] == 0 and counts["HMMA"] == 0,
               f"{label} runs {counts}")
     # per head dim: fp32 and bf16 kernel 1 and B.2, and the bf16 bodies
-    # of 1-row pages; then the merge's two
-    check(len(kernels) == 6 * len(pa.HEAD_DIMS) + 2,
+    # of 1-row pages, each with and without the head-feature gather; then
+    # the merge's two
+    check(len(kernels) == 12 * len(pa.HEAD_DIMS) + 2,
           f"cuobjdump shows {len(kernels)} kernels of {pa.NAME}, not "
-          f"{6 * len(pa.HEAD_DIMS) + 2} (the merge's two among them)")
+          f"{12 * len(pa.HEAD_DIMS) + 2} (the merge's two among them)")
 
 
 def log_rates(recs, tag, what):
@@ -1492,11 +1510,14 @@ class Single:
     def step(self):
         be = self.be
         # a meshed node launches once a shard, kernel 1 / B.2 or their
-        # partial mode (the split-K rung) or their F1, each F1 with its F2
-        # (the head-feature rung)
-        f0 = pa.launches + pa.partial_launches + pa.scores_launches
+        # partial mode (the split-K rung) or, shards on distinct cards,
+        # their F1, each F1 with its F2 (the head-feature rung); shards of
+        # the head-feature rung on one card launch once (the one-launch
+        # route)
+        f0 = (pa.launches + pa.partial_launches + pa.scores_launches
+              + pa.features_launches)
         q0 = (pa.quant_launches + pa.quant_partial_launches
-              + pa.quant_scores_launches)
+              + pa.quant_scores_launches + pa.quant_features_launches)
         pv0 = (pa.pv_launches - pa.scores_launches,
                pa.quant_pv_launches - pa.quant_scores_launches)
         s0 = be.stats["sub_dispatches"]
@@ -1511,16 +1532,19 @@ class Single:
         drained(be, self.mgr)
         if be.device.type != "cuda":
             return                  # CPU tensors take the plain versions
-        df = pa.launches + pa.partial_launches + pa.scores_launches - f0
+        df = (pa.launches + pa.partial_launches + pa.scores_launches
+              + pa.features_launches - f0)
         dq = (pa.quant_launches + pa.quant_partial_launches
-              + pa.quant_scores_launches - q0)
+              + pa.quant_scores_launches + pa.quant_features_launches - q0)
         ds = be.stats["sub_dispatches"] - s0
         check((pa.pv_launches - pa.scores_launches,
                pa.quant_pv_launches - pa.quant_scores_launches) == pv0,
               "the head-feature rung's F2 did not follow each F1")
-        check(df + dq == self.L * ds * be.tp,
+        keys, _ = expected_counts(be)
+        per = 1 if keys[0].endswith("_feat") else be.tp
+        check(df + dq == self.L * ds * per,
               f"{df} fp + {dq} int8 kernel launches for {ds} sub-dispatches "
-              f"of {self.L} layers on {be.tp} shards")
+              f"of {self.L} layers on {be.tp} shards ({per} a layer)")
         check(not active or df == 0,
               f"the int8 tier is active but the fp kernel ran {df} times")
 
@@ -3821,6 +3845,7 @@ def zero_counts():
     pa.merge_launches = 0
     pa.scores_launches = pa.pv_launches = 0
     pa.quant_scores_launches = pa.quant_pv_launches = 0
+    pa.features_launches = pa.quant_features_launches = 0
 
 
 def counts():
@@ -3830,22 +3855,27 @@ def counts():
                 b2_partial=pa.quant_partial_launches,
                 k1_scores=pa.scores_launches, k1_pv=pa.pv_launches,
                 b2_scores=pa.quant_scores_launches,
-                b2_pv=pa.quant_pv_launches)
+                b2_pv=pa.quant_pv_launches,
+                k1_feat=pa.features_launches,
+                b2_feat=pa.quant_features_launches)
 
 
 def expected_counts(be, kind="k1"):
     """Launches a run on ``be`` must have made: (keys, n), each key of
     `counts` launched n times, one a layer, a shard and a sub-dispatch, and
     no other: kernel 1 / B.2 (``kind`` k1 or b2), on the split-K rung their
-    partial mode, on the head-feature rung their F1 and F2 (the scores
-    buffer of a call on these paths stays within ops.SCORES_CAP, so that
-    no call is cut into tiles of lanes)."""
+    partial mode; on the head-feature rung, shards on one card, their
+    one-launch route, one a layer and sub-dispatch (across cards their F1
+    and F2 a shard, the scores buffer of a call on these paths within
+    ops.SCORES_CAP, so that no call is cut into tiles of lanes)."""
     lay = be._layout
     n = be.cfg.n_layers * be.stats["sub_dispatches"] * be.tp
     rung = None if lay is None else lay.rung
     if rung == "rows":
         return (kind + "_partial",), n
     if rung == "features":
+        if ops.one_device([p.device for p in be.k_pool]):
+            return (kind + "_feat",), n // be.tp
         return (kind + "_scores", kind + "_pv"), n
     return (kind,), n
 
@@ -3957,7 +3987,7 @@ def tp_serve(cfg, model, params, prompts, gen, tp, tag, captures=(),
     for a in be.alloc:
         a.check()
     out = dict(tokens=[list(r.output_ids) for r in reqs],
-               first=be.logit_trace[0], launches=want, keys=keys,
+               first=be.logit_trace[0], launches=want, keys=keys, got=got,
                merges=merges,
                step_ms=1e3 * sum(steps) / len(steps), steps=len(steps),
                subs=be.stats["sub_dispatches"],
@@ -4240,92 +4270,144 @@ def retime_partial(cap, what, tag):
 
 
 class FeatureCapture:
-    """Records one head-feature call whole for each distinct shape: every
-    shard's F1 inputs (its q features, K pool and int8 shadows, the
-    tables and lanes) and F2's V pools, cloned when a call of a new shape
-    ends (or, with ``score``, one whose lanes read more int8 pages); the
-    scores buffer is not kept, `compare_features` rebuilds it.  ``quant``
-    picks B.2's calls (int8 shadows given) or kernel 1's.  A call's F1
-    launches come shard after shard (shard 0 writes, the others add), then
-    its F2 launches."""
+    """Records one head-feature call of the one-launch route
+    (``pa.paged_chunk_attention_features``) for each distinct shape: q,
+    every shard's K and V pools (and int8 shadows), the tables and lanes,
+    cloned when the call is made, or, with ``score``, when a call whose
+    lanes read more int8 pages comes.  A side's pools that lie at one
+    stride (slices of one allocation, as `PoolLayout.zeros` makes them) are
+    cloned into one allocation again, so that the replay takes the
+    producer the main path took (`pa.features_producer`, kept with the
+    call and counted over every call in ``producers``).  ``quant`` picks
+    B.2's calls (int8 state given) or kernel 1's."""
 
     def __init__(self, quant: bool, score=None):
         self.quant = quant
         self.score = score
         self.calls = {}
         self.scores = {}
+        self.producers = collections.Counter()
         self.n = 0
-        self._cur = None
-
-    def _end(self):
-        cur, self._cur = self._cur, None
-        f1, f2 = cur["f1"], cur["f2"]
-        q, kp, tab = f1[0][0], f1[0][1], f1[0][2]
-        key = (tuple(q.shape), tuple(kp.shape), tuple(tab.shape), q.dtype,
-               len(f1))
-        sc = 0.0 if self.score is None else self.score(f1[0])
-        if key in self.calls and sc <= self.scores[key]:
-            return
-
-        def keep(args):
-            return tuple(tuple(u.clone() for u in t) if isinstance(t, tuple)
-                         else t.clone() if isinstance(t, torch.Tensor) else t
-                         for t in args)
-        self.calls[key] = ([keep(a) for a in f1], [keep(a) for a in f2])
-        self.scores[key] = sc
 
     @contextlib.contextmanager
     def __call__(self):
-        o1, o2 = pa.paged_chunk_scores, pa.paged_chunk_softmax_pv
+        orig = pa.paged_chunk_attention_features
 
-        def rec1(q, k_pages, tables, q_offsets, ctx_lens, quant=None,
-                 out=None, accumulate=False):
+        def keep(x):
+            if isinstance(x, (list, tuple)):
+                if len(x) > 1 and all(isinstance(u, torch.Tensor)
+                                      for u in x) \
+                        and pa.pools_stride(x) > 0:
+                    return type(x)(torch.stack(x).unbind(0))
+                return type(x)(keep(u) for u in x)
+            return x.clone() if isinstance(x, torch.Tensor) else x
+
+        def rec(q, k_pools, v_pools, tables, q_offsets, ctx_lens, quant=None):
+            args = (q, k_pools, v_pools, tables, q_offsets, ctx_lens, quant)
             if (quant is not None) == self.quant:
                 self.n += 1
-                if not accumulate:
-                    self._cur = dict(f1=[], f2=[])
-                self._cur["f1"].append((q, k_pages, tables, q_offsets,
-                                        ctx_lens, quant))
-            return o1(q, k_pages, tables, q_offsets, ctx_lens, quant=quant,
-                      out=out, accumulate=accumulate)
+                prod = pa.features_producer(q, k_pools, v_pools)
+                self.producers[prod] += 1
+                key = (tuple(q.shape), tuple(k_pools[0].shape),
+                       tuple(tables.shape), q.dtype, len(k_pools))
+                sc = 0.0 if self.score is None else self.score(args)
+                if key not in self.calls or sc > self.scores[key]:
+                    self.calls[key] = (keep(args), prod)
+                    self.scores[key] = sc
+            return orig(q, k_pools, v_pools, tables, q_offsets, ctx_lens,
+                        quant=quant)
 
-        def rec2(scores, v_pages, tables, q_offsets, ctx_lens, head_dim,
-                 dtype, quant=None):
-            if (quant is not None) == self.quant and self._cur is not None:
-                self._cur["f2"].append((v_pages, head_dim))
-                if len(self._cur["f2"]) == len(self._cur["f1"]):
-                    self._end()
-            return o2(scores, v_pages, tables, q_offsets, ctx_lens,
-                      head_dim, dtype, quant=quant)
-
-        pa.paged_chunk_scores, pa.paged_chunk_softmax_pv = rec1, rec2
+        pa.paged_chunk_attention_features = rec
         try:
             yield
         finally:
-            pa.paged_chunk_scores, pa.paged_chunk_softmax_pv = o1, o2
+            pa.paged_chunk_attention_features = orig
 
 
-def compare_features(f1, f2, label):
-    """One head-feature call, captured shard by shard, run as the main path
-    runs it: every shard's F1 into one scores buffer (shard 0 writes, the
-    others add), then every shard's F2 on it.  The summed scores against
-    the shards' plain partial scores summed, on every entry a row sees;
-    each shard's F2 against its plain version on the same scores (real
-    rows; padding rows and ctx = 0 lanes zeros); the concatenated output
-    against the unsharded plain attention and kernel 1 on the full pool;
-    each within TOL x max|plain|.  Times of each shard's F1 and F2 (wall,
-    device, host), the plain versions', the unsharded kernel 1's and
-    SDPA's on the gathered K/V; the bound from ``roofline.cost``."""
-    n = len(f1)
-    q0, kp0, tab, qoff, ctx, qt0 = f1[0]
-    quant = qt0 is not None
+def compare_features(call, label, producer):
+    """One head-feature call through both routes.  The one-launch route
+    (``FKERNEL``) against its plain version on real rows within TOL x
+    max|plain| (padding rows and ctx = 0 lanes zeros), and bit-equal to
+    kernel 1 / B.2 on the pools concatenated along D; the replay must take
+    ``producer``, the one the main path took on the call, and where TMA is
+    open both producers are run, held bit for bit and timed.  The per-shard route
+    of shards on distinct cards, run as on one card with one scores
+    buffer: every shard's F1 into it (shard 0 writes, the others add),
+    then every shard's F2 on it; the summed scores against the shards'
+    plain partial scores summed, on every entry a row sees; each shard's
+    F2 against its plain version on the same scores; the joined output
+    against the plain attention; each within TOL x max|plain|.  Times
+    (wall, device, host) of both routes and their plain versions, the
+    unsplit kernel's and SDPA's on the gathered K/V; each route's bound
+    from ``roofline.cost``."""
+    q0, kps, vps, tab, qoff, ctx, qt = call
+    n = len(kps)
+    quant = qt is not None
     dtype = q0.dtype
-    B, Sq, H, dr = q0.shape
-    D = dr * n
-    page = kp0.shape[1]
+    B, Sq, H, D = q0.shape
+    dr = D // n
+    page, hkv = kps[0].shape[1], kps[0].shape[2]
     T = tab.shape[1] * page
     q_lens = (ctx - qoff).clamp(min=0).cpu().tolist()
     cx = ctx.cpu().tolist()
+
+    def held(got, want, what):
+        """max |got - want| and max |want| over real rows, checked within
+        TOL; padding rows and ctx = 0 lanes of ``got`` zeros."""
+        err, scale = 0.0, 0.0
+        for b in range(B):
+            m = int(q_lens[b]) if cx[b] else 0
+            check(bool((got[b, m:] == 0).all()), f"{label}: {what}: lane "
+                  f"{b}'s padding rows are not zeros")
+            if m:
+                err = max(err, (got[b, :m].float() - want[b, :m].float())
+                          .abs().max().item())
+                scale = max(scale, want[b, :m].float().abs().max().item())
+        check(err <= TOL[dtype] * scale, f"{label}: {what} off its plain "
+              f"version by {err:.3g} > {TOL[dtype]} x {scale:.3g}")
+        return err, scale
+
+    # the one-launch route, by the main path's producer
+    prod = pa.features_producer(q0, kps, vps)
+    check(prod == producer, f"{label}: the replay takes the {prod} "
+          f"producer, the main path took {producer}")
+    # both producers where TMA is open (the route then takes TMA)
+    prods = ["tma", "gather"] if prod == "tma" else [prod]
+
+    def fused(p=None):
+        return FKERNEL(q0, kps, vps, tab, qoff, ctx, quant=qt, producer=p)
+    got = fused()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got.float()).all()), f"{label}: the one-launch "
+          f"route's output is not finite")
+    plain_whole = ref.paged_chunk_attention_features_ref(
+        q0, kps, vps, tab, qoff, ctx, quant=qt)
+    err, scale = held(got, plain_whole, "the one-launch route")
+    kp, vp = torch.cat(kps, dim=-1), torch.cat(vps, dim=-1)
+    full = None if not quant else (torch.cat(qt[0], dim=-1),
+                                   torch.cat(qt[1], dim=-1), *qt[2:])
+
+    def unsplit():
+        if full is None:
+            return KERNEL(q0, kp, vp, tab, qoff, ctx)
+        return QKERNEL(q0, kp, vp, *full, tab, qoff, ctx)
+    whole = unsplit()
+    torch.cuda.synchronize()
+    for p in prods:
+        o = fused(p)
+        torch.cuda.synchronize()
+        n_diff = int((o != whole).sum())
+        check(n_diff == 0, f"{label}: the one-launch route ({p}) differs "
+              f"from {'B.2' if quant else 'kernel 1'} on the concatenated "
+              f"pools in {n_diff} of {o.numel()} elements")
+    check(torch.equal(got, whole), f"{label}: the main path's producer "
+          f"differs from the forced one")
+    del got, whole, o
+
+    # the per-shard route, shard by shard
+    f1 = [(q0[..., r * dr:(r + 1) * dr], kps[r], tab, qoff, ctx,
+           None if qt is None else (qt[0][r], qt[1][r], *qt[2:]))
+          for r in range(n)]
     qpos = qoff.long()[:, None] + torch.arange(Sq, device=q0.device)
     vis = (ref._visible(qoff, ctx, Sq, T, q0.device)
            & (qpos < ctx.long()[:, None])[:, :, None])[:, None]
@@ -4333,21 +4415,20 @@ def compare_features(f1, f2, label):
     ws = torch.empty((B, H, Sq, T), dtype=torch.float32, device=q0.device)
 
     def kf1(r):
-        q, kp, t, o, c, qt = f1[r]
-        return pa.paged_chunk_scores(q, kp, t, o, c, quant=qt, out=ws,
+        q, k, t, o, c, sq = f1[r]
+        return pa.paged_chunk_scores(q, k, t, o, c, quant=sq, out=ws,
                                      accumulate=r > 0)
 
     def kf2(r):
-        return pa.paged_chunk_softmax_pv(ws, f2[r][0], tab, qoff, ctx, D,
+        return pa.paged_chunk_softmax_pv(ws, vps[r], tab, qoff, ctx, D,
                                          dtype, quant=f1[r][5])
     for r in range(n):
         kf1(r)
     torch.cuda.synchronize()
     want_s = torch.zeros_like(ws)
     for r in range(n):
-        q, kp, t, o, c, qt = f1[r]
-        want_s += ref.paged_chunk_scores_partial_ref(q, kp, t, o, c,
-                                                     quant=qt)
+        q, k, t, o, c, sq = f1[r]
+        want_s += ref.paged_chunk_scores_partial_ref(q, k, t, o, c, quant=sq)
     s_scale = want_s[vis].abs().max().item() if bool(vis.any()) else 0.0
     s_err = (ws[vis] - want_s[vis]).abs().max().item() \
         if bool(vis.any()) else 0.0
@@ -4356,57 +4437,31 @@ def compare_features(f1, f2, label):
     check(s_err <= TOL[dtype] * s_scale, f"{label}: F1's summed scores off "
           f"the plain ones by {s_err:.3g} > {TOL[dtype]} x {s_scale:.3g}")
     del want_s
-    outs, err, scale = [], 0.0, 0.0
+    outs, f_err, f_scale = [], 0.0, 0.0
     for r in range(n):
         o = kf2(r)
         torch.cuda.synchronize()
-        w = ref.paged_chunk_softmax_pv_ref(ws, f2[r][0], tab, qoff, ctx, D,
+        w = ref.paged_chunk_softmax_pv_ref(ws, vps[r], tab, qoff, ctx, D,
                                            dtype, quant=f1[r][5])
         check(bool(torch.isfinite(o.float()).all()),
               f"{label} shard {r}: F2's output not finite")
-        for b in range(B):
-            m = int(q_lens[b]) if cx[b] else 0
-            check(bool((o[b, m:] == 0).all()), f"{label} shard {r}: lane "
-                  f"{b}'s padding rows are not zeros")
-            if m:
-                err = max(err, (o[b, :m].float() - w[b, :m].float()).abs()
-                          .max().item())
-                scale = max(scale, w[b, :m].float().abs().max().item())
+        e, sc = held(o, w, f"shard {r}'s F2")
+        f_err, f_scale = max(f_err, e), max(f_scale, sc)
         outs.append(o)
-    check(err <= TOL[dtype] * scale, f"{label}: F2 off its plain version by "
-          f"{err:.3g} > {TOL[dtype]} x {scale:.3g}")
-    got = torch.cat(outs, dim=-1)
-    q = torch.cat([a[0] for a in f1], dim=-1)
-    kp = torch.cat([a[1] for a in f1], dim=-1)
-    vp = torch.cat([a[0] for a in f2], dim=-1)
-    full = None if not quant else (
-        torch.cat([a[5][0] for a in f1], dim=-1),
-        torch.cat([a[5][1] for a in f1], dim=-1), *qt0[2:])
+    merr, mscale = held(torch.cat(outs, dim=-1), plain_whole,
+                        "the shards' joined output")
+    del plain_whole, outs
 
-    def unsplit():
-        if full is None:
-            return KERNEL(q, kp, vp, tab, qoff, ctx)
-        return QKERNEL(q, kp, vp, *full, tab, qoff, ctx)
-    whole = unsplit()
-    plain_whole = ref.paged_chunk_attention_ref(q, kp, vp, tab, qoff, ctx,
-                                                quant=full)
-    merr, mscale = 0.0, 0.0
-    for b in range(B):
-        m = int(q_lens[b]) if cx[b] else 0
-        if m:
-            want = plain_whole[b, :m].float()
-            merr = max(merr, (got[b, :m].float() - want).abs().max().item(),
-                       (whole[b, :m].float() - want).abs().max().item())
-            mscale = max(mscale, want.abs().max().item())
-    check(merr <= TOL[dtype] * mscale, f"{label}: the shards' output or the "
-          f"unsharded kernel off the plain attention by {merr:.3g} > "
-          f"{TOL[dtype]} x {mscale:.3g}")
-    del plain_whole, whole, got
-    ms = dict(f1=0.0, f2=0.0)
-    dev = dict(f1=0.0, f2=0.0)
-    host = dict(f1=0.0, f2=0.0)
-    plain = dict(f1=0.0, f2=0.0)
-    dev_ok = True
+    # times and bounds
+    by_prod = {p: (cuda_ms(lambda p=p: fused(p), 20),
+                   device_ms(lambda p=p: fused(p))) for p in prods}
+    ms = dict(fused=cuda_ms(fused, 20), f1=0.0, f2=0.0)
+    host = dict(fused=host_ms(fused), f1=0.0, f2=0.0)
+    dev = dict(fused=device_ms(fused), f1=0.0, f2=0.0)
+    plain = dict(fused=cuda_ms(lambda: ref.paged_chunk_attention_features_ref(
+        q0, kps, vps, tab, qoff, ctx, quant=qt), 1, warmup=0), f1=0.0,
+        f2=0.0)
+    shards_dev_ok = True
     nbytes = flops = 0
     for r in range(n):
         for what, fn in (("f1", lambda r=r: kf1(r)), ("f2",
@@ -4414,84 +4469,135 @@ def compare_features(f1, f2, label):
             ms[what] += cuda_ms(fn, 5)
             host[what] += host_ms(fn, 5)
             d_ms = device_ms(fn, 5)
-            dev_ok = dev_ok and d_ms is not None
+            shards_dev_ok = shards_dev_ok and d_ms is not None
             dev[what] += d_ms or 0.0
-        qr, kpr, t, o, c, qt = f1[r]
+        qr, kpr, t, o, c, sq = f1[r]
         plain["f1"] += cuda_ms(lambda: ref.paged_chunk_scores_partial_ref(
-            qr, kpr, t, o, c, quant=qt), 1, warmup=0)
+            qr, kpr, t, o, c, quant=sq), 1, warmup=0)
         plain["f2"] += cuda_ms(lambda: ref.paged_chunk_softmax_pv_ref(
-            ws, f2[r][0], tab, qoff, ctx, D, dtype, quant=qt), 1, warmup=0)
-        flags = None if qt is None else qt[4]
-        b1, o1 = feature_scores_work(qr, tab, qoff, ctx, page, kpr.shape[2],
-                                     dr, q0.element_size(), q_lens, flags,
+            ws, vps[r], tab, qoff, ctx, D, dtype, quant=sq), 1, warmup=0)
+        flags = None if sq is None else sq[4]
+        b1, o1 = feature_scores_work(qr, tab, qoff, ctx, page, hkv, dr,
+                                     q0.element_size(), q_lens, flags,
                                      accumulate=r > 0)
-        b2, o2 = feature_pv_work(ws, tab, qoff, ctx, page, kpr.shape[2], dr,
+        b2, o2 = feature_pv_work(ws, tab, qoff, ctx, page, hkv, dr,
                                  q0.element_size(), q_lens, flags)
         nbytes += b1 + b2
         flops += o1 + o2
-    b_ms, b_by, t_b, t_f = bound(nbytes, flops, dtype)
+    s_ms, s_by, s_tb, s_tf = bound(nbytes, flops, dtype)
+    (fb, ff), _ = roofline.paged_chunk_attention_features_work(
+        q0, kps, vps, tab, qoff, ctx, quant=qt)
+    b_ms, b_by, t_b, t_f = bound(fb, ff, dtype)
     return dict(
-        label=label, shards=n, max_abs_err=max(s_err, err),
-        scores_err_rel=s_err / max(s_scale, 1e-30),
+        label=label, shards=n, producer=prod, max_abs_err=err,
+        tma_ms=by_prod.get("tma", (None, None))[0],
+        tma_device_ms=by_prod.get("tma", (None, None))[1],
+        gather_ms=by_prod.get("gather", (None, None))[0],
+        gather_device_ms=by_prod.get("gather", (None, None))[1],
         err_rel=err / max(scale, 1e-30),
-        whole_err_rel=merr / max(mscale, 1e-30),
-        ms=ms["f1"] + ms["f2"], f1_ms=ms["f1"], f2_ms=ms["f2"],
-        device_ms=dev["f1"] + dev["f2"] if dev_ok else None,
-        f1_device_ms=dev["f1"] if dev_ok else None,
-        f2_device_ms=dev["f2"] if dev_ok else None,
-        host_ms=host["f1"] + host["f2"],
-        plain_ms=plain["f1"] + plain["f2"],
-        scores_gb=ws.numel() * 4 / 1e9,
+        ms=ms["fused"], device_ms=dev["fused"], host_ms=host["fused"],
+        plain_ms=plain["fused"], bound_ms=b_ms, bound_by=b_by, bytes_ms=t_b,
+        ops_ms=t_f, flops=ff,
+        shards_max_abs_err=max(s_err, f_err),
+        scores_err_rel=s_err / max(s_scale, 1e-30),
+        f2_err_rel=f_err / max(f_scale, 1e-30),
+        joined_err_rel=merr / max(mscale, 1e-30),
+        shards_ms=ms["f1"] + ms["f2"], f1_ms=ms["f1"], f2_ms=ms["f2"],
+        shards_device_ms=dev["f1"] + dev["f2"] if shards_dev_ok else None,
+        f1_device_ms=dev["f1"] if shards_dev_ok else None,
+        f2_device_ms=dev["f2"] if shards_dev_ok else None,
+        shards_host_ms=host["f1"] + host["f2"],
+        shards_plain_ms=plain["f1"] + plain["f2"],
+        shards_bound_ms=s_ms, shards_bound_by=s_by, shards_bytes_ms=s_tb,
+        shards_ops_ms=s_tf, scores_gb=ws.numel() * 4 / 1e9,
         unsplit_ms=cuda_ms(unsplit, 20), unsplit_device_ms=device_ms(unsplit),
-        library_ms=cuda_ms(sdpa_yardstick(q, kp, vp, tab, qoff, ctx, full),
+        library_ms=cuda_ms(sdpa_yardstick(q0, kp, vp, tab, qoff, ctx, full),
                            20),
-        bound_ms=b_ms, bound_by=b_by, bytes_ms=t_b, ops_ms=t_f, flops=flops,
         decode=Sq == 1)
 
 
+def shard_record(rec):
+    """The per-shard route's part of a feature record (F1 and F2 of every
+    shard), as a kernel record."""
+    return dict(max_abs_err=rec["shards_max_abs_err"], ms=rec["shards_ms"],
+                device_ms=rec["shards_device_ms"],
+                plain_ms=rec["shards_plain_ms"],
+                bound_ms=rec["shards_bound_ms"],
+                bytes_ms=rec["shards_bytes_ms"], ops_ms=rec["shards_ops_ms"],
+                library_ms=rec["library_ms"])
+
+
 def fmt_features(rec) -> str:
-    keys = ("max_abs_err", "scores_err_rel", "err_rel", "whole_err_rel",
-            "scores_gb", "ms", "f1_ms", "f2_ms", "device_ms", "f1_device_ms",
-            "f2_device_ms", "host_ms", "unsplit_ms", "unsplit_device_ms",
-            "plain_ms", "library_ms", "bound_ms")
+    keys = ("max_abs_err", "err_rel", "ms", "device_ms", "host_ms",
+            "tma_ms", "tma_device_ms", "gather_ms", "gather_device_ms",
+            "plain_ms", "bound_ms", "unsplit_ms", "unsplit_device_ms",
+            "library_ms", "shards_max_abs_err", "scores_err_rel",
+            "f2_err_rel", "joined_err_rel", "scores_gb", "shards_ms",
+            "f1_ms", "f2_ms", "shards_device_ms", "f1_device_ms",
+            "f2_device_ms", "shards_host_ms", "shards_plain_ms",
+            "shards_bound_ms")
     parts = [f"{k}={rec[k]:.4g}" for k in keys if rec.get(k) is not None]
-    return f"  {rec['label']}: " + " ".join(parts) + \
-        f" bound_by={rec['bound_by']}"
+    return f"  {rec['label']}: producer={rec['producer']} " + \
+        " ".join(parts) + f" bound_by={rec['bound_by']} " \
+        f"shards_bound_by={rec['shards_bound_by']}"
 
 
 def retime_features(cap, what, tag):
     """The captured head-feature calls, one a distinct shape, held and
-    timed by `compare_features`; their sums logged."""
+    timed through both routes by `compare_features`; their sums logged
+    (all, decode-only and chunk shapes)."""
     recs = []
     for key in sorted(cap.calls, key=str):
-        f1, f2 = cap.calls[key]
-        q, kp, tab = f1[0][0], f1[0][1], f1[0][2]
+        call, prod = cap.calls[key]
+        q, kps, tab = call[0], call[1], call[3]
         label = (f"{what} B={q.shape[0]} Sq={q.shape[1]} T={tab.shape[1]} "
-                 f"x {len(f1)} shards of {q.shape[-1]} features")
-        if f1[0][5] is not None:
-            label += (f" int8 pages {flag_share(tab, f1[0][4], f1[0][5][4], kp.shape[1]):.2f}")
-        rec = compare_features(f1, f2, label)
+                 f"x {len(kps)} shards of {kps[0].shape[-1]} features")
+        if call[6] is not None:
+            label += (f" int8 pages "
+                      f"{flag_share(tab, call[5], call[6][4], kps[0].shape[1]):.2f}")
+        rec = compare_features(call, label, prod)
         log(f"[{tag}]" + fmt_features(rec))
         recs.append(rec)
         free_device_memory()
     cap.calls.clear()
-    if recs:
-        tot = {k: sum(r[k] for r in recs) for k in (
-            "ms", "f1_ms", "f2_ms", "host_ms", "unsplit_ms", "library_ms",
-            "bound_ms", "plain_ms")}
 
-        def dsum(k):
-            v = [r[k] for r in recs]
-            return sum(v) if None not in v else "n/a"
-        log(f"[{tag}] {what}, {len(recs)} shapes: F1 + F2 over the shards "
-            f"{tot['ms']:.4g} ms (F1 {tot['f1_ms']:.4g}, F2 "
-            f"{tot['f2_ms']:.4g}; device {dsum('device_ms')}, F1 "
-            f"{dsum('f1_device_ms')}, F2 {dsum('f2_device_ms')}; host "
-            f"{tot['host_ms']:.4g}); unsharded kernel 1 {tot['unsplit_ms']:.4g}"
-            f" ms (device {dsum('unsplit_device_ms')}); SDPA "
-            f"{tot['library_ms']:.4g} ms; bound {tot['bound_ms']:.4g} ms; "
-            f"plain {tot['plain_ms']:.4g} ms; largest scores buffer "
-            f"{max(r['scores_gb'] for r in recs):.3g} GB")
+    def dsum(sub, k):
+        v = [r[k] for r in sub]
+        return f"{sum(v):.4g}" if None not in v else "n/a"
+    for part, sub in (("all", recs),
+                      ("decode-only", [r for r in recs if r["decode"]]),
+                      ("chunk", [r for r in recs if not r["decode"]])):
+        if not sub:
+            continue
+        tot = {k: sum(r[k] for r in sub) for k in (
+            "ms", "host_ms", "plain_ms", "bound_ms", "shards_ms", "f1_ms",
+            "f2_ms", "shards_host_ms", "shards_plain_ms", "shards_bound_ms",
+            "unsplit_ms", "library_ms")}
+        log(f"[{tag}] {what}, {part} shapes ({len(sub)}): one-launch route "
+            f"{tot['ms']:.4g} ms (device {dsum(sub, 'device_ms')}, host "
+            f"{tot['host_ms']:.4g}), bound {tot['bound_ms']:.4g} ms, plain "
+            f"{tot['plain_ms']:.4g} ms; per-shard F1 + F2 "
+            f"{tot['shards_ms']:.4g} ms (F1 {tot['f1_ms']:.4g}, F2 "
+            f"{tot['f2_ms']:.4g}; device {dsum(sub, 'shards_device_ms')}, "
+            f"F1 {dsum(sub, 'f1_device_ms')}, F2 {dsum(sub, 'f2_device_ms')};"
+            f" host {tot['shards_host_ms']:.4g}), bound "
+            f"{tot['shards_bound_ms']:.4g} ms, plain "
+            f"{tot['shards_plain_ms']:.4g} ms; unsharded kernel "
+            f"{tot['unsplit_ms']:.4g} ms (device "
+            f"{dsum(sub, 'unsplit_device_ms')}); SDPA "
+            f"{tot['library_ms']:.4g} ms; largest scores buffer "
+            f"{max(r['scores_gb'] for r in sub):.3g} GB")
+        both = [r for r in sub if r["tma_ms"] is not None
+                and r["gather_ms"] is not None]
+        if both:
+            log(f"[{tag}] {what}, {part} shapes, the {len(both)} where TMA "
+                f"is open: TMA {sum(r['tma_ms'] for r in both):.4g} ms "
+                f"(device {dsum(both, 'tma_device_ms')}), gather "
+                f"{sum(r['gather_ms'] for r in both):.4g} ms (device "
+                f"{dsum(both, 'gather_device_ms')}); the main path's "
+                f"producers {dict(collections.Counter(r['producer'] for r in both))}")
+    log(f"[{tag}] {what}: the main path's producers over its "
+        f"{cap.n} calls: {dict(cap.producers)}")
     return recs
 
 
@@ -4520,7 +4626,7 @@ def tp_pressure(cfg, model, params, seed, tp, tag, page=PAGE):
                       key=_partial_key)
     elif rung == "features":
         cap = FeatureCapture(True, score=lambda a: flag_share(
-            a[2], a[4], a[5][4], a[1].shape[1]))
+            a[3], a[5], a[6][4], a[1][0].shape[1]))
     else:
         cap = Capture("paged_chunk_attention_quant", score=lambda a:
                       flag_share(a[-3], a[-1], a[7], a[1].shape[1]))
@@ -4549,11 +4655,9 @@ def tp_pressure(cfg, model, params, seed, tp, tag, page=PAGE):
         f"{hbm_pages} of {total}, {len(d.steps)} steps, mean step "
         f"{1e3 * float(np.mean(d.steps)):.2f} ms; launches {got}; "
         f"backend stats {be.stats}")
-    key = dict(rows="b2_partial", features="b2_scores").get(rung, "b2")
-    _, n = expected_counts(be)
-    mixed = {x: got["k1" + x] + got["b2" + x] for x in {
-        "rows": ("_partial",), "features": ("_scores", "_pv")}.get(
-            rung, ("",))}
+    keys, n = expected_counts(be, "b2")
+    key = keys[0]
+    mixed = {k[2:]: got["k1" + k[2:]] + got[k] for k in keys}
     check(all(v == n for v in mixed.values())
           and sum(got.values()) == n * len(mixed),
           f"tp={tp} pressure: launches {got}, want {n} of kernel 1's and "
@@ -4589,7 +4693,7 @@ def phase_tp(seed, tag=21):
     gen = 16
     out = dict(k1=0, k1_recs=[], b2=0, b2_recs=[], k1p=0, k1p_recs=[],
                b2p=0, b2p_recs=[], merges=0, k1f=0, k1f_recs=[], b2f=0,
-               b2f_recs=[], table=[])
+               b2f_recs=[], k1fs=0, b2fs=0, table=[])
     # (tp, page): RealBackend's default page 8 gives yi-6b 1-row shard
     # pages at tp 8 and the head-feature rung (8 % 16 and 4 kv heads % 16
     # are not 0: 8 of 128 features a shard) at tp 16
@@ -4625,12 +4729,16 @@ def phase_tp(seed, tag=21):
                                  run["launches"] * len(run["keys"])
                                  / run["steps"], run["shard_bytes"]))
             out["merges"] += run["merges"]
+            out["k1fs"] += run["got"]["k1_scores"] + run["got"]["k1_pv"]
             what = f"{name} tp={tp} page {page}"
             if rung == "rows":
                 out["k1p"] += run["launches"]
                 out["k1p_recs"] += retime_partial(cap, what, tag)
             elif rung == "features":
-                out["k1f"] += 2 * run["launches"]
+                out["k1f"] += run["launches"]
+                check(cap.producers["tma"] > 0, f"{what}: the TMA producer "
+                      f"ran on none of the main path's {cap.n} calls "
+                      f"({dict(cap.producers)})")
                 out["k1f_recs"] += retime_features(cap, what, tag)
             else:
                 out["k1"] += run["launches"]
@@ -4646,9 +4754,14 @@ def phase_tp(seed, tag=21):
                                    page=page)
             out["merges"] += got["merges"]
             what = f"{name} pressure tp={ptp} page {page}"
+            out["k1fs"] += got["k1_scores"] + got["k1_pv"]
+            out["b2fs"] += got["b2_scores"] + got["b2_pv"]
             if isinstance(cap, FeatureCapture):
-                out["b2f"] += got["b2_scores"] + got["b2_pv"]
-                out["k1f"] += got["k1_scores"] + got["k1_pv"]
+                check(cap.producers["tma"] > 0, f"{what}: the TMA producer "
+                      f"ran on none of B.2's {cap.n} calls "
+                      f"({dict(cap.producers)})")
+                out["b2f"] += got["b2_feat"]
+                out["k1f"] += got["k1_feat"]
                 out["b2f_recs"] += retime_features(cap, what, tag)
             elif cfg.n_kv_heads % ptp:
                 out["b2p"] += got["b2_partial"]
@@ -4712,17 +4825,36 @@ def int8_snapshot(be, pages):
     return [t[:, pages].clone() for t in parts]
 
 
+@contextlib.contextmanager
+def shards_apart():
+    """The mesh's shards taken as on distinct cards (`ops.one_device`
+    false): the head-feature rung then serves by its per-shard route, F1,
+    the all-reduce, F2 and the all-gather, as shards on distinct cards
+    do."""
+    orig = ops.one_device
+    ops.one_device = lambda devices: False
+    try:
+        yield
+    finally:
+        ops.one_device = orig
+
+
 def phase_exact_tp(seed, tag=22):
     """Phase 22: exact fp32 tokens at full width and 2 layers through the
     mesh — llama3-8b at tp 1, 2, 4 (the kv-head rung) and yi-6b at tp 8,
-    page 16 and 8 (split-K) and at tp 16, page 8 (the head-feature rung):
-    served with a mid-decode preemption (a swap-out and back), equal to
-    the single device and to ``kernel_mode="ref"``; a session exported at
-    tp 2 resumes at tp 4; one payload imported on one device and on the
-    mesh, quantized: the int8 scales and codes bit-equal to one device's
-    at the same page size, and its next turn served from its int8 pages
-    gives the same tokens."""
+    page 16 and 8 (split-K) and at tp 16, page 8 (the head-feature rung,
+    by its one-launch route and, shards taken as on distinct cards, by its
+    per-shard route): served with a mid-decode preemption (a swap-out and
+    back), equal to the single device and to ``kernel_mode="ref"``; a
+    session exported at tp 2 resumes at tp 4; one payload imported on one
+    device and on the mesh, quantized: the int8 scales and codes bit-equal
+    to one device's at the same page size, and its next turn served from
+    its int8 pages gives the same tokens.  Returns the per-shard route's
+    launches of kernel 1's F1 + F2 and B.2's (k1fs, b2fs)."""
     rng = np.random.default_rng(seed + 22)
+    out = dict(k1fs=0, b2fs=0)
+    # the per-shard route's (tp, page), where a model's runs hold it
+    apart = (16, 8)
     gen = 16
     for name, runs in (("llama3-8b", ((1, PAGE), (2, PAGE), (4, PAGE))),
                        ("yi-6b", ((8, PAGE), (8, 8), (16, 8)))):
@@ -4745,6 +4877,20 @@ def phase_exact_tp(seed, tag=22):
                 (2, 2, page, cfg.n_kv_heads, cfg.d_head))
             log(f"[{tag}] {cfg.name} tp={tp} page {page} ({rung}): auto and "
                 f"ref equal one device's tokens")
+        if apart in runs:
+            tp, page = apart
+            with shards_apart():
+                for mode in ("ref", "auto"):
+                    got = exact_serve(cfg, model, params, turns, gen, tp,
+                                      mode, page=page)
+                    check(got == want, f"{cfg.name} tp={tp} page {page} "
+                          f"{mode}, shards apart: tokens {got} differ from "
+                          f"one device's {want}")
+            ran = counts()
+            out["k1fs"] += ran["k1_scores"] + ran["k1_pv"]
+            log(f"[{tag}] {cfg.name} tp={tp} page {page}, the per-shard "
+                f"route (shards as on distinct cards): auto and ref equal "
+                f"one device's tokens; launches {ran}")
         tps = [tp for tp, _ in runs]
         if 2 in tps and 4 in tps:
             eng2, be2, mgr2 = make_node(cfg, model, params, n_pages=128,
@@ -4782,43 +4928,55 @@ def phase_exact_tp(seed, tag=22):
         del eng, be, mgr
         res = {}
         pages = sorted({p for _, p in runs})
-        for tp, page in [(None, p) for p in pages] + list(runs):
-            eng, be, mgr = make_node(cfg, model, params,
-                                     n_pages=128 * PAGE // page,
-                                     page_size=page, max_batch=4,
-                                     token_budget=128, mesh=tp_mesh(tp))
-            be.import_session("chat", payload)
-            mgr.mark_resident("chat", tokens, be.session_kv_bytes(tokens),
-                              priority=0)
-            be._ensure_resident("chat")
-            be.drain_transfers()
-            check(be.quantize_session("chat") > 0,
-                  f"{cfg.name} tp={tp}: nothing quantized")
-            snap = int8_snapshot(be, be.alloc[0].seqs["chat"].pages[
-                :payload["n_kv"] // page])
-            zero_counts()
-            t2, _ = serve_turn(eng, be, "chat", turns[1], gen, now)
-            keys, n = expected_counts(be, "b2")
-            check(all(counts()[k] == n for k in keys),
-                  f"{cfg.name} tp={tp}: B.2 ran {counts()} for {n} {keys}")
-            res[tp, page] = (snap, t2)
+        meshes = [(None, p, False) for p in pages] + \
+            [(tp, page, False) for tp, page in runs] + \
+            ([apart + (True,)] if apart in runs else [])
+        for tp, page, sep in meshes:
+            with shards_apart() if sep else contextlib.nullcontext():
+                eng, be, mgr = make_node(cfg, model, params,
+                                         n_pages=128 * PAGE // page,
+                                         page_size=page, max_batch=4,
+                                         token_budget=128,
+                                         mesh=tp_mesh(tp))
+                be.import_session("chat", payload)
+                mgr.mark_resident("chat", tokens,
+                                  be.session_kv_bytes(tokens), priority=0)
+                be._ensure_resident("chat")
+                be.drain_transfers()
+                check(be.quantize_session("chat") > 0,
+                      f"{cfg.name} tp={tp}: nothing quantized")
+                snap = int8_snapshot(be, be.alloc[0].seqs["chat"].pages[
+                    :payload["n_kv"] // page])
+                zero_counts()
+                t2, _ = serve_turn(eng, be, "chat", turns[1], gen, now)
+                ran = counts()
+                keys, n = expected_counts(be, "b2")
+            check(all(ran[k] == n for k in keys),
+                  f"{cfg.name} tp={tp}: B.2 ran {ran} for {n} {keys}")
+            if sep:
+                out["b2fs"] += ran["b2_scores"] + ran["b2_pv"]
+            res[tp, page, sep] = (snap, t2)
             del eng, be, mgr
-        for tp, page in runs:
-            for a, b, what in zip(res[tp, page][0], res[None, page][0],
+        for tp, page, sep in meshes[len(pages):]:
+            what = f"{cfg.name} tp={tp} page {page}" + \
+                (", shards apart" if sep else "")
+            for a, b, part in zip(res[tp, page, sep][0],
+                                  res[None, page, False][0],
                                   ("k codes", "v codes", "k scales",
                                    "v scales")):
                 check(a.dtype == b.dtype and torch.equal(a, b),
-                      f"{cfg.name} tp={tp} page {page}: int8 {what} differ "
-                      f"from one device's")
-            check(res[tp, page][1] == res[None, page][1],
-                  f"{cfg.name} tp={tp} page {page}: the turn served from "
-                  f"int8 pages differs from one device's")
-        log(f"[{tag}] {cfg.name}: int8 scales and codes at (tp, page) "
-            f"{list(runs)} bit-equal to one device's; the turn read from "
-            f"int8 pages at every tp equal to one device's at its page "
-            f"size: {[res[None, p][1] for p in pages]}")
+                      f"{what}: int8 {part} differ from one device's")
+            check(res[tp, page, sep][1] == res[None, page, False][1],
+                  f"{what}: the turn served from int8 pages differs from "
+                  f"one device's")
+        log(f"[{tag}] {cfg.name}: int8 scales and codes at (tp, page, "
+            f"shards apart) {meshes[len(pages):]} bit-equal to one "
+            f"device's; the turn read from int8 pages at every tp equal to "
+            f"one device's at its page size: "
+            f"{[res[None, p, False][1] for p in pages]}")
         del cfg, model, params, res
         free_device_memory()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5474,7 +5632,7 @@ def main(argv=None):
         # before it and reads them just after, inside the phase
         tp = dict(k1=0, k1_recs=[], b2=0, b2_recs=[], k1p=0, k1p_recs=[],
                   b2p=0, b2p_recs=[], merges=0, k1f=0, k1f_recs=[], b2f=0,
-                  b2f_recs=[])
+                  b2f_recs=[], k1fs=0, b2fs=0)
         if 21 in phases:
             tp = phase_tp(args.seed)
             check(tp["k1p"] > 0 and tp["b2p"] > 0 and tp["merges"] > 0,
@@ -5482,11 +5640,18 @@ def main(argv=None):
                   f"times, their merge {tp['merges']}, on phase 21's "
                   f"split-K paths")
             check(tp["k1f"] > 0 and tp["b2f"] > 0,
-                  f"the feature modes ran {tp['k1f']} and {tp['b2f']} "
-                  f"times on phase 21's head-feature paths")
+                  f"the one-launch feature route ran {tp['k1f']} and "
+                  f"{tp['b2f']} times on phase 21's head-feature paths")
             lap("phase 21")
         if 22 in phases:
-            phase_exact_tp(args.seed)
+            # the per-shard route's launches: its fp32 serve at tp 16
+            # (counts set to 0 just before, read just after, inside)
+            apart = phase_exact_tp(args.seed)
+            check(apart["k1fs"] > 0 and apart["b2fs"] > 0,
+                  f"the per-shard feature route ran {apart} on phase 22's "
+                  f"shards-apart serves")
+            tp["k1fs"] += apart["k1fs"]
+            tp["b2fs"] += apart["b2fs"]
             free_device_memory()
             lap("phase 22")
         # phases 23-24 drive the hybrid's training paths with the scan's
@@ -5547,17 +5712,27 @@ def main(argv=None):
         # softmax combine that GSPMD inserts around the TPU kernel on the
         # split-K rung, so no pallas_call stands behind it (replaces null);
         # no single PyTorch call computes it
-        # the feature mode of both (phase 21's yi-6b at tp 16, page 8): F1
-        # and F2 of every shard, launches and times summed; library_ms is
-        # SDPA over the whole call's gathered K/V
-        kernel_entry(pa.NAME + "_features",
-                     "src/repro_torch/csrc/paged_chunk_features.cu",
+        # the head-feature rung of both (phase 21's yi-6b at tp 16, page
+        # 8): the one-launch route its shards take on the one card, and the
+        # per-shard route of shards on distinct cards (F1 and F2 of every
+        # shard, launches and times summed; its launches are phase 22's fp32
+        # serves at tp 16 with the shards taken as apart) held and timed on
+        # phase 21's calls; library_ms is SDPA over the whole call's
+        # gathered K/V
+        kernel_entry(pa.NAME + "_features", src,
                      "src/repro/kernels/paged_attention.py:291", tp["k1f"],
                      tp["k1f_recs"]),
-        kernel_entry(pa.QUANT_NAME + "_features",
-                     "src/repro_torch/csrc/paged_chunk_features.cu",
+        kernel_entry(pa.QUANT_NAME + "_features", src,
                      "src/repro/kernels/paged_attention.py:239", tp["b2f"],
                      tp["b2f_recs"]),
+        kernel_entry(pa.NAME + "_features_shards",
+                     "src/repro_torch/csrc/paged_chunk_features.cu",
+                     "src/repro/kernels/paged_attention.py:291", tp["k1fs"],
+                     [shard_record(r) for r in tp["k1f_recs"]]),
+        kernel_entry(pa.QUANT_NAME + "_features_shards",
+                     "src/repro_torch/csrc/paged_chunk_features.cu",
+                     "src/repro/kernels/paged_attention.py:239", tp["b2fs"],
+                     [shard_record(r) for r in tp["b2f_recs"]]),
         kernel_entry(pa.MERGE_NAME, "src/repro_torch/csrc/split_kv.cuh",
                      None, tp["merges"],
                      [merge_record(r) for r in tp["k1p_recs"]
@@ -5581,8 +5756,9 @@ def main(argv=None):
         f"{qlaunches} on llama3-8b's pressure path, {vq} on phi-3-vision's; "
         f"phase 21's shards: kernel 1 {tp['k1']}, int8 kernel {tp['b2']}, "
         f"their partial modes {tp['k1p']} and {tp['b2p']}, merged by "
-        f"{tp['merges']} merge launches, their feature modes (F1 + F2) "
-        f"{tp['k1f']} and {tp['b2f']}; phase 25's launcher: kernel 1 "
+        f"{tp['merges']} merge launches, their one-launch feature route "
+        f"{tp['k1f']} and {tp['b2f']}, the per-shard F1 + F2 {tp['k1fs']} "
+        f"and {tp['b2fs']}; phase 25's launcher: kernel 1 "
         f"{lk1}, flash_prefill {lb4}; "
         f"flash_prefill: {flaunches} on the dense reference's prefills, "
         f"{af} on the prefills of phases 17-19; ssd_scan: {slaunches} on "

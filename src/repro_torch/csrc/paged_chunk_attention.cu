@@ -37,6 +37,25 @@
 //     (split_kv_merge), reading the workspace the shards wrote side by
 //     side, as GSPMD's softmax combine does for the TPU kernel.
 //
+//   * paged_chunk_attention_features_launch is either kernel's route on the
+//     head-feature rung of tensor-parallel serving when every shard's pools
+//     live on one card: shard r holds features [r * dr, (r + 1) * dr) of
+//     every row (D = tp * dr), and one launch a layer computes the full
+//     heads' attention straight from the tp pools (kFeat below).  Only the
+//     load changes: a key row's D columns are tp runs of dr features, run r
+//     read from shard r's pool at the same (page, row, kv head), gathered
+//     into the tile that TMA (or the float32 loader) builds from one
+//     concatenated pool, so the output is bit-equal to the kernel's on the
+//     concatenated pools.  The sum over the shards is the k dimension of
+//     Q.K^T, so no float32 scores leave the CTA (the per-shard route,
+//     csrc/paged_chunk_features.cu, passes a (B, H, Sq, T) float32 buffer
+//     through device memory 47 times a layer at tp 16).  The shards' base
+//     pointers come by value in a __grid_constant__ struct (ShardPools, up
+//     to kMaxShards = 64).  At dr = 8 with the pools at one stride (a
+//     card's shards: PoolLayout.zeros) the bf16 body loads by TMA into
+//     tiles of core matrices, else it gathers the runs by cp.async; what
+//     bounds each is in the producer's notes.
+//
 // What both compute: lane b's query i sits at position q_offsets[b] + i and
 // attends, with a float32 online softmax (m, l, acc) scaled by 1/sqrt(D), to
 // the keys with kpos <= qpos and kpos < ctx_lens[b], read through the lane's
@@ -192,14 +211,83 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
 }
 
+// The head-feature rung's pools (kFeat): shard r's K, V and int8 K and V
+// pools, each (P, page, Hkv, dr) contiguous and 16-byte aligned (the int8
+// ones null without kQuant), dr = 1 << ldr features a row.  With fp_tma
+// (the caller's choice, taken only where dr = 8, pages hold a multiple of
+// 8 rows and the K and V pools each lie at one stride, slices of one
+// allocation as a card's shards get them) the bf16 body reads K and V by
+// TMA into tiles of core matrices (see the producer); otherwise it gathers
+// their rows by cp.async.  Passed by value as a __grid_constant__ kernel
+// parameter (2 KB of the 4 KB limit); the other instantiations take the
+// empty NoShards.
+constexpr int kMaxShards = 64;
+struct ShardPools {
+  const void* k[kMaxShards];
+  const void* v[kMaxShards];
+  const void* kq[kMaxShards];
+  const void* vq[kMaxShards];
+  long long stride[2];  // bytes from a shard's K (V) pool to the next
+                        // shard's; 0 where they differ
+  int ldr;
+  int tp;
+  int fp_tma;           // K and V by TMA into core-matrix tiles
+};
+struct NoShards {};
+__device__ __forceinline__ bool fp_tma(const ShardPools& sh) {
+  return sh.fp_tma;
+}
+__device__ __forceinline__ bool fp_tma(const NoShards&) { return false; }
+template <bool kFeat>
+using ShardArg = std::conditional_t<kFeat, ShardPools, NoShards>;
+
+// 16 bytes of a key row starting at byte column cb (a multiple of 16) of
+// the row that the shards hold as runs of kE << ldr bytes (dr elements of
+// kE bytes), each at element offset roff of its shard's pool: one 16-byte
+// load from one shard, or whole runs of 8, 4 or 2 bytes from 16 / run
+// consecutive shards
+template <int kE>
+__device__ __forceinline__ uint4 gather16(const void* const* pools,
+                                          size_t roff, int cb, int ldr) {
+  const int lrb = ldr + (kE == 4 ? 2 : kE == 2 ? 1 : 0);  // log2 run bytes
+  const int r0 = cb >> lrb;
+  if (lrb >= 4)
+    return __ldg(reinterpret_cast<const uint4*>(
+        static_cast<const char*>(pools[r0]) + roff * kE +
+        (cb & ((1 << lrb) - 1))));
+  uint4 u;
+  if (lrb == 3) {
+    uint2* d = reinterpret_cast<uint2*>(&u);
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+      d[p] = __ldg(reinterpret_cast<const uint2*>(
+          static_cast<const char*>(pools[r0 + p]) + roff * kE));
+  } else if (lrb == 2) {
+    unsigned* d = reinterpret_cast<unsigned*>(&u);
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+      d[p] = __ldg(reinterpret_cast<const unsigned*>(
+          static_cast<const char*>(pools[r0 + p]) + roff * kE));
+  } else {
+    unsigned short* d = reinterpret_cast<unsigned short*>(&u);
+#pragma unroll
+    for (int p = 0; p < 8; ++p)
+      d[p] = __ldg(reinterpret_cast<const unsigned short*>(
+          static_cast<const char*>(pools[r0 + p]) + roff * kE));
+  }
+  return u;
+}
+
 // q (B, Sq, H, D); k/v pages (P, page, Hkv, D); tables (B, T) int32;
 // q_offsets, ctx_lens (B,) int32; out (B, Sq, H, D).  kQuant adds the int8
 // pools kq/vq (P, page, Hkv, D), the float32 scales (P,) and the int32
 // flags (P,); without it they are null.  All contiguous, the pools 16-byte
-// aligned.
-template <typename T, int D, bool kQuant>
+// aligned.  kFeat: the pools are the shards' in `sh` (k_pages to vq_pages
+// null), gathered into the same rows.
+template <typename T, int D, bool kQuant, bool kFeat>
 __global__ void __launch_bounds__(kThreads)
-paged_chunk_attention_kernel(const T* __restrict__ q,
+paged_chunk_attention_kernel(const __grid_constant__ ShardArg<kFeat> sh,
+                             const T* __restrict__ q,
                              const T* __restrict__ k_pages,
                              const T* __restrict__ v_pages,
                              const int8_t* __restrict__ kq_pages,
@@ -312,6 +400,33 @@ paged_chunk_attention_kernel(const T* __restrict__ q,
     if (kl < kl1) {
       const size_t pid = (size_t)table[kl / page];
       const size_t off = ((pid * page + kl % page) * Hkv + h) * D;
+      if constexpr (kFeat) {
+        // the row's tp runs, each at the row's offset in its shard's pool
+        const size_t roff = ((pid * page + kl % page) * Hkv + h) << sh.ldr;
+        const bool iq = kQuant && page_quant[pid];
+        if (iq) {
+          row_q = true;
+          row_ks = k_scales[pid];
+          row_vs = v_scales[pid];
+        }
+#pragma unroll
+        for (int v = 0; v < kVecs; ++v) {   // kVecsQ <= kVecs
+          if (iq) {
+            const int vi = seg * kVecsQ + v;
+            if (v < kVecsQ && (kRowVecsQ % kSeg == 0 || vi < kRowVecsQ)) {
+              k_reg[v] = gather16<1>(sh.kq, roff, vi * 16, sh.ldr);
+              v_reg[v] = gather16<1>(sh.vq, roff, vi * 16, sh.ldr);
+            }
+          } else {
+            const int vi = seg * kVecs + v;
+            if (kRowVecs % kSeg == 0 || vi < kRowVecs) {
+              k_reg[v] = gather16<sizeof(T)>(sh.k, roff, vi * 16, sh.ldr);
+              v_reg[v] = gather16<sizeof(T)>(sh.v, roff, vi * 16, sh.ldr);
+            }
+          }
+        }
+        return;
+      }
       if constexpr (kQuant) {
         if (page_quant[pid]) {  // only the int8 tile: 1 byte an element
           row_q = true;
@@ -474,8 +589,9 @@ struct QuantArgs {
 
 // out: the output (B, Sq, H, D), or in the partial mode the float32
 // partials (n_split, B, Sq, H, D) with lse (n_split, B, Sq, H)
-template <int D, bool kQuant>
-cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
+template <int D, bool kQuant, bool kFeat>
+cudaError_t launch(const ShardArg<kFeat>& sh, const void* q,
+                   const void* k_pages, const void* v_pages,
                    const QuantArgs& qa, const int* tables,
                    const int* q_offsets, const int* ctx_lens, void* out,
                    float* lse, int B, int Sq, int H, int Hkv, int page,
@@ -487,9 +603,9 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
   const long long nx = (long long)((Sq + bq - 1) / bq) * n_split;
   if (nx > 0x7fffffffLL) return cudaErrorInvalidValue;
   const dim3 grid((unsigned)nx, Hkv, B);
-  paged_chunk_attention_kernel<float, D, kQuant><<<grid, kThreads, 0,
-                                                   stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k_pages),
+  paged_chunk_attention_kernel<float, D, kQuant, kFeat>
+      <<<grid, kThreads, 0, stream>>>(
+      sh, static_cast<const float*>(q), static_cast<const float*>(k_pages),
       static_cast<const float*>(v_pages), qa.kq_pages, qa.vq_pages,
       qa.k_scales, qa.v_scales, qa.page_quant, tables, q_offsets, ctx_lens,
       static_cast<float*>(out), lse, Sq, H, Hkv, page, page_g, r_off, T_width,
@@ -509,9 +625,110 @@ constexpr int kTcRows = 64;                    // query rows a CTA
 constexpr int kTcKeys = 64;                    // keys a ring stage
 constexpr int kTcStages = 2;                   // ring stages
 constexpr int kTcCtasPerSm = 2;                // __launch_bounds__ minimum
-constexpr int kTcThreads = 128 + 32;           // a consumer warpgroup and a
-                                               // producer warp
+// the head-feature rung's producer warps (kFeat): the cp.async gather's
+// rows alternate between them
+constexpr int kFeatProducers = 2;
+// threads a CTA: a consumer warpgroup and the producer warp(s)
+template <bool kFeat>
+constexpr int kTcThreads = 128 + 32 * (kFeat ? kFeatProducers : 1);
 constexpr int kMaxPages = kTcKeys;             // pages a stage, at 1 row
+
+// a box of a 4D tensor map into shared memory, completing on bar (the
+// head-feature rung's maps over every shard's pool: see feat_map)
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of an operand in core matrices (8 rows of
+// 16 bytes, 128 contiguous bytes each), no swizzle: start address, leading
+// and stride byte offsets (16-byte units).  K-major: lbo steps along K,
+// sbo along M / N; MN-major: lbo along K, sbo along M / N
+__device__ __forceinline__ uint64_t core_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32);
+}
+
+// A copy of 16, 8 or 4 bytes (2^lb) by cp.async, or of 2 (codes of dr = 2
+// features: an ordinary load and store, which the consumers read as such)
+__device__ __forceinline__ void feat_copy(uint8_t* dst, const char* src,
+                                          int lb) {
+  const uint32_t d = smem_u32(dst);
+  if (lb == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src) : "memory");
+  else if (lb == 3)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+                 "l"(src) : "memory");
+  else if (lb == 2)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src) : "memory");
+  else
+    *reinterpret_cast<unsigned short*>(dst) =
+        __ldg(reinterpret_cast<const unsigned short*>(src));
+}
+
+// The head-feature rung's copies that one producer lane makes of every key
+// row, fixed for the CTA.  A bf16 row's D columns are nu = 2 D / 2^lub
+// copies of 2^lub = min(2 dr, 16) bytes, copy u being byte columns [u
+// 2^lub, (u + 1) 2^lub): features e = u 2^lub / 2 on of shard e / dr, at
+// feature e % dr of its row.  The copies are padded to 2^lu slots (nu >=
+// 8), lane l taking slot l % 2^lu (and l + 32 when 2^lu = 64) of keys l /
+// 2^lu + kstep i, kstep = 32 / 2^lu keys (1 past 32 slots), producer warp
+// w the iterations i = w, w + kFeatProducers, ....  A flagged
+// page's codes are nc = D / 2^lcb copies of 2^lcb = min(dr, 16) bytes,
+// slotted the same way.  Columns past D (D = 80, 96) are not copied: no
+// product reads them.
+struct FeatSlots {
+  const char* k[2];
+  const char* v[2];
+  const char* kq[2];
+  const char* vq[2];
+  uint32_t col[2], chunk[2], ccol[2];
+  bool on[2], con[2];
+  int ldr, lub, lcb, j0, kstep, cj0, ckstep;
+
+  template <int D>
+  __device__ __forceinline__ void init(const ShardPools& sh, int lane) {
+    ldr = sh.ldr;
+    lub = min(4, ldr + 1);
+    lcb = min(4, ldr);
+    const int nu = 2 * D >> lub, lu = 32 - __clz(nu - 1);
+    const int nc = D >> lcb, lc = 32 - __clz(nc - 1);
+    j0 = lu < 5 ? lane >> lu : 0;
+    kstep = lu < 5 ? 32 >> lu : 1;
+    cj0 = lc < 5 ? lane >> lc : 0;
+    ckstep = lc < 5 ? 32 >> lc : 1;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int u = (lu < 5 ? lane & ((1 << lu) - 1) : lane) + 32 * c;
+      on[c] = u < nu && (c == 0 || lu > 5);
+      const int cb = on[c] ? u << lub : 0, e = cb >> 1;
+      const int w = 2 * (e & ((1 << ldr) - 1));   // bytes into the run
+      k[c] = static_cast<const char*>(sh.k[e >> ldr]) + w;
+      v[c] = static_cast<const char*>(sh.v[e >> ldr]) + w;
+      col[c] = (cb >> 7) * kTcKeys * 128 + (cb & 15);
+      chunk[c] = (cb >> 4) & 7;
+      const int uc = (lc < 5 ? lane & ((1 << lc) - 1) : lane) + 32 * c;
+      con[c] = uc < nc && (c == 0 || lc > 5);
+      const int cc = con[c] ? uc << lcb : 0;
+      kq[c] = static_cast<const char*>(sh.kq[cc >> ldr]) +
+              (cc & ((1 << ldr) - 1));
+      vq[c] = static_cast<const char*>(sh.vq[cc >> ldr]) +
+              (cc & ((1 << ldr) - 1));
+      ccol[c] = cc;
+    }
+  }
+};
 
 // what the producer tells the consumers about a stage of the int8 kernel:
 // which of its pages come from the int8 pools (bit i: page i of the
@@ -559,10 +776,14 @@ struct PcSmem {
 // producer reads its table entries once a 32-page window: the unsplit
 // kernel runs that body (one body for every page size, with per-key
 // lookups and per-stage entry reads, made the unsplit B.2 ~18 % slower on
-// the same calls).
-template <int D, bool kQuant, bool kOneRow>
-__global__ void __launch_bounds__(kTcThreads, kTcCtasPerSm)
-paged_chunk_attention_tc(const __grid_constant__ CUtensorMap kmap,
+// the same calls).  kFeat: the head-feature rung's pools (`sh`; k_pool /
+// v_pool unused, kmap / vmap its feat_map boxes where it reads by TMA),
+// each row's D columns from tp shards, two producer warps (see the
+// producer).
+template <int D, bool kQuant, bool kOneRow, bool kFeat>
+__global__ void __launch_bounds__(kTcThreads<kFeat>, kTcCtasPerSm)
+paged_chunk_attention_tc(const __grid_constant__ ShardArg<kFeat> sh,
+               const __grid_constant__ CUtensorMap kmap,
                const __grid_constant__ CUtensorMap vmap,
                const __grid_constant__ CUtensorMap kqmap,
                const __grid_constant__ CUtensorMap vqmap,
@@ -580,6 +801,7 @@ paged_chunk_attention_tc(const __grid_constant__ CUtensorMap kmap,
                int page, int page_g, int r_off, int T_width, int bq,
                int n_qblk, int split, int n_split) {
   using L = PcSmem<D, kQuant>;
+  constexpr int kThr = kTcThreads<kFeat>;
   using Mask = std::conditional_t<kOneRow, unsigned long long, unsigned>;
   constexpr int kCb = L::kCb;
   constexpr int kChunks = D / 8;              // 16-byte bf16 chunks a row
@@ -623,7 +845,7 @@ paged_chunk_attention_tc(const __grid_constant__ CUtensorMap kmap,
     // a tile of padding rows, or a split past the tile's keys: zeros (and
     // lse -inf), no K/V read
     if (part == nullptr) {
-      for (int i = threadIdx.x; i < rows * kChunks; i += kTcThreads) {
+      for (int i = threadIdx.x; i < rows * kChunks; i += kThr) {
         const int r = i / kChunks, qi = q0 + r / G;
         if (qi < Sq)
           reinterpret_cast<uint4*>(out + (((size_t)b * Sq + qi) * H + h * G +
@@ -631,14 +853,14 @@ paged_chunk_attention_tc(const __grid_constant__ CUtensorMap kmap,
               make_uint4(0, 0, 0, 0);
       }
     } else {
-      for (int i = threadIdx.x; i < rows * (D / 4); i += kTcThreads) {
+      for (int i = threadIdx.x; i < rows * (D / 4); i += kThr) {
         const int r = i / (D / 4), qi = q0 + r / G;
         if (qi < Sq)
           reinterpret_cast<float4*>(part + (((size_t)b * Sq + qi) * H +
                                             h * G + r % G) * D)[i % (D / 4)] =
               make_float4(0.f, 0.f, 0.f, 0.f);
       }
-      for (int r = threadIdx.x; r < rows; r += kTcThreads)
+      for (int r = threadIdx.x; r < rows; r += kThr)
         if (q0 + r / G < Sq)
           lse[((size_t)b * Sq + q0 + r / G) * H + h * G + r % G] = neg_inf();
     }
@@ -655,14 +877,24 @@ paged_chunk_attention_tc(const __grid_constant__ CUtensorMap kmap,
     else return (kl >> lp) * page_g + r_off + (kl & (page - 1));
   };
 
+  // kFeat by TMA: the K and V tiles are core matrices (see the producer)
+  const bool cm = kFeat && fp_tma(sh);
   // zero the rows of the last tile's stage that no load fills (keys past
   // the lane's relevant pages), so that no garbage meets p = 0
-  {
+  if (cm) {                                   // rows [filled, 64): one span
+    const int t = t1 - 1;
+    const int filled = min(kTcKeys, n_pages * page - t * kTcKeys);
+    const int n = (kTcKeys - filled) * D / 8;  // 16-byte chunks a side
+    const uint32_t st = ((t - t0) % kTcStages) * L::kStage + filled * D * 2;
+    for (int i = threadIdx.x; i < 2 * n; i += kThr)
+      *reinterpret_cast<uint4*>(smem + (i / n ? L::kV : L::kK) + st +
+                                (i % n) * 16) = make_uint4(0, 0, 0, 0);
+  } else {
     const int t = t1 - 1;
     const int filled = min(kTcKeys, n_pages * page - t * kTcKeys);
     const int n = (kTcKeys - filled) * 8;     // 16-byte chunks a block
     const uint32_t st = ((t - t0) % kTcStages) * L::kStage + filled * 128;
-    for (int i = threadIdx.x; i < 2 * kCb * n; i += kTcThreads) {
+    for (int i = threadIdx.x; i < 2 * kCb * n; i += kThr) {
       const int kv = i / (kCb * n), rem = i % (kCb * n);
       *reinterpret_cast<uint4*>(smem + (kv ? L::kV : L::kK) + st +
                                 (rem / n) * kTcKeys * 128 + (rem % n) * 16) =
@@ -672,7 +904,7 @@ paged_chunk_attention_tc(const __grid_constant__ CUtensorMap kmap,
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int s = 0; s < kTcStages; ++s) {
-      mbar_init(full0 + 8 * s, 1);
+      mbar_init(full0 + 8 * s, kFeat ? kFeatProducers : 1);
       mbar_init(empty0 + 8 * s, 4);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -683,7 +915,8 @@ paged_chunk_attention_tc(const __grid_constant__ CUtensorMap kmap,
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (warp == 4) {
+  if (warp >= 4) {
+    const int pw = warp - 4;                  // producer warp (kFeat: 0, 1)
     // the producer warp.  Lane i holds the table entries (with kQuant the
     // int8 flags and scales) of pages w0 + i and, at 1-row pages, w0 + 32
     // + i of a window of kWin pages of the lane's table row, read once a
@@ -706,8 +939,48 @@ paged_chunk_attention_tc(const __grid_constant__ CUtensorMap kmap,
     // the async proxy (wgmma) before the warp syncs and lane 0 arrives on
     // the stage's full barrier.  int8 pages keep TMA (their codes,
     // unswizzled).
+    //
+    // kFeat (the head-feature rung) has two producer warps and two ways
+    // to fill a stage.  A row's D columns are tp runs of dr features, run
+    // r in shard r's pool at the same (page, row, kv head), 16 bytes or
+    // less apart from the next kv head's at yi-6b's dr = 8: a stage is
+    // 2048 such runs.
+    //   * TMA (fp_tma, the caller's choice, open where dr = 8, pages hold
+    //     a multiple of 8 rows and each side's pools lie at one stride):
+    //     one 4D box (feat_map) a side and
+    //     8-row group of a page takes every shard's 8 features of those
+    //     rows and lands them as tp core matrices (8 rows x 16 bytes), so
+    //     the K and V tiles are core matrices, group g of rows at g D 16
+    //     bytes, chunk f of 8 features at 128 f within it, and the
+    //     consumers read them by no-swizzle descriptors (core_desc): 16
+    //     boxes a stage against the 32 swizzled boxes of the unsharded
+    //     kernel, whose 16-byte pieces the TMA unit fetches one by one.
+    //   * cp.async otherwise: the lanes copy the runs (or 16-byte parts of
+    //     them) into the 128-byte swizzle TMA gives the unsharded kernel,
+    //     each lane its fixed slots of every row (FeatSlots), the two warps
+    //     alternating rows.  Columns past D (D = 80, 96) are not copied: no
+    //     product reads them.
+    // A flagged page's codes are always gathered (dr codes of a row are
+    // under TMA's 16-byte minimum at dr = 8), into the rows where the
+    // unsharded kernel's box lands them, or in core-matrix tiles into the
+    // upper half of their 8-row group's span.  The lanes do not wait for
+    // their copies: each lane's cp.async.mbarrier.arrive makes the stage's
+    // full barrier wait for them, the warps go on to the next stage at
+    // once, and the consumers fence the landed rows for wgmma.  Either
+    // way the tile holds the unsharded kernel's values, so its output is
+    // bit-equal to the kernel's on the shards' pools concatenated along D.
+    // A producer warp that waited for each stage's copies before the
+    // next kept one stage's loads in flight; arriving by cp.async and a
+    // second warp keep both stages loading.  On chip_smoke.py phase 21's
+    // calls, which it times through both producers, TMA is faster at
+    // decode and at least even with the gather at chunks: the wrapper
+    // takes it wherever it is open (paged_attention.features_producer).
     const int* row = tables + (size_t)b * T_width;
-    const bool gather = page <= 2;
+    // fp rows copied by cp.async (else TMA boxes); the head-feature rung's
+    // int8 codes always (a shard's codes of a row, dr bytes, are under
+    // TMA's 16-byte minimum at the dr = 8 of its TMA path)
+    const bool gather = kFeat ? !cm : page <= 2;
+    constexpr bool gather_codes = kFeat;
     constexpr int kPer = kOneRow ? 2 : 1;     // table entries a lane holds
     constexpr int kWin = 32 * kPer;           // pages a window
     constexpr int kRowChunks = kCb * 8;       // 16-byte chunks a tile row
@@ -715,6 +988,8 @@ paged_chunk_attention_tc(const __grid_constant__ CUtensorMap kmap,
     bool qf[kPer] = {};
     float ksv[kPer] = {}, vsv[kPer] = {};
     Mask win = 0;                             // the window's int8 flags
+    FeatSlots fs;
+    if constexpr (kFeat) fs.init<D>(sh, lane);
     for (int t = t0; t < t1; ++t) {
       const int i = t - t0, s = i % kTcStages;
       const int p0 = t * ppt;
@@ -749,15 +1024,15 @@ paged_chunk_attention_tc(const __grid_constant__ CUtensorMap kmap,
 #pragma unroll
         for (int j = 0; j < kPer; ++j) {
           const int pi = lane + 32 * j - l0;  // its page of the stage
-          if (qf[j] && pi >= 0 && pi < np) {
+          if (pw == 0 && qf[j] && pi >= 0 && pi < np) {
             meta[s].ks[pi] = ksv[j];
             meta[s].vs[pi] = vsv[j];
           }
         }
-        if (lane == 0) meta[s].mask = mask;
+        if (pw == 0 && lane == 0) meta[s].mask = mask;
       }
       const int nq = __popcll((unsigned long long)mask);
-      if (gather) {
+      if (gather || gather_codes) {
         // the stage's np * page rows (keys), K then V, chunk idx % kRowChunks
         // of row idx / kRowChunks for idx = lane, lane + 32, ...; at 1 or 2
         // rows a stage is a whole window (l0 = 0), and the rows of one pass
@@ -766,56 +1041,138 @@ paged_chunk_attention_tc(const __grid_constant__ CUtensorMap kmap,
         const int n_rows = np * page;
         uint8_t* kt = smem + L::kK + s * L::kStage;
         uint8_t* vt = smem + L::kV + s * L::kStage;
+        if constexpr (kFeat) {
+          // every key row of the stage's relevant pages (its fp pages'
+          // rows, then a flagged page's codes), each lane its fixed copy
+          // slots of the rows j0, j0 + fs.kstep, ...; the key's page sits
+          // at slot l0 + pi of the window, and the keys of one iteration
+          // (at most 4) lie in one half of it
+          const int it_n = gather ? kTcKeys / fs.kstep : 0;
+          for (int it = pw; it < it_n; it += kFeatProducers) {
+            const int j = fs.j0 + it * fs.kstep;
+            const int pi = j >> lp;
+            const int src = __shfl_sync(
+                0xffffffffu,
+                (it * fs.kstep >> lp) + l0 >= 32 ? pid[kPer - 1] : pid[0],
+                (pi + l0) & 31);
+            if (j >= n_rows || (kQuant && (mask >> pi & 1))) continue;
+            const size_t roff =
+                (((size_t)src * page + (j & (page - 1))) * Hkv + h) << fs.ldr;
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              if (!fs.on[c]) continue;
+              const uint32_t dst = fs.col[c] + j * 128 +
+                                   ((fs.chunk[c] ^ (j & 7)) << 4);
+              feat_copy(kt + dst, fs.k[c] + 2 * roff, fs.lub);
+              feat_copy(vt + dst, fs.v[c] + 2 * roff, fs.lub);
+            }
+          }
+          if (kQuant && mask && gather_codes) {
+            // the flagged pages' codes, [page rows][D] bytes at the page's
+            // rows of the last column block, as their TMA box lands
+            const int itc = kTcKeys / fs.ckstep;
+            for (int it = pw; it < itc; it += kFeatProducers) {
+              const int j = fs.cj0 + it * fs.ckstep;
+              const int pi = j >> lp;
+              const int src = __shfl_sync(
+                  0xffffffffu,
+                  (it * fs.ckstep >> lp) + l0 >= 32 ? pid[kPer - 1] : pid[0],
+                  (pi + l0) & 31);
+              if (j >= n_rows || !(mask >> pi & 1)) continue;
+              const size_t roff =
+                  (((size_t)src * page + (j & (page - 1))) * Hkv + h)
+                  << fs.ldr;
+              const uint32_t dst0 =
+                  cm ? (j >> 3) * D * 16 + D * 8 + (j & 7) * D
+                     : L::kCodes + pi * page * 128 + (j & (page - 1)) * D;
+#pragma unroll
+              for (int c = 0; c < 2; ++c) {
+                if (!fs.con[c]) continue;
+                feat_copy(kt + dst0 + fs.ccol[c], fs.kq[c] + roff, fs.lcb);
+                feat_copy(vt + dst0 + fs.ccol[c], fs.vq[c] + roff, fs.lcb);
+              }
+            }
+          }
+          // the lane's copies arrive on the stage's full barrier when they
+          // land (its pending count rises here and falls then), so the
+          // warp goes on to the next stage without waiting for them; the
+          // consumers fence the landed rows for wgmma
+          asm volatile(
+              "cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(
+                  full0 + 8 * s)
+              : "memory");
+        } else {
 #pragma unroll 4
-        for (int idx = lane; idx < kTcKeys * kRowChunks; idx += 32) {
-          const int j = idx / kRowChunks, c = idx % kRowChunks;
-          const int pi = j >> lp;
-          const int src = __shfl_sync(0xffffffffu,
-                                      (idx - lane) / kRowChunks >> lp >= 32
-                                          ? pid[kPer - 1] : pid[0],
-                                      pi & 31);
-          if (j >= n_rows || (kQuant && (mask >> pi & 1))) continue;
-          const size_t off =
-              (((size_t)src * page + (j & (page - 1))) * Hkv + h) * D;
-          const bool in = c < kChunks;        // zeros past column D
-          const uint32_t dst = (c / 8) * kTcKeys * 128 + j * 128 +
-                               (((c % 8) ^ (j % 8)) * 16);
-          cp_async16(kt + dst, k_pool + off + (in ? 8 * c : 0), in);
-          cp_async16(vt + dst, v_pool + off + (in ? 8 * c : 0), in);
+          for (int idx = lane; idx < kTcKeys * kRowChunks; idx += 32) {
+            const int j = idx / kRowChunks, c = idx % kRowChunks;
+            const int pi = j >> lp;
+            const int src = __shfl_sync(0xffffffffu,
+                                        (idx - lane) / kRowChunks >> lp >= 32
+                                            ? pid[kPer - 1] : pid[0],
+                                        pi & 31);
+            if (j >= n_rows || (kQuant && (mask >> pi & 1))) continue;
+            const size_t off =
+                (((size_t)src * page + (j & (page - 1))) * Hkv + h) * D;
+            const bool in = c < kChunks;      // zeros past column D
+            const uint32_t dst = (c / 8) * kTcKeys * 128 + j * 128 +
+                                 (((c % 8) ^ (j % 8)) * 16);
+            cp_async16(kt + dst, k_pool + off + (in ? 8 * c : 0), in);
+            cp_async16(vt + dst, v_pool + off + (in ? 8 * c : 0), in);
+          }
+          cp_async_commit();
+          cp_async_wait<0>();
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         }
-        cp_async_commit();
-        cp_async_wait<0>();
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       }
       __syncwarp();                           // scales and copies before
       if (lane == 0)                          // the arrive
         mbar_expect_tx(full0 + 8 * s,
-                       nq * 2 * page * D +
-                           (gather ? 0 : (np - nq) * 2 * kCb * page * 128));
+                       pw != 0 ? 0
+                               : (gather_codes ? 0 : nq * 2 * page * D) +
+                                     (gather ? 0
+                                      : cm   ? (np - nq) * 4 * page * D
+                                             : (np - nq) * 2 * kCb * page *
+                                                   128));
       __syncwarp();                           // the count before any bytes
 #pragma unroll
       for (int j = 0; j < kPer; ++j) {
         const int pi = lane + 32 * j - l0;
-        if (pi < 0 || pi >= np) continue;
+        if (pw != 0 || pi < 0 || pi >= np) continue;
         const int krow = pid[j] * page;
         if (kQuant && qf[j]) {
+          if (gather_codes) continue;
           const uint32_t off = s * L::kStage + L::kCodes + pi * page * 128;
           tma_load_3d(base + L::kK + off, &kqmap, full0 + 8 * s, 0, h, krow);
           tma_load_3d(base + L::kV + off, &vqmap, full0 + 8 * s, 0, h, krow);
         } else if (!gather) {
+          if constexpr (kFeat) {
+            // each 8-row group of the page: one box of every shard's 8
+            // features of its rows, landing as tp core matrices in order
+            for (int g = 0; g < page; g += 8) {
+              const uint32_t off =
+                  s * L::kStage + (pi * page + g) * D * 2;
+              tma_load_4d(base + L::kK + off, &kmap, full0 + 8 * s, 0, h,
+                          krow + g, 0);
+              tma_load_4d(base + L::kV + off, &vmap, full0 + 8 * s, 0, h,
+                          krow + g, 0);
+            }
+          } else {
 #pragma unroll
-          for (int c = 0; c < kCb; ++c) {
-            const uint32_t off =
-                s * L::kStage + c * kTcKeys * 128 + pi * page * 128;
-            tma_load_3d(base + L::kK + off, &kmap, full0 + 8 * s, 64 * c, h,
-                        krow);
-            tma_load_3d(base + L::kV + off, &vmap, full0 + 8 * s, 64 * c, h,
-                        krow);
+            for (int c = 0; c < kCb; ++c) {
+              const uint32_t off =
+                  s * L::kStage + c * kTcKeys * 128 + pi * page * 128;
+              tma_load_3d(base + L::kK + off, &kmap, full0 + 8 * s, 64 * c,
+                          h, krow);
+              tma_load_3d(base + L::kV + off, &vmap, full0 + 8 * s, 64 * c,
+                          h, krow);
+            }
           }
         }
       }
       __syncwarp();
     }
+    // kFeat: no lane leaves with copies in flight
+    if constexpr (kFeat) asm volatile("cp.async.wait_all;\n" ::: "memory");
     return;
   }
 
@@ -856,6 +1213,10 @@ paged_chunk_attention_tc(const __grid_constant__ CUtensorMap kmap,
     const int s = (t - t0) % kTcStages;
     const int k0 = t * kTcKeys;
     mbar_wait(full0 + 8 * s, ((t - t0) / kTcStages) & 1);
+    // kFeat: the rows landed by cp.async (generic-proxy writes, seen
+    // through the barrier), fenced before wgmma (the async proxy) reads
+    if constexpr (kFeat)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     Mask mask = 0;
     if constexpr (kQuant) {
       mask = (Mask)meta[s].mask;
@@ -879,8 +1240,10 @@ paged_chunk_attention_tc(const __grid_constant__ CUtensorMap kmap,
               const int j = j0 + idx / kUnits, u = idx % kUnits;  // key, unit
               if (idx < kPass * kUnits && (mask >> (j >> lp) & 1))
                 codes[n] = *reinterpret_cast<const uint4*>(
-                    tile + L::kCodes + (j >> lp) * page * 128 +
-                    (j & (page - 1)) * D + u * 16);
+                    tile + u * 16 +
+                    (cm ? (j >> 3) * D * 16 + D * 8 + (j & 7) * D
+                        : L::kCodes + (j >> lp) * page * 128 +
+                              (j & (page - 1)) * D));
             }
             asm volatile("bar.sync 1, 128;\n" ::: "memory");
 #pragma unroll
@@ -897,8 +1260,9 @@ paged_chunk_attention_tc(const __grid_constant__ CUtensorMap kmap,
               for (int hf = 0; hf < 2; ++hf) {
                 const int ch = 2 * u + hf;                  // bf16 chunk
                 *reinterpret_cast<uint4*>(
-                    tile + (ch / 8) * kTcKeys * 128 + j * 128 +
-                    (((ch % 8) ^ (j % 8)) * 16)) =
+                    tile + (cm ? (j >> 3) * D * 16 + ch * 128 + (j & 7) * 16
+                               : (ch / 8) * kTcKeys * 128 + j * 128 +
+                                     (((ch % 8) ^ (j % 8)) * 16))) =
                     make_uint4(w[4 * hf], w[4 * hf + 1], w[4 * hf + 2],
                                w[4 * hf + 3]);
               }
@@ -918,8 +1282,10 @@ paged_chunk_attention_tc(const __grid_constant__ CUtensorMap kmap,
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint64_t da = sw128_desc(
           base + L::kQ + (kk / 4) * kTcRows * 128 + (kk % 4) * 32, 16, 1024);
-      const uint64_t db = sw128_desc(
-          k_tile + (kk / 4) * kTcKeys * 128 + (kk % 4) * 32, 16, 1024);
+      const uint64_t db =
+          cm ? core_desc(k_tile + kk * 256, 128, D * 16)
+             : sw128_desc(k_tile + (kk / 4) * kTcKeys * 128 + (kk % 4) * 32,
+                          16, 1024);
       Wgmma::ss(sc, da, db, kk > 0);
     }
     wgmma_commit();
@@ -1025,8 +1391,10 @@ paged_chunk_attention_tc(const __grid_constant__ CUtensorMap kmap,
     wgmma_fence();
 #pragma unroll
     for (int kt = 0; kt < kTcKeys / 16; ++kt)
-      Wgmma::rs(o, pa[kt], sw128_desc(v_tile + kt * 16 * 128,
-                                      kTcKeys * 128, 1024));
+      Wgmma::rs(o, pa[kt],
+                cm ? core_desc(v_tile + kt * 32 * D, D * 16, 128)
+                   : sw128_desc(v_tile + kt * 16 * 128, kTcKeys * 128,
+                                1024));
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(o);
@@ -1097,30 +1465,66 @@ bool pool_map(CUtensorMap* map, const void* base, bool codes, int P,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The head-feature rung's pools of one side at dr = 8, shard r's (P,
+// page, Hkv, 8) at base + r * stride bytes, seen as (8, Hkv, P * page,
+// tp), innermost first (strides rising: 16, Hkv 16 bytes, stride): a box
+// is every shard's 8 features of one kv head over 8 rows, landing as
+// [shard][row][8 features] = tp core matrices of the rows, the columns in
+// order, unswizzled
+bool feat_map(CUtensorMap* map, const void* base, long long stride, int P,
+              int page, int Hkv, int tp) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {8, (cuuint64_t)Hkv, (cuuint64_t)P * page,
+                              (cuuint64_t)tp};
+  const cuuint64_t strides[3] = {16, (cuuint64_t)Hkv * 16,
+                                 (cuuint64_t)stride};
+  const cuuint32_t box[4] = {8, 1, 8, (cuuint32_t)tp};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+            const_cast<void*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // out: the bf16 output (B, Sq, H, D); in the partial mode (lse not null)
 // the float32 partials (n_split, B, Sq, H, D) with lse (n_split, B, Sq, H).
 // kOneRow: page == 1
-template <int D, bool kQuant, bool kOneRow>
-cudaError_t launch_tc(const void* q, const void* k_pages, const void* v_pages,
+template <int D, bool kQuant, bool kOneRow, bool kFeat>
+cudaError_t launch_tc(const ShardArg<kFeat>& sh, const void* q,
+                      const void* k_pages, const void* v_pages,
                       const QuantArgs& qa, const int* tables,
                       const int* q_offsets, const int* ctx_lens, void* out,
                       float* lse, int B, int Sq, int H, int Hkv, int P,
                       int page, int page_g, int r_off, int T_width, int split,
                       int n_split, int device, cudaStream_t stream) {
-  // shard pages of 1 or 2 rows are gathered by cp.async: the fp pools'
-  // maps are not read, so they are not encoded (a host cost on every
-  // launch of the partial mode, once a shard and layer)
+  // shard pages of 1 or 2 rows are gathered by cp.async: the pools' maps
+  // are not read, so they are not encoded (a host cost on every launch of
+  // the partial mode, once a shard and layer); the head-feature rung
+  // encodes its feat_map boxes where it reads by TMA
   CUtensorMap kmap{}, vmap{}, kqmap, vqmap;
-  if (page > 2 && (!pool_map(&kmap, k_pages, false, P, page, Hkv, D) ||
-                   !pool_map(&vmap, v_pages, false, P, page, Hkv, D)))
-    return cudaErrorInvalidValue;
-  if (kQuant) {
-    if (!pool_map(&kqmap, qa.kq_pages, true, P, page, Hkv, D) ||
-        !pool_map(&vqmap, qa.vq_pages, true, P, page, Hkv, D))
+  if constexpr (kFeat) {
+    if (sh.fp_tma &&
+        (!feat_map(&kmap, sh.k[0], sh.stride[0], P, page, Hkv, sh.tp) ||
+         !feat_map(&vmap, sh.v[0], sh.stride[1], P, page, Hkv, sh.tp)))
       return cudaErrorInvalidValue;
-  } else {
-    kqmap = kmap;  // unused
+    kqmap = kmap;                             // unused
     vqmap = vmap;
+  } else if (page > 2 &&
+             (!pool_map(&kmap, k_pages, false, P, page, Hkv, D) ||
+              !pool_map(&vmap, v_pages, false, P, page, Hkv, D))) {
+    return cudaErrorInvalidValue;
+  }
+  if constexpr (!kFeat) {
+    if (kQuant) {
+      if (!pool_map(&kqmap, qa.kq_pages, true, P, page, Hkv, D) ||
+          !pool_map(&vqmap, qa.vq_pages, true, P, page, Hkv, D))
+        return cudaErrorInvalidValue;
+    } else {
+      kqmap = kmap;  // unused
+      vqmap = vmap;
+    }
   }
   const int G = H / Hkv;
   const int bq = kTcRows / G;
@@ -1133,14 +1537,14 @@ cudaError_t launch_tc(const void* q, const void* k_pages, const void* v_pages,
   static unsigned long long set = 0;
   if (device >= 64 || !(set >> device & 1)) {
     cudaError_t err = cudaFuncSetAttribute(
-        paged_chunk_attention_tc<D, kQuant, kOneRow>,
+        paged_chunk_attention_tc<D, kQuant, kOneRow, kFeat>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     if (device < 64) set |= 1ull << device;
   }
-  paged_chunk_attention_tc<D, kQuant, kOneRow>
-      <<<(unsigned)n_ctas, kTcThreads, smem, stream>>>(
-      kmap, vmap, kqmap, vqmap, static_cast<const __nv_bfloat16*>(q),
+  paged_chunk_attention_tc<D, kQuant, kOneRow, kFeat>
+      <<<(unsigned)n_ctas, kTcThreads<kFeat>, smem, stream>>>(
+      sh, kmap, vmap, kqmap, vqmap, static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k_pages),
       static_cast<const __nv_bfloat16*>(v_pages), qa.k_scales, qa.v_scales,
       qa.page_quant, tables, q_offsets, ctx_lens,
@@ -1159,17 +1563,22 @@ cudaError_t launch_tc(const void* q, const void* k_pages, const void* v_pages,
 // D), each normalised over its split's keys, and lse (n_split, B, Sq, H)
 // their natural log-sum-exp (o = 0, lse = -inf where a row sees no key of
 // the split).
-template <bool kQuant>
+// kFeat (the head-feature rung, lse null): the pools are the shards' in
+// `sh`, pages of 1 to 32 rows.
+template <bool kQuant, bool kFeat = false>
 int dispatch(const void* q, const void* k_pages, const void* v_pages,
              const QuantArgs& qa, const int* tables, const int* q_offsets,
              const int* ctx_lens, void* out, float* lse, int B, int Sq, int H,
              int Hkv, int D, int P, int page, int T_width, int n_shards,
              int shard, int split, int n_split, int dtype, int device,
-             void* stream) {
+             void* stream, const ShardArg<kFeat>& sh = ShardArg<kFeat>()) {
   if (lse == nullptr) {
     if (n_shards != 1 || n_split != 1) return cudaErrorInvalidValue;
-    if (page != 8 && page != 16 && page != 32) return cudaErrorInvalidValue;
+    if (kFeat ? (page < 1 || page > 32 || (page & (page - 1)) != 0)
+              : (page != 8 && page != 16 && page != 32))
+      return cudaErrorInvalidValue;
   } else {
+    if (kFeat) return cudaErrorInvalidValue;
     if (n_shards < 1 || shard < 0 || shard >= n_shards)
       return cudaErrorInvalidValue;
     if (page != 1 && page != 2 && page != 4 && page != 8 && page != 16 &&
@@ -1190,15 +1599,16 @@ int dispatch(const void* q, const void* k_pages, const void* v_pages,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PCA_FP32(DIM)                                                       \
   if (dtype == 0 && D == DIM)                                               \
-    return launch<DIM, kQuant>(q, k_pages, v_pages, qa, tables, q_offsets,  \
-                               ctx_lens, out, lse, B, Sq, H, Hkv, page,     \
-                               page_g, r_off, T_width, split, n_split, s);
+    return launch<DIM, kQuant, kFeat>(sh, q, k_pages, v_pages, qa, tables, \
+                                      q_offsets, ctx_lens, out, lse, B, Sq, \
+                                      H, Hkv, page, page_g, r_off, T_width, \
+                                      split, n_split, s);
 #define PCA_BF16(DIM)                                                       \
   if (dtype == 1 && D == DIM)                                               \
-    return (page == 1 ? launch_tc<DIM, kQuant, true>                        \
-                      : launch_tc<DIM, kQuant, false>)(                     \
-        q, k_pages, v_pages, qa, tables, q_offsets, ctx_lens, out, lse, B,  \
-        Sq, H, Hkv, P, page, page_g, r_off, T_width, split, n_split,        \
+    return (page == 1 ? launch_tc<DIM, kQuant, true, kFeat>                 \
+                      : launch_tc<DIM, kQuant, false, kFeat>)(              \
+        sh, q, k_pages, v_pages, qa, tables, q_offsets, ctx_lens, out, lse, \
+        B, Sq, H, Hkv, P, page, page_g, r_off, T_width, split, n_split,     \
         device, s);
   PCA_FP32(64) PCA_FP32(80) PCA_FP32(96) PCA_FP32(128)
   PCA_BF16(64) PCA_BF16(80) PCA_BF16(96) PCA_BF16(128)
@@ -1207,33 +1617,34 @@ int dispatch(const void* q, const void* k_pages, const void* v_pages,
   return cudaErrorInvalidValue;
 }
 
-// the bf16 body at pages of 2 rows or more: the unsplit kernel's
-template <bool kQuant>
+// the bf16 body at pages of 2 rows or more: the unsplit kernel's (with
+// kFeat, the head-feature rung's)
+template <bool kQuant, bool kFeat>
 cudaError_t body_resources(int D, int dtype, int* out) {
   if (dtype == 0 && D == 64)
-    return resources(paged_chunk_attention_kernel<float, 64, kQuant>,
+    return resources(paged_chunk_attention_kernel<float, 64, kQuant, kFeat>,
                      kThreads, 0, out);
   if (dtype == 0 && D == 80)
-    return resources(paged_chunk_attention_kernel<float, 80, kQuant>,
+    return resources(paged_chunk_attention_kernel<float, 80, kQuant, kFeat>,
                      kThreads, 0, out);
   if (dtype == 0 && D == 96)
-    return resources(paged_chunk_attention_kernel<float, 96, kQuant>,
+    return resources(paged_chunk_attention_kernel<float, 96, kQuant, kFeat>,
                      kThreads, 0, out);
   if (dtype == 0 && D == 128)
-    return resources(paged_chunk_attention_kernel<float, 128, kQuant>,
+    return resources(paged_chunk_attention_kernel<float, 128, kQuant, kFeat>,
                      kThreads, 0, out);
   if (dtype == 1 && D == 64)
-    return resources(paged_chunk_attention_tc<64, kQuant, false>,
-                     kTcThreads, PcSmem<64, kQuant>::kAlloc, out);
+    return resources(paged_chunk_attention_tc<64, kQuant, false, kFeat>,
+                     kTcThreads<kFeat>, PcSmem<64, kQuant>::kAlloc, out);
   if (dtype == 1 && D == 80)
-    return resources(paged_chunk_attention_tc<80, kQuant, false>,
-                     kTcThreads, PcSmem<80, kQuant>::kAlloc, out);
+    return resources(paged_chunk_attention_tc<80, kQuant, false, kFeat>,
+                     kTcThreads<kFeat>, PcSmem<80, kQuant>::kAlloc, out);
   if (dtype == 1 && D == 96)
-    return resources(paged_chunk_attention_tc<96, kQuant, false>,
-                     kTcThreads, PcSmem<96, kQuant>::kAlloc, out);
+    return resources(paged_chunk_attention_tc<96, kQuant, false, kFeat>,
+                     kTcThreads<kFeat>, PcSmem<96, kQuant>::kAlloc, out);
   if (dtype == 1 && D == 128)
-    return resources(paged_chunk_attention_tc<128, kQuant, false>,
-                     kTcThreads, PcSmem<128, kQuant>::kAlloc, out);
+    return resources(paged_chunk_attention_tc<128, kQuant, false, kFeat>,
+                     kTcThreads<kFeat>, PcSmem<128, kQuant>::kAlloc, out);
   return cudaErrorInvalidValue;
 }
 
@@ -1328,6 +1739,73 @@ extern "C" int paged_chunk_attention_resources(int D, int dtype, int quant,
                                                int device, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  return quant ? body_resources<true>(D, dtype, out)
-               : body_resources<false>(D, dtype, out);
+  return quant ? body_resources<true, false>(D, dtype, out)
+               : body_resources<false, false>(D, dtype, out);
+}
+
+// The head-feature rung's route of either kernel: q and out (B, Sq, H, D)
+// full heads, D = tp * dr; pools a host array of 4 * tp pointers, shard
+// r's K, V, int8 K and int8 V pools (P, page, Hkv, dr) at r, tp + r, 2 tp +
+// r and 3 tp + r (the int8 ones null, with the scales and flags, for kernel
+// 1's route); strides a host array of 2, the bytes from one shard's K (V)
+// pool to the next's where they are all one (a multiple of 16), else 0.
+// The scales and flags (P,) are the pages' own, one set for every shard.
+// dr a power of 2 from 2 to 64, tp at most kMaxShards, page 1 to 32 rows.
+// tma: read K and V by TMA (bf16, dr = 8, pages of a multiple of 8 rows,
+// both strides set), else gather them by cp.async.  Returns a cudaError_t
+// (0 = launched).
+extern "C" int paged_chunk_attention_features_launch(
+    const void* q, const void* const* pools, const long long* strides,
+    const float* k_scales, const float* v_scales, const int* page_quant,
+    const int* tables, const int* q_offsets, const int* ctx_lens, void* out,
+    int B, int Sq, int H, int Hkv, int D, int P, int page, int T_width,
+    int tp, int tma, int dtype, int device, void* stream) {
+  if (pools == nullptr || strides == nullptr || tp < 1 || tp > kMaxShards ||
+      D % tp != 0)
+    return cudaErrorInvalidValue;
+  const int dr = D / tp;
+  if (dr < 2 || (dr & (dr - 1)) != 0) return cudaErrorInvalidValue;
+  ShardPools sh{};
+  sh.ldr = __builtin_ctz(dr);
+  sh.tp = tp;
+  for (int i = 0; i < 2; ++i) {
+    if (strides[i] < 0 || strides[i] % 16 != 0) return cudaErrorInvalidValue;
+    sh.stride[i] = strides[i];
+  }
+  const bool quant = page_quant != nullptr;
+  // TMA boxes of 8 rows of 16 bytes a shard (a core matrix each)
+  if (tma && (dtype != 1 || dr != 8 || page % 8 != 0 || strides[0] == 0 ||
+              strides[1] == 0))
+    return cudaErrorInvalidValue;
+  sh.fp_tma = tma != 0;
+  for (int r = 0; r < tp; ++r) {
+    sh.k[r] = pools[r];
+    sh.v[r] = pools[tp + r];
+    sh.kq[r] = pools[2 * tp + r];
+    sh.vq[r] = pools[3 * tp + r];
+    if (sh.k[r] == nullptr || sh.v[r] == nullptr ||
+        (quant && (sh.kq[r] == nullptr || sh.vq[r] == nullptr)))
+      return cudaErrorInvalidValue;
+  }
+  const QuantArgs qa = {nullptr, nullptr, k_scales, v_scales, page_quant};
+  if (quant)
+    return dispatch<true, true>(q, nullptr, nullptr, qa, tables, q_offsets,
+                                ctx_lens, out, nullptr, B, Sq, H, Hkv, D, P,
+                                page, T_width, 1, 0, 0, 1, dtype, device,
+                                stream, sh);
+  return dispatch<false, true>(q, nullptr, nullptr, qa, tables, q_offsets,
+                               ctx_lens, out, nullptr, B, Sq, H, Hkv, D, P,
+                               page, T_width, 1, 0, 0, 1, dtype, device,
+                               stream, sh);
+}
+
+// out[5]: the `resources` of the body that the head-feature route runs for
+// (dtype, D, quant) at pages of 2 rows or more.  Returns a cudaError_t.
+extern "C" int paged_chunk_attention_features_resources(int D, int dtype,
+                                                        int quant, int device,
+                                                        int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return quant ? body_resources<true, true>(D, dtype, out)
+               : body_resources<false, true>(D, dtype, out);
 }

@@ -321,9 +321,20 @@ class PoolLayout:
         return (L, P1, self.pl, self.hkv, self.dr)
 
     def zeros(self, dtype) -> List[torch.Tensor]:
-        """One zero pool a shard, each on its shard's device."""
-        return [torch.zeros(self.shard_shape, dtype=dtype, device=d)
-                for d in self.devices]
+        """One zero pool a shard, each on its shard's device.  Shards that
+        share a device get slices of one allocation, side by side at one
+        stride: the head-feature rung's one-launch kernel reads such pools
+        by TMA, one box over several shards' features."""
+        out: List[torch.Tensor] = [None] * self.tp
+        by_dev: Dict[torch.device, List[int]] = {}
+        for r, d in enumerate(self.devices):
+            by_dev.setdefault(torch.device(d), []).append(r)
+        for d, rs in by_dev.items():
+            block = torch.zeros((len(rs),) + self.shard_shape, dtype=dtype,
+                                device=d)
+            for i, r in enumerate(rs):
+                out[r] = block[i]
+        return out
 
     def replicated(self, make) -> List[torch.Tensor]:
         """``make(device)`` once per distinct device; one entry a shard

@@ -151,6 +151,13 @@ def paged_chunk_attention(q, k_pages, v_pages, block_tables, q_offsets,
                                            block_tables, q_offsets, ctx_lens)
 
 
+def one_device(devices) -> bool:
+    """Whether every shard of a mesh (shard r on ``devices[r]``) lives on
+    one device, so that one buffer or one kernel can serve them all."""
+    dev = torch.device(devices[0])
+    return all(torch.device(d) == dev for d in devices)
+
+
 def partial_workspace(q, k_pages, block_tables, devices,
                       mode: str = "auto"):
     """The float32 partials of one split-K call of ``len(devices)`` shards
@@ -165,9 +172,9 @@ def partial_workspace(q, k_pages, block_tables, devices,
     if mode not in MODES:
         raise ValueError(f"kernel mode {mode!r} not in {MODES}")
     tp = len(devices)
-    dev = torch.device(devices[0])
-    if any(torch.device(d) != dev for d in devices):
+    if not one_device(devices):
         return None, [None] * tp
+    dev = torch.device(devices[0])
     B, Sq, H, D = q.shape
     n_split = 1
     if mode != "ref" and q.device.type not in ("cpu", "meta"):
@@ -257,11 +264,10 @@ def scores_workspace(q, k_pages, block_tables, devices):
     B, Sq, H, _ = q.shape
     T = block_tables.shape[1] * k_pages.shape[1]
     lanes = max(1, min(B, SCORES_CAP // max(4 * H * Sq * T, 1)))
-    dev = torch.device(devices[0])
-    if any(torch.device(d) != dev for d in devices):
+    if not one_device(devices):
         return None, lanes
     return torch.empty((lanes, H, Sq, T), dtype=torch.float32,
-                       device=dev), lanes
+                       device=torch.device(devices[0])), lanes
 
 
 @_charged(cost.paged_chunk_scores_partial_work)
@@ -317,6 +323,34 @@ def paged_chunk_softmax_pv(scores, v_pages, block_tables, q_offsets, ctx_lens,
     return _pa.paged_chunk_softmax_pv(scores, v_pages, block_tables,
                                       q_offsets, ctx_lens, head_dim, dtype,
                                       quant=quant)
+
+
+@_charged(cost.paged_chunk_attention_features_work)
+def paged_chunk_attention_features(q, k_pools, v_pools, block_tables,
+                                   q_offsets, ctx_lens, mode: str = "auto",
+                                   quant=None):
+    """The head-feature rung's attention when every shard's pools live on
+    one device (`one_device`): one kernel launch for the whole call, the
+    shards' features gathered into the tile of kernel 1 (B.2 with
+    ``quant``), so no scores buffer exists.  q (B, Sq, H, D) full heads;
+    k_pools, v_pools one (P, page, Hkv, dr) pool a shard; ``quant`` =
+    (kq_pools, vq_pools, k_scales, v_scales, page_quant), the shards' int8
+    shadows and the pages' scales and flags.  Returns (B, Sq, H, D): the
+    attention over the pools concatenated along D.  mode: auto | ref."""
+    if mode not in MODES:
+        raise ValueError(f"kernel mode {mode!r} not in {MODES}")
+    if q.device.type == "meta":
+        return torch.empty_like(q)
+    if mode == "ref" or q.device.type == "cpu":
+        return ref.paged_chunk_attention_features_ref(
+            q, k_pools, v_pools, block_tables, q_offsets, ctx_lens,
+            quant=quant)
+    _no_grad_kernel("paged_chunk_attention_features", q, *k_pools,
+                    *v_pools, *(() if quant is None
+                                else (*quant[0], *quant[1])))
+    return _pa.paged_chunk_attention_features(q, k_pools, v_pools,
+                                              block_tables, q_offsets,
+                                              ctx_lens, quant=quant)
 
 
 @_charged(cost.flash_prefill_work)

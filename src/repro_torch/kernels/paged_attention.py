@@ -33,7 +33,13 @@ visible (query row, key) into a float32 buffer (B, H, Sq, T), or adds them
 into it, and F2 takes the scores summed over the shards through a softmax
 at 1 / sqrt(D) of the full head and the shard's V features.  Their own
 source and library, ``csrc/paged_chunk_features.cu``; with the int8
-pointers set they read flagged pages from the shard's int8 shadows.
+pointers set they read flagged pages from the shard's int8 shadows.  They
+serve shards on distinct cards.  When every shard's pools live on one card,
+``paged_chunk_attention_features`` computes the whole call in one launch:
+kernel 1 (or, with the int8 state, B.2) reading each key row's features
+from the shards' pools (``csrc/paged_chunk_attention.cu``, kFeat), so the
+sum over the shards is the depth of Q·Kᵀ and no scores buffer exists; its
+output equals the kernel's on the pools concatenated along D, bit for bit.
 ``paged_attention`` is the single-token decode kernel, q (B, H, D): its own
 source and library, so kernel 1's and B.2's build is untouched by it.  It
 splits each lane's context over CTAs (``decode_split_plan``) and merges the
@@ -50,8 +56,9 @@ the launch is refused, and counts its launches in the module's
 ``merge_launches`` (the partials' merge), ``scores_launches`` /
 ``pv_launches`` (F1 and F2 of kernel 1's feature mode),
 ``quant_scores_launches`` / ``quant_pv_launches`` (B.2's) or
-``decode_launches`` (the decode kernel, one per call whether or not the
-merge ran).  There is no fallback: the plain
+``features_launches`` / ``quant_features_launches`` (the one-card
+head-feature route, one a call) or ``decode_launches`` (the decode kernel,
+one per call whether or not the merge ran).  There is no fallback: the plain
 version (``kernels/ref.py``) is chosen by ``kernels/ops.py`` only for
 tensors that lie on the CPU, or when a caller asks for it by name.
 
@@ -82,6 +89,7 @@ MERGE_NAME = "paged_chunk_attention_merge"
 FEATURES_NAME = "paged_chunk_features"
 FEATURE_DIMS = (2, 4, 8, 16, 32, 64)  # features a shard holds of a head
 FEATURE_PAGES = (1, 2, 4, 8, 16, 32)
+MAX_SHARDS = 64                     # shards of the one-card feature route
 DECODE_NAME = "paged_attention"
 DECODE_HEAD_DIMS = (32, 64, 80, 128)
 _fns = {}
@@ -95,6 +103,8 @@ scores_launches = 0                 # F1 launches, fp pools
 pv_launches = 0                     # F2 launches, fp pools
 quant_scores_launches = 0           # F1 launches over int8 shadows
 quant_pv_launches = 0               # F2 launches over int8 shadows
+features_launches = 0               # one-card feature route, fp pools
+quant_features_launches = 0         # one-card feature route, int8 shadows
 
 
 def _entry(symbol: str, n_ptrs: int, n_ints: int = 10, lib: str = NAME):
@@ -134,12 +144,15 @@ def resources(dtype, head_dim: int, quant: bool = False,
 
 
 def _check(q, k_pages, v_pages, block_tables, q_offsets, ctx_lens,
-           kernel=NAME, head_dims=HEAD_DIMS, page_sizes=PAGE_SIZES):
+           kernel=NAME, head_dims=HEAD_DIMS, page_sizes=PAGE_SIZES,
+           shards: int = 1):
     """Raise on what the kernel ``kernel`` does not take.  q is (B, Sq, H, D)
     for the chunk kernels and (B, H, D) for the decode kernel, which has
-    no q_offsets (None).  Devices are compared by index (``get_device``,
-    -1 off the card): the partial mode calls this once a shard and layer,
-    and a torch.device object a tensor would cost more than the rest."""
+    no q_offsets (None).  With ``shards`` the pages hold D / shards
+    features of every row (one shard's of the head-feature rung).  Devices
+    are compared by index (``get_device``, -1 off the card): the partial
+    mode calls this once a shard and layer, and a torch.device object a
+    tensor would cost more than the rest."""
     if not q.is_cuda:
         raise ValueError(f"{kernel}: the kernel takes CUDA tensors, q is on "
                          f"{q.device}")
@@ -154,9 +167,10 @@ def _check(q, k_pages, v_pages, block_tables, q_offsets, ctx_lens,
                          f"and the pages (P, page, Hkv, D)")
     B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
     _, page, Hkv, Dk = k_pages.shape
-    if tuple(v_pages.shape) != tuple(k_pages.shape) or Dk != D:
+    if tuple(v_pages.shape) != tuple(k_pages.shape) or Dk * shards != D:
         raise ValueError(f"{kernel}: k/v pages {tuple(k_pages.shape)} / "
-                         f"{tuple(v_pages.shape)} do not match q's D={D}")
+                         f"{tuple(v_pages.shape)} over {shards} shard(s) do "
+                         f"not match q's D={D}")
     if D not in head_dims:
         raise ValueError(f"{kernel}: head dim {D} not in {head_dims}")
     if page not in page_sizes:
@@ -597,6 +611,160 @@ def paged_chunk_softmax_pv(scores, v_pages, block_tables, q_offsets,
     else:
         quant_pv_launches += 1
     return out
+
+
+FEATURES_FUSED_NAME = NAME + ".features"
+
+
+def paged_chunk_attention_features(q, k_pools, v_pools, block_tables,
+                                   q_offsets, ctx_lens, quant=None,
+                                   producer=None):
+    """Kernel 1 (B.2 with ``quant``) on the head-feature rung, every shard's
+    pools on one card: one launch for the whole call
+    (``ref.paged_chunk_attention_features_ref``).
+
+    q: (B, Sq, H, D) full heads; k_pools, v_pools: one (P, page, Hkv, dr)
+    pool a shard, tp = D / dr of them (at most MAX_SHARDS), dr in
+    FEATURE_DIMS, page in FEATURE_PAGES, shard r holding features [r·dr,
+    (r+1)·dr); ``quant``: (kq_pools, vq_pools, k_scales, v_scales,
+    page_quant), the shards' int8 shadows (lists shaped as the pools) and
+    the pages' float32 scales and int32 flags (P,), one set for every
+    shard.  ``producer``: "tma" or "gather" to force how K and V reach the
+    tile (None: `features_producer`'s choice).  Returns (B, Sq, H, D) in
+    q's dtype: `paged_chunk_attention` (or `_quant`) on the pools
+    concatenated along D, bit for bit, by either producer.  Counts in
+    ``features_launches`` / ``quant_features_launches``."""
+    kernel = FEATURES_FUSED_NAME
+    tp = len(k_pools)
+    if not 1 <= tp <= MAX_SHARDS or len(v_pools) != tp:
+        raise ValueError(f"{kernel}: {tp} K and {len(v_pools)} V pools "
+                         f"(one a shard, at most {MAX_SHARDS})")
+    k0 = k_pools[0]
+    _check(q, k0, v_pools[0], block_tables, q_offsets, ctx_lens,
+           kernel=kernel, page_sizes=FEATURE_PAGES, shards=tp)
+    dr = k0.shape[-1]
+    if dr not in FEATURE_DIMS:
+        raise ValueError(f"{kernel}: {dr} features a shard, not in "
+                         f"{FEATURE_DIMS}")
+    sides = [k_pools, v_pools]
+    if quant is not None:
+        kq, vq, ks, vs, flags = quant
+        if len(kq) != tp or len(vq) != tp:
+            raise ValueError(f"{kernel}: {len(kq)} / {len(vq)} int8 pools "
+                             f"for {tp} shards")
+        _check_quant(k0, kq[0], vq[0], ks, vs, flags)
+        sides += [kq, vq]
+    dev, shape = q.get_device(), k0.shape
+    ptrs = []
+    for side, dtype in zip(sides, (q.dtype, q.dtype, torch.int8,
+                                   torch.int8)):
+        for t in side:
+            if t.shape != shape or t.dtype != dtype \
+                    or t.get_device() != dev or not t.is_contiguous():
+                raise ValueError(f"{kernel}: every shard's pool must be "
+                                 f"{tuple(shape)} {dtype}, contiguous, on "
+                                 f"{q.device}; one is {tuple(t.shape)} "
+                                 f"{t.dtype} on {t.device}")
+            p = t.data_ptr()
+            if p % 16:
+                raise ValueError(f"{kernel}: the pools must be 16-byte "
+                                 f"aligned")
+            ptrs.append(p)
+    strides = (_one_stride(ptrs[:tp], k0), _one_stride(ptrs[tp:2 * tp], k0))
+    if producer is None:
+        producer = "tma" if _tma_open(q, shape, strides) else "gather"
+    elif producer == "tma":
+        if not _tma_open(q, shape, strides):
+            raise ValueError(f"{kernel}: no TMA producer for {q.dtype} at "
+                             f"{dr} features a shard and pages of "
+                             f"{shape[1]} rows, or pools not at one stride")
+    elif producer != "gather":
+        raise ValueError(f"{kernel}: producer {producer!r} not in "
+                         f"(None, 'tma', 'gather')")
+    if quant is None:
+        ptrs += [None] * (2 * tp)
+    table = (ctypes.c_void_p * (4 * tp))(*ptrs)
+    steps = (ctypes.c_longlong * 2)(*strides)
+    B, Sq, H, D = q.shape
+    out = torch.empty_like(q)
+    qptrs = [None] * 3 if quant is None else [t.data_ptr() for t in quant[2:]]
+    fn = _entry("paged_chunk_attention_features_launch", 10, n_ints=12)
+    err = fn(q.data_ptr(), ctypes.addressof(table), ctypes.addressof(steps),
+             *qptrs,
+             block_tables.data_ptr(), q_offsets.data_ptr(),
+             ctx_lens.data_ptr(), out.data_ptr(), B, Sq, H, shape[2], D,
+             shape[0], shape[1], block_tables.shape[1], tp,
+             int(producer == "tma"), _DTYPES[q.dtype], dev, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"{kernel}: launch failed with cudaError_t {err}")
+    global features_launches, quant_features_launches
+    if quant is None:
+        features_launches += 1
+    else:
+        quant_features_launches += 1
+    return out
+
+
+def _one_stride(ptrs, pool) -> int:
+    """The bytes from one shard's pool to the next's where the shards'
+    pools lie at one stride, a multiple of 16 (slices of one allocation,
+    as `PoolLayout.zeros` gives shards that share a card), else 0.  One
+    shard: its pool's bytes."""
+    if len(ptrs) == 1:
+        return -(-pool.numel() * pool.element_size() // 16) * 16
+    step = ptrs[1] - ptrs[0]
+    if step <= 0 or step % 16 or any(b - a != step
+                                     for a, b in zip(ptrs, ptrs[1:])):
+        return 0
+    return step
+
+
+def pools_stride(pools) -> int:
+    """`_one_stride` of a list of shard pools: > 0 where they lie at one
+    stride."""
+    return _one_stride([t.data_ptr() for t in pools], pools[0])
+
+
+def _tma_open(q, shape, strides) -> bool:
+    """Whether the TMA producer can fill the tile: bf16, dr = 8 (a core
+    matrix's 16-byte rows), pages of a multiple of 8 rows, and each side's
+    pools at one stride (one box spans the shards)."""
+    return (q.dtype == torch.bfloat16 and shape[-1] == 8
+            and shape[1] % 8 == 0 and all(s > 0 for s in strides))
+
+
+def features_producer(q, k_pools, v_pools) -> str:
+    """How `paged_chunk_attention_features` fills kernel 1's tile with K
+    and V for this call: "tma" where the TMA producer is open (bf16, dr 8,
+    pages of a multiple of 8 rows, each side's pools at one stride, as
+    `PoolLayout.zeros` gives a card's shards), else "gather", the cp.async
+    gather.  chip_smoke.py phase 21 runs both on every captured call where
+    TMA is open: TMA is faster at decode and at least even at chunks."""
+    strides = (pools_stride(k_pools), pools_stride(v_pools))
+    return "tma" if _tma_open(q, k_pools[0].shape, strides) else "gather"
+
+
+def features_resources(dtype, head_dim: int, quant: bool = False,
+                       device=None) -> dict:
+    """`resources` of the body that the one-card head-feature route runs
+    (pages of 2 rows or more)."""
+    if dtype not in _DTYPES or head_dim not in HEAD_DIMS:
+        raise ValueError(f"{FEATURES_FUSED_NAME}: no body for {dtype} at "
+                         f"head dim {head_dim}")
+    f = _fns.get("features_resources")
+    if f is None:
+        f = build.load(NAME).paged_chunk_attention_features_resources
+        f.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        f.restype = ctypes.c_int
+        _fns["features_resources"] = f
+    out = (ctypes.c_int * 5)()
+    dev = torch.cuda.current_device() if device is None else int(device)
+    err = f(head_dim, _DTYPES[dtype], int(bool(quant)), dev, out)
+    if err != 0:
+        raise RuntimeError(f"{FEATURES_FUSED_NAME}: resources query failed "
+                           f"with cudaError_t {err}")
+    return dict(zip(("registers", "local_bytes", "smem_bytes",
+                     "ctas_per_sm", "threads"), out))
 
 
 # B.3's split of a lane's context (csrc/paged_attention.cu): splits are whole

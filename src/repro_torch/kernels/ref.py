@@ -296,6 +296,29 @@ def paged_chunk_softmax_pv_ref(scores, v_pages, block_tables, q_offsets,
     return o.reshape(B, Sq, H, dr).to(dtype)
 
 
+def paged_chunk_attention_features_ref(q, k_pools, v_pools, block_tables,
+                                       q_offsets, ctx_lens, quant=None):
+    """The head-feature rung's attention with every shard's pools at hand:
+    the one-card route's plain version.
+
+    q:            (B, Sq, H, D) full heads
+    k/v_pools:    one (P, page, Hkv, dr) pool a shard, shard r holding
+                  features [r·dr, (r+1)·dr) of every row
+    quant:        optional (kq_pools, vq_pools, k_scales, v_scales,
+                  page_quant): the shards' int8 shadows (lists shaped as
+                  the pools) and the pages' scales and flags (P,), the same
+                  for every shard
+    returns:      `paged_chunk_attention_ref` on the pools concatenated
+                  along D (the shards' features in order)"""
+    kp = torch.cat(list(k_pools), dim=-1)
+    vp = torch.cat(list(v_pools), dim=-1)
+    if quant is not None:
+        quant = (torch.cat(list(quant[0]), dim=-1),
+                 torch.cat(list(quant[1]), dim=-1), *quant[2:])
+    return paged_chunk_attention_ref(q, kp, vp, block_tables, q_offsets,
+                                     ctx_lens, quant=quant)
+
+
 def combine_partials(o, lse):
     """N float32 partials of the same rows, o (N, ..., D) each normalised
     over its own keys and lse (N, ...) their log-sum-exp (-inf where a

@@ -611,15 +611,19 @@ class DenseLM:
                             col(h, w, "wv"), qn, kn, positions)
                 if layout.rung == "features":
                     if l == 0:
-                        # one scores buffer (a tile of lanes) serves every
-                        # layer: each layer's F2 reads it before the next
-                        # layer's F1 writes it, in stream order
-                        ws, lanes = ops.scores_workspace(
-                            qkv[0][0], k_pools[0][0], tab[0][0],
-                            [p.device for p in k_pools])
+                        # shards on one device take one launch a layer
+                        # (no scores buffer); across devices one scores
+                        # buffer (a tile of lanes) a shard serves every
+                        # layer, each layer's F2 reading it before the
+                        # next layer's F1 writes it, in stream order
+                        devices = [p.device for p in k_pools]
+                        fused = ops.one_device(devices)
+                        ws, lanes = (None, None) if fused else \
+                            ops.scores_workspace(qkv[0][0], k_pools[0][0],
+                                                 tab[0][0], devices)
                     outs = self._feature_attention(
                         qkv, k_pools, v_pools, l, dest, tab, qoff, ctx,
-                        layout, quant, flags, kernel_mode, ws, lanes)
+                        layout, quant, flags, kernel_mode, ws, lanes, fused)
                 else:
                     outs, lses = [], []
                     if layout.rung == "rows" and l == 0:
@@ -686,19 +690,23 @@ class DenseLM:
 
     def _feature_attention(self, qkv, k_pools, v_pools, l, dest, tab, qoff,
                            ctx, layout, quant, flags, kernel_mode, ws,
-                           lanes):
+                           lanes, fused):
         """Layer ``l``'s attention on the head-feature rung: shard r writes
-        features [r·dr, (r+1)·dr) of this step's K and V into its pools;
-        F1 (`ops.paged_chunk_scores_partial`) forms every shard's partial
+        features [r·dr, (r+1)·dr) of this step's K and V into its pools.
+        With ``fused`` (every shard on one device) one call of
+        `ops.paged_chunk_attention_features` reads every shard's pools
+        into the full heads' attention.  Otherwise F1
+        (`ops.paged_chunk_scores_partial`) forms every shard's partial
         scores, summed into ``ws`` in stream order (or by an all-reduce
         when the shards live on distinct devices); F2
         (`ops.paged_chunk_softmax_pv`) gives each shard its features of
-        the output, which an all-gather puts together.  Lanes go in tiles
+        the output, which an all-gather puts together; lanes go in tiles
         of ``lanes`` (`ops.scores_workspace`).  Returns each shard's full
         output (B, Sq, H, D)."""
         tp, dr = layout.tp, layout.dr
         q0 = qkv[0][0]
         B = q0.shape[0]
+        kps, vps = [], []
         for r in range(tp):
             _, k, v = qkv[r]
             kp, vp = k_pools[r][l], v_pools[r][l]
@@ -706,7 +714,17 @@ class DenseLM:
                           layout.kv_part(k, r).to(kp.dtype))
             vp.index_put_((dest[r][0][l], dest[r][1][l]),
                           layout.kv_part(v, r).to(vp.dtype))
+            kps.append(kp)
+            vps.append(vp)
         qts = [self._quant_layer(quant, flags, r, l) for r in range(tp)]
+        if fused:
+            # the scales and flags are the pages' own, the same on every
+            # shard: shard 0's serve
+            qt = None if quant is None else (
+                [t[0] for t in qts], [t[1] for t in qts], *qts[0][2:])
+            return [ops.paged_chunk_attention_features(
+                q0, kps, vps, tab[0][l], qoff[0], ctx[0], mode=kernel_mode,
+                quant=qt)] * tp
         tiles = []
         for b0 in range(0, B, lanes):
             lane = slice(b0, min(B, b0 + lanes))

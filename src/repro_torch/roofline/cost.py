@@ -313,6 +313,20 @@ def paged_chunk_attention_work(q, k_pages, v_pages, block_tables, q_offsets,
                           q_lens, flags), q.dtype
 
 
+def paged_chunk_attention_features_work(q, k_pools, v_pools, block_tables,
+                                        q_offsets, ctx_lens, mode="auto",
+                                        quant=None):
+    """`attention_work` at the full head d = dr·tp: every shard's features
+    of each relevant row read once (int8 where flagged, the page's scales
+    once for all shards)."""
+    _, page, hkv, dr = k_pools[0].shape
+    tab, qoff, ctx = _lanes(q, block_tables, q_offsets, ctx_lens, page)
+    q_lens = (ctx.long() - qoff.long()).clamp(min=0).tolist()
+    flags = None if quant is None or q.device.type == "meta" else quant[4]
+    return attention_work(q, tab, qoff, ctx, page, hkv, dr * len(k_pools),
+                          q.element_size(), q_lens, flags), q.dtype
+
+
 def paged_chunk_attention_partial_work(q, k_pages, v_pages, block_tables,
                                        q_offsets, ctx_lens, shard, n_shards,
                                        mode="auto", quant=None, out=None):

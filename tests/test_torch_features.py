@@ -240,12 +240,14 @@ def _turns(cfg, lens, seed):
 
 
 @pytest.mark.parametrize("tp,page", [(4, 2), (8, 4)])
-def test_serving_on_the_rung_equals_jax(tp, page):
+def test_serving_on_the_rung_equals_jax(monkeypatch, tp, page):
     """The GQA twin (2 kv heads, D 16) at tp 4, page 2 (dr 4) and tp 8,
     page 4 (dr 2): two turns with a mid-decode preemption (swap-out and
     swap-in through the shards' feature gather and scatter) give JAX's
     single-device tokens and JAX's tokens on the same mesh, whose pool
-    lies on the same spec."""
+    lies on the same spec.  The shards share the CPU, so every layer takes
+    the one-call route (`ops.paged_chunk_attention_features`) and no F1
+    runs."""
     from _torch_twin import twins
     jpkg, tpkg = twins("gqa")
     turns = _turns(tpkg.cfg, (11, 7), seed=3)
@@ -263,16 +265,26 @@ def test_serving_on_the_rung_equals_jax(tp, page):
                                   2, 16 // tp)
     assert be.pool_device_bytes() * tp == 2 * sum(
         p.numel() * p.element_size() for p in be.k_pool)
+    calls = []
+    for name in ("paged_chunk_attention_features",
+                 "paged_chunk_scores_partial"):
+        monkeypatch.setattr(ops, name, lambda *a, _f=getattr(ops, name),
+                            _n=name, **k: calls.append(_n) or _f(*a, **k))
     got = _serve(tpkg, eng, be, turns, preempt_turn=1)
     assert got == want
     assert be.stats["swaps_out"] >= 1 and be.stats["swaps_in"] >= 1
+    assert calls == ["paged_chunk_attention_features"] * (
+        tpkg.cfg.n_layers * be.stats["sub_dispatches"])
 
 
 def test_lane_tiles_serve_the_same_tokens(monkeypatch):
-    """A cap that cuts every call into one-lane tiles serves the tokens of
-    the untiled calls (two sessions in one batch)."""
+    """On the per-shard route (the shards taken as on distinct devices,
+    where the scores buffer exists), a cap that cuts every call into
+    one-lane tiles serves the tokens of the untiled calls (two sessions in
+    one batch)."""
     from _torch_twin import twins
     _, tpkg = twins("gqa")
+    monkeypatch.setattr(ops, "one_device", lambda devices: False)
     prompts = _turns(tpkg.cfg, (9, 13), seed=8)
 
     def run():

@@ -135,6 +135,13 @@ def _paged_case(rng, B=3, Sq=4, H=4, Hkv=2, D=16, page=4, T=3):
     return q, kp, vp, tab, ctx - Sq, ctx
 
 
+def _meta(a):
+    """A tensor (or a list of them, one a shard) on the meta device."""
+    if isinstance(a, list):
+        return [t.to("meta") for t in a]
+    return a.to("meta") if isinstance(a, torch.Tensor) else a
+
+
 def _entries(rng):
     q, kp, vp, tab, qoff, ctx = _paged_case(rng)
     q1 = q[:, 0].contiguous()
@@ -162,6 +169,10 @@ def _entries(rng):
         "paged_chunk_softmax_pv": (
             ops.paged_chunk_softmax_pv,
             (scores, vpf, tab, qoff, ctx, 16, torch.float32), {}),
+        "paged_chunk_attention_features": (
+            ops.paged_chunk_attention_features,
+            (q, [kpf, kp[..., 8:].contiguous()],
+             [vpf, vp[..., 8:].contiguous()], tab, qoff, ctx), {}),
         "flash_prefill": (ops.flash_prefill, (fq, fk, fv, 3), {}),
         "ssd_scan": (ops.ssd_scan, (x, dA, Bm, Cm, 4), {}),
         "ssd_scan_init": (ops.ssd_scan, (x, dA, Bm, Cm, 4),
@@ -172,11 +183,12 @@ def _entries(rng):
 @pytest.mark.parametrize("name", [
     "paged_attention", "paged_chunk_attention",
     "paged_chunk_attention_partial", "merge_partials",
-    "paged_chunk_scores_partial", "paged_chunk_softmax_pv", "flash_prefill",
-    "ssd_scan", "ssd_scan_init"])
+    "paged_chunk_scores_partial", "paged_chunk_softmax_pv",
+    "paged_chunk_attention_features", "flash_prefill", "ssd_scan",
+    "ssd_scan_init"])
 def test_entry_charged_same_on_plain_and_meta_routes(name):
     fn, args, kw = _entries(np.random.default_rng(3))[name]
-    meta = [a.to("meta") if isinstance(a, torch.Tensor) else a for a in args]
+    meta = [_meta(a) for a in args]
     mkw = {k: v.to("meta") for k, v in kw.items()}
     with torch.no_grad():
         plain = cost.count(fn, *args, **kw)
@@ -205,11 +217,11 @@ def test_meta_route_runs_no_plain_version(monkeypatch):
     for n in ("flash_prefill_ref", "ssd_scan_chunked_ref",
               "paged_chunk_attention_ref", "paged_attention_ref",
               "merge_partials_ref", "paged_chunk_attention_partial_ref",
-              "paged_chunk_scores_partial_ref", "paged_chunk_softmax_pv_ref"):
+              "paged_chunk_scores_partial_ref", "paged_chunk_softmax_pv_ref",
+              "paged_chunk_attention_features_ref"):
         monkeypatch.setattr(ref, n, boom)
     for fn, args, kw in _entries(np.random.default_rng(4)).values():
-        meta = [a.to("meta") if isinstance(a, torch.Tensor) else a
-                for a in args]
+        meta = [_meta(a) for a in args]
         for mode in ("auto", "ref"):
             fn(*meta, **{k: v.to("meta") for k, v in kw.items()}, mode=mode)
 
@@ -257,6 +269,31 @@ def test_feature_work_by_hand():
     s = torch.empty(1, 2, 2, 8)
     assert cost.feature_pv_work(s, tab, qoff, ctx, 2, 1, 4, 4, [2]) == (
         8 + 72 + 64 + 92, 216)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["kernel1", "int8"])
+def test_features_work_is_attention_work_at_the_full_head(quant):
+    """The one-call head-feature route is charged kernel 1's (B.2's) work
+    on the pools concatenated along D: each shard's features of each
+    relevant row once, int8 where flagged, the page's scales once."""
+    rng = np.random.default_rng(6)
+    q, kp, vp, tab, qoff, ctx = _paged_case(rng, D=32)
+    ks = [kp[..., 8 * r:8 * r + 8].contiguous() for r in range(4)]
+    vs = [vp[..., 8 * r:8 * r + 8].contiguous() for r in range(4)]
+    qt = sqt = None
+    if quant:
+        flags = torch.from_numpy((np.arange(kp.shape[0]) % 2)
+                                 .astype(np.int32))
+        codes = torch.zeros(kp.shape, dtype=torch.int8)
+        scales = torch.ones(kp.shape[0])
+        qt = (codes, codes, scales, scales, flags)
+        cut = [codes[..., 8 * r:8 * r + 8].contiguous() for r in range(4)]
+        sqt = (cut, cut, scales, scales, flags)
+    got = cost.paged_chunk_attention_features_work(q, ks, vs, tab, qoff, ctx,
+                                                   quant=sqt)
+    want = cost.paged_chunk_attention_work(q, kp, vp, tab, qoff, ctx,
+                                           quant=qt)
+    assert got == want and got[0][0] > 0
 
 
 def test_scan_work_by_hand():
