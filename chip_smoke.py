@@ -4463,6 +4463,7 @@ def compare_features(call, label, producer):
         f2=0.0)
     shards_dev_ok = True
     nbytes = flops = 0
+    f_work = dict(f1=[0, 0], f2=[0, 0])
     for r in range(n):
         for what, fn in (("f1", lambda r=r: kf1(r)), ("f2",
                                                       lambda r=r: kf2(r))):
@@ -4484,7 +4485,12 @@ def compare_features(call, label, producer):
                                  q0.element_size(), q_lens, flags)
         nbytes += b1 + b2
         flops += o1 + o2
+        f_work["f1"] = [f_work["f1"][0] + b1, f_work["f1"][1] + o1]
+        f_work["f2"] = [f_work["f2"][0] + b2, f_work["f2"][1] + o2]
     s_ms, s_by, s_tb, s_tf = bound(nbytes, flops, dtype)
+    n_sm = pa._sm_count(q0.get_device())
+    f2_plan = pa.feature_pv_plan(B, Sq, H, hkv, tab.shape[1], page, dr, dtype,
+                                 n_sm)
     (fb, ff), _ = roofline.paged_chunk_attention_features_work(
         q0, kps, vps, tab, qoff, ctx, quant=qt)
     b_ms, b_by, t_b, t_f = bound(fb, ff, dtype)
@@ -4510,6 +4516,11 @@ def compare_features(call, label, producer):
         shards_plain_ms=plain["f1"] + plain["f2"],
         shards_bound_ms=s_ms, shards_bound_by=s_by, shards_bytes_ms=s_tb,
         shards_ops_ms=s_tf, scores_gb=ws.numel() * 4 / 1e9,
+        f1_bound_ms=bound(*f_work["f1"], dtype)[0],
+        f2_bound_ms=bound(*f_work["f2"], dtype)[0],
+        f1_row_split=pa.feature_scores_plan(B, Sq, H, hkv, tab.shape[1],
+                                            page, n_sm),
+        f2_split=f2_plan.n_split, f2_cta=(f2_plan.npg, f2_plan.kw),
         unsplit_ms=cuda_ms(unsplit, 20), unsplit_device_ms=device_ms(unsplit),
         library_ms=cuda_ms(sdpa_yardstick(q0, kp, vp, tab, qoff, ctx, full),
                            20),
@@ -4535,11 +4546,13 @@ def fmt_features(rec) -> str:
             "f2_err_rel", "joined_err_rel", "scores_gb", "shards_ms",
             "f1_ms", "f2_ms", "shards_device_ms", "f1_device_ms",
             "f2_device_ms", "shards_host_ms", "shards_plain_ms",
-            "shards_bound_ms")
+            "shards_bound_ms", "f1_bound_ms", "f2_bound_ms")
     parts = [f"{k}={rec[k]:.4g}" for k in keys if rec.get(k) is not None]
     return f"  {rec['label']}: producer={rec['producer']} " + \
         " ".join(parts) + f" bound_by={rec['bound_by']} " \
-        f"shards_bound_by={rec['shards_bound_by']}"
+        f"shards_bound_by={rec['shards_bound_by']} f1_row_split=" \
+        f"{rec['f1_row_split']} f2_split={rec['f2_split']} f2_cta=(npg, " \
+        f"kw) {rec['f2_cta']}"
 
 
 def retime_features(cap, what, tag):
@@ -4572,7 +4585,7 @@ def retime_features(cap, what, tag):
         tot = {k: sum(r[k] for r in sub) for k in (
             "ms", "host_ms", "plain_ms", "bound_ms", "shards_ms", "f1_ms",
             "f2_ms", "shards_host_ms", "shards_plain_ms", "shards_bound_ms",
-            "unsplit_ms", "library_ms")}
+            "f1_bound_ms", "f2_bound_ms", "unsplit_ms", "library_ms")}
         log(f"[{tag}] {what}, {part} shapes ({len(sub)}): one-launch route "
             f"{tot['ms']:.4g} ms (device {dsum(sub, 'device_ms')}, host "
             f"{tot['host_ms']:.4g}), bound {tot['bound_ms']:.4g} ms, plain "
@@ -4581,7 +4594,8 @@ def retime_features(cap, what, tag):
             f"{tot['f2_ms']:.4g}; device {dsum(sub, 'shards_device_ms')}, "
             f"F1 {dsum(sub, 'f1_device_ms')}, F2 {dsum(sub, 'f2_device_ms')};"
             f" host {tot['shards_host_ms']:.4g}), bound "
-            f"{tot['shards_bound_ms']:.4g} ms, plain "
+            f"{tot['shards_bound_ms']:.4g} ms (F1 {tot['f1_bound_ms']:.4g}, "
+            f"F2 {tot['f2_bound_ms']:.4g}), plain "
             f"{tot['shards_plain_ms']:.4g} ms; unsharded kernel "
             f"{tot['unsplit_ms']:.4g} ms (device "
             f"{dsum(sub, 'unsplit_device_ms')}); SDPA "

@@ -34,12 +34,16 @@ into it, and F2 takes the scores summed over the shards through a softmax
 at 1 / sqrt(D) of the full head and the shard's V features.  Their own
 source and library, ``csrc/paged_chunk_features.cu``; with the int8
 pointers set they read flagged pages from the shard's int8 shadows.  They
-serve shards on distinct cards.  When every shard's pools live on one card,
-``paged_chunk_attention_features`` computes the whole call in one launch:
-kernel 1 (or, with the int8 state, B.2) reading each key row's features
-from the shards' pools (``csrc/paged_chunk_attention.cu``, kFeat), so the
-sum over the shards is the depth of Q·Kᵀ and no scores buffer exists; its
-output equals the kernel's on the pools concatenated along D, bit for bit.
+serve shards on distinct cards.  Their launch geometry comes from two
+pure functions here, ``feature_scores_plan`` (F1's parts of a key tile's
+rows) and ``feature_pv_plan`` (F2's pair tiles, key warps and the key
+splits over a thread-block cluster).  When every shard's pools live on
+one card, ``paged_chunk_attention_features`` computes the whole call in
+one launch: kernel 1 (or, with the int8 state, B.2) reading each key
+row's features from the shards' pools (``csrc/paged_chunk_attention.cu``,
+kFeat), so the sum over the shards is the depth of Q·Kᵀ and no scores
+buffer exists; its output equals the kernel's on the pools concatenated
+along D, bit for bit.
 ``paged_attention`` is the single-token decode kernel, q (B, H, D): its own
 source and library, so kernel 1's and B.2's build is untouched by it.  It
 splits each lane's context over CTAs (``decode_split_plan``) and merges the
@@ -70,6 +74,7 @@ valid rows of the pools; they are not checked on the device.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -549,6 +554,8 @@ def paged_chunk_scores(q, k_pages, block_tables, q_offsets, ctx_lens,
     ptrs += [kq, ks, flags, block_tables.data_ptr(), q_offsets.data_ptr(),
              ctx_lens.data_ptr(), out.data_ptr()]
     ints = [*q.stride()[:3], B, Sq, H, Hkv, dr, page, block_tables.shape[1],
+            feature_scores_plan(B, Sq, H, Hkv, block_tables.shape[1],
+                                page, _sm_count(dev)),
             int(bool(accumulate)), _DTYPES[q.dtype], dev]
     fn = _features_entry("paged_chunk_scores_launch", len(ptrs), len(ints))
     err = fn(*ptrs, *ints, _stream(dev))
@@ -572,7 +579,8 @@ def paged_chunk_softmax_pv(scores, v_pages, block_tables, q_offsets,
     multiple of dr: the softmax scale is 1 / sqrt(D)); dtype the output's,
     the pool's; ``quant`` as `paged_chunk_scores` (the V side is read).
     Returns (B, Sq, H, dr) in ``dtype``: bucket-padding rows and ctx = 0
-    lanes as zeros."""
+    lanes as zeros.  One launch, as ``feature_pv_plan`` cuts the call (a
+    cluster launch the card refuses raises)."""
     kernel = FEATURES_NAME + ".softmax_pv"
     B, page, Hkv, dr, dev = _check_features(scores, v_pages, block_tables,
                                             q_offsets, ctx_lens, quant,
@@ -597,8 +605,10 @@ def paged_chunk_softmax_pv(scores, v_pages, block_tables, q_offsets,
     ptrs = [scores.data_ptr(), v_pages.data_ptr(), vq, vs, flags,
             block_tables.data_ptr(), q_offsets.data_ptr(),
             ctx_lens.data_ptr(), out.data_ptr()]
-    ints = [B, Sq, H, Hkv, dr, page, block_tables.shape[1], _DTYPES[dtype],
-            dev]
+    plan = feature_pv_plan(B, Sq, H, Hkv, block_tables.shape[1], page, dr,
+                           dtype, _sm_count(dev))
+    ints = [B, Sq, H, Hkv, dr, page, block_tables.shape[1], plan.npg,
+            plan.kw, plan.n_split, plan.split, _DTYPES[dtype], dev]
     fn = _features_entry("paged_chunk_softmax_pv_launch", len(ptrs),
                          len(ints), scale=True)
     err = fn(*ptrs, *ints[:-2], math.log2(math.e) / math.sqrt(head_dim),
@@ -816,6 +826,116 @@ def partial_split_plan(B: int, Sq: int, H: int, Hkv: int, T_width: int,
         return 1, -(-keys // PARTIAL_SPLIT_ALIGN) * PARTIAL_SPLIT_ALIGN
     return decode_split_plan(n_qblk * B, Hkv, T_width, pl, n_sm,
                              align=PARTIAL_SPLIT_ALIGN)
+
+
+# F2 of the head-feature rung (csrc/paged_chunk_features.cu,
+# feature_softmax_pv): a warp walks FEATURE_TILE keys a step, 4 a lane, for
+# feature_pv_pairs(dr) (row, head) pairs at once; a CTA holds npg such pair
+# groups and kw key warps (npg x kw <= 8), stages kw x FEATURE_TILE keys of V
+# a block (at most FEATURE_STAGE_FLOATS floats, two buffers), and a lane's
+# keys may be split over the CTAs of one cluster (at most FEATURE_MAX_SPLIT,
+# the portable cluster size)
+FEATURE_TILE = 128
+FEATURE_MAX_WARPS = 8
+FEATURE_MAX_SPLIT = 8
+FEATURE_STAGE_FLOATS = 8192
+FEATURE_RING = 3                    # blocks of V and scores in flight
+# key warps a CTA at most: a decode split longer than 512 keys takes more
+# than one block rather than a CTA too large for two on an SM
+FEATURE_MAX_KEY_WARPS = 4
+FEATURE_SCORES_PAIRS = 256          # F1: (row, head) pairs a CTA
+FEATURE_SCORES_MIN_ROWS = 16        # F1: rows a CTA at least, where the
+FEATURE_SCORES_FILL_ROWS = 4        # grid fills the card, else this many
+FEATURE_SCORES_CTAS_PER_SM = 4      # F1: CTAs an SM holds (126 registers)
+SMEM_PER_CTA = 232448               # 227 KB, what a CTA may opt into
+
+
+@functools.lru_cache(maxsize=256)
+def feature_scores_plan(B: int, Sq: int, H: int, Hkv: int, T_width: int,
+                        page: int, n_sm: int) -> int:
+    """The parts F1 (`paged_chunk_scores`) cuts a key tile's rows into, one
+    CTA each: parts of FEATURE_SCORES_PAIRS (row, head) pairs (no fewer
+    than FEATURE_SCORES_MIN_ROWS rows), so that a long chunk's tiles spread
+    over the card even when few of its lanes are long (the host cannot
+    tell which), while a CTA still writes hundreds of KB of scores for the
+    2 KB of its key tile, which its parts read from L2; and parts as short
+    as FEATURE_SCORES_FILL_ROWS rows where B x Hkv x key tiles x parts
+    would leave the card short of FEATURE_SCORES_CTAS_PER_SM CTAs an SM (a
+    short chunk of one lane)."""
+    G = H // Hkv
+    rows = max(FEATURE_SCORES_MIN_ROWS, FEATURE_SCORES_PAIRS // G)
+    parts = -(-Sq // rows)
+    base = B * Hkv * -(-max(T_width * page, 1) // FEATURE_TILE)
+    want = FEATURE_SCORES_CTAS_PER_SM * n_sm
+    if base * parts < want:
+        parts = max(parts, min(-(-want // base),
+                               -(-Sq // FEATURE_SCORES_FILL_ROWS)))
+    return parts
+
+
+def feature_pv_pairs(dr: int) -> int:
+    """(row, head) pairs an F2 warp carries through its key walk (their
+    m, l and dr accumulators live in registers)."""
+    return 4 if dr <= 8 else 2 if dr == 16 else 1
+
+
+# F2's launch geometry: npg pair groups and kw key warps a CTA (32 npg kw
+# threads), pairs = npg x feature_pv_pairs(dr) (row, head) pairs a CTA in
+# tiles along the call's Sq x G pairs, each lane's keys cut into n_split
+# splits of split keys (a multiple of FEATURE_TILE) over one cluster; grid
+# CTAs, smem bytes of shared memory a CTA
+FeaturePlan = collections.namedtuple(
+    "FeaturePlan", "npg kw n_split split pairs tiles grid smem")
+
+
+@functools.lru_cache(maxsize=256)
+def feature_pv_plan(B: int, Sq: int, H: int, Hkv: int, T_width: int,
+                    page: int, dr: int, dtype, n_sm: int) -> FeaturePlan:
+    """How F2 (`paged_chunk_softmax_pv`) covers a call, from what the host
+    knows without reading the lanes (T_width x page is the most keys a lane
+    can have).  A CTA takes the pairs of as many rows as its warps hold
+    (npg up to 8); a call whose B x Hkv x tiles CTAs fall short of
+    ``n_sm`` (decode, short chunks) takes smaller tiles and cuts each
+    lane's keys into up to FEATURE_MAX_SPLIT splits of whole 128-key warp
+    tiles over the CTAs of a cluster, merged inside the launch, so that
+    the grid reaches ``n_sm`` where the keys allow; the CTA's key warps
+    then cover its split.  (Splitting long chunks' keys as well, at 1024
+    keys a CTA, made their F2 about twice as slow on the H100 in phase 21
+    of chip_smoke.py.)"""
+    G = H // Hkv
+    npw = feature_pv_pairs(dr)
+    kw_cap = min(FEATURE_MAX_WARPS, FEATURE_STAGE_FLOATS // (FEATURE_TILE
+                                                             * dr))
+    keys = max(T_width * page, 1)
+    tiles_k = -(-keys // FEATURE_TILE)
+    pairs = Sq * G
+    npg = 1
+    while npg < FEATURE_MAX_WARPS and npg * npw < pairs:
+        npg *= 2
+    while True:
+        tiles = -(-pairs // (npg * npw))
+        base = B * Hkv * tiles
+        n_split = 1 if base >= n_sm else min(FEATURE_MAX_SPLIT,
+                                             -(-n_sm // base), tiles_k)
+        if base * n_split >= n_sm or npg == 1:
+            break
+        npg //= 2
+    split = -(-tiles_k // n_split) * FEATURE_TILE
+    n_split = -(-keys // split)
+    kw = max(1, min(FEATURE_MAX_WARPS // npg, FEATURE_MAX_KEY_WARPS, kw_cap,
+                    split // FEATURE_TILE))
+    item = 4 if dtype == torch.float32 else 2
+    # V as float32 (two blocks) and as the pools hold it (FEATURE_RING
+    # blocks, each chunk's page scale beside it for int8 pages), the warps'
+    # rings of scores, the slots of the merge
+    chunks = max(1, dr * item // 16)
+    smem = 4 * (2 * dr * FEATURE_TILE * kw
+                + (kw + 1) * npg * npw * (2 + dr)
+                + FEATURE_RING * FEATURE_TILE * kw * chunks) \
+        + FEATURE_RING * FEATURE_TILE * kw * dr * item \
+        + npg * kw * FEATURE_RING * npw * 512
+    return FeaturePlan(npg, kw, n_split, split, npg * npw, tiles,
+                       n_split * tiles * B * Hkv, smem)
 
 
 def _sm_count(dev: int) -> int:

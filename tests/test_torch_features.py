@@ -159,6 +159,75 @@ def test_scores_workspace_tiles_lanes_and_shares_a_device(monkeypatch):
     assert ws is None and lanes == 1
 
 
+# (B, Sq, H, Hkv, table width, page): run G's decode and chunk calls at
+# yi-6b's tp 16 (H 32, Hkv 4), llama3-8b's (Hkv 8), minicpm-2b's (MHA 36),
+# the CPU twin's, 1-row pages and one long table
+PLAN_SHAPES = [(B, 1, 32, 4, w, 8) for B in (1, 2, 4) for w in (128, 256, 512)]
+PLAN_SHAPES += [(1, 1024, 32, 4, 256, 8), (1, 32, 32, 4, 128, 8),
+                (4, 512, 32, 4, 512, 8), (2, 512, 32, 8, 256, 8),
+                (5, 1, 36, 36, 40, 8), (3, 37, 36, 36, 12, 8),
+                (3, 9, 4, 2, 8, 2), (3, 9, 8, 1, 20, 1),
+                (1, 1, 16, 1, 4096, 1), (1, 3, 48, 3, 7, 32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dr", pa.FEATURE_DIMS)
+def test_feature_pv_plan_covers_every_key_once(dr, dtype):
+    """F2's launch plan (what the card kernel checks on its side): every
+    key of a lane falls in exactly one split of whole 128-key warp tiles,
+    every (row, head) pair in one tile; a cluster of at most 8 CTAs, a CTA
+    of at most 8 warps, no more key warps than its split has warp tiles,
+    shared memory within 227 KB."""
+    npw = pa.feature_pv_pairs(dr)
+    for B, Sq, H, Hkv, W, page in PLAN_SHAPES:
+        for n_sm in (132, 16, 1):
+            p = pa.feature_pv_plan(B, Sq, H, Hkv, W, page, dr, dtype, n_sm)
+            keys = W * page
+            assert p.npg in (1, 2, 4, 8) and p.kw >= 1
+            assert p.npg * p.kw <= pa.FEATURE_MAX_WARPS
+            assert 1 <= p.n_split <= pa.FEATURE_MAX_SPLIT
+            assert p.split % pa.FEATURE_TILE == 0
+            owner = np.arange(keys) // p.split
+            assert owner.max() == p.n_split - 1
+            assert np.bincount(owner, minlength=p.n_split).min() > 0
+            assert pa.FEATURE_TILE * p.kw * dr <= pa.FEATURE_STAGE_FLOATS
+            assert p.kw * pa.FEATURE_TILE <= max(p.split, pa.FEATURE_TILE)
+            assert p.pairs == p.npg * npw
+            G = H // Hkv
+            assert (p.tiles - 1) * p.pairs < Sq * G <= p.tiles * p.pairs
+            assert p.grid == p.n_split * p.tiles * B * Hkv
+            assert p.smem <= pa.SMEM_PER_CTA
+
+
+def test_feature_plans_fill_the_card():
+    """At run G's largest decode call (B 4, Hkv 4, G 8, 512 pages of 8:
+    4096 keys) F2's grid reaches the SMs; at B 1 each lane's keys go over
+    the whole 8-CTA cluster; a long chunk needs no split.  F1 cuts a key
+    tile's rows into parts of 256 (row, head) pairs, 16 rows at least, and
+    shorter ones, 4 rows at least, where its grid would not fill the
+    card."""
+    for n_sm in (132, 114, 66):
+        p = pa.feature_pv_plan(4, 1, 32, 4, 512, 8, 8, torch.bfloat16, n_sm)
+        assert p.grid >= n_sm and p.n_split > 1
+    p = pa.feature_pv_plan(1, 1, 32, 4, 512, 8, 8, torch.bfloat16, 132)
+    assert p.n_split == pa.FEATURE_MAX_SPLIT
+    p = pa.feature_pv_plan(1, 1, 32, 4, 4, 8, 8, torch.bfloat16, 132)
+    assert p.n_split == 1                      # 32 keys: one warp tile
+    p = pa.feature_pv_plan(4, 512, 32, 4, 512, 8, 8, torch.bfloat16, 132)
+    assert p.n_split == 1 and p.grid >= 132
+    assert pa.feature_scores_plan(4, 1, 32, 4, 512, 8, 132) == 1
+    for B, Sq, W in ((1, 1, 128), (1, 32, 128), (4, 37, 12), (2, 512, 256),
+                     (4, 512, 512), (1, 1024, 256)):
+        for G in (1, 3, 4, 8, 16):
+            r = pa.feature_scores_plan(B, Sq, 4 * G, 4, W, 8, 132)
+            part = -(-Sq // r)
+            assert 1 <= r <= -(-Sq // pa.FEATURE_SCORES_FILL_ROWS)
+            assert part * G <= max(pa.FEATURE_SCORES_PAIRS,
+                                   pa.FEATURE_SCORES_MIN_ROWS * G)
+    # run G's 32-row chunk of one lane over 1024 keys: 32 CTAs uncut
+    assert pa.feature_scores_plan(1, 32, 32, 4, 128, 8, 132) == 8
+
+
 def test_all_reduce_path_equals_the_workspace():
     """Shards on distinct devices keep their own scores and sum them with
     `collectives.all_reduce_sum`: the same result as the shared buffer."""
@@ -413,14 +482,15 @@ CARD_CASES = [
 ]
 
 
-def _shard_case(seed, B, Sq, H, Hkv, D, page, maxp, n, dtype, quant):
-    arrs = _case(seed, B, Sq, H, Hkv, D, page, maxp)
+def _shards(arrs, n, dtype, qt=None):
+    """The card's tensors of a case and its ``n`` shards' (q features,
+    K pool, V pool, int8 shadows) along D; ``qt`` the full pools' int8
+    state (CPU), or None."""
     q, kp, vp, tab, qoff, ctx = (t.cuda() for t in _torch(
         arrs, getattr(torch, dtype)))
-    qt = None
-    if quant:
-        qt = tuple(t.cuda() for t in _quant(arrs[1], arrs[2], seed=seed))
-    dr = D // n
+    if qt is not None:
+        qt = tuple(t.cuda() for t in qt)
+    dr = q.shape[-1] // n
     shards = []
     for r in range(n):
         f = slice(r * dr, (r + 1) * dr)
@@ -428,31 +498,55 @@ def _shard_case(seed, B, Sq, H, Hkv, D, page, maxp, n, dtype, quant):
                                       qt[1][..., f].contiguous(), *qt[2:])
         shards.append((q[..., f], kp[..., f].contiguous(),
                        vp[..., f].contiguous(), sq))
-    return arrs, (q, kp, vp, tab, qoff, ctx), qt, shards
+    return (q, kp, vp, tab, qoff, ctx), qt, shards
+
+
+def _shard_case(seed, B, Sq, H, Hkv, D, page, maxp, n, dtype, quant):
+    arrs = _case(seed, B, Sq, H, Hkv, D, page, maxp)
+    qt = _quant(arrs[1], arrs[2], seed=seed) if quant else None
+    return (arrs,) + _shards(arrs, n, dtype, qt)
+
+
+def _lanes(seed, Sq, H, Hkv, D, page, maxp, ctxs, qoffs):
+    """A case whose lanes have the given ctx and q_offsets (their chunk
+    rows past ctx are bucket padding), on permuted tables padded with each
+    lane's last page."""
+    rng = np.random.default_rng(seed)
+    B = len(ctxs)
+    P = maxp * B + 3
+    q = rng.normal(size=(B, Sq, H, D)).astype(np.float32)
+    kp = rng.normal(size=(P, page, Hkv, D)).astype(np.float32)
+    vp = rng.normal(size=(P, page, Hkv, D)).astype(np.float32)
+    perm = rng.permutation(P - 1)
+    tables = np.zeros((B, maxp), np.int32)
+    for b, c in enumerate(ctxs):
+        w = max(1, -(-c // page))
+        tables[b, :w] = perm[b * maxp:b * maxp + w]
+        tables[b, w:] = tables[b, w - 1]
+    return (q, kp, vp, tables, np.asarray(qoffs, np.int32),
+            np.asarray(ctxs, np.int32))
 
 
 def _visible(qoff, ctx, Sq, T):
     return tref._visible(qoff, ctx, Sq, T, qoff.device)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("quant", [False, True], ids=["kernel1", "int8"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,Sq,H,Hkv,D,page,maxp,n", CARD_CASES)
-def test_cuda_features_match_plain(cuda, B, Sq, H, Hkv, D, page, maxp, n,
-                                   dtype, quant):
-    """F1 (each shard, written then accumulated) against the plain partial
-    scores on every visible entry; F2 on the summed scores against its
-    plain version on real rows; the shards' outputs concatenated against
-    the unsharded plain attention.  Launch counts: one per call."""
-    arrs, full, qt, shards = _shard_case(B * 31 + Sq, B, Sq, H, Hkv, D, page,
-                                         maxp, n, dtype, quant)
+def _hold_on_card(arrs, full, qt, shards, dtype):
+    """F1 of every shard into one buffer filled with NaN (shard 0 writes,
+    the others add) against the plain partial scores summed, on every
+    entry a row sees, and every other entry still NaN; each shard's F2 on
+    the summed scores against its plain version on real rows, padding rows
+    zeros; the shards' outputs joined against the unsharded plain
+    attention.  Launch counts: one per call."""
     q, kp, vp, tab, qoff, ctx = full
+    B, Sq, H, D = q.shape
+    n = len(shards)
+    page = kp.shape[1]
     T = tab.shape[1] * page
     vis = _visible(qoff, ctx, Sq, T)[:, None].expand(B, H, Sq, T)
-    vis = vis & (qoff.long()[:, None] + torch.arange(Sq, device=cuda)
+    vis = vis & (qoff.long()[:, None] + torch.arange(Sq, device=q.device)
                  < ctx.long()[:, None])[:, None, :, None]
-    ws = torch.full((B, H, Sq, T), float("nan"), device=cuda)
+    ws = torch.full((B, H, Sq, T), float("nan"), device=q.device)
     want_s = torch.zeros_like(ws)
     before = (pa.scores_launches, pa.quant_scores_launches)
     for r, (sq, sk, _, sqt) in enumerate(shards):
@@ -463,10 +557,14 @@ def test_cuda_features_match_plain(cuda, B, Sq, H, Hkv, D, page, maxp, n,
     torch.cuda.synchronize()
     got_n = (pa.scores_launches - before[0],
              pa.quant_scores_launches - before[1])
-    assert got_n == ((0, n) if quant else (n, 0))
-    scale = want_s[vis].abs().max().item()
-    assert torch.isfinite(ws[vis]).all()
-    assert (ws[vis] - want_s[vis]).abs().max().item() <= 1e-5 * max(scale, 1)
+    assert got_n == ((0, n) if qt is not None else (n, 0))
+    assert bool(torch.isnan(ws[~vis]).all()), "F1 wrote an entry no row sees"
+    if bool(vis.any()):
+        scale = want_s[vis].abs().max().item()
+        assert torch.isfinite(ws[vis]).all()
+        assert (ws[vis] - want_s[vis]).abs().max().item() <= \
+            1e-5 * max(scale, 1)
+    before = (pa.pv_launches, pa.quant_pv_launches)
     outs = []
     for r, (_, _, sv, sqt) in enumerate(shards):
         o = pa.paged_chunk_softmax_pv(ws, sv, tab, qoff, ctx, D, q.dtype,
@@ -479,11 +577,110 @@ def test_cuda_features_match_plain(cuda, B, Sq, H, Hkv, D, page, maxp, n,
             nb = int(arrs[5][b] - arrs[4][b]) if arrs[5][b] else 0
             assert bool((o[b, nb:] == 0).all())
         outs.append(o)
+    torch.cuda.synchronize()
+    got_n = (pa.pv_launches - before[0], pa.quant_pv_launches - before[1])
+    assert got_n == ((0, n) if qt is not None else (n, 0))
     got = torch.cat(outs, dim=-1)
     want = tref.paged_chunk_attention_ref(q, kp, vp, tab, qoff, ctx,
                                           quant=qt)
     _assert_real_rows(got.float().cpu(), want.float().cpu(), arrs[4],
                       arrs[5], TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True], ids=["kernel1", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,H,Hkv,D,page,maxp,n", CARD_CASES)
+def test_cuda_features_match_plain(cuda, B, Sq, H, Hkv, D, page, maxp, n,
+                                   dtype, quant):
+    """F1 (each shard, written then accumulated) against the plain partial
+    scores on every visible entry, the rest untouched; F2 on the summed
+    scores against its plain version on real rows; the shards' outputs
+    concatenated against the unsharded plain attention.  Launch counts:
+    one per call."""
+    arrs, full, qt, shards = _shard_case(B * 31 + Sq, B, Sq, H, Hkv, D, page,
+                                         maxp, n, dtype, quant)
+    _hold_on_card(arrs, full, qt, shards, dtype)
+
+
+def _alternate(arrs, seed):
+    """int8 state of a case's pools, flagged on every other page."""
+    kq, vq, ks, vs, fl = _quant(arrs[1], arrs[2], seed=seed)
+    return kq, vq, ks, vs, (torch.arange(fl.numel()) % 2).int()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True], ids=["kernel1", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,side", [(1, "below"), (1, "above"), (4, None)])
+def test_cuda_features_decode_split_over_a_cluster(cuda, B, side, dtype,
+                                                   quant):
+    """Decode at yi-6b's tp-16 shape (G 8, dr 8, pages of 8, a table of 512
+    pages): F2's plan cuts each lane's keys over the CTAs of a cluster, and
+    a lane's ctx sits one key below or above a split's edge (B = 1), or
+    the lanes sit at both sides of the first and the last edge and at the
+    table's end (B = 4); int8 pages flagged on alternate pages."""
+    H, Hkv, dr, page, maxp = 32, 4, 8, 8, 512
+    plan = pa.feature_pv_plan(B, 1, H, Hkv, maxp, page, dr,
+                              getattr(torch, dtype), pa._sm_count(0))
+    assert 1 < plan.n_split <= pa.FEATURE_MAX_SPLIT
+    first, last = plan.split, plan.split * (plan.n_split - 1)
+    if B == 1:
+        ctxs = [first + (1 if side == "above" else -1)]
+    else:
+        ctxs = [first - 1, first + 1, last + 1, maxp * page]
+    arrs = _lanes(B * 7 + len(side or ""), 1, H, Hkv, 4 * dr, page, maxp,
+                  ctxs, [c - 1 for c in ctxs])
+    qt = _alternate(arrs, seed=B) if quant else None
+    _hold_on_card(arrs, *_shards(arrs, 4, dtype, qt), dtype)
+
+
+# Sq, H, Hkv, dr, shards, page, table width, ctx, q_offsets: chunks whose
+# rows start past a key tile's first key (q_offset > 0, not a multiple of
+# 128), G 1, 4 and 8 at dr 2, 4, 8 and 16, a long chunk of one lane (F1's
+# rows cut over CTAs), padding rows and a ctx = 0 lane; dr 32 and 64,
+# pages of 32 and a decode step at G 16
+GEOMETRY_CASES = [
+    (40, 8, 8, 2, 4, 4, 128, [333, 290, 0], [300, 280, 0]),
+    (40, 16, 4, 4, 4, 8, 64, [333, 150], [300, 130]),
+    (37, 32, 4, 8, 4, 8, 64, [500, 137, 0], [470, 100, 0]),
+    (24, 8, 1, 16, 4, 16, 16, [250, 31], [229, 20]),
+    (300, 32, 4, 8, 4, 8, 64, [467], [167]),
+    (9, 36, 36, 4, 16, 8, 32, [200, 129, 5], [191, 128, 0]),
+    # the wrapper's widest: dr 32 and 64, pages of 16 and 32, G 16
+    (20, 16, 1, 32, 2, 32, 8, [230, 0], [215, 0]),
+    (9, 4, 2, 64, 2, 16, 16, [250, 100], [241, 95]),
+    (1, 16, 1, 8, 4, 8, 64, [500, 1], [499, 0]),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True], ids=["kernel1", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,H,Hkv,dr,n,page,maxp,ctxs,qoffs",
+                         GEOMETRY_CASES)
+def test_cuda_features_chunk_geometry(cuda, Sq, H, Hkv, dr, n, page, maxp,
+                                      ctxs, qoffs, dtype, quant):
+    """Chunks past a key tile's first key, every G and dr of the main path
+    and beside it up to the wrapper's widest (dr 64, pages of 32, G 16),
+    int8 pages flagged on alternate pages: F1 summed over the shards with
+    every entry a row cannot see left untouched, F2 and the joined output
+    held to their plain versions."""
+    arrs = _lanes(Sq + dr * 3 + H, Sq, H, Hkv, dr * n, page, maxp, ctxs,
+                  qoffs)
+    qt = _alternate(arrs, seed=dr) if quant else None
+    _hold_on_card(arrs, *_shards(arrs, n, dtype, qt), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True], ids=["kernel1", "int8"])
+def test_cuda_features_accumulate_sixteen_shards(cuda, quant):
+    """yi-6b's tp-16 shards (dr 8) of a 3-lane chunk step summed into one
+    buffer: 16 launches of F1, the first writing and 15 adding, entries no
+    row sees still the NaN the buffer was filled with."""
+    arrs = _lanes(16, 33, 32, 4, 128, 8, 40, [300, 64, 0], [280, 40, 0])
+    qt = _alternate(arrs, seed=16) if quant else None
+    _hold_on_card(arrs, *_shards(arrs, 16, "bfloat16", qt), "bfloat16")
 
 
 @pytest.mark.gpu
