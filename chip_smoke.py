@@ -41,6 +41,10 @@ Phases:
      4, 6, 8 and 9, per main-path shape and summed); kernel 1 and B.2 at
      D=64 and 128 bit for bit to KERNEL1_DIGESTS; both kernels unchanged
      bit for bit when every page outside the lanes' relevant ones is NaN;
+     every bf16 call's split count (``pa.chunk_split_plan``: keys split
+     over a cluster where the grid is short of the card); a decode sweep
+     at ctx 4096, B = 1, 8, 32, kernel 1 and B.2 with 3/4 flagged, each
+     with its splits, cluster and share of the bound;
   4. serve llama3-8b (32 layers, bf16, random weights from --seed) with
      NodeEngine + NodeManager + RealBackend: 4 sessions x 3 turns, chunked
      prompts, a shared system prompt adopted across sessions with a
@@ -335,17 +339,23 @@ QKPART = pa.paged_chunk_attention_quant_partial  # pa.quant_partial_launches
 # 64 and 128 on the fixed inputs of kernel1_digests(): the float32 entries
 # recorded from the kernel source as it was before head dim 80 was added
 # (the float32 body keeps that arithmetic), the bfloat16 entries from the
-# tensor-core body.  Those outputs must stay bit for bit as they are.
+# tensor-core body, the bf16 decode entries re-recorded when decode grids
+# short of the card began to split each lane's keys over a cluster
+# (``pa.chunk_split_plan``: 4 splits at these B = 8 calls, whose merge sums
+# in another order).  The plan reads the card's SM count, so these four
+# hold on a card of 132 SMs (the H100 SXM's); one with another count may
+# split those calls otherwise.  Those outputs must stay bit for bit as they
+# are.
 # Change an entry only with a change to the kernel's arithmetic at that head
 # dim and dtype, and say so where the change is recorded.
 DIGEST_SEED = 80
 KERNEL1_DIGESTS = {
-    "decode B=8 ctx<=4096 D=64 bfloat16": "313716b2e937120f",
-    "int8 decode B=8 ctx<=4096 D=64 bfloat16": "1918a780b7351628",
+    "decode B=8 ctx<=4096 D=64 bfloat16": "68ffd51a3bcf6f9d",
+    "int8 decode B=8 ctx<=4096 D=64 bfloat16": "40d4f004d8c8be70",
     "decode B=8 ctx<=4096 D=64 float32": "542a894bde973065",
     "int8 decode B=8 ctx<=4096 D=64 float32": "5d1908190f26ef66",
-    "decode B=8 ctx<=4096 D=128 bfloat16": "1d32ade21d1175af",
-    "int8 decode B=8 ctx<=4096 D=128 bfloat16": "7a047a6e9475008d",
+    "decode B=8 ctx<=4096 D=128 bfloat16": "67f7d7464af771db",
+    "int8 decode B=8 ctx<=4096 D=128 bfloat16": "2421fdf62256ad64",
     "decode B=8 ctx<=4096 D=128 float32": "e9c7179ae9d8c868",
     "int8 decode B=8 ctx<=4096 D=128 float32": "c002effb04babd60",
     "chunk Sq=128 q_offset>0 D=64 bfloat16": "bf91264a980e2bad",
@@ -521,7 +531,7 @@ def compare(q, kp, vp, tables, qoff, ctx, q_lens, dtype, label, quant=None):
         library_ms=cuda_ms(sdpa_yardstick(q, kp, vp, tables, qoff, ctx,
                                           quant), 20),
         bound_ms=b_ms, bound_by=b_by, bytes_ms=t_b, ops_ms=t_f, flops=flops,
-        decode=q.shape[1] == 1)
+        decode=q.shape[1] == 1, splits=split_count(q, kp, tables))
     if quant is not None:
         # the fp kernel over the same context, in turns with the int8 one:
         # int8, fp, fp, int8
@@ -533,6 +543,16 @@ def compare(q, kp, vp, tables, qoff, ctx, q_lens, dtype, label, quant=None):
     return rec
 
 
+def split_count(q, kp, tables) -> int:
+    """The splits (CTAs of one cluster) over which kernel 1 and B.2 cut each
+    (query tile, kv head, lane)'s keys on this call
+    (``pa.chunk_split_plan``; 1: no cluster)."""
+    B, Sq, H, _ = q.shape
+    return pa.chunk_split_plan(B, Sq, H, kp.shape[2], tables.shape[1],
+                               kp.shape[1], q.dtype,
+                               pa._sm_count(q.get_device()))[0]
+
+
 def fmt(rec) -> str:
     keys = ("max_abs_err", "err_rel", "ms", "device_ms", "host_ms",
             "fp_ms", "fp_device_ms", "clear_ms", "clear_device_ms",
@@ -540,6 +560,8 @@ def fmt(rec) -> str:
     parts = [f"{k}={rec[k]:.4g}" for k in keys if rec.get(k) is not None]
     if "bound_by" in rec:
         parts.append(f"bound_by={rec['bound_by']}")
+    if "splits" in rec:
+        parts.append(f"splits={rec['splits']}")
     return f"  {rec['label']}: " + " ".join(parts)
 
 
@@ -731,7 +753,10 @@ def paged_resources(built):
                 log(f"[3] runtime, {'B.2' if quant else 'kernel 1'} "
                     f"{str(dtype).split('.')[-1]} at D = {d}: "
                     f"{pa.resources(dtype, d, quant)}; head-feature gather "
-                    f"{pa.features_resources(dtype, d, quant)}")
+                    f"{pa.features_resources(dtype, d, quant)}"
+                    + (f"; 1-row pages "
+                       f"{pa.resources(dtype, d, quant, one_row=True)}"
+                       if dtype == torch.bfloat16 else ""))
     kernels = sass_counts(pa.NAME)
     for name, counts in kernels:
         label, tc = body(name)
@@ -799,10 +824,39 @@ def phase_kernel_vs_plain(rng, built=None):
     changed = sorted(k for k in got.keys() | KERNEL1_DIGESTS.keys()
                      if got.get(k) != KERNEL1_DIGESTS.get(k))
     check(not changed, f"kernel 1 / B.2 outputs at D = 64 and 128 are not "
-          f"bit-identical to the recorded ones: {changed}")
+          f"bit-identical to the recorded ones: "
+          f"{ {k: got.get(k) for k in changed} }")
     log(f"[3] {len(got)} outputs of kernel 1 / B.2 at D = 64 and 128 "
         f"bit-identical to the recorded digests")
+    decode_sweep(rng)
     return recs, qrecs
+
+
+def decode_sweep(rng):
+    """Kernel 1 and B.2 (3/4 of each lane's pages flagged) at decode with
+    every lane at ctx 4096, B = 1, 8 and 32 (llama3-8b's heads, bf16): each
+    against its plain version (B.2 beside kernel 1 on the same call, in
+    turns), with the splits ``pa.chunk_split_plan`` gives the call, the
+    cluster they run in (one CTA a split) and the share of the bound by
+    device time."""
+    recs = []
+    for B in (1, 8, 32):
+        q, kp, vp, tab, qoff, ctx = make_case(rng, B, 1, [4096] * B,
+                                              [1] * B, torch.bfloat16)
+        quant = int8_state(kp, vp, tab, ctx, 0.75)
+        for what, qt in (("kernel 1", None), ("B.2 3/4 flagged", quant)):
+            rec = compare(q, kp, vp, tab, qoff, ctx, [1] * B,
+                          torch.bfloat16,
+                          f"decode sweep {what} B={B} ctx=4096 bfloat16",
+                          quant=qt)
+            share = (rec["bound_ms"] / rec["device_ms"]
+                     if rec["device_ms"] else float("nan"))
+            log(f"[3]{fmt(rec)} cluster={rec['splits']} "
+                f"share_of_bound={share:.4f}")
+            recs.append(rec)
+        del q, kp, vp, quant
+    torch.cuda.empty_cache()
+    return recs
 
 
 def untouched_pages(rng):

@@ -100,9 +100,10 @@
 // registers and runs O += P.V as wgmma m64nDk16 with V's [keys][D] tile read as
 // the MN-major B operand.  Only tiles that reach past row 0's horizon are
 // masked; tiles past the last real row's horizon are neither loaded nor
-// computed.  160 threads and 83 KB of shared memory at D = 128 leave two CTAs
-// resident per SM, so one CTA's softmax overlaps the other's products.  Blocks
-// are issued highest query tile first across lanes and heads.
+// computed.  160 threads and 83 KB of shared memory at D = 128 (B.2: 256
+// threads, 100 KB) leave two CTAs resident per SM, so one CTA's softmax
+// overlaps the other's products.  Blocks are issued highest query tile first across lanes and
+// heads.
 //   * Garbage never meets p = 0.  The rows of the last stage that no load
 //     fills (keys past the lane's relevant pages) are zeroed when the CTA
 //     starts, since uninitialised shared memory can hold NaN and 0 * NaN is
@@ -118,18 +119,67 @@
 //     is m64n80k16 / m64n96k16 across the two column blocks, so no product
 //     reads a column past D.  Shared memory is D = 128's (two column blocks
 //     a row), so two CTAs stay resident per SM.
-//   * int8 pages (kQuant): a flagged page's codes arrive by TMA, one byte an
-//     element, unswizzled, into the page's own rows of the stage's last
-//     64-column block; after the full barrier the consumer warpgroup reads
-//     them, syncs, and writes them back as bf16 (exact for |code| <= 127)
-//     into the swizzled K/V tiles, then fences the generic-proxy stores
-//     before wgmma reads them (two resident CTAs overlap that with each
-//     other's products).  The page's float32 scales apply where the
-//     arithmetic is float32: k_scale multiplies S's columns of that page's
-//     keys before the softmax (s_j = (q . kq_j) ks_j), v_scale multiplies
-//     P's columns before P is rounded to bf16 (sum_j p_j (vq_j vs_j) =
-//     sum_j (p_j vs_j) vq_j); a plain page's columns are not multiplied at
-//     all.  A stage may mix both kinds.
+//   * int8 pages (kQuant): the consumers never convert.  B.2 runs 256
+//     threads: the consumer warpgroup and a producer warpgroup of the
+//     producer (warp 4, as in kernel 1) and three converter warps.  The
+//     producer fetches each stage's flagged pages' codes by TMA (one box a
+//     page and side, unswizzled) into a staging buffer of one stage beside
+//     the ring, as soon as the converters are done with the last flagged
+//     stage's, so the codes need not wait for the stage's ring slot; once
+//     the slot is free the converters write them, a 16-code unit at a
+//     time, as bf16 (codes_to_bf16: exact for |code| <= 128, two byte
+//     permutes and an add a code, no conversion instruction) into the
+//     swizzled rows TMA would have filled, fence them for wgmma, free the
+//     staging and arrive on the stage's full barrier (the producer's
+//     expect_tx and each converter's arrival).  So the consumers find
+//     every row of a full stage in bf16.  The producer converts nothing:
+//     its arrival on each full barrier, behind its TMA issue, would set
+//     the pace of flag-free stages too.  The two warpgroups trade
+//     registers: the CTA is launched with 128 a thread (two CTAs an SM),
+//     the producer warpgroup gives back to kCvtProdRegs and the consumers
+//     take kCvtConsRegs (setmaxnreg), and the launch is refused if the
+//     kernel was built with another count.  ptxas keeps 10 words of the
+//     consumers' in local memory at D = 128 (4 in the 1-row body) whatever
+//     their share.  The designs without a register trade that do not
+//     spill convert with fewer warps, and conversion sets a chunk's pace:
+//     on an H100 (chip_smoke.py phase 3, int8 chunk of 512 rows, half the
+//     pages flagged) the producer and one converter warp converting in
+//     the ring slot (192 threads) took 1.5x this design's time, and
+//     three warps without the trade (224 threads) are held to 128
+//     registers and spill more.
+//     The page's float32 scales apply where the arithmetic is float32:
+//     k_scale multiplies S's columns of that page's keys before the softmax
+//     (s_j = (q . kq_j) ks_j), v_scale multiplies P's columns before P is
+//     rounded to bf16 (sum_j p_j (vq_j vs_j) = sum_j (p_j vs_j) vq_j); a
+//     plain page's columns are not multiplied at all.  A stage may mix both
+//     kinds; a stage with no flagged page runs kernel 1's softmax
+//     instructions (the softmax is instantiated twice, with and without the
+//     scale lookups, and the stage's mask picks one), so with every flag
+//     clear the output is kernel 1's bit for bit.  On the head-feature rung
+//     (kFeat) the producers gather the codes into the tile and the
+//     consumers convert them in place, as before.
+//   * Decode on a small grid (the unsplit entry).  A grid of n_qblk x Hkv x
+//     B CTAs is 8 CTAs on 132 SMs at llama3-8b's decode of one lane, each
+//     walking 4096 keys through a 2-stage ring.  Where it holds fewer CTAs
+//     than the card has SMs, the wrapper's plan
+//     (paged_attention.chunk_split_plan) cuts each (query tile, kv head,
+//     lane)'s keys into n_split <= kMaxCluster = 8 splits of whole 64-key
+//     stages, the portable cluster size (no non-portable attribute is
+//     set), within one wave of two CTAs an SM, none under 512 keys of the
+//     table and at least three (a cluster's launch and merge outweigh a
+//     few stages, and what two splits save); the splits are the CTAs of
+//     one thread-block cluster.  Each runs the body on its keys and keeps o,
+//     m and l; the epilogue merges them over distributed shared memory in
+//     the same launch (each rank reading every rank's slots of its own
+//     thread index and writing a share of the columns), so a call stays
+//     one launch with no float32 partials in device memory.  A split past
+//     a lane's context loads nothing and joins the merge with l = 0; a
+//     ctx = 0 lane's tiles are padding and come back as zeros.  A grid
+//     that fills the card (long chunks, wide decode batches) keeps one
+//     split and merges nothing.  Kernel 1, B.2 and their
+//     head-feature route take the same plan for the same call, so B.2
+//     with every flag clear and the head-feature route stay bit-equal to
+//     kernel 1.  The partial mode keeps its own plan and float32 partials.
 //
 // float32: the CUDA-core body (paged_chunk_attention_kernel), as it was
 // before the bf16 body moved to the tensor cores, bit for bit.  The H100's
@@ -144,9 +194,11 @@
 // row's int8 vectors split unevenly over the four loaders (5 and 6 over 4);
 // at D = 80 the P.V accumulators cover 96 columns, of which the 16 pad
 // columns read zeros and are never written (96 needs no pad).  It sits far
-// from its operations bound, and split-KV only in the partial mode: a
-// decode batch of the kernel itself gives B x Hkv CTAs on 132 SMs.
+// from its operations bound and never splits a lane's keys in the unsplit
+// entry (its fp32 serving paths are held to exact tokens): split-KV only
+// in the partial mode, so a decode batch gives B x Hkv CTAs on 132 SMs.
 
+#include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -157,6 +209,8 @@
 
 #include "sm90.cuh"
 #include "split_kv.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -628,10 +682,33 @@ constexpr int kTcCtasPerSm = 2;                // __launch_bounds__ minimum
 // the head-feature rung's producer warps (kFeat): the cp.async gather's
 // rows alternate between them
 constexpr int kFeatProducers = 2;
+// B.2's warps that turn flagged pages' codes into bf16 tiles, producer
+// warps kCvtFirst to kCvtFirst + kCvtWarps - 1 (warp 4 is the producer):
+// see the producer
+constexpr int kCvtFirst = 1;
+constexpr int kCvtWarps = 3;
+// B.2's registers a thread: 256 threads and two CTAs an SM leave 128 at
+// launch; the producer warpgroup gives back down to kCvtProdRegs
+// (setmaxnreg), the consumers take kCvtConsRegs, 128 x (168 + 88) = the
+// CTA's 256 x 128 (the converters hold one unit at a time; the consumers'
+// loop, with the scales' softmax, spilled with fewer)
+constexpr int kCvtLaunchRegs = 128;
+constexpr int kCvtConsRegs = 168;
+constexpr int kCvtProdRegs = 88;
+static_assert(kCvtConsRegs + kCvtProdRegs == 2 * kCvtLaunchRegs,
+              "the two warpgroups share the CTA's registers");
+// warps beside the consumer warpgroup
+template <bool kFeat, bool kQuant>
+constexpr int kTcProducers =
+    kFeat ? kFeatProducers : kQuant ? kCvtFirst + kCvtWarps : 1;
 // threads a CTA: a consumer warpgroup and the producer warp(s)
-template <bool kFeat>
-constexpr int kTcThreads = 128 + 32 * (kFeat ? kFeatProducers : 1);
+template <bool kFeat, bool kQuant>
+constexpr int kTcThreads = 128 + 32 * kTcProducers<kFeat, kQuant>;
 constexpr int kMaxPages = kTcKeys;             // pages a stage, at 1 row
+// CTAs of a cluster over which the unsplit entry splits a lane's keys (the
+// portable cluster size; no non-portable attribute is set), the wrapper's
+// paged_attention.CHUNK_MAX_SPLITS
+constexpr int kMaxCluster = 8;
 
 // a box of a 4D tensor map into shared memory, completing on bar (the
 // head-feature rung's maps over every shard's pool: see feat_map)
@@ -743,11 +820,12 @@ struct StageMeta {
 // Byte offsets in the 1024-byte-aligned dynamic shared memory.  Each bf16
 // tile is stored as kCb 64-column blocks of [rows][128 bytes], 128-byte
 // swizzled: the 16-byte chunk c of row r sits at chunk c ^ (r % 8), as TMA
-// writes it and as wgmma's SWIZZLE_128B descriptors read it.  An int8 page's
-// codes land, unswizzled, [page rows][D] bytes, in the page's own rows of
-// the tile's last column block (page * 128 >= page * D bytes), and are
-// converted there in place.
-template <int D, bool kQuant>
+// writes it and as wgmma's SWIZZLE_128B descriptors read it.  On the
+// head-feature rung an int8 page's codes land, unswizzled, [page rows][D]
+// bytes, in the page's own rows of the tile's last column block (page * 128
+// >= page * D bytes), and are converted there in place; B.2's converter
+// warps write the bf16 rows themselves.
+template <int D, bool kQuant, bool kCvt = false>
 struct PcSmem {
   static constexpr int kCb = (D + 63) / 64;                // column blocks
   static constexpr int kQ = 0;
@@ -755,19 +833,60 @@ struct PcSmem {
   static constexpr int kK = kTcRows * kCb * 128;
   static constexpr int kV = kK + kTcStages * kStage;
   static constexpr int kCodes = (kCb - 1) * kTcKeys * 128; // codes in a tile
-  static constexpr int kMeta = kV + kTcStages * kStage;
+  // kCvt: the codes of one stage's flagged pages, K then V, page i's
+  // [page rows][D] bytes at i * page * 128 (TMA lands a box at a multiple
+  // of 128 bytes)
+  static constexpr int kStaging = kV + kTcStages * kStage;
+  static constexpr int kMeta = kStaging + (kCvt ? 2 * kTcKeys * 128 : 0);
   static constexpr int kBars =
       kMeta + (kQuant ? kTcStages * (int)sizeof(StageMeta) : 0);
-  static constexpr int kBytes = kBars + 2 * kTcStages * 8;  // full, empty
+  // full and empty barriers a stage, then (kCvt) the staging's landed and
+  // free barriers
+  static constexpr int kBytes = kBars + 2 * kTcStages * 8 + 16;
   static constexpr int kAlloc = kBytes + 1024;             // alignment slack
   static_assert(kBars % 8 == 0, "mbarriers are 8-byte aligned");
+  // a cluster's merge: each consumer thread's (o[D / 2], m[2], l[2]) over
+  // the K and V rings, once the ring is drained
+  static_assert((D / 2 + 4) * 128 * 4 <= 2 * kTcStages * kStage,
+                "the merge's slots fit in the ring");
 };
+
+// 16 int8 codes as 16 bf16 values (two 16-byte chunks), exact for |code|
+// <= 128: byte u = code + 128 set into the mantissa of 2^23 gives the
+// float 2^23 + u, minus 2^23 + 128 the code itself, whose top 16 bits are
+// its bf16 (a whole number of at most 8 bits has no lower mantissa bits).
+// Two byte permutes and an add a code, no conversion instruction: the same
+// bits as __floats2bfloat162_rn((float)code, ...)
+__device__ __forceinline__ void codes_to_bf16(const uint4& c, uint4& lo,
+                                              uint4& hi) {
+  const uint32_t w[4] = {c.x, c.y, c.z, c.w};
+  uint32_t out[8];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint32_t x = w[k] ^ 0x80808080u;
+    float f[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      f[e] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7540 + e)) -
+             8388736.f;
+    out[2 * k] = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                             0x7632);
+    out[2 * k + 1] = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]),
+                                 0x7632);
+  }
+  lo = make_uint4(out[0], out[1], out[2], out[3]);
+  hi = make_uint4(out[4], out[5], out[6], out[7]);
+}
 
 // q, out (B, Sq, H, D) bf16, contiguous; the K and V pools (P, page, Hkv,
 // D) through kmap / vmap (bf16) and, with kQuant, their int8 shadows
-// through kqmap / vqmap, with the scales (P,) float32 and flags (P,) int32;
-// tables (B, T_width), q_offsets and ctx_lens (B,) int32.  Grid: one CTA
-// per (query tile, split, kv head, lane), the highest query tiles first.
+// through kqmap / vqmap (codes, into the staging), with the scales (P,)
+// float32 and flags (P,) int32; tables (B, T_width), q_offsets and
+// ctx_lens (B,) int32.  Grid: one CTA per (query tile, split, kv head,
+// lane), the highest query tiles first.  n_clu > 1 (the unsplit entry on a
+// small grid): the n_split = n_clu splits of one (query tile, kv head,
+// lane) are the consecutive CTAs of one cluster, merged over distributed
+// shared memory into `out` (see the epilogue).
 // kOneRow: pages of 1 row (split-K shard pages only), where each of a
 // quad thread's two keys of a fragment has a page, a position and an int8
 // flag of its own, and a stage spans 64 pages.  With pages of 2 rows or
@@ -781,7 +900,7 @@ struct PcSmem {
 // each row's D columns from tp shards, two producer warps (see the
 // producer).
 template <int D, bool kQuant, bool kOneRow, bool kFeat>
-__global__ void __launch_bounds__(kTcThreads<kFeat>, kTcCtasPerSm)
+__global__ void __launch_bounds__(kTcThreads<kFeat, kQuant>, kTcCtasPerSm)
 paged_chunk_attention_tc(const __grid_constant__ ShardArg<kFeat> sh,
                const __grid_constant__ CUtensorMap kmap,
                const __grid_constant__ CUtensorMap vmap,
@@ -799,9 +918,12 @@ paged_chunk_attention_tc(const __grid_constant__ ShardArg<kFeat> sh,
                __nv_bfloat16* __restrict__ out, float* __restrict__ part,
                float* __restrict__ lse, int B, int Sq, int H, int Hkv,
                int page, int page_g, int r_off, int T_width, int bq,
-               int n_qblk, int split, int n_split) {
-  using L = PcSmem<D, kQuant>;
-  constexpr int kThr = kTcThreads<kFeat>;
+               int n_qblk, int split, int n_split, int n_clu) {
+  // B.2 off the head-feature rung: flagged pages' codes come from the int8
+  // pools through the converter warps, never into the tile as codes
+  constexpr bool kCvt = kQuant && !kFeat;
+  using L = PcSmem<D, kQuant, kCvt>;
+  constexpr int kThr = kTcThreads<kFeat, kQuant>;
   using Mask = std::conditional_t<kOneRow, unsigned long long, unsigned>;
   constexpr int kCb = L::kCb;
   constexpr int kChunks = D / 8;              // 16-byte bf16 chunks a row
@@ -812,15 +934,22 @@ paged_chunk_attention_tc(const __grid_constant__ ShardArg<kFeat> sh,
   uint8_t* smem = smem_raw + (base - smem_u32(smem_raw));
   const uint32_t full0 = base + L::kBars;     // full[s], then empty[s]
   const uint32_t empty0 = full0 + 8 * kTcStages;
+  const uint32_t landed = empty0 + 8 * kTcStages;  // kCvt: the staging's
+  const uint32_t freed = landed + 8;                // codes in, read
   StageMeta* meta = reinterpret_cast<StageMeta*>(smem + L::kMeta);
 
   const int G = H / Hkv;
   const int rows = bq * G;
-  const int hb = blockIdx.x % (Hkv * B);
+  // the merge mode: this CTA is rank sp of its (tile, kv head, lane)'s
+  // cluster, the ranks consecutive; otherwise the splits of one tile lie
+  // Hkv * B CTAs apart
+  const bool merge = n_clu > 1;
+  const int cl = merge ? blockIdx.x / n_clu : blockIdx.x;
+  const int hb = cl % (Hkv * B);
   const int h = hb % Hkv, b = hb / Hkv;
-  const int sq = blockIdx.x / (Hkv * B);
-  const int sp = sq % n_split;                // the split of the shard's keys
-  const int q0 = (n_qblk - 1 - sq / n_split) * bq;
+  const int sq = cl / (Hkv * B);
+  const int sp = merge ? blockIdx.x % n_clu : sq % n_split;  // the split
+  const int q0 = (n_qblk - 1 - (merge ? sq : sq / n_split)) * bq;
   const int ctx = ctx_lens[b];
   const int qoff = q_offsets[b];
   // split sp's slot of the float32 partials (partial mode only)
@@ -841,9 +970,13 @@ paged_chunk_attention_tc(const __grid_constant__ ShardArg<kFeat> sh,
   const int kl0 = sp * split;
   const int kl1 = n_split == 1 ? n_pages * page
                                : min(n_pages * page, kl0 + split);
-  if (q0 >= q_end || kl0 >= kl1) {
-    // a tile of padding rows, or a split past the tile's keys: zeros (and
-    // lse -inf), no K/V read
+  // a split past the tile's keys: in the merge mode it still joins its
+  // cluster's merge (with l = 0), since every CTA of a cluster takes part
+  const bool idle = kl0 >= kl1;
+  if (q0 >= q_end || (idle && !merge)) {
+    // a tile of padding rows (the same for every CTA of a cluster), or a
+    // split past the tile's keys: zeros (and lse -inf), no K/V read
+    if (merge && sp != 0) return;
     if (part == nullptr) {
       for (int i = threadIdx.x; i < rows * kChunks; i += kThr) {
         const int r = i / kChunks, qi = q0 + r / G;
@@ -867,7 +1000,7 @@ paged_chunk_attention_tc(const __grid_constant__ ShardArg<kFeat> sh,
     return;
   }
   const int t0 = kl0 / kTcKeys;
-  const int t1 = (kl1 + kTcKeys - 1) / kTcKeys;
+  const int t1 = idle ? t0 : (kl1 + kTcKeys - 1) / kTcKeys;
   const int lp = kOneRow ? 0 : __ffs(page) - 1;  // log2(page)
   const int ppt = kTcKeys >> lp;              // pages a stage
   // position of the local key kl (row kl % page of table entry kl / page);
@@ -881,7 +1014,9 @@ paged_chunk_attention_tc(const __grid_constant__ ShardArg<kFeat> sh,
   const bool cm = kFeat && fp_tma(sh);
   // zero the rows of the last tile's stage that no load fills (keys past
   // the lane's relevant pages), so that no garbage meets p = 0
-  if (cm) {                                   // rows [filled, 64): one span
+  if (idle) {
+    // no stage: nothing to zero
+  } else if (cm) {                            // rows [filled, 64): one span
     const int t = t1 - 1;
     const int filled = min(kTcKeys, n_pages * page - t * kTcKeys);
     const int n = (kTcKeys - filled) * D / 8;  // 16-byte chunks a side
@@ -904,9 +1039,14 @@ paged_chunk_attention_tc(const __grid_constant__ ShardArg<kFeat> sh,
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int s = 0; s < kTcStages; ++s) {
-      mbar_init(full0 + 8 * s, kFeat ? kFeatProducers : 1);
+      // kFeat: each producer warp; kCvt: the producer's expect_tx, then
+      // each converter warp once its bf16 rows are stored
+      mbar_init(full0 + 8 * s, kFeat ? kFeatProducers : kCvt ? 1 + kCvtWarps
+                                                             : 1);
       mbar_init(empty0 + 8 * s, 4);
     }
+    mbar_init(landed, 1);
+    mbar_init(freed, kCvtWarps);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   // the zeros are generic-proxy stores that TMA (the async proxy) may later
@@ -917,6 +1057,11 @@ paged_chunk_attention_tc(const __grid_constant__ ShardArg<kFeat> sh,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (warp >= 4) {
     const int pw = warp - 4;                  // producer warp (kFeat: 0, 1)
+    // kCvt: the producer warpgroup (the producer and the converters) gives
+    // registers back to the consumers
+    if constexpr (kCvt)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+          kCvtProdRegs));
     // the producer warp.  Lane i holds the table entries (with kQuant the
     // int8 flags and scales) of pages w0 + i and, at 1-row pages, w0 + 32
     // + i of a window of kWin pages of the lane's table row, read once a
@@ -937,8 +1082,19 @@ paged_chunk_attention_tc(const __grid_constant__ ShardArg<kFeat> sh,
     // columns past D, so the tile and the wgmma descriptors are the same
     // either way.  Each lane waits for its own copies and fences them for
     // the async proxy (wgmma) before the warp syncs and lane 0 arrives on
-    // the stage's full barrier.  int8 pages keep TMA (their codes,
-    // unswizzled).
+    // the stage's full barrier.
+    //
+    // kCvt (B.2 off the head-feature rung): warp 4 is kernel 1's producer
+    // for the fp pages (and writes StageMeta), and also fetches each
+    // flagged stage's codes by TMA into the staging buffer (fetch_codes)
+    // once the converters have freed it; warps 5-7, the converters, each
+    // hold the window too.  Converter thread c (lane + 32 (pw - 1)) takes
+    // the 16-code units c, c + 96, ... of the stage's 64 keys x D / 16
+    // units (one key's units on neighbouring lanes, K and V alike) and
+    // writes each as bf16 (codes_to_bf16) into the swizzled rows; its warp
+    // fences them for the async proxy, frees the staging and arrives on
+    // the full barrier, whose count is the producer's expect_tx and the
+    // three converters.
     //
     // kFeat (the head-feature rung) has two producer warps and two ways
     // to fill a stage.  A row's D columns are tp runs of dr features, run
@@ -990,11 +1146,16 @@ paged_chunk_attention_tc(const __grid_constant__ ShardArg<kFeat> sh,
     Mask win = 0;                             // the window's int8 flags
     FeatSlots fs;
     if constexpr (kFeat) fs.init<D>(sh, lane);
-    for (int t = t0; t < t1; ++t) {
-      const int i = t - t0, s = i % kTcStages;
+    // stage t's pages (np from the window slot l0) and int8 mask, set by
+    // window(t) at the end of the iteration before (the table entries,
+    // flags and scales are read once a window, before the wait for the
+    // stage's slot, so that their latency overlaps the consumers' work)
+    int np = 0, l0 = 0;
+    Mask mask = 0;
+    auto window = [&](int t) {
       const int p0 = t * ppt;
-      const int np = min(ppt, n_pages - p0);  // relevant pages of stage t
-      const int l0 = p0 % kWin;               // its first page's slot
+      np = min(ppt, n_pages - p0);            // relevant pages of stage t
+      l0 = p0 % kWin;                         // its first page's slot
       if (l0 == 0 || t == t0) {
 #pragma unroll
         for (int j = 0; j < kPer; ++j) {
@@ -1002,7 +1163,7 @@ paged_chunk_attention_tc(const __grid_constant__ ShardArg<kFeat> sh,
           pid[j] = p < n_pages ? row[p] : 0;
           if constexpr (kQuant) {
             qf[j] = p < n_pages && page_quant[pid[j]] != 0;
-            if (qf[j]) {
+            if (qf[j] && pw == 0) {           // StageMeta's writer
               ksv[j] = k_scales[pid[j]];
               vsv[j] = v_scales[pid[j]];
             }
@@ -1014,10 +1175,100 @@ paged_chunk_attention_tc(const __grid_constant__ ShardArg<kFeat> sh,
             win |= (Mask)__ballot_sync(0xffffffffu, qf[kPer - 1]) << 32;
         }
       }
-      Mask mask = 0;
       if constexpr (kQuant)
         mask = win >> l0 & (~Mask(0) >> (8 * (int)sizeof(Mask) - np));
-      if (i >= kTcStages) mbar_wait(empty0 + 8 * s, (i / kTcStages - 1) & 1);
+    };
+    if (kCvt && pw >= kCvtFirst) {
+      // A converter warp.  Per stage with a flagged page: wait for its
+      // codes in the staging and for the stage's slot, then turn this
+      // thread's 16-code units (K and V) one at a time into bf16 chunks 2u
+      // and 2u + 1 of key j's row, in the swizzle TMA writes (the columns
+      // past D at D = 80 and 96 are left as they are: no product reads
+      // them), fenced for wgmma, and free the staging (the producer then
+      // fetches the next flagged stage's codes, ahead of the ring's slot).
+      // Every stage, its warp arrives on the full barrier.
+      const uint8_t* stg = smem + L::kStaging;
+      unsigned ph = 0;                        // flagged stages seen
+      if (t0 < t1) window(t0);
+      for (int t = t0; t < t1; ++t) {
+        const int i = t - t0, s = i % kTcStages;
+        const Mask smask = mask;
+        const int n_rows = np * page;
+        if (t + 1 < t1) window(t + 1);
+        if (smask) mbar_wait(landed, ph++ & 1);
+        if (i >= kTcStages)
+          mbar_wait(empty0 + 8 * s, (i / kTcStages - 1) & 1);
+        if (smask) {
+          uint8_t* kt = smem + L::kK + s * L::kStage;
+          uint8_t* vt = smem + L::kV + s * L::kStage;
+#pragma unroll 2
+          for (int ku = (pw - kCvtFirst) * 32 + lane; ku < kTcKeys * kUnits;
+               ku += 32 * kCvtWarps) {
+            const int j = ku / kUnits, u = ku - j * kUnits;
+            if (j >= n_rows || !(smask >> (j >> lp) & 1)) continue;
+            const int at =
+                (j >> lp) * page * 128 + (j & (page - 1)) * D + u * 16;
+#pragma unroll
+            for (int kv = 0; kv < 2; ++kv) {
+              uint4 half[2];
+              codes_to_bf16(*reinterpret_cast<const uint4*>(
+                                stg + kv * kTcKeys * 128 + at),
+                            half[0], half[1]);
+#pragma unroll
+              for (int hf = 0; hf < 2; ++hf) {
+                const int ch = 2 * u + hf;
+                *reinterpret_cast<uint4*>(
+                    (kv ? vt : kt) + (ch / 8) * kTcKeys * 128 + j * 128 +
+                    (((ch % 8) ^ (j % 8)) * 16)) = half[hf];
+              }
+            }
+          }
+          // the rows for wgmma (the async proxy), before the warp arrives
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          __syncwarp();
+          if (lane == 0) mbar_arrive(freed);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(full0 + 8 * s);
+      }
+      if (merge) {                            // the consumers' merge
+        cg::this_cluster().sync();
+        cg::this_cluster().sync();
+      }
+      return;
+    }
+    // kCvt: the flagged pages' codes of the stage whose window was just
+    // read, into the staging once the converters are done with the last
+    // flagged stage's (a stage or more ahead of the ring's slots)
+    unsigned nfl = 0;                         // flagged stages fetched
+    auto fetch_codes = [&]() {
+      if (!kCvt || !mask) return;
+      if (nfl > 0) mbar_wait(freed, (nfl - 1) & 1);
+      ++nfl;
+      if (lane == 0)
+        mbar_expect_tx(landed,
+                       __popcll((unsigned long long)mask) * 2 * page * D);
+      __syncwarp();
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int pi = lane + 32 * j - l0;
+        if (pi < 0 || pi >= np || !qf[j]) continue;
+        const uint32_t off = pi * page * 128;
+        tma_load_3d(base + L::kStaging + off, &kqmap, landed, 0, h,
+                    pid[j] * page);
+        tma_load_3d(base + L::kStaging + kTcKeys * 128 + off, &vqmap, landed,
+                    0, h, pid[j] * page);
+      }
+      __syncwarp();
+    };
+    if (t0 < t1) {
+      window(t0);
+      fetch_codes();
+    }
+    for (int t = t0; t < t1; ++t) {
+      const int i = t - t0, s = i % kTcStages;
+      if (i >= kTcStages)
+        mbar_wait(empty0 + 8 * s, (i / kTcStages - 1) & 1);
       if constexpr (kQuant) {
         // each lane writes its pages' scales; the warp syncs before lane 0
         // arrives, so the consumers see them once the stage is full
@@ -1032,7 +1283,7 @@ paged_chunk_attention_tc(const __grid_constant__ ShardArg<kFeat> sh,
         if (pw == 0 && lane == 0) meta[s].mask = mask;
       }
       const int nq = __popcll((unsigned long long)mask);
-      if (gather || gather_codes) {
+      if ((gather || gather_codes) && (kFeat || pw == 0)) {
         // the stage's np * page rows (keys), K then V, chunk idx % kRowChunks
         // of row idx / kRowChunks for idx = lane, lane + 32, ...; at 1 or 2
         // rows a stage is a whole window (l0 = 0), and the rows of one pass
@@ -1125,14 +1376,11 @@ paged_chunk_attention_tc(const __grid_constant__ ShardArg<kFeat> sh,
         }
       }
       __syncwarp();                           // scales and copies before
-      if (lane == 0)                          // the arrive
-        mbar_expect_tx(full0 + 8 * s,
-                       pw != 0 ? 0
-                               : (gather_codes ? 0 : nq * 2 * page * D) +
-                                     (gather ? 0
-                                      : cm   ? (np - nq) * 4 * page * D
-                                             : (np - nq) * 2 * kCb * page *
-                                                   128));
+      if (lane == 0 && (kFeat || pw == 0))    // the arrive: the fp pages'
+        mbar_expect_tx(full0 + 8 * s,         // TMA bytes
+                       pw != 0 || gather ? 0
+                       : cm ? (np - nq) * 4 * page * D
+                            : (np - nq) * 2 * kCb * page * 128);
       __syncwarp();                           // the count before any bytes
 #pragma unroll
       for (int j = 0; j < kPer; ++j) {
@@ -1140,10 +1388,7 @@ paged_chunk_attention_tc(const __grid_constant__ ShardArg<kFeat> sh,
         if (pw != 0 || pi < 0 || pi >= np) continue;
         const int krow = pid[j] * page;
         if (kQuant && qf[j]) {
-          if (gather_codes) continue;
-          const uint32_t off = s * L::kStage + L::kCodes + pi * page * 128;
-          tma_load_3d(base + L::kK + off, &kqmap, full0 + 8 * s, 0, h, krow);
-          tma_load_3d(base + L::kV + off, &vqmap, full0 + 8 * s, 0, h, krow);
+          continue;              // codes: the staging's (kCvt), or gathered
         } else if (!gather) {
           if constexpr (kFeat) {
             // each 8-row group of the page: one box of every shard's 8
@@ -1170,12 +1415,24 @@ paged_chunk_attention_tc(const __grid_constant__ ShardArg<kFeat> sh,
         }
       }
       __syncwarp();
+      // the next stage's pages and flags (kCvt: and its codes)
+      if (t + 1 < t1) {
+        window(t + 1);
+        fetch_codes();
+      }
     }
     // kFeat: no lane leaves with copies in flight
     if constexpr (kFeat) asm volatile("cp.async.wait_all;\n" ::: "memory");
+    if (merge) {                              // the consumers' merge
+      cg::this_cluster().sync();
+      cg::this_cluster().sync();
+    }
     return;
   }
 
+  if constexpr (kCvt)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        kCvtConsRegs));
   // the consumer warpgroup: stage the tile's query rows, swizzled (zeros
   // for padding rows and past D), then make the generic-proxy stores
   // visible to wgmma
@@ -1218,11 +1475,12 @@ paged_chunk_attention_tc(const __grid_constant__ ShardArg<kFeat> sh,
     if constexpr (kFeat)
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     Mask mask = 0;
-    if constexpr (kQuant) {
-      mask = (Mask)meta[s].mask;
+    if constexpr (kQuant) mask = (Mask)meta[s].mask;
+    if constexpr (kFeat && kQuant) {
       if (mask) {
-        // the flagged pages' codes to bf16 in place, K then V, 32 keys (whole
-        // pages, whose codes lie in their own rows) a pass: every thread
+        // the head-feature rung: the flagged pages' codes (gathered into
+        // the tile) to bf16 in place, K then V, 32 keys (whole pages, whose
+        // codes lie in their own rows) a pass: every thread
         // reads its share of the pass's codes, the warpgroup syncs, then
         // each writes its bf16 chunks into the tile (at D = 80 the columns
         // past 80 keep code bytes, which neither product reads)
@@ -1251,11 +1509,8 @@ paged_chunk_attention_tc(const __grid_constant__ ShardArg<kFeat> sh,
               const int idx = threadIdx.x + 128 * n;
               const int j = j0 + idx / kUnits, u = idx % kUnits;
               if (idx >= kPass * kUnits || !(mask >> (j >> lp) & 1)) continue;
-              const int8_t* c8 = reinterpret_cast<const int8_t*>(&codes[n]);
-              uint32_t w[8];
-#pragma unroll
-              for (int e = 0; e < 8; ++e)
-                w[e] = pack_bf16((float)c8[2 * e], (float)c8[2 * e + 1]);
+              uint4 half[2];
+              codes_to_bf16(codes[n], half[0], half[1]);
 #pragma unroll
               for (int hf = 0; hf < 2; ++hf) {
                 const int ch = 2 * u + hf;                  // bf16 chunk
@@ -1263,8 +1518,7 @@ paged_chunk_attention_tc(const __grid_constant__ ShardArg<kFeat> sh,
                     tile + (cm ? (j >> 3) * D * 16 + ch * 128 + (j & 7) * 16
                                : (ch / 8) * kTcKeys * 128 + j * 128 +
                                      (((ch % 8) ^ (j % 8)) * 16))) =
-                    make_uint4(w[4 * hf], w[4 * hf + 1], w[4 * hf + 2],
-                               w[4 * hf + 3]);
+                    half[hf];
               }
             }
           }
@@ -1299,71 +1553,85 @@ paged_chunk_attention_tc(const __grid_constant__ ShardArg<kFeat> sh,
     // 1-row pages (kOneRow) each has its own page, so both are looked up
     constexpr int kLook = kOneRow ? 2 : 1;     // lookups a key pair
     const bool masked = gpos(k0 + kTcKeys - 1) > first;
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int i = 0; i < kTcKeys / 8; ++i) {
-      bool qk[2] = {false, false};             // an int8 page's keys
-      float ks[2] = {0.f, 0.f};
-      if constexpr (kQuant) {
-#pragma unroll
-        for (int u = 0; u < kLook; ++u) {
-          const int slot = (8 * i + 2 * tq + u) >> lp;
-          qk[u] = mask >> slot & 1;
-          if (qk[u]) ks[u] = meta[s].ks[slot];
-        }
-        if constexpr (!kOneRow) {
-          qk[1] = qk[0];
-          ks[1] = ks[0];
-        }
-      }
-      const int g0 = masked ? gpos(k0 + 8 * i + 2 * tq) : 0;
-      const int g1 = kOneRow ? (masked ? gpos(k0 + 8 * i + 2 * tq + 1) : 0)
-                             : g0 + 1;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        // __fmul_rn: never contracted, so with every flag clear the int8
-        // kernel rounds exactly as the fp kernel does
-        float x = sc[4 * i + e];
-        if (qk[e & 1]) x = __fmul_rn(x, ks[e & 1]);  // s_j = (q . kq_j) ks_j
-        x = __fmul_rn(x, sl2);
-        if (masked && ((e & 1) ? g1 : g0) > hz[e / 2])
-          x = neg_inf();                       // p = 0
-        sc[4 * i + e] = x;
-        mx[e / 2] = fmaxf(mx[e / 2], x);
-      }
-    }
     float corr[2];
+    // kQ: the stage holds int8 pages, whose keys' scores and probabilities
+    // take their page's scales; a stage without (every stage of kernel 1,
+    // and B.2's where no page is flagged) runs kernel 1's instructions,
+    // with no lookup of a flag or a scale
+    auto softmax = [&](auto quant) {
+      constexpr bool kQ = decltype(quant)::value;
+      float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 1));
-      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 2));
-      corr[j] = exp2f(m[j] - mx[j]);  // m, mx >= the finite mask value
-      m[j] = mx[j];
-      l[j] = __fmul_rn(l[j], corr[j]);
-    }
+      for (int i = 0; i < kTcKeys / 8; ++i) {
+        bool qk[2] = {false, false};           // an int8 page's keys
+        float ks[2] = {0.f, 0.f};
+        if constexpr (kQ) {
 #pragma unroll
-    for (int i = 0; i < kTcKeys / 8; ++i) {
-      bool qv[2] = {false, false};
-      float vs[2] = {0.f, 0.f};
-      if constexpr (kQuant) {
-#pragma unroll
-        for (int u = 0; u < kLook; ++u) {
-          const int slot = (8 * i + 2 * tq + u) >> lp;
-          qv[u] = mask >> slot & 1;
-          if (qv[u]) vs[u] = meta[s].vs[slot];
+          for (int u = 0; u < kLook; ++u) {
+            const int slot = (8 * i + 2 * tq + u) >> lp;
+            qk[u] = mask >> slot & 1;
+            if (qk[u]) ks[u] = meta[s].ks[slot];
+          }
+          if constexpr (!kOneRow) {
+            qk[1] = qk[0];
+            ks[1] = ks[0];
+          }
         }
-        if constexpr (!kOneRow) {
-          qv[1] = qv[0];
-          vs[1] = vs[0];
+        const int g0 = masked ? gpos(k0 + 8 * i + 2 * tq) : 0;
+        const int g1 = kOneRow ? (masked ? gpos(k0 + 8 * i + 2 * tq + 1) : 0)
+                               : g0 + 1;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // __fmul_rn: never contracted, so with every flag clear the int8
+          // kernel rounds exactly as the fp kernel does
+          float x = sc[4 * i + e];
+          if (kQ && qk[e & 1])
+            x = __fmul_rn(x, ks[e & 1]);       // s_j = (q . kq_j) ks_j
+          x = __fmul_rn(x, sl2);
+          if (masked && ((e & 1) ? g1 : g0) > hz[e / 2])
+            x = neg_inf();                     // p = 0
+          sc[4 * i + e] = x;
+          mx[e / 2] = fmaxf(mx[e / 2], x);
         }
       }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(sc[4 * i + e] - m[e / 2]);  // masked: 0
-        l[e / 2] += p;  // this thread's keys; the quad sums at the end
-        sc[4 * i + e] =
-            qv[e & 1] ? __fmul_rn(p, vs[e & 1]) : p;  // (p_j vs_j) . vq_j
+      for (int j = 0; j < 2; ++j) {
+        mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 1));
+        mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 2));
+        corr[j] = exp2f(m[j] - mx[j]);  // m, mx >= the finite mask value
+        m[j] = mx[j];
+        l[j] = __fmul_rn(l[j], corr[j]);
       }
+#pragma unroll
+      for (int i = 0; i < kTcKeys / 8; ++i) {
+        bool qv[2] = {false, false};
+        float vs[2] = {0.f, 0.f};
+        if constexpr (kQ) {
+#pragma unroll
+          for (int u = 0; u < kLook; ++u) {
+            const int slot = (8 * i + 2 * tq + u) >> lp;
+            qv[u] = mask >> slot & 1;
+            if (qv[u]) vs[u] = meta[s].vs[slot];
+          }
+          if constexpr (!kOneRow) {
+            qv[1] = qv[0];
+            vs[1] = vs[0];
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(sc[4 * i + e] - m[e / 2]);  // masked: 0
+          l[e / 2] += p;  // this thread's keys; the quad sums at the end
+          sc[4 * i + e] = kQ && qv[e & 1] ? __fmul_rn(p, vs[e & 1])
+                                          : p;  // (p_j vs_j) . vq_j
+        }
+      }
+    };
+    if constexpr (kQuant) {
+      if (mask) softmax(std::true_type{});
+      else softmax(std::false_type{});
+    } else {
+      softmax(std::false_type{});
     }
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) {
@@ -1406,6 +1674,87 @@ paged_chunk_attention_tc(const __grid_constant__ ShardArg<kFeat> sh,
   for (int j = 0; j < 2; ++j) {
     l[j] += __shfl_xor_sync(0xffffffffu, l[j], 1);
     l[j] += __shfl_xor_sync(0xffffffffu, l[j], 2);
+  }
+  if (merge) {
+    // The cluster's merge.  Each thread leaves its fragment, o[D / 2]
+    // unnormalised with its rows' m (log2 units of the scaled scores) and
+    // l, in slots over the drained K and V rings, slot k of thread x at
+    // [k][x]; after the cluster's barrier rank sp reads every rank's slots
+    // of its own thread index (the same rows and columns) over distributed
+    // shared memory and writes the column pairs i = sp, sp + n_clu, ... of
+    // its rows: sum_r w_r o_r / max(sum_r w_r l_r, 1e-30), w_r =
+    // 2^(m_r - max m), a rank whose split gave the row no key (l_r = 0:
+    // past the lane's context, or beyond the row's horizon) weighing 0.
+    // The second barrier keeps every rank's slots until all have read.
+    float* slot = reinterpret_cast<float*>(smem + L::kK);
+    const int x = threadIdx.x;
+    const bool live = hz[0] >= 0 || hz[1] >= 0;   // a real row of its two
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");  // the ring's last read
+    if (live) {
+#pragma unroll
+      for (int k = 0; k < D / 2; ++k) slot[k * 128 + x] = o[k];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        slot[(D / 2 + j) * 128 + x] = m[j];
+        slot[(D / 2 + 2 + j) * 128 + x] = l[j];
+      }
+    }
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    const float* rs[kMaxCluster];
+    float w[kMaxCluster][2], mm[2] = {neg_inf(), neg_inf()};
+    float ll[2] = {0.f, 0.f};
+    if (live) {
+#pragma unroll
+      for (int rk = 0; rk < kMaxCluster; ++rk) {
+        rs[rk] = rk < n_clu ? cluster.map_shared_rank(slot, rk) : slot;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const bool got =
+              rk < n_clu && rs[rk][(D / 2 + 2 + j) * 128 + x] > 0.f;
+          w[rk][j] = got ? rs[rk][(D / 2 + j) * 128 + x] : neg_inf();
+          mm[j] = fmaxf(mm[j], w[rk][j]);
+        }
+      }
+#pragma unroll
+      for (int rk = 0; rk < kMaxCluster; ++rk)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          // 0 for a rank without keys; mm is finite on a real row (some
+          // rank saw its first key)
+          w[rk][j] = w[rk][j] == neg_inf() ? 0.f : exp2f(w[rk][j] - mm[j]);
+          if (rk < n_clu)
+            ll[j] = fmaf(w[rk][j], rs[rk][(D / 2 + 2 + j) * 128 + x], ll[j]);
+        }
+    }
+    // every thread writes its rows' columns of this rank (zeros on a
+    // padding row, as the unsplit epilogue does)
+    for (int i = sp; i < D / 8; i += n_clu) {
+      float a[4] = {0.f, 0.f, 0.f, 0.f};
+      if (live) {
+#pragma unroll
+        for (int rk = 0; rk < kMaxCluster; ++rk) {
+          if (rk >= n_clu) continue;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            a[e] = fmaf(w[rk][e / 2], rs[rk][(4 * i + e) * 128 + x], a[e]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int r = r0 + 8 * j, qi = q0 + r / G;
+        if (r >= rows || qi >= Sq) continue;
+        const float denom = fmaxf(ll[j], 1e-30f);
+        *reinterpret_cast<__nv_bfloat162*>(
+            out + (((size_t)b * Sq + qi) * H + h * G + r % G) * D + 8 * i +
+            2 * tq) =
+            hz[j] < 0 ? __floats2bfloat162_rn(0.f, 0.f)
+                      : __floats2bfloat162_rn(a[2 * j] / denom,
+                                              a[2 * j + 1] / denom);
+      }
+    }
+    cluster.sync();
+    return;
   }
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
@@ -1502,55 +1851,72 @@ cudaError_t launch_tc(const ShardArg<kFeat>& sh, const void* q,
   // shard pages of 1 or 2 rows are gathered by cp.async: the pools' maps
   // are not read, so they are not encoded (a host cost on every launch of
   // the partial mode, once a shard and layer); the head-feature rung
-  // encodes its feat_map boxes where it reads by TMA
-  CUtensorMap kmap{}, vmap{}, kqmap, vqmap;
+  // encodes its feat_map boxes where it reads by TMA (and gathers its
+  // int8 codes)
+  CUtensorMap kmap{}, vmap{}, kqmap{}, vqmap{};
   if constexpr (kFeat) {
     if (sh.fp_tma &&
         (!feat_map(&kmap, sh.k[0], sh.stride[0], P, page, Hkv, sh.tp) ||
          !feat_map(&vmap, sh.v[0], sh.stride[1], P, page, Hkv, sh.tp)))
       return cudaErrorInvalidValue;
-    kqmap = kmap;                             // unused
-    vqmap = vmap;
-  } else if (page > 2 &&
-             (!pool_map(&kmap, k_pages, false, P, page, Hkv, D) ||
-              !pool_map(&vmap, v_pages, false, P, page, Hkv, D))) {
-    return cudaErrorInvalidValue;
-  }
-  if constexpr (!kFeat) {
-    if (kQuant) {
-      if (!pool_map(&kqmap, qa.kq_pages, true, P, page, Hkv, D) ||
-          !pool_map(&vqmap, qa.vq_pages, true, P, page, Hkv, D))
-        return cudaErrorInvalidValue;
-    } else {
-      kqmap = kmap;  // unused
-      vqmap = vmap;
-    }
+  } else {
+    if (page > 2 && (!pool_map(&kmap, k_pages, false, P, page, Hkv, D) ||
+                     !pool_map(&vmap, v_pages, false, P, page, Hkv, D)))
+      return cudaErrorInvalidValue;
+    if (kQuant && (!pool_map(&kqmap, qa.kq_pages, true, P, page, Hkv, D) ||
+                   !pool_map(&vqmap, qa.vq_pages, true, P, page, Hkv, D)))
+      return cudaErrorInvalidValue;
   }
   const int G = H / Hkv;
   const int bq = kTcRows / G;
   const int n_qblk = (Sq + bq - 1) / bq;
   const long long n_ctas = (long long)n_qblk * n_split * Hkv * B;
   if (n_ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
-  constexpr int smem = PcSmem<D, kQuant>::kAlloc;
+  constexpr int smem = PcSmem<D, kQuant, kQuant && !kFeat>::kAlloc;
+  auto kern = paged_chunk_attention_tc<D, kQuant, kOneRow, kFeat>;
   // the shared-memory attribute once a card (bit `device` of `set`), not
   // on every launch: the partial mode launches once a shard and layer
   static unsigned long long set = 0;
   if (device >= 64 || !(set >> device & 1)) {
     cudaError_t err = cudaFuncSetAttribute(
-        paged_chunk_attention_tc<D, kQuant, kOneRow, kFeat>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
+    // B.2's warpgroups trade registers (setmaxnreg) out of a CTA launched
+    // with kCvtLaunchRegs a thread: any other count would leave the
+    // consumers' request unmet, so the launch is refused instead
+    if constexpr (kQuant && !kFeat) {
+      cudaFuncAttributes attr;
+      err = cudaFuncGetAttributes(&attr, kern);
+      if (err != cudaSuccess) return err;
+      if (attr.numRegs != kCvtLaunchRegs) return cudaErrorInvalidConfiguration;
+    }
     if (device < 64) set |= 1ull << device;
   }
-  paged_chunk_attention_tc<D, kQuant, kOneRow, kFeat>
-      <<<(unsigned)n_ctas, kTcThreads<kFeat>, smem, stream>>>(
-      sh, kmap, vmap, kqmap, vqmap, static_cast<const __nv_bfloat16*>(q),
+  // the unsplit entry's splits (lse null): one cluster of n_split CTAs a
+  // (query tile, kv head, lane), merged inside the launch
+  const int n_clu = lse == nullptr ? n_split : 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)n_ctas);
+  cfg.blockDim = dim3(kTcThreads<kFeat, kQuant>);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)n_clu;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = n_clu > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kern, sh, kmap, vmap, kqmap, vqmap,
+      static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k_pages),
       static_cast<const __nv_bfloat16*>(v_pages), qa.k_scales, qa.v_scales,
       qa.page_quant, tables, q_offsets, ctx_lens,
       lse == nullptr ? static_cast<__nv_bfloat16*>(out) : nullptr,
       lse == nullptr ? nullptr : static_cast<float*>(out), lse, B, Sq, H, Hkv,
-      page, page_g, r_off, T_width, bq, n_qblk, split, n_split);
+      page, page_g, r_off, T_width, bq, n_qblk, split, n_split, n_clu);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -1573,9 +1939,17 @@ int dispatch(const void* q, const void* k_pages, const void* v_pages,
              int shard, int split, int n_split, int dtype, int device,
              void* stream, const ShardArg<kFeat>& sh = ShardArg<kFeat>()) {
   if (lse == nullptr) {
-    if (n_shards != 1 || n_split != 1) return cudaErrorInvalidValue;
+    if (n_shards != 1 || n_split < 1 || n_split > kMaxCluster)
+      return cudaErrorInvalidValue;
     if (kFeat ? (page < 1 || page > 32 || (page & (page - 1)) != 0)
               : (page != 8 && page != 16 && page != 32))
+      return cudaErrorInvalidValue;
+    // a split a cluster's rank: the bf16 body only, whole stages, every
+    // split holding some of the table's keys
+    if (n_split > 1 &&
+        (dtype != 1 || split < kTcKeys || split % kTcKeys != 0 ||
+         (long long)split * n_split < (long long)T_width * page ||
+         (long long)split * (n_split - 1) >= (long long)T_width * page))
       return cudaErrorInvalidValue;
   } else {
     if (kFeat) return cudaErrorInvalidValue;
@@ -1617,67 +1991,60 @@ int dispatch(const void* q, const void* k_pages, const void* v_pages,
   return cudaErrorInvalidValue;
 }
 
-// the bf16 body at pages of 2 rows or more: the unsplit kernel's (with
-// kFeat, the head-feature rung's)
-template <bool kQuant, bool kFeat>
+// the bf16 body at pages of 2 rows or more, or (kOneRow) of 1 row (with
+// kFeat, the head-feature rung's); the float32 body has one kind
+template <bool kQuant, bool kOneRow, bool kFeat>
 cudaError_t body_resources(int D, int dtype, int* out) {
-  if (dtype == 0 && D == 64)
-    return resources(paged_chunk_attention_kernel<float, 64, kQuant, kFeat>,
-                     kThreads, 0, out);
-  if (dtype == 0 && D == 80)
-    return resources(paged_chunk_attention_kernel<float, 80, kQuant, kFeat>,
-                     kThreads, 0, out);
-  if (dtype == 0 && D == 96)
-    return resources(paged_chunk_attention_kernel<float, 96, kQuant, kFeat>,
-                     kThreads, 0, out);
-  if (dtype == 0 && D == 128)
-    return resources(paged_chunk_attention_kernel<float, 128, kQuant, kFeat>,
-                     kThreads, 0, out);
-  if (dtype == 1 && D == 64)
-    return resources(paged_chunk_attention_tc<64, kQuant, false, kFeat>,
-                     kTcThreads<kFeat>, PcSmem<64, kQuant>::kAlloc, out);
-  if (dtype == 1 && D == 80)
-    return resources(paged_chunk_attention_tc<80, kQuant, false, kFeat>,
-                     kTcThreads<kFeat>, PcSmem<80, kQuant>::kAlloc, out);
-  if (dtype == 1 && D == 96)
-    return resources(paged_chunk_attention_tc<96, kQuant, false, kFeat>,
-                     kTcThreads<kFeat>, PcSmem<96, kQuant>::kAlloc, out);
-  if (dtype == 1 && D == 128)
-    return resources(paged_chunk_attention_tc<128, kQuant, false, kFeat>,
-                     kTcThreads<kFeat>, PcSmem<128, kQuant>::kAlloc, out);
+#define PCA_RES(DIM)                                                        \
+  if (dtype == 0 && D == DIM)                                               \
+    return resources(paged_chunk_attention_kernel<float, DIM, kQuant, kFeat>, \
+                     kThreads, 0, out);                                     \
+  if (dtype == 1 && D == DIM)                                               \
+    return resources(paged_chunk_attention_tc<DIM, kQuant, kOneRow, kFeat>,  \
+                     kTcThreads<kFeat, kQuant>,                             \
+                     PcSmem<DIM, kQuant, kQuant && !kFeat>::kAlloc, out);
+  PCA_RES(64) PCA_RES(80) PCA_RES(96) PCA_RES(128)
+#undef PCA_RES
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32 (the CUDA-core body), 1 = bfloat16 (the tensor-core
-// body); P pool pages.  Returns a cudaError_t (0 = launched).
+// body); P pool pages.  split, n_split: the wrapper's plan
+// (paged_attention.chunk_split_plan): n_split = 1, or (bf16 only) 2 to
+// kMaxCluster splits of `split` keys, a multiple of kTcKeys, over one
+// cluster a (query tile, kv head, lane), merged in the launch.  Returns a
+// cudaError_t (0 = launched).
 extern "C" int paged_chunk_attention_launch(
     const void* q, const void* k_pages, const void* v_pages,
     const int* tables, const int* q_offsets, const int* ctx_lens, void* out,
     int B, int Sq, int H, int Hkv, int D, int P, int page, int T_width,
-    int dtype, int device, void* stream) {
+    int split, int n_split, int dtype, int device, void* stream) {
   const QuantArgs none = {nullptr, nullptr, nullptr, nullptr, nullptr};
   return dispatch<false>(q, k_pages, v_pages, none, tables, q_offsets,
                          ctx_lens, out, nullptr, B, Sq, H, Hkv, D, P, page,
-                         T_width, 1, 0, 0, 1, dtype, device, stream);
+                         T_width, 1, 0, split, n_split, dtype, device,
+                         stream);
 }
 
 // The int8 kernel: kq/vq_pages (P, page, Hkv, D) int8, k/v_scales (P,)
-// float32, page_quant (P,) int32 (nonzero = read the int8 pools).
+// float32, page_quant (P,) int32 (nonzero = read the int8 pools); split
+// and n_split as kernel 1's (the same plan, so that with every flag clear
+// the two are bit-identical).
 extern "C" int paged_chunk_attention_quant_launch(
     const void* q, const void* k_pages, const void* v_pages,
     const void* kq_pages, const void* vq_pages, const float* k_scales,
     const float* v_scales, const int* page_quant, const int* tables,
     const int* q_offsets, const int* ctx_lens, void* out, int B, int Sq,
-    int H, int Hkv, int D, int P, int page, int T_width, int dtype,
-    int device, void* stream) {
+    int H, int Hkv, int D, int P, int page, int T_width, int split,
+    int n_split, int dtype, int device, void* stream) {
   const QuantArgs qa = {static_cast<const int8_t*>(kq_pages),
                         static_cast<const int8_t*>(vq_pages), k_scales,
                         v_scales, page_quant};
   return dispatch<true>(q, k_pages, v_pages, qa, tables, q_offsets, ctx_lens,
                         out, nullptr, B, Sq, H, Hkv, D, P, page, T_width, 1,
-                        0, 0, 1, dtype, device, stream);
+                        0, split, n_split, dtype, device, stream);
 }
 
 // The split-K partial mode of either kernel: the pools (P, page, Hkv, D)
@@ -1733,14 +2100,19 @@ extern "C" int paged_chunk_attention_merge_launch(
 }
 
 // out[5]: the `resources` of the body that the launch runs for (dtype, D,
-// quant): registers, local bytes, shared memory, CTAs per SM, threads.
-// Returns a cudaError_t.
+// quant; one_row: pages of 1 row, the split-K partial mode's):
+// registers, local bytes, shared memory, CTAs per SM, threads.  Returns a
+// cudaError_t.
 extern "C" int paged_chunk_attention_resources(int D, int dtype, int quant,
-                                               int device, int* out) {
+                                               int one_row, int device,
+                                               int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  return quant ? body_resources<true, false>(D, dtype, out)
-               : body_resources<false, false>(D, dtype, out);
+  if (one_row)
+    return quant ? body_resources<true, true, false>(D, dtype, out)
+                 : body_resources<false, true, false>(D, dtype, out);
+  return quant ? body_resources<true, false, false>(D, dtype, out)
+               : body_resources<false, false, false>(D, dtype, out);
 }
 
 // The head-feature rung's route of either kernel: q and out (B, Sq, H, D)
@@ -1752,14 +2124,17 @@ extern "C" int paged_chunk_attention_resources(int D, int dtype, int quant,
 // The scales and flags (P,) are the pages' own, one set for every shard.
 // dr a power of 2 from 2 to 64, tp at most kMaxShards, page 1 to 32 rows.
 // tma: read K and V by TMA (bf16, dr = 8, pages of a multiple of 8 rows,
-// both strides set), else gather them by cp.async.  Returns a cudaError_t
-// (0 = launched).
+// both strides set), else gather them by cp.async.  split, n_split: kernel
+// 1's plan for the same call, so that the output stays bit-equal to the
+// kernel's on the concatenated pools.  Returns a cudaError_t (0 =
+// launched).
 extern "C" int paged_chunk_attention_features_launch(
     const void* q, const void* const* pools, const long long* strides,
     const float* k_scales, const float* v_scales, const int* page_quant,
     const int* tables, const int* q_offsets, const int* ctx_lens, void* out,
     int B, int Sq, int H, int Hkv, int D, int P, int page, int T_width,
-    int tp, int tma, int dtype, int device, void* stream) {
+    int tp, int tma, int split, int n_split, int dtype, int device,
+    void* stream) {
   if (pools == nullptr || strides == nullptr || tp < 1 || tp > kMaxShards ||
       D % tp != 0)
     return cudaErrorInvalidValue;
@@ -1791,12 +2166,12 @@ extern "C" int paged_chunk_attention_features_launch(
   if (quant)
     return dispatch<true, true>(q, nullptr, nullptr, qa, tables, q_offsets,
                                 ctx_lens, out, nullptr, B, Sq, H, Hkv, D, P,
-                                page, T_width, 1, 0, 0, 1, dtype, device,
-                                stream, sh);
+                                page, T_width, 1, 0, split, n_split, dtype,
+                                device, stream, sh);
   return dispatch<false, true>(q, nullptr, nullptr, qa, tables, q_offsets,
                                ctx_lens, out, nullptr, B, Sq, H, Hkv, D, P,
-                               page, T_width, 1, 0, 0, 1, dtype, device,
-                               stream, sh);
+                               page, T_width, 1, 0, split, n_split, dtype,
+                               device, stream, sh);
 }
 
 // out[5]: the `resources` of the body that the head-feature route runs for
@@ -1806,6 +2181,6 @@ extern "C" int paged_chunk_attention_features_resources(int D, int dtype,
                                                         int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  return quant ? body_resources<true, true>(D, dtype, out)
-               : body_resources<false, true>(D, dtype, out);
+  return quant ? body_resources<true, false, true>(D, dtype, out)
+               : body_resources<false, false, true>(D, dtype, out);
 }

@@ -9,12 +9,18 @@ kernel of the same name in ``repro/kernels/paged_attention.py``.  One launch
 function holds two bodies: bfloat16 runs on the tensor cores (wgmma, K/V by
 TMA into a shared-memory ring that follows the block table), float32 on the
 CUDA cores in float32; the source says how each is built and what bounds
-it.  ``resources`` reports what the runtime sees of each body.
+it.  ``resources`` reports what the runtime sees of each body.  Where the
+bf16 grid holds fewer CTAs than the card has SMs (decode, short chunks of
+few lanes), ``chunk_split_plan`` cuts each (query tile, kv head, lane)'s
+keys over the CTAs of one thread-block cluster, merged inside the launch:
+still one launch a call.
 ``paged_chunk_attention_quant`` is the same kernel over a mixed-precision
 pool: pages whose flag is set are read from the int8 shadow pools and
-multiplied by their float32 scale, the rest from the fp pools.  The serving
-step dispatches it on every layer once the int8 tier is active.  It
-replaces the TPU kernel ``paged_chunk_attention_quant``.
+multiplied by their float32 scale, the rest from the fp pools (converted
+to bf16 by warps of their own beside the consumers), with kernel 1's
+split plan.  The serving step dispatches it on every layer once the int8
+tier is active.  It replaces the TPU kernel
+``paged_chunk_attention_quant``.
 ``paged_chunk_attention_partial`` and ``paged_chunk_attention_quant_partial``
 are the two kernels' split-K partial mode for tensor-parallel serving
 (`DenseLM.step_paged_tp` on a pool whose kv heads do not divide over the
@@ -124,9 +130,10 @@ def _entry(symbol: str, n_ptrs: int, n_ints: int = 10, lib: str = NAME):
 
 
 def resources(dtype, head_dim: int, quant: bool = False,
-              device=None) -> dict:
+              device=None, *, one_row: bool = False) -> dict:
     """What the runtime reports for the body that kernel 1 (or, with
-    ``quant``, B.2) runs for ``dtype`` at ``head_dim`` on the card:
+    ``quant``, B.2) runs for ``dtype`` at ``head_dim`` on the card (with
+    ``one_row``, the body of pages of 1 row, the split-K partial mode's):
     registers a thread, local (spill) bytes a thread, shared memory a CTA,
     CTAs resident per SM, threads a CTA."""
     if dtype not in _DTYPES or head_dim not in HEAD_DIMS:
@@ -135,12 +142,13 @@ def resources(dtype, head_dim: int, quant: bool = False,
     f = _fns.get("resources")
     if f is None:
         f = build.load(NAME).paged_chunk_attention_resources
-        f.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        f.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
         f.restype = ctypes.c_int
         _fns["resources"] = f
     out = (ctypes.c_int * 5)()
     dev = torch.cuda.current_device() if device is None else int(device)
-    err = f(head_dim, _DTYPES[dtype], int(bool(quant)), dev, out)
+    err = f(head_dim, _DTYPES[dtype], int(bool(quant)), int(bool(one_row)),
+            dev, out)
     if err != 0:
         raise RuntimeError(f"{NAME}: resources query failed with "
                            f"cudaError_t {err}")
@@ -297,15 +305,19 @@ def _stream(dev: int) -> int:
 
 def _launch(symbol, name, q, k_pages, v_pages, quant, block_tables,
             q_offsets, ctx_lens):
-    """Launch ``symbol``, the fp or the int8 kernel, into a new output."""
+    """Launch ``symbol``, the fp or the int8 kernel, into a new output, its
+    keys split as ``chunk_split_plan`` says."""
     B, Sq, H, D = q.shape
     _, page, Hkv, _ = k_pages.shape
+    T = block_tables.shape[1]
     out = torch.empty_like(q)
     tensors = [q, k_pages, v_pages, *quant, block_tables, q_offsets,
                ctx_lens, out]
-    ints = [B, Sq, H, Hkv, D, k_pages.shape[0], page, block_tables.shape[1]]
-    fn = _entry(symbol, len(tensors), n_ints=len(ints) + 2)
     dev = _device(q)
+    n_split, split = chunk_split_plan(B, Sq, H, Hkv, T, page, q.dtype,
+                                      _sm_count(dev))
+    ints = [B, Sq, H, Hkv, D, k_pages.shape[0], page, T, split, n_split]
+    fn = _entry(symbol, len(tensors), n_ints=len(ints) + 2)
     err = fn(*[t.data_ptr() for t in tensors], *ints, _DTYPES[q.dtype], dev,
              _stream(dev))
     if err != 0:
@@ -698,13 +710,19 @@ def paged_chunk_attention_features(q, k_pools, v_pools, block_tables,
     B, Sq, H, D = q.shape
     out = torch.empty_like(q)
     qptrs = [None] * 3 if quant is None else [t.data_ptr() for t in quant[2:]]
-    fn = _entry("paged_chunk_attention_features_launch", 10, n_ints=12)
+    # kernel 1's plan for the call on the concatenated pools: the same
+    # splits, so the same bits
+    n_split, split = chunk_split_plan(B, Sq, H, shape[2],
+                                      block_tables.shape[1], shape[1],
+                                      q.dtype, _sm_count(dev))
+    fn = _entry("paged_chunk_attention_features_launch", 10, n_ints=14)
     err = fn(q.data_ptr(), ctypes.addressof(table), ctypes.addressof(steps),
              *qptrs,
              block_tables.data_ptr(), q_offsets.data_ptr(),
              ctx_lens.data_ptr(), out.data_ptr(), B, Sq, H, shape[2], D,
              shape[0], shape[1], block_tables.shape[1], tp,
-             int(producer == "tma"), _DTYPES[q.dtype], dev, _stream(dev))
+             int(producer == "tma"), split, n_split, _DTYPES[q.dtype], dev,
+             _stream(dev))
     if err != 0:
         raise RuntimeError(f"{kernel}: launch failed with cudaError_t {err}")
     global features_launches, quant_features_launches
@@ -799,8 +817,15 @@ def decode_split_plan(B: int, Hkv: int, T_width: int, page: int,
     ceil(min(ctx_b, T_width x page) / split) of the splits."""
     keys = T_width * page
     want = -(-SPLIT_CTAS_PER_SM * n_sm // max(B * Hkv, 1))
-    n = max(1, min(want, -(-keys // MIN_SPLIT), MAX_SPLITS))
-    split = -(-max(-(-keys // n), 1) // align) * align
+    return _cut(keys, min(want, -(-keys // MIN_SPLIT), MAX_SPLITS), align)
+
+
+def _cut(keys: int, n: int, align: int):
+    """(n_split, split): ``keys`` keys cut into at most max(n, 1) splits
+    of equal length, a multiple of ``align``; n_split x split covers them
+    and every split starts inside them (one split of ``align`` keys when
+    there are none)."""
+    split = -(-max(-(-keys // max(n, 1)), 1) // align) * align
     return max(1, -(-keys // split)), split
 
 
@@ -826,6 +851,49 @@ def partial_split_plan(B: int, Sq: int, H: int, Hkv: int, T_width: int,
         return 1, -(-keys // PARTIAL_SPLIT_ALIGN) * PARTIAL_SPLIT_ALIGN
     return decode_split_plan(n_qblk * B, Hkv, T_width, pl, n_sm,
                              align=PARTIAL_SPLIT_ALIGN)
+
+
+# the unsplit entry's splits (kernel 1, B.2 and their head-feature route,
+# bf16 only): whole 64-key stages (PARTIAL_SPLIT_ALIGN) over the CTAs of one
+# thread-block cluster, at most the portable cluster size, merged inside the
+# launch; a grid of fewer than n_sm CTAs is split into at most
+# CHUNK_SPLIT_CTAS_PER_SM CTAs an SM (the tensor-core body keeps two
+# resident: one wave), none shorter than CHUNK_MIN_SPLIT keys of the table,
+# and no fewer than CHUNK_MIN_SPLITS splits (a cluster's launch and merge
+# cost more than a few stages of keys save: on the H100, splitting 32
+# heads' 512-key tables 8 ways, and 1024-key tables or 128-CTA grids 2
+# ways, made decode slower than no split, chip_smoke.py phases 4, 9, 17)
+CHUNK_MAX_SPLITS = 8
+CHUNK_MIN_SPLITS = 3
+CHUNK_SPLIT_CTAS_PER_SM = 2
+CHUNK_MIN_SPLIT = 512
+
+
+@functools.lru_cache(maxsize=256)
+def chunk_split_plan(B: int, Sq: int, H: int, Hkv: int, T_width: int,
+                     page: int, dtype, n_sm: int):
+    """(n_split, split): how kernel 1 and B.2 (the same plan for both, and
+    for their head-feature route on the same call) cut each (query tile,
+    kv head, lane)'s keys, from what the host knows without reading the
+    lanes: T_width x page is the most keys a lane can have.  A grid of at
+    least ``n_sm`` CTAs without a split (long chunks, wide decode batches)
+    keeps one split; a smaller one (decode, short chunks of few lanes) is
+    cut into n_split <= CHUNK_MAX_SPLITS splits of ``split`` keys, a
+    multiple of PARTIAL_SPLIT_ALIGN, as many as keep the grid within
+    CHUNK_SPLIT_CTAS_PER_SM x n_sm CTAs and every split at least
+    CHUNK_MIN_SPLIT keys of the table (one split where that is fewer than
+    CHUNK_MIN_SPLITS); n_split x split covers the table and every split
+    starts inside it.  float32
+    (the CUDA-core body) never splits.  A lane shorter than the table
+    leaves its last splits without keys: they join the merge with
+    nothing."""
+    n_qblk = -(-Sq // (_TILE_ROWS[torch.bfloat16] // (H // Hkv)))
+    base = n_qblk * Hkv * B
+    n = min(CHUNK_MAX_SPLITS, CHUNK_SPLIT_CTAS_PER_SM * n_sm // base,
+            T_width * page // CHUNK_MIN_SPLIT)
+    if dtype != torch.bfloat16 or base >= n_sm or n < CHUNK_MIN_SPLITS:
+        n = 1
+    return _cut(T_width * page, n, PARTIAL_SPLIT_ALIGN)
 
 
 # F2 of the head-feature rung (csrc/paged_chunk_features.cu,

@@ -403,14 +403,21 @@ def test_cuda_quant_kernel_mixes_pages_within_a_stage(cuda, dtype):
 
 @pytest.mark.gpu
 def test_cuda_kernel_resources(cuda):
-    """The bf16 bodies are one producer warp and one consumer warpgroup
-    with two CTAs resident per SM, and do not spill; the float32 bodies
-    are 128 threads."""
+    """The bf16 bodies are one consumer warpgroup and one producer warp
+    (B.2: a producer warpgroup, the producer and three warps that convert
+    flagged pages' codes, launched at 128 registers a thread, which the
+    two warpgroups trade by setmaxnreg) with two CTAs resident per SM, and
+    do not spill, at pages of 2 rows or more and at pages of 1 row (the
+    split-K partial mode's); the float32 bodies are 128 threads."""
     for quant in (False, True):
         for d in pa.HEAD_DIMS:
-            tc = pa.resources(torch.bfloat16, d, quant)
-            assert tc["threads"] == 160 and tc["ctas_per_sm"] >= 2, tc
-            assert tc["local_bytes"] == 0, tc
+            for one_row in (False, True):
+                tc = pa.resources(torch.bfloat16, d, quant, one_row=one_row)
+                assert tc["threads"] == (256 if quant else 160), tc
+                if quant:
+                    assert tc["registers"] == 128, tc
+                assert tc["ctas_per_sm"] >= 2, tc
+                assert tc["local_bytes"] == 0, (d, quant, one_row, tc)
             assert pa.resources(torch.float32, d, quant)["threads"] == 128
 
 
