@@ -1,13 +1,14 @@
 """Card check of the PyTorch/CUDA port: builds the CUDA kernels, holds each
 against its plain PyTorch version, and serves llama3-8b (under memory
 pressure, on a three-node cluster with migration and failure, and
-tensor-parallel on shards of the card, as yi-6b is, up to 16 shards),
-zamba2-2.7b, xlstm-1.3b and phi-3-vision-4.2b at full width and depth
-through the port's entry points; granite-moe-3b, qwen3-moe-30b (12 of 48
-layers) and seamless-m4t-medium prefill and decode at full width; trains
-llama3-8b at full width (4 of 32 layers), holds zamba2-2.7b's gradient at
-full width (12 of 54 layers) through the scan kernel to the plain path,
-and holds training on the card to the CPU.
+tensor-parallel on shards of the card, as yi-6b and minicpm-2b are, up to
+16 shards), codeqwen1.5-7b, zamba2-2.7b, mamba2-2.7b, xlstm-1.3b and
+phi-3-vision-4.2b at full width (and full depth, but where a phase below names
+the depth it keeps) through the port's entry points; granite-moe-3b,
+qwen3-moe-30b (12 of 48 layers) and seamless-m4t-medium prefill and decode at
+full width; trains llama3-8b at full width (4 of 32 layers), holds
+zamba2-2.7b's gradient at full width (12 of 54 layers) through the scan kernel
+to the plain path, and holds training on the card to the CPU.
 
 Run from the repository root on a machine with an NVIDIA card:
 
@@ -20,6 +21,8 @@ Run from the repository root on a machine with an NVIDIA card:
     python3 chip_smoke.py --phases 1,2,21,22     # tensor-parallel serving
     python3 chip_smoke.py --phases 23,24         # training
     python3 chip_smoke.py --phases 25            # the launcher, the roofline
+    python3 chip_smoke.py --phases 21,22,26,27   # minicpm-2b at tp 16,
+                                                 # codeqwen1.5-7b, mamba2-2.7b
 
 Phases:
   1. environment: the card's name and power limit;
@@ -82,8 +85,10 @@ Phases:
      distance from float64 and the time of each device kernel.  Kernel 1
      and B.2 at zamba2-2.7b's shared attention (H=Hkv=32, D=80): decode B=8
      and a 512-token chunk;
-  9. serve zamba2-2.7b (54 Mamba2 layers, 9 shared applications, bf16,
-     random weights from --seed) with NodeEngine + NodeManager +
+  9. serve zamba2-2.7b (full width, 18 of its 54 Mamba2 layers: 3 of its
+     9 shared applications; the depth cut pays for phases 26-27, and
+     phase 27 serves mamba2-2.7b's 64 layers; bf16, random weights from
+     --seed) with NodeEngine + NodeManager +
      StateBackend: 4 sessions x 3 turns, one session swapped out and back,
      one persisted, the node crashed and the session recovered from the
      spool on a second node.  At every step ssd_scan runs on every Mamba
@@ -132,7 +137,8 @@ Phases:
      call here adds exactly one to its count, and the count over every
      other phase (the serving paths, which decode through kernel 1) must
      stay 0;
- 15. serve xlstm-1.3b (48 blocks: 6 groups of 7 mLSTM + 1 sLSTM, bf16,
+ 15. serve xlstm-1.3b (full width, 16 of its 48 blocks: 2 of its 6 groups
+     of 7 mLSTM + 1 sLSTM, the depth cut paying for phases 26-27; bf16,
      random weights from --seed) with NodeEngine + NodeManager +
      StateBackend and 8 slots: 4 sessions x 3 turns of 256-1024 tokens, one
      session swapped out and back cold and one advisory-led (both stalls
@@ -143,7 +149,8 @@ Phases:
  16. exact tokens in fp32 (xlstm at full width, 8 blocks) through a swap,
      a spool recovery after a crash and an export/import migration to a
      third node: the dense prefill/decode recompute's tokens;
- 17. phi-3-vision-4.2b (32 layers, bf16, H = Hkv = 32, D = 96): (a) a
+ 17. phi-3-vision-4.2b (full width, 8 of its 32 layers, the depth cut
+     paying for phases 26-27; bf16, H = Hkv = 32, D = 96): (a) a
      prefill of 576 random 1024-d patch embeddings and 128 tokens at B = 2,
      B.4 at D = 96 on every layer, its input held against the plain
      version and timed; (b) phase 4's serve through `make_backend`'s
@@ -168,7 +175,9 @@ Phases:
      swap-out between turns equals the dense recompute;
  21. tensor-parallel serving on a mesh whose shards all live on the card
      (`make_serving_mesh(tp, devices=["cuda:0"] * tp)`), bf16, full width,
-     random weights from --seed: phase 4's traffic on llama3-8b at tp 2
+     random weights from --seed (llama3-8b and yi-6b at 8 of their 32
+     layers, the depth cut paying for phases 26-27; minicpm-2b at its
+     40): phase 4's traffic on llama3-8b at tp 2
      and 4 (the kv-head rung: kernel 1 on each shard's 16 or 8 q heads
      over its 4 or 2 kv heads) and on yi-6b (Hkv = 4) at tp 8 (the
      split-K rung: each shard holds 2 rows of every 16-row page, and in a
@@ -178,7 +187,10 @@ Phases:
      launch a call), and at tp 16, page 8 (the head-feature rung: each
      shard holds 8 of the 128 features of every row; the shards share the
      card, so one launch a layer computes the full heads from the 16
-     pools, kernel 1 gathering each key row's features from them), each
+     pools, kernel 1 loading each key row's features from them by TMA),
+     and on minicpm-2b (MHA, 36 heads of 64, 40 layers, tied embeddings,
+     vocab 122753) at tp 16, page 8 (the head-feature rung at 4 of the 64
+     features a shard, where kernel 1 gathers them by cp.async), each
      against the single device: where the tokens first diverge, and the
      first traced logits within 2e-2 x max|logits| (or twice the
      kernel-vs-plain floor); launches one a layer, shard and sub-dispatch
@@ -186,9 +198,10 @@ Phases:
      a layer and sub-dispatch on the split-K rung; the memory each run
      reckons, holds and gives back.  A pressure pass (phase 6's rounds, 4
      sessions x 3 turns, and a turn of a session compressed just before
-     it; full width, 8 of the 32 layers) at tp 2 on llama3-8b and at tp 8
-     and tp 16, page 8 on yi-6b: B.2, its partial mode and its feature
-     route on lanes that read int8 pages.  Every partial call shape held
+     it; full width, 8 layers) at tp 2 on llama3-8b, at tp 8 and tp 16,
+     page 8 on yi-6b and at tp 16, page 8 on minicpm-2b: B.2, its partial
+     mode and its feature route (by TMA and by the gather) on lanes that
+     read int8 pages.  Every partial call shape held
      against its plain version shard by shard (its splits combined), the
      merge kernel against the plain merge, timed per shard (the slowest
      shard too) and summed with the merge, beside the unsplit kernel on
@@ -196,8 +209,9 @@ Phases:
      held through both routes: the one-launch route against its plain
      version and bit-equal to kernel 1 / B.2 on the concatenated pools,
      replayed with the shards' pools in one allocation as the main path
-     holds them (so by the producer the main path took, TMA or the
-     cp.async gather, checked), and where TMA is open by both producers,
+     holds them (so by the producer the main path took, checked on every
+     call: TMA at yi-6b's dr 8, the cp.async gather at minicpm-2b's dr
+     4), and where TMA is open by both producers,
      each bit-equal and timed; and the per-shard route of shards on distinct cards (F1 summing the
      shards' partial scores into one float32 buffer, F2 each shard's
      softmax times its V features) with F1's summed scores and each
@@ -206,9 +220,10 @@ Phases:
      kernel 1's per-shard shapes at tp 4 and B.2's at tp 2 re-timed;
  22. exact fp32 tokens at full width and 2 layers on the mesh: llama3-8b
      at tp 1, 2 and 4, yi-6b at tp 8 (and at tp 8 with page 8: 1-row
-     shard pages) and at tp 16 with page 8 (the head-feature rung: its
-     one-launch route, and its per-shard route with the shards taken as on
-     distinct cards), with a mid-decode preemption (a swap-out and back),
+     shard pages) and at tp 16 with page 8, and minicpm-2b at tp 16 with
+     page 8 (the head-feature rung at dr 8 and dr 4: its one-launch
+     route, and its per-shard route with the shards taken as on distinct
+     cards), with a mid-decode preemption (a swap-out and back),
      equal to the single device's and to kernel_mode="ref"; a session
      exported at tp 2 resumes at tp 4; one payload imported and quantized
      on one device and on each mesh: int8 scales and codes bit-equal to
@@ -252,7 +267,22 @@ Phases:
      `roofline.cost.count` through the kernels and through the plain
      versions, which must be charged identical work; each step's counted
      FLOPs and bytes, bound, device time (torch.profiler), host wall time
-     and share of the bound.
+     and share of the bound;
+ 26. codeqwen1.5-7b (32 layers, MHA: 32 heads of 128, d_ff 13440, bf16,
+     random weights from --seed) at full width and depth on one card:
+     phase 4's serve, checks and re-timing (kernel 1 at G = 1, D = 128),
+     then one pressure pass of phase 6's rounds at full depth (4 sessions x
+     3 turns, a turn of a session compressed just before it): B.2 at G =
+     1, D = 128 on every layer once the int8 tier is active, on lanes
+     that read int8 pages, its calls held and re-timed;
+ 27. mamba2-2.7b (64 Mamba2 layers, d_state 128, no attention, bf16,
+     random weights from --seed) at full width and depth, served as phase 9
+     serves zamba2-2.7b: ssd_scan at N = 128 on every layer of every
+     dispatch and no plain call, the swap round trip, persist + crash +
+     spool recovery on a second node, the lockstep twins under phase 9's
+     flip-floor rule, a profiled turn, the main path's scan calls
+     re-timed; the weights', the node's pools' and the peak device memory
+     logged apart (as in phase 9).
 
 It prints progress lines, then one line with the kernels' JSON record, the
 card's name and power limit, and as the last line
@@ -1292,8 +1322,8 @@ class Lockstep:
         log(f"[{tag}] lockstep, {res['tokens']} tokens; max |logit diff| in "
             f"units of 2e-2 x max|logit|, final chunks / decode: kernel vs "
             f"plain {res['KP_chunk']:.3g} / {res['KP_decode']:.3g}; plain vs "
-            f"float64 attention {res['PR_chunk']:.3g} / "
-            f"{res['PR_decode']:.3g}; kernel vs float64 attention "
+            f"its float64 twin {res['PR_chunk']:.3g} / "
+            f"{res['PR_decode']:.3g}; kernel vs the float64 twin "
             f"{res['KR_chunk']:.3g} / {res['KR_decode']:.3g}")
         log(f"[{tag}] token flips (twin, sid, kernel, twin, twin's logit "
             f"gap, kind, gap in units of the tolerance): {res['flips']}")
@@ -2195,25 +2225,41 @@ class Counted:
         return req
 
 
-def phase_hybrid(cfg, model, params, seed):
-    """zamba2-2.7b (bf16, full width and depth) served through NodeEngine +
-    NodeManager + StateBackend: 4 sessions x 3 turns of 256-1024-token
-    prompts and 16 generated tokens; one session swapped out after its
-    first turn and back in at its second; at the end one session persisted,
-    the node crashed and the session recovered from the spool by a second
-    node, where it serves a fourth turn.  Then the rounds again in
+def state_pool_bytes(be):
+    """Device bytes of a StateBackend node's own pools: the slot pools
+    (the SSM and conv state of every slot and the trash slot) and, for a
+    hybrid, the shared attention's KV pools."""
+    pools = list(be.pools.values()) + (
+        [be.k_pool, be.v_pool] if be.has_kv else [])
+    return sum(t.numel() * t.element_size() for t in pools)
+
+
+def phase_hybrid(cfg, model, params, seed, tag=9, what="zamba2"):
+    """A recurrent model (zamba2-2.7b in phase 9 at 18 of its 54 layers,
+    mamba2-2.7b in phase 27 at its 64; bf16, full width) served through
+    NodeEngine + NodeManager + StateBackend: 4 sessions x 3 turns of
+    256-1024-token prompts and 16 generated tokens; one session swapped out
+    after its first turn and back in at its second; at the end one session
+    persisted, the node crashed and the session recovered from the spool by a
+    second node, where it serves a fourth turn.  Then the rounds again in
     lockstep (kernel path, plain path, float64 plain) and the main path's
-    kernel calls re-timed."""
-    rng = np.random.default_rng(seed + 9)
+    kernel calls re-timed.  The device memory held before the first node (the
+    weights), the node's own pools and the peak are logged apart."""
+    rng = np.random.default_rng(seed + tag)
     prompts = _turns(rng, cfg.vocab, system=0)
     gen = 16
     plain = PlainCalls()
     with tempfile.TemporaryDirectory() as tmp:
+        free_device_memory()
+        before = torch.cuda.memory_allocated()
         node = make_state_node(cfg, model, params, spool=f"{tmp}/a")
         eng, be, mgr = node
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
+        pools = torch.cuda.memory_allocated() - before
+        check(abs(pools - state_pool_bytes(be)) <= 16 << 20,
+              f"the node took {pools} bytes of device memory, its pools "
+              f"hold {state_pool_bytes(be)}")
         ssd.launches = pa.launches = 0        # counts of the main path only
         d = Counted(node, cfg, plain)
         reqs = []
@@ -2248,18 +2294,23 @@ def phase_hybrid(cfg, model, params, seed):
     subs = stats_a["sub_dispatches"] + stats_b["sub_dispatches"]
     steps = d.steps + d_b.steps
     n_tok = sum(len(r.output_ids) for r in reqs)
-    log(f"[9] main path: {len(reqs)} requests, {n_tok} generated tokens, "
-        f"{eng.stats['prefill_tokens']} prefill tokens in "
+    log(f"[{tag}] main path: {len(reqs)} requests, {n_tok} generated "
+        f"tokens, {eng.stats['prefill_tokens']} prefill tokens in "
         f"{eng.stats['chunks']} chunks, {len(steps)} steps, mean step "
-        f"{1e3 * sum(steps) / len(steps):.2f} ms, max_memory_allocated "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, of which "
-        f"{base / 1e9:.2f} GB were allocated before the phase's nodes")
-    log(f"[9] node 0 stats {stats_a}; node 1 stats {stats_b}; buckets "
+        f"{1e3 * sum(steps) / len(steps):.2f} ms; device memory: "
+        f"{before / 1e9:.2f} GB allocated before the phase's nodes, "
+        f"{pools / 1e9:.2f} GB of the first node's pools ({be.n_slots} "
+        f"slots and the trash slot, {be._state_bytes / 1e6:.1f} MB of state "
+        f"each{', and the shared attention KV' if be.has_kv else ''}), "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB")
+    log(f"[{tag}] node 0 stats {stats_a}; node 1 stats {stats_b}; buckets "
         f"{be.compile_counts()}")
-    log(f"[9] ssd_scan launches {launches} = {cfg.n_layers} Mamba layers x "
-        f"{subs} dispatches: {launches == cfg.n_layers * subs}; kernel 1 "
-        f"launches {attn_launches} = {be.n_apps} applications x {subs}: "
-        f"{attn_launches == be.n_apps * subs}; plain calls {plain.n}")
+    log(f"[{tag}] ssd_scan launches {launches} = {cfg.n_layers} Mamba "
+        f"layers x {subs} dispatches: {launches == cfg.n_layers * subs}; "
+        f"kernel 1 launches {attn_launches} = {be.n_apps} applications x "
+        f"{subs}: {attn_launches == be.n_apps * subs}; plain calls "
+        f"{plain.n}")
     check(launches == cfg.n_layers * subs > 0
           and attn_launches == be.n_apps * subs,
           "the main path did not run the kernels on every layer")
@@ -2269,34 +2320,39 @@ def phase_hybrid(cfg, model, params, seed):
           and stats_a["disk_writes"] >= 1 and stats_b["migrations_in"] == 1,
           f"a tier was not used: {stats_a} / {stats_b}")
     check(eng.stats["chunks"] > len(reqs), "no prompt was chunked")
+    has_attn = be.n_apps > 0
     del node, node_b, eng, be, mgr, d, d_b
     free_device_memory()
 
+    # the float64 twin's plain versions: the scan's, and the shared
+    # attention's where the model has one
     capa = Capture("paged_chunk_attention")
     caps = Capture("ssd_scan", module=ssd, key=_scan_key)
     a0, s0 = pa.launches, ssd.launches
     lock = Lockstep(lockstep_nodes(lambda mode: make_state_node(
         cfg, model, params, kernel_mode=mode, trace_logits=True)),
-        torch.bfloat16, captures=(capa, caps),
-        f64=(Float64Attention, Float64Scan), flip_floor=True)
+        torch.bfloat16, captures=(capa, caps) if has_attn else (caps,),
+        f64=((Float64Attention, Float64Scan) if has_attn
+             else (Float64Scan,)), flip_floor=True)
     for rnd in rounds(prompts):
         for s, t in rnd:
             lock.submit(f"s{s}", prompts[s][t], gen)
         lock.run()
     check(capa.n == pa.launches - a0 and caps.n == ssd.launches - s0
-          and capa.n > 0 and caps.n > 0,
+          and (capa.n > 0) == has_attn and caps.n > 0,
           f"the captures saw {capa.n} / {caps.n} kernel calls of "
           f"{pa.launches - a0} / {ssd.launches - s0}")
     lock.verdict(cfg)
-    lock.log(9)
-    log(f"[9] captured {len(capa.calls)} attention and {len(caps.calls)} "
-        f"ssd_scan shapes from {capa.n} / {caps.n} calls")
+    lock.log(tag)
+    log(f"[{tag}] captured {len(capa.calls)} attention and "
+        f"{len(caps.calls)} ssd_scan shapes from {capa.n} / {caps.n} calls")
     del lock
     free_device_memory()
-    profile_turn(cfg, model, params, rng, gen)
+    profile_turn(cfg, model, params, rng, gen, tag)
     free_device_memory()
-    arecs = retime(capa, "zamba2 main path D=80", 9)
-    srecs = retime_scan(caps, cfg.ssm.chunk)
+    arecs = (retime(capa, f"{what} main path D={cfg.d_head}", tag)
+             if has_attn else [])
+    srecs = retime_scan(caps, cfg.ssm.chunk, tag, what)
     torch.cuda.empty_cache()
     return launches, srecs, attn_launches, arecs
 
@@ -2309,7 +2365,7 @@ KERNEL_FAMILIES = (("ssd_scan", ("ssd_scan", "ssd_decode", "ssd_chunk",
                    ("copy", ("memcpy", "memset")))
 
 
-def profile_turn(cfg, model, params, rng, gen):
+def profile_turn(cfg, model, params, rng, gen, tag=9):
     """One turn of a fresh session on a fresh node — a 512-token prompt in
     one chunk, then ``gen`` - 1 decode steps — under torch.profiler, after
     a warm-up turn of the same shapes: device time by kernel family and
@@ -2335,13 +2391,13 @@ def profile_turn(cfg, model, params, rng, gen):
     other = [(ms, n, name[:60]) for ms, n, name, g in kernels
              if g == "other"]
     if total == 0.0:
-        log("[9] profile: the trace holds no device time")
+        log(f"[{tag}] profile: the trace holds no device time")
         return None
-    log(f"[9] profile of one turn (512-token chunk + {gen - 1} decode "
+    log(f"[{tag}] profile of one turn (512-token chunk + {gen - 1} decode "
         f"steps): wall {1e3 * wall:.2f} ms, device {total:.2f} ms, idle "
         f"share {1 - total / (1e3 * wall):.3f}; device time by family: "
         f"{fmt_families(fam, total)}")
-    log("[9] profile: largest 'other' kernels (ms, launches, name): "
+    log(f"[{tag}] profile: largest 'other' kernels (ms, launches, name): "
         f"{sorted(other, reverse=True)[:6]}")
     return dict(wall_ms=1e3 * wall, device_ms=total, families=fam)
 
@@ -2373,7 +2429,7 @@ def fmt_families(fam, total):
                      for g, ms in sorted(fam.items(), key=lambda kv: -kv[1]))
 
 
-def retime_scan(cap, chunk):
+def retime_scan(cap, chunk, tag=9, what="zamba2"):
     """The captured ssd_scan calls, one per distinct shape, held against
     the plain version and timed."""
     recs = []
@@ -2382,14 +2438,14 @@ def retime_scan(cap, chunk):
         x, dA, Bm, Cm = args
         h0 = kw.get("init_state")
         S = x.shape[1]
-        label = (f"zamba2 main path ssd_scan B={x.shape[0]} S={S}"
+        label = (f"{what} main path ssd_scan B={x.shape[0]} S={S}"
                  f"{'' if h0 is not None else ' zero state'}")
         rec = compare_scan(x, dA, Bm, Cm, h0, label, chunk=chunk,
                            timed=True)
-        log("[9]" + fmt(rec))
+        log(f"[{tag}]" + fmt(rec))
         recs.append(rec)
     cap.calls.clear()
-    log_scan_rates(recs, 9, "zamba2 main path ssd_scan")
+    log_scan_rates(recs, tag, f"{what} main path ssd_scan")
     return recs
 
 
@@ -3402,7 +3458,8 @@ def slstm_share(cfg, model, params, rng):
 
 
 def phase_xlstm(cfg, model, params, seed):
-    """xlstm-1.3b (bf16, 48 blocks) served through NodeEngine + NodeManager
+    """xlstm-1.3b (bf16, the blocks ``cfg`` keeps: 16 of 48 in phase 15)
+    served through NodeEngine + NodeManager
     + StateBackend with 8 slots: 4 sessions x 3 turns of 256-1024-token
     prompts and 16 generated tokens.  After every session's first turn, s1
     is swapped out and comes back cold at its second turn, and s2 is
@@ -4671,11 +4728,12 @@ def retime_features(cap, what, tag):
 
 def tp_pressure(cfg, model, params, seed, tp, tag, page=PAGE):
     """One pressure pass of phase 6's rounds (4 sessions x 3 turns, the fp
-    budget at 40 % of the sessions' pages) on a node of ``tp`` shards at
-    ``page`` rows a page, and one more turn of a session compressed just
-    before it: B.2 (or its partial or feature mode) on every layer and
-    shard once the int8 tier is active; checks that its lanes read int8
-    pages, and returns the launches and the captured calls."""
+    budget at 40 % of the sessions' pages) on a node of ``tp`` shards (None:
+    one device) at ``page`` rows a page, and one more turn of a session
+    compressed just before it: B.2 (or its partial or feature mode) on
+    every layer and shard once the int8 tier is active; checks that its
+    lanes read int8 pages, and returns the launches and the captured
+    calls."""
     rng = np.random.default_rng(seed + 21)
     gen = 16
     prompts = pressure_prompts(rng, cfg.vocab, n_sessions=4, n_turns=3)
@@ -4685,7 +4743,8 @@ def tp_pressure(cfg, model, params, seed, tp, tag, page=PAGE):
     n_pages = 2 * hbm_pages
     free_device_memory()
     base = torch.cuda.memory_allocated()
-    rung = ShardingPlan(cfg, tp_mesh(tp)).pool_rung(
+    rung = "one device" if tp is None else ShardingPlan(
+        cfg, tp_mesh(tp)).pool_rung(
         (cfg.n_layers, n_pages + 1, page, cfg.n_kv_heads, cfg.d_head))
     if rung == "rows":
         cap = Capture("paged_chunk_attention_quant_partial",
@@ -4717,7 +4776,7 @@ def tp_pressure(cfg, model, params, seed, tp, tag, page=PAGE):
         d.submit(sid, [int(x) for x in rng.integers(0, cfg.vocab, 64)], gen)
         d.run()
     got = counts()
-    log(f"[{tag}] pressure pass at tp={tp} ({be._layout.rung}): "
+    log(f"[{tag}] pressure pass at tp={tp} ({rung}): "
         f"{len(prompts)} sessions x {len(prompts[0])} turns and {sid}'s "
         f"turn from its int8 pages, hbm_pages "
         f"{hbm_pages} of {total}, {len(d.steps)} steps, mean step "
@@ -4749,14 +4808,24 @@ def tp_pressure(cfg, model, params, seed, tp, tag, page=PAGE):
     return got, cap
 
 
+def feature_producer(cfg, tp, page):
+    """The producer every one-launch feature call of a ``tp``-shard node at
+    ``page`` rows must take (`pa.features_producer`): "tma" where a shard
+    holds dr = 8 features and pages hold a multiple of 8 rows (the card's
+    shards lie at one stride), else "gather" (minicpm-2b's dr 4 at tp
+    16)."""
+    return "tma" if cfg.d_head // tp == 8 and page % 8 == 0 else "gather"
+
+
 def phase_tp(seed, tag=21):
-    """Phase 21: llama3-8b (kv-head rung at tp 2 and 4) and yi-6b (split-K
-    rung at tp 8, page 16 and 8; head-feature rung at tp 16, page 8)
-    served at full width and depth in bf16 on shards of the one card;
-    pressure passes at tp 2, 8 and 16 (full width, fewer layers); every
-    kernel call of the tp paths held against its plain version and timed.
-    Returns the launches and records of kernel 1 and B.2 on the kv-head
-    rung, of their partial modes and of their feature modes."""
+    """Phase 21: llama3-8b (kv-head rung at tp 2 and 4), yi-6b (split-K rung at
+    tp 8, page 16 and 8; head-feature rung at tp 16, page 8, dr 8, by TMA),
+    both at 8 of their 32 layers, and minicpm-2b (head-feature rung at tp 16,
+    page 8, dr 4, by the cp.async gather) at its 40, served at full width in
+    bf16 on shards of the one card; pressure passes at tp 2, 8 and 16 (full
+    width, 8 layers); every kernel call of the tp paths held against its plain
+    version and timed.  Returns the launches and records of kernel 1 and B.2 on
+    the kv-head rung, of their partial modes and of their feature modes."""
     rng = np.random.default_rng(seed)
     gen = 16
     out = dict(k1=0, k1_recs=[], b2=0, b2_recs=[], k1p=0, k1p_recs=[],
@@ -4766,15 +4835,24 @@ def phase_tp(seed, tag=21):
     # pages at tp 8 and the head-feature rung (8 % 16 and 4 kv heads % 16
     # are not 0: 8 of 128 features a shard) at tp 16
     runs = {"llama3-8b": ((2, PAGE), (4, PAGE)),
-            "yi-6b": ((8, PAGE), (8, 8), (16, 8))}
+            "yi-6b": ((8, PAGE), (8, 8), (16, 8)),
+            "minicpm-2b": ((16, 8),)}
+    # the runs' depth: llama3-8b and yi-6b keep 8 of their 32 layers (a
+    # call's shapes, so the kernels' records, do not depend on the depth,
+    # and the tp step is host-bound: the cut pays for phases 26-27);
+    # minicpm-2b, this slice's, keeps its 40
+    depth = {"llama3-8b": 8, "yi-6b": 8}
     # the pressure passes' (tp, page, layers): widths as published; a tp
     # step is host-bound, one process issuing every shard's operations, so
     # the passes keep 8 of the 32 layers (16 until the tp-16 pass came,
     # whose time they give back)
     passes = {"llama3-8b": ((2, PAGE, 8),),
-              "yi-6b": ((8, PAGE, 8), (16, 8, 8))}
+              "yi-6b": ((8, PAGE, 8), (16, 8, 8)),
+              "minicpm-2b": ((16, 8, 8),)}
     for name in runs:
-        cfg, model, params = published(name, seed, tag)
+        cfg, model, params = published(
+            name, seed, tag, **({"n_layers": depth[name]} if name in depth
+                                else {}))
         prompts = _turns(rng, cfg.vocab)
         single = tp_serve(cfg, model, params, prompts, gen, None, tag)
         floor = first_logits_floor(cfg, model, params, prompts, gen, single,
@@ -4804,9 +4882,10 @@ def phase_tp(seed, tag=21):
                 out["k1p_recs"] += retime_partial(cap, what, tag)
             elif rung == "features":
                 out["k1f"] += run["launches"]
-                check(cap.producers["tma"] > 0, f"{what}: the TMA producer "
-                      f"ran on none of the main path's {cap.n} calls "
-                      f"({dict(cap.producers)})")
+                want = feature_producer(cfg, tp, page)
+                check(cap.n > 0 and dict(cap.producers) == {want: cap.n},
+                      f"{what}: the main path's {cap.n} calls took "
+                      f"{dict(cap.producers)}, not {want} on every call")
                 out["k1f_recs"] += retime_features(cap, what, tag)
             else:
                 out["k1"] += run["launches"]
@@ -4825,9 +4904,10 @@ def phase_tp(seed, tag=21):
             out["k1fs"] += got["k1_scores"] + got["k1_pv"]
             out["b2fs"] += got["b2_scores"] + got["b2_pv"]
             if isinstance(cap, FeatureCapture):
-                check(cap.producers["tma"] > 0, f"{what}: the TMA producer "
-                      f"ran on none of B.2's {cap.n} calls "
-                      f"({dict(cap.producers)})")
+                want = feature_producer(cfg, ptp, page)
+                check(cap.n > 0 and dict(cap.producers) == {want: cap.n},
+                      f"{what}: B.2's {cap.n} calls took "
+                      f"{dict(cap.producers)}, not {want} on every call")
                 out["b2f"] += got["b2_feat"]
                 out["k1f"] += got["k1_feat"]
                 out["b2f_recs"] += retime_features(cap, what, tag)
@@ -4908,24 +4988,26 @@ def shards_apart():
 
 
 def phase_exact_tp(seed, tag=22):
-    """Phase 22: exact fp32 tokens at full width and 2 layers through the
-    mesh — llama3-8b at tp 1, 2, 4 (the kv-head rung) and yi-6b at tp 8,
-    page 16 and 8 (split-K) and at tp 16, page 8 (the head-feature rung,
-    by its one-launch route and, shards taken as on distinct cards, by its
-    per-shard route): served with a mid-decode preemption (a swap-out and
-    back), equal to the single device and to ``kernel_mode="ref"``; a
-    session exported at tp 2 resumes at tp 4; one payload imported on one
-    device and on the mesh, quantized: the int8 scales and codes bit-equal
-    to one device's at the same page size, and its next turn served from
-    its int8 pages gives the same tokens.  Returns the per-shard route's
-    launches of kernel 1's F1 + F2 and B.2's (k1fs, b2fs)."""
+    """Phase 22: exact fp32 tokens at full width and 2 layers through the mesh
+    — llama3-8b at tp 1, 2, 4 (the kv-head rung), yi-6b at tp 8, page 16 and 8
+    (split-K) and at tp 16, page 8 (the head-feature rung, dr 8), and
+    minicpm-2b at tp 16, page 8 (the head-feature rung, dr 4, MHA, tied
+    embeddings), each rung by its one-launch route and, shards taken as on
+    distinct cards, by its per-shard route: served with a mid-decode preemption
+    (a swap-out and back), equal to the single device and to
+    ``kernel_mode="ref"``; a session exported at tp 2 resumes at tp 4; one
+    payload imported on one device and on the mesh, quantized: the int8 scales
+    and codes bit-equal to one device's at the same page size, and its next
+    turn served from its int8 pages gives the same tokens.  Returns the
+    per-shard route's launches of kernel 1's F1 + F2 and B.2's (k1fs, b2fs)."""
     rng = np.random.default_rng(seed + 22)
     out = dict(k1fs=0, b2fs=0)
     # the per-shard route's (tp, page), where a model's runs hold it
     apart = (16, 8)
     gen = 16
     for name, runs in (("llama3-8b", ((1, PAGE), (2, PAGE), (4, PAGE))),
-                       ("yi-6b", ((8, PAGE), (8, 8), (16, 8)))):
+                       ("yi-6b", ((8, PAGE), (8, 8), (16, 8))),
+                       ("minicpm-2b", ((16, 8),))):
         cfg, model, params = published(name, seed + 22, tag, n_layers=2,
                                        dtype="float32")
         turns = [[int(x) for x in rng.integers(0, cfg.vocab, int(n))]
@@ -5045,6 +5127,52 @@ def phase_exact_tp(seed, tag=22):
         del cfg, model, params, res
         free_device_memory()
     return out
+
+
+# ---------------------------------------------------------------------------
+# phases 26-27: codeqwen1.5-7b and mamba2-2.7b at full width and depth
+# ---------------------------------------------------------------------------
+
+def phase_codeqwen(seed, tag=26):
+    """Phase 26: codeqwen1.5-7b (MHA: 32 heads of 128, each its own kv
+    head; 32 layers, d_ff 13440, vocab 92416), bf16, at its published
+    widths and depth on one card.  Phase 4's serve (`phase_serve`: 4
+    sessions x 3 turns, chunked prompts, a shared system prompt adopted
+    with a copy-on-write fork, kernel 1 at G = 1, D = 128 on every layer
+    of every dispatch, the lockstep twins, the main path's calls re-timed),
+    then one pressure pass at full depth (`tp_pressure` on one device:
+    phase 6's rounds with the fp budget at 40 % of the sessions' pages,
+    and a turn of a session compressed just before it): B.2 at G = 1, D =
+    128 on lanes that read int8 pages, its calls held and re-timed.
+    Returns kernel 1's launches and records, then B.2's."""
+    cfg, model, params = published("codeqwen1.5-7b", seed, tag)
+    k1, k1_recs = phase_serve(cfg, model, params, seed, tag=tag)[:2]
+    free_device_memory()
+    got, cap = tp_pressure(cfg, model, params, seed, None, tag)
+    b2_recs = retime(cap, "codeqwen1.5-7b pressure", tag)
+    del cfg, model, params, cap
+    free_device_memory()
+    return k1 + got["k1"], k1_recs, got["b2"], b2_recs
+
+
+def phase_mamba2(seed, tag=27):
+    """Phase 27: mamba2-2.7b (64 Mamba2 layers, 80 SSD heads of 64, d_state
+    128, no attention), bf16, at its published widths and full depth,
+    served as phase 9 serves zamba2-2.7b (`phase_hybrid`): ssd_scan on
+    every layer of every dispatch and no plain call, a session's state
+    swapped out and back, one persisted, the node crashed and the session
+    recovered from the spool by a second node; the tokens held in lockstep
+    to the plain path and to the plain path in float64 under phase 9's
+    flip-floor rule (64 layers fit the time, so no dense recompute stands
+    in for the lockstep); the main path's scan calls re-timed against the
+    plain version and the bound from ``roofline.cost``.  Returns the scan's
+    launches and records."""
+    cfg, model, params = published("mamba2-2.7b", seed, tag)
+    launches, srecs, _, _ = phase_hybrid(cfg, model, params, seed, tag,
+                                         "mamba2")
+    del cfg, model, params
+    free_device_memory()
+    return launches, srecs
 
 
 # ---------------------------------------------------------------------------
@@ -5584,7 +5712,7 @@ def kernel_entry(name, source, replaces, launches, recs):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default=",".join(map(str, range(1, 26))))
+    ap.add_argument("--phases", default=",".join(map(str, range(1, 28))))
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     t_start = time.perf_counter()
@@ -5653,7 +5781,8 @@ def main(argv=None):
         lap("phase 8")
         slaunches, hybrid_srecs, hlaunches, hybrid_arecs = 0, [], 0, []
         if 9 in phases:
-            cfg, model, params = zamba2(args.seed, 9)
+            # 18 of 54 layers: the depth cut that pays for phases 26-27
+            cfg, model, params = zamba2(args.seed, 9, n_layers=18)
             slaunches, hybrid_srecs, hlaunches, hybrid_arecs = phase_hybrid(
                 cfg, model, params, args.seed)
             del cfg, model, params
@@ -5663,7 +5792,8 @@ def main(argv=None):
             free_device_memory()
         lap("phases 9, 10")
         if 15 in phases:
-            cfg, model, params = xlstm(args.seed, 15)
+            # 16 of 48 blocks: the depth cut that pays for phases 26-27
+            cfg, model, params = xlstm(args.seed, 15, n_layers=16)
             phase_xlstm(cfg, model, params, args.seed)
             del cfg, model, params
             free_device_memory()
@@ -5675,11 +5805,14 @@ def main(argv=None):
         # just before it and read just after, inside the phase
         vk1, vk1_recs, vq, vq_recs, af, af_recs = 0, [], 0, [], 0, []
         if 17 in phases:
+            # 8 of 32 layers: the depth cut that pays for phases 26-27
             cfg, model, params = published("phi-3-vision-4.2b", args.seed,
-                                           17)
+                                           17, n_layers=8)
             af, af_recs = phase_vlm_prefill(cfg, model, params, args.seed)
-            vk1, vk1_recs, _ = phase_serve(cfg, model, params, args.seed,
-                                           tag=17)
+            # phase 4's decode replays are phase 14's: phi-3-vision's
+            # (copies of whole pools, 1.65 GB) are not kept
+            vk1, vk1_recs = phase_serve(cfg, model, params, args.seed,
+                                        tag=17)[:2]
             free_device_memory()
             fl, vq, vq_recs = phase_vlm_pressure(cfg, model, params,
                                                  args.seed)
@@ -5738,6 +5871,15 @@ def main(argv=None):
         if 25 in phases:
             lk1, lb4 = phase_launchers(args.seed, card)
             lap("phase 25(a, b)")
+        # phases 26-27 set their counts to 0 just before each main path and
+        # read them just after, inside the phase
+        cq1, cq1_recs, cqq, cqq_recs, mlaunches, m_srecs = 0, [], 0, [], 0, []
+        if 26 in phases:
+            cq1, cq1_recs, cqq, cqq_recs = phase_codeqwen(args.seed)
+            lap("phase 26")
+        if 27 in phases:
+            mlaunches, m_srecs = phase_mamba2(args.seed)
+            lap("phase 27")
         dlaunches += pa.decode_launches
         check(dlaunches == 0, f"B.3 launched {dlaunches} times on the "
               f"serving paths, which decode through kernel 1")
@@ -5746,9 +5888,11 @@ def main(argv=None):
         return 1
     # each record holds its kernel's main-path shapes whenever that main
     # path ran, and the kernel-vs-plain phase's shapes otherwise; kernel 1
-    # serves three main paths (llama3-8b at D = 128, zamba2-2.7b at D = 80,
-    # phi-3-vision at D = 96), B.2 two (llama3-8b and phi-3-vision under
-    # pressure); B.4's main paths are the dense reference of phase 12 and
+    # serves four main paths on one device (llama3-8b at D = 128,
+    # zamba2-2.7b at D = 80, phi-3-vision at D = 96, codeqwen1.5-7b at G =
+    # 1, D = 128), B.2 three (llama3-8b, phi-3-vision and codeqwen1.5-7b
+    # under pressure); the scan two (zamba2-2.7b at N = 64, mamba2-2.7b at
+    # N = 128); B.4's main paths are the dense reference of phase 12 and
     # the prefills of phases 17-19 (D = 96, G = 3, G = 8, D = 64); B.3
     # lies on no serving path (its launches there, counted, are 0): its
     # record holds
@@ -5760,13 +5904,13 @@ def main(argv=None):
                   else [r for r in d80_recs if "int8" not in r["label"]]))
     entries = [
         kernel_entry(pa.NAME, src, "src/repro/kernels/paged_attention.py:291",
-                     launches + hlaunches + vk1 + tp["k1"] + lk1,
-                     k1_recs + vk1_recs + tp["k1_recs"]),
+                     launches + hlaunches + vk1 + tp["k1"] + lk1 + cq1,
+                     k1_recs + vk1_recs + tp["k1_recs"] + cq1_recs),
         kernel_entry(pa.QUANT_NAME, src,
                      "src/repro/kernels/paged_attention.py:239",
-                     qlaunches + vq + tp["b2"],
+                     qlaunches + vq + tp["b2"] + cqq,
                      (qrecs if 6 in phases else shape_qrecs) + vq_recs
-                     + tp["b2_recs"]),
+                     + tp["b2_recs"] + cqq_recs),
         # the split-K partial mode of both (phase 21's yi-6b at tp 8): its
         # records sum the shards' calls of each captured shape; library_ms
         # is SDPA over the whole call's gathered K/V
@@ -5807,8 +5951,8 @@ def main(argv=None):
                       + tp["b2p_recs"]]),
         kernel_entry(ssd.NAME, "src/repro_torch/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan.py:62",
-                     slaunches + tlaunches,
-                     hybrid_srecs if 9 in phases else scan_recs),
+                     slaunches + tlaunches + mlaunches,
+                     (hybrid_srecs if 9 in phases else scan_recs) + m_srecs),
         kernel_entry(fp.NAME, "src/repro_torch/csrc/flash_prefill.cu",
                      "src/repro/kernels/flash_prefill.py:81",
                      flaunches + af + lb4,
@@ -5827,11 +5971,13 @@ def main(argv=None):
         f"{tp['merges']} merge launches, their one-launch feature route "
         f"{tp['k1f']} and {tp['b2f']}, the per-shard F1 + F2 {tp['k1fs']} "
         f"and {tp['b2fs']}; phase 25's launcher: kernel 1 "
-        f"{lk1}, flash_prefill {lb4}; "
+        f"{lk1}, flash_prefill {lb4}; codeqwen1.5-7b (phase 26): kernel 1 "
+        f"{cq1}, int8 kernel {cqq}; "
         f"flash_prefill: {flaunches} on the dense reference's prefills, "
         f"{af} on the prefills of phases 17-19; ssd_scan: {slaunches} on "
-        f"zamba2-2.7b's serving path, {tlaunches} on the hybrid's training "
-        f"paths (phases 23-24); paged_attention (B.3): "
+        f"zamba2-2.7b's serving path, {mlaunches} on mamba2-2.7b's, "
+        f"{tlaunches} on the hybrid's training paths (phases 23-24); "
+        f"paged_attention (B.3): "
         f"{dlaunches} on the "
         f"serving paths, {len(replay_recs)} replayed decode calls of phase "
         f"4)")

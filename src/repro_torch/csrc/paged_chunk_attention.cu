@@ -138,26 +138,31 @@
 //     registers: the CTA is launched with 128 a thread (two CTAs an SM),
 //     the producer warpgroup gives back to kCvtProdRegs and the consumers
 //     take kCvtConsRegs (setmaxnreg), and the launch is refused if the
-//     kernel was built with another count.  ptxas keeps 10 words of the
-//     consumers' in local memory at D = 128 (4 in the 1-row body) whatever
-//     their share.  The designs without a register trade that do not
-//     spill convert with fewer warps, and conversion sets a chunk's pace:
-//     on an H100 (chip_smoke.py phase 3, int8 chunk of 512 rows, half the
-//     pages flagged) the producer and one converter warp converting in
-//     the ring slot (192 threads) took 1.5x this design's time, and
-//     three warps without the trade (224 threads) are held to 128
-//     registers and spill more.
+//     kernel was built with another count.  Without the trade the 1-row
+//     body spills at D = 128, and designs with fewer warps convert too
+//     slowly: on an H100 (chip_smoke.py phase 3, int8 chunk of 512 rows,
+//     half the pages flagged) the producer and one converter warp
+//     converting in the ring slot (192 threads) took 1.5x this design's
+//     time, and three warps without the trade (224 threads) are held to
+//     128 registers and spill.
 //     The page's float32 scales apply where the arithmetic is float32:
 //     k_scale multiplies S's columns of that page's keys before the softmax
 //     (s_j = (q . kq_j) ks_j), v_scale multiplies P's columns before P is
 //     rounded to bf16 (sum_j p_j (vq_j vs_j) = sum_j (p_j vs_j) vq_j); a
 //     plain page's columns are not multiplied at all.  A stage may mix both
-//     kinds; a stage with no flagged page runs kernel 1's softmax
-//     instructions (the softmax is instantiated twice, with and without the
-//     scale lookups, and the stage's mask picks one), so with every flag
-//     clear the output is kernel 1's bit for bit.  On the head-feature rung
-//     (kFeat) the producers gather the codes into the tile and the
-//     consumers convert them in place, as before.
+//     kinds.  Each scale is a pass of its own over S's fragments, before
+//     and after kernel 1's softmax, and a stage with no flagged page skips
+//     both, so with every flag clear the output is kernel 1's bit for bit.
+//     The passes keep the consumers out of local memory: a softmax that
+//     looks each key pair's flag and scale up inside its own loops holds
+//     them beside S's 32 and O's 64 accumulators, and at D = 128 ptxas
+//     stored 10 words of such a body in local memory (4 in the 1-row body):
+//     6 around that softmax and 4 long-lived values (a kernel argument, a
+//     thread index, the rows' horizons) across the key loop, with the
+//     consumers' share set anywhere from 136 to 200 registers (ptxas -v
+//     and the LDL / STL lines of its SASS, nvcc 12.9).  On the
+//     head-feature rung (kFeat) the producers gather the codes into the
+//     tile and the consumers convert them in place.
 //   * Decode on a small grid (the unsplit entry).  A grid of n_qblk x Hkv x
 //     B CTAs is 8 CTAs on 132 SMs at llama3-8b's decode of one lane, each
 //     walking 4096 keys through a 2-stage ring.  Where it holds fewer CTAs
@@ -690,8 +695,7 @@ constexpr int kCvtWarps = 3;
 // B.2's registers a thread: 256 threads and two CTAs an SM leave 128 at
 // launch; the producer warpgroup gives back down to kCvtProdRegs
 // (setmaxnreg), the consumers take kCvtConsRegs, 128 x (168 + 88) = the
-// CTA's 256 x 128 (the converters hold one unit at a time; the consumers'
-// loop, with the scales' softmax, spilled with fewer)
+// CTA's 256 x 128 (the converters hold one unit at a time)
 constexpr int kCvtLaunchRegs = 128;
 constexpr int kCvtConsRegs = 168;
 constexpr int kCvtProdRegs = 88;
@@ -1550,44 +1554,38 @@ paged_chunk_attention_tc(const __grid_constant__ ShardArg<kFeat> sh,
     // local key k0 + 8 i + 2 tq + e % 2; a row's keys span the 4 threads of
     // a quad.  Keys 2 tq and 2 tq + 1 lie in one page for page >= 2 (the
     // second's position is the first's plus 1, its slot the same); at
-    // 1-row pages (kOneRow) each has its own page, so both are looked up
-    constexpr int kLook = kOneRow ? 2 : 1;     // lookups a key pair
+    // 1-row pages (kOneRow) each has its own page and position
     const bool masked = gpos(k0 + kTcKeys - 1) > first;
+    // kQuant: a stage holding int8 pages multiplies their keys' columns by
+    // their scales, S's by k_scale before the softmax and P's by v_scale
+    // after it, each in a pass of its own (see the int8 pages in the notes)
+    auto scale = [&](const float* scales) {
+#pragma unroll
+      for (int i = 0; i < kTcKeys / 8; ++i)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int slot = (8 * i + 2 * tq + (kOneRow ? u : 0)) >> lp;
+          if (!(mask >> slot & 1)) continue;
+          const float x = scales[slot];
+          // __fmul_rn: never contracted, so the int8 kernel rounds as the
+          // fp kernel does
+          sc[4 * i + u] = __fmul_rn(sc[4 * i + u], x);
+          sc[4 * i + 2 + u] = __fmul_rn(sc[4 * i + 2 + u], x);
+        }
+    };
+    if constexpr (kQuant)
+      if (mask) scale(meta[s].ks);
     float corr[2];
-    // kQ: the stage holds int8 pages, whose keys' scores and probabilities
-    // take their page's scales; a stage without (every stage of kernel 1,
-    // and B.2's where no page is flagged) runs kernel 1's instructions,
-    // with no lookup of a flag or a scale
-    auto softmax = [&](auto quant) {
-      constexpr bool kQ = decltype(quant)::value;
+    {
       float mx[2] = {m[0], m[1]};
 #pragma unroll
       for (int i = 0; i < kTcKeys / 8; ++i) {
-        bool qk[2] = {false, false};           // an int8 page's keys
-        float ks[2] = {0.f, 0.f};
-        if constexpr (kQ) {
-#pragma unroll
-          for (int u = 0; u < kLook; ++u) {
-            const int slot = (8 * i + 2 * tq + u) >> lp;
-            qk[u] = mask >> slot & 1;
-            if (qk[u]) ks[u] = meta[s].ks[slot];
-          }
-          if constexpr (!kOneRow) {
-            qk[1] = qk[0];
-            ks[1] = ks[0];
-          }
-        }
         const int g0 = masked ? gpos(k0 + 8 * i + 2 * tq) : 0;
         const int g1 = kOneRow ? (masked ? gpos(k0 + 8 * i + 2 * tq + 1) : 0)
                                : g0 + 1;
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          // __fmul_rn: never contracted, so with every flag clear the int8
-          // kernel rounds exactly as the fp kernel does
-          float x = sc[4 * i + e];
-          if (kQ && qk[e & 1])
-            x = __fmul_rn(x, ks[e & 1]);       // s_j = (q . kq_j) ks_j
-          x = __fmul_rn(x, sl2);
+          float x = __fmul_rn(sc[4 * i + e], sl2);
           if (masked && ((e & 1) ? g1 : g0) > hz[e / 2])
             x = neg_inf();                     // p = 0
           sc[4 * i + e] = x;
@@ -1603,36 +1601,16 @@ paged_chunk_attention_tc(const __grid_constant__ ShardArg<kFeat> sh,
         l[j] = __fmul_rn(l[j], corr[j]);
       }
 #pragma unroll
-      for (int i = 0; i < kTcKeys / 8; ++i) {
-        bool qv[2] = {false, false};
-        float vs[2] = {0.f, 0.f};
-        if constexpr (kQ) {
-#pragma unroll
-          for (int u = 0; u < kLook; ++u) {
-            const int slot = (8 * i + 2 * tq + u) >> lp;
-            qv[u] = mask >> slot & 1;
-            if (qv[u]) vs[u] = meta[s].vs[slot];
-          }
-          if constexpr (!kOneRow) {
-            qv[1] = qv[0];
-            vs[1] = vs[0];
-          }
-        }
+      for (int i = 0; i < kTcKeys / 8; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float p = exp2f(sc[4 * i + e] - m[e / 2]);  // masked: 0
           l[e / 2] += p;  // this thread's keys; the quad sums at the end
-          sc[4 * i + e] = kQ && qv[e & 1] ? __fmul_rn(p, vs[e & 1])
-                                          : p;  // (p_j vs_j) . vq_j
+          sc[4 * i + e] = p;
         }
-      }
-    };
-    if constexpr (kQuant) {
-      if (mask) softmax(std::true_type{});
-      else softmax(std::false_type{});
-    } else {
-      softmax(std::false_type{});
     }
+    if constexpr (kQuant)
+      if (mask) scale(meta[s].vs);
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) {
       o[4 * i + 0] *= corr[0];

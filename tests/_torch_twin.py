@@ -9,7 +9,8 @@ for the mamba2, xlstm and hybrid families (``mamba2-2.7b`` /
 ``xlstm-1.3b`` / ``zamba2-2.7b`` ``.reduced(dtype="float32")``, or
 bfloat16 on request), whose backend is the factory ``make_backend``
 (`StateBackend` for all three); `vlm_twins` for phi-3-vision, which
-``make_backend`` serves text-only through `RealBackend`.  A test runs its
+``make_backend`` serves text-only through `RealBackend`; `minicpm_twins`
+for minicpm-2b (MHA, tied embeddings).  A test runs its
 scenario once per `Pkg` and asserts the two agree (tokens, counters,
 invariants) and that the port's tokens equal the port's dense
 prefill/decode recompute.
@@ -146,6 +147,17 @@ def twins(kind: str = "gqa", seed: int = 0, dtype: str = "float32",
         dtype=dtype, n_kv_heads=n_kv, n_layers=n_layers)
     cfg = tconfigs.get_config("llama3-8b").reduced(
         dtype=dtype, n_kv_heads=n_kv, n_layers=n_layers)
+    return _pkgs(jcfg, cfg, jbackend.RealBackend, tbackend.RealBackend, seed)
+
+
+@functools.lru_cache(maxsize=None)
+def minicpm_twins(seed: int = 0, dtype: str = "float32", **cut):
+    """(JAX Pkg, port Pkg) of ``minicpm-2b.reduced(dtype=dtype, **cut)``
+    with the same weights: MHA (every head its own kv head) with tied
+    embeddings, served by `RealBackend`."""
+    name = "minicpm-2b"
+    jcfg = jconfigs.get_config(name).reduced(dtype=dtype, **cut)
+    cfg = tconfigs.get_config(name).reduced(dtype=dtype, **cut)
     return _pkgs(jcfg, cfg, jbackend.RealBackend, tbackend.RealBackend, seed)
 
 

@@ -308,17 +308,25 @@ def _turns(cfg, lens, seed):
     return [list(map(int, rng.integers(0, cfg.vocab, n))) for n in lens]
 
 
-@pytest.mark.parametrize("tp,page", [(4, 2), (8, 4)])
-def test_serving_on_the_rung_equals_jax(monkeypatch, tp, page):
+@pytest.mark.parametrize("tp,page,kind", [
+    pytest.param(4, 2, "gqa", id="4-2"),
+    pytest.param(8, 4, "gqa", id="8-4"),
+    pytest.param(4, 2, "minicpm", id="minicpm-4-2")])
+def test_serving_on_the_rung_equals_jax(monkeypatch, tp, page, kind):
     """The GQA twin (2 kv heads, D 16) at tp 4, page 2 (dr 4) and tp 8,
-    page 4 (dr 2): two turns with a mid-decode preemption (swap-out and
-    swap-in through the shards' feature gather and scatter) give JAX's
-    single-device tokens and JAX's tokens on the same mesh, whose pool
-    lies on the same spec.  The shards share the CPU, so every layer takes
-    the one-call route (`ops.paged_chunk_attention_features`) and no F1
-    runs."""
-    from _torch_twin import twins
-    jpkg, tpkg = twins("gqa")
+    page 4 (dr 2), and minicpm-2b's MHA with tied embeddings (6 heads, each
+    its own kv head, as 36 % 16 is not 0 at the card's tp 16, and an odd
+    vocab, 257, as its 122753) at tp 4, page 2 (dr 4, by the cp.async
+    gather, as minicpm-2b's dr 4 on the card): two turns with a
+    mid-decode preemption (swap-out and swap-in through the shards'
+    feature gather and scatter) give JAX's single-device tokens and JAX's
+    tokens on the same mesh, whose pool lies on the same spec.  The shards
+    share the CPU, so every layer takes the one-call route
+    (`ops.paged_chunk_attention_features`) and no F1 runs."""
+    from _torch_twin import minicpm_twins, twins
+    jpkg, tpkg = (twins("gqa") if kind == "gqa" else minicpm_twins(
+        n_heads=6, n_kv_heads=6, vocab=257))
+    n_kv = tpkg.cfg.n_kv_heads
     turns = _turns(tpkg.cfg, (11, 7), seed=3)
     _, jbe, jeng = _node(jpkg, page=page)
     want = _serve(jpkg, jeng, jbe, turns, preempt_turn=1)
@@ -331,19 +339,29 @@ def test_serving_on_the_rung_equals_jax(monkeypatch, tp, page):
     assert lay.rung == "features" and lay.dr == 16 // tp
     assert lay.spec == (None, None, None, None, "model")
     assert be.k_pool[0].shape == (tpkg.cfg.n_layers, 256 // page + 1, page,
-                                  2, 16 // tp)
+                                  n_kv, 16 // tp)
     assert be.pool_device_bytes() * tp == 2 * sum(
         p.numel() * p.element_size() for p in be.k_pool)
-    calls = []
+    calls, producers = [], []
+
+    def record(name, f):
+        def call(*a, **k):
+            calls.append(name)
+            if name == "paged_chunk_attention_features":
+                producers.append(pa.features_producer(*a[:3]))
+            return f(*a, **k)
+        return call
     for name in ("paged_chunk_attention_features",
                  "paged_chunk_scores_partial"):
-        monkeypatch.setattr(ops, name, lambda *a, _f=getattr(ops, name),
-                            _n=name, **k: calls.append(_n) or _f(*a, **k))
+        monkeypatch.setattr(ops, name, record(name, getattr(ops, name)))
     got = _serve(tpkg, eng, be, turns, preempt_turn=1)
     assert got == want
     assert be.stats["swaps_out"] >= 1 and be.stats["swaps_in"] >= 1
     assert calls == ["paged_chunk_attention_features"] * (
         tpkg.cfg.n_layers * be.stats["sub_dispatches"])
+    if kind == "minicpm":
+        assert tpkg.cfg.tie_embeddings and "lm_head" not in tpkg.params
+        assert producers == ["gather"] * len(calls)
 
 
 def test_lane_tiles_serve_the_same_tokens(monkeypatch):
